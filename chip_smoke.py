@@ -10,30 +10,46 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``nvidia-smi``).
 2. Build: compile the hand-written kernels (``kernels/csrc/*.cu``, one
    ``nvcc`` each, concurrently) and print the build seconds.
-3. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes (DeiT-Small: M=788 rows for SBMM, B=4 x N=197 tokens x 6
-   heads for attention, k=138 for the TDM), with fixed seeds: error and
-   tolerance, kernel/plain/library times (CUDA events, median of 21 runs
-   of 10 calls after warm-up) and each kernel's least possible time on an
-   H100 SXM (published fp32 CUDA-core and HBM rates).
-4. Main path: full-width DeiT-Small (12 layers, D=384, 224 px; random
-   weights from a seed) serving 16 requests of mixed resolution and keep
-   rate through ``VisionEngine`` (4 slots, planner "full") at pipeline
-   depth 1 and then 2, each after one warm-up serve and timed over 5
-   serves. Every serve runs under ``torch.cuda.set_sync_debug_mode
-   ("warn")``, which counts the host's waits on the card other than the
-   pipeline's per-step event; any such wait fails the run (once the
-   profile below is printed). Checks: every request served with finite
-   logits; every kernel's launch count rose during each serve; logits
-   agree with the offline oracle ``forward_vit_packed`` per request (top-1
-   equal); the two depths agree; and the packed forward agrees with the
-   plain masked-dense reference (no kernel) with token pruning off.
+3. Every kernel entry point against its plain PyTorch version on the
+   card, at the main path's shapes (DeiT-Small: M=788 rows for the SBMMs
+   over fp32, fp16 and int8 blocks with per-block and per-channel scales;
+   B=4 x N=197 tokens x 6 heads for attention on fp32 and fp16 operands;
+   k=138 for the hard TDM; the soft TDM's first application and a later
+   one with package masses at per-row positions in a token-padded tile),
+   with fixed seeds: error and tolerance per output, kernel/plain/library
+   times (CUDA events, median of 21 runs of 10 calls after warm-up) and
+   each kernel's least possible time on an H100 SXM (published HBM rate,
+   fp32 CUDA-core rate, and fp16 tensor-core rate for the products of two
+   fp16 values).
+4. Main path, one serving path after another, each driven with the launch
+   counts set to 0 just before a serve and read just after: full-width
+   DeiT-Small (12 layers, D=384, 224 px; random weights from a seed)
+   serving 16 requests of mixed resolution and keep rate through
+   ``VisionEngine`` (4 slots, planner "full"):
+   a. the fp32 tier with hard TDM, at pipeline depth 1 and then 2, each
+      after one warm-up serve and timed over 5 serves;
+   b. the fp16 tier, the int8 tier (per-channel scales) and the int8 tier
+      with per-block scales, each with every other request soft-pruned,
+      after one warm-up serve and timed over 3 serves.
+   Every serve runs under ``torch.cuda.set_sync_debug_mode("warn")``,
+   which counts the host's waits on the card other than the pipeline's
+   per-step event; any such wait fails the run (once the profile below is
+   printed). Checks: every request served with finite logits; every
+   kernel entry point of the path launched during each serve, and every
+   request dispatched at the path's tier; logits agree with the offline
+   oracle ``forward_vit_packed`` (same soft flag and tier) per request
+   within 1e-4 relative at fp32 and int8 and 5e-4 at fp16
+   (``ORACLE_TOL``), top-1 equal; at fp16 it also prints how far the
+   oracle alone moves for a one-ulp change of its fp32 input; at fp32 the
+   two depths agree and the packed forward agrees with the plain
+   masked-dense reference (no kernel) with token pruning off.
 5. Profile (``torch.profiler``): each kernel's device time per launch at
-   the phase-3 shapes; for one depth-1 main-path serve, the device-busy
+   the phase-3 shapes; for one depth-1 serve of each path, the device-busy
    and idle share, the device time by kernel and the engine's host spans
    (plan / stage / dispatch / complete), and the host's self time by
    operator and CUDA runtime call.
-6. A ``kernels`` JSON line, then the last line
+6. A ``kernels`` JSON line (one entry per C entry point; ``launches``
+   summed over the last timed serve of each path), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -49,8 +65,10 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 on CUDA cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet, dense): fp32 on CUDA cores,
+# fp16 operands with fp32 accumulation on tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -85,22 +103,33 @@ def time_ms(fn, samples: int = 21, calls: int = 10, warmup: int = 5) -> float:
     return statistics.median(ts)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_ops_f16: float = 0.0):
+    """The least time of a call on the card: the larger of its bytes over
+    the HBM rate and its operations over their peak rate. ``n_ops`` need
+    fp32 (CUDA cores); ``n_ops_f16`` are products of two fp16 values,
+    exact in fp32, so they could run on the fp16 tensor cores with fp32
+    accumulation, alongside the CUDA cores."""
     t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = max(n_ops / PEAK_FP32_FLOPS, n_ops_f16 / PEAK_FP16_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+SBMM_SHAPE = (788, 384, 384, 16)  # M, K, N, b
+
+
 def check_sbmm(torch, dev):
+    """The four SBMM entry points on one packed weight: fp32 blocks, fp16
+    blocks, int8 blocks with per-block and per-channel scales."""
     import numpy as np
     from repro_torch.core import block_pruning as BP
+    from repro_torch.core import quant as Q
     from repro_torch.core.packing import pack_weight
     from repro_torch.kernels.sbmm import (pad_input, sbmm, sbmm_plain,
-                                          unpermute)
-    M, K, N, b = 788, 384, 384, 16
+                                          sbmm_quant_plain, unpermute)
+    M, K, N, b = SBMM_SHAPE
     g = torch.Generator().manual_seed(1)
     w = torch.randn((K, N), generator=g) * 0.05
     mask = BP.hard_block_mask(torch.randn(BP.score_shape((K, N), b),
@@ -109,39 +138,57 @@ def check_sbmm(torch, dev):
     require(not np.array_equal(pw.col_perm, np.arange(pw.n_cols)),
             "sbmm check needs a non-identity col_perm")
     x = torch.randn((M, K), generator=g).to(dev)
-
-    def plain():
-        return unpermute(sbmm_plain(pad_input(x, pw), pw.blocks, pw.header),
-                         pw)
-
-    y, ref = sbmm(x, pw), plain()
-    torch.cuda.synchronize()
-    err = (y - ref).abs().max().item()
-    tol = 1e-4 * ref.abs().max().item()
-    w_dense = pw.to_dense()
     kept = int((pw.header >= 0).sum())
-    n_bytes = 4 * (x.numel() + pw.blocks.numel() + pw.header.numel()
-                   + M * N) + 8 * pw.n_cols
-    bnd, by = bound_ms(n_bytes, 2 * M * b * b * kept)
-    return dict(
-        name="sbmm", err=err, tol=tol,
-        tol_rule="1e-4 x max|plain|",
-        fn=lambda: sbmm(x, pw),
-        ms=time_ms(lambda: sbmm(x, pw)), plain_ms=time_ms(plain),
-        library_ms=time_ms(lambda: x @ w_dense),
-        library_call="x @ W_dense (cuBLAS fp32)",
-        bound_ms=bnd, bound_by=by,
-        shapes=f"x[{M},{K}] blocks{list(pw.blocks.shape)} kept={kept}")
+    variants = (("sbmm_f32", pw, "sbmm.cu"),
+                ("sbmm_f16w", Q.quantize_packed(pw, "fp16"), "sbmm.cu"),
+                ("sbmm_i8_block", Q.quantize_packed(pw, "int8", "block"),
+                 "sbmm_quant.cu"),
+                ("sbmm_i8_channel", Q.quantize_packed(pw, "int8", "channel"),
+                 "sbmm_quant.cu"))
+    checks = []
+    for name, q, src in variants:
+        quant = isinstance(q, Q.QuantizedPackedWeight)
+
+        def plain(q=q, quant=quant):
+            xp = pad_input(x, q)
+            y = (sbmm_quant_plain(xp, q.blocks, q.header, q.scales) if quant
+                 else sbmm_plain(xp, q.blocks, q.header))
+            return unpermute(y, q)
+
+        y, ref = sbmm(x, q), plain()
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()
+        w_dense = q.to_dense().float()  # dequantized: the library's input
+        n_bytes = (4 * (x.numel() + pw.header.numel() + M * N)
+                   + q.blocks.numel() * q.blocks.element_size()
+                   + (q.scales.numel() * 4 if quant else 0)
+                   + 8 * pw.n_cols)
+        n_ops = 2 * M * b * b * kept + (b * b * kept if quant else 0)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        checks.append(dict(
+            name=name, source=src,
+            errs=[("y", err, tol, "1e-4 x max|plain|")],
+            fn=lambda q=q: sbmm(x, q),
+            ms=time_ms(lambda q=q: sbmm(x, q)), plain_ms=time_ms(plain),
+            library_ms=time_ms(lambda w_dense=w_dense: x @ w_dense),
+            library_call="x @ W_dense (cuBLAS fp32 on the dequantized "
+                         "weight)",
+            bound_ms=bnd, bound_by=by,
+            shapes=f"x[{M},{K}] blocks{list(q.blocks.shape)} "
+                   f"{str(q.blocks.dtype)[6:]} kept={kept}"))
+    return checks
 
 
-def check_flash_attention(torch, dev):
+def check_flash_attention(torch, dev, half: bool):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
     B, N, H, Dh = 4, 197, 6, 64
     lens = (197, 170, 140, 50)
     g = torch.Generator().manual_seed(2)
-    q, k, v = (torch.randn((B, N, H, Dh), generator=g).to(dev)
+    dt = torch.float16 if half else torch.float32
+    q, k, v = (torch.randn((B, N, H, Dh), generator=g).to(dev, dt)
                for _ in range(3))
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
 
@@ -152,9 +199,15 @@ def check_flash_attention(torch, dev):
     o, sc = flash_attention(q, k, v, kv_len, collect_scores=True)
     o_ref, sc_ref = plain()
     torch.cuda.synchronize()
-    err_o = (o - o_ref).abs().max().item()
+    require(o.dtype == dt and sc.dtype == torch.float32,
+            f"flash_attention: output {o.dtype}, scores {sc.dtype}")
+    err_o = (o.float() - o_ref.float()).abs().max().item()
     err_s = (sc - sc_ref).abs().max().item()
-    tol_o = 1e-4 * o_ref.abs().max().item()
+    # fp16 output: both sides round fp32 sums taken in another order to
+    # fp16, so an element may differ by one fp16 ulp (2e-3 as the CPU
+    # parity test of the fp16 tier)
+    rule_o = "2e-3" if half else "1e-4"
+    tol_o = float(rule_o) * o_ref.float().abs().max().item()
     tol_s = 1e-4 * sc_ref.abs().max().item()
     for bi, L in enumerate(lens):
         require(bool((sc[bi, L:] == 0).all()),
@@ -163,23 +216,37 @@ def check_flash_attention(torch, dev):
     amask = (torch.arange(N, device=dev)[None, :]
              < kv_len[:, None])[:, None, None, :]
     sum_len = sum(lens)
-    n_ops = H * Dh * (4 * N * sum_len + 2 * sum_len)
-    n_bytes = 4 * (B * N * H * Dh + 2 * sum_len * H * Dh + B
-                   + B * N * H * Dh + B * N)
-    bnd, by = bound_ms(n_bytes, n_ops)
+    # Q K^T and P V take 2 N sum_len H Dh operations each. P is fp32, so
+    # only Q K^T multiplies two fp16 values when the operands are fp16.
+    n_qk = n_pv = 2 * N * sum_len * H * Dh
+    n_rest = 2 * sum_len * H * Dh
+    elt = 2 if half else 4
+    n_bytes = (elt * (2 * B * N * H * Dh + 2 * sum_len * H * Dh)
+               + 4 * (B + B * N))
+    bnd, by = (bound_ms(n_bytes, n_pv + n_rest, n_qk) if half
+               else bound_ms(n_bytes, n_qk + n_pv + n_rest))
     return dict(
-        name="flash_attention", err=max(err_o, err_s),
-        tol=min(tol_o, tol_s), tol_rule="1e-4 x max|plain| (o and scores)",
-        ok=err_o <= tol_o and err_s <= tol_s,
+        name="flash_attention_f16" if half else "flash_attention_f32",
+        source="flash_attention.cu",
+        errs=[("o", err_o, tol_o, f"{rule_o} x max|plain|"),
+              ("scores", err_s, tol_s, "1e-4 x max|plain|")],
         fn=lambda: flash_attention(q, k, v, kv_len, collect_scores=True),
         ms=time_ms(lambda: flash_attention(q, k, v, kv_len,
                                            collect_scores=True)),
         plain_ms=time_ms(plain),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=amask)),
-        library_call="F.scaled_dot_product_attention (bool key mask)",
+        library_call=(f"F.scaled_dot_product_attention on {str(dt)[6:]} "
+                      f"(bool key mask)"),
         bound_ms=bnd, bound_by=by,
-        shapes=f"q,k,v[{B},{N},{H},{Dh}] kv_len={list(lens)}")
+        shapes=f"q,k,v[{B},{N},{H},{Dh}] {str(dt)[6:]} kv_len={list(lens)}")
+
+
+def _tdm_scores(torch, dev, g, B, N, n_valid):
+    s = torch.rand((B, N), generator=g)
+    for bi, nv in enumerate(n_valid):
+        s[bi, nv:] = 0.0  # token-padded rows score exactly 0
+    return (s / s.sum(dim=1, keepdim=True)).to(dev)
 
 
 def check_token_drop(torch, dev):
@@ -188,10 +255,7 @@ def check_token_drop(torch, dev):
     n_valid = (197, 180, 160, 140)
     g = torch.Generator().manual_seed(3)
     z = torch.randn((B, N, D), generator=g).to(dev)
-    s = torch.rand((B, N), generator=g)
-    for bi, nv in enumerate(n_valid):
-        s[bi, nv:] = 0.0  # token-padded rows score exactly 0
-    scores = (s / s.sum(dim=1, keepdim=True)).to(dev)
+    scores = _tdm_scores(torch, dev, g, B, N, n_valid)
 
     out, ref = token_drop(z, scores, k), token_drop_plain(z, scores, k)
     torch.cuda.synchronize()
@@ -201,8 +265,8 @@ def check_token_drop(torch, dev):
     n_bytes = 4 * (z.numel() + scores.numel() + B * (k + 2) * D)
     bnd, by = bound_ms(n_bytes, 2 * B * (N - 1) * D)
     return dict(
-        name="token_drop", err=err, tol=1e-5,
-        tol_rule="kept rows bitwise, fused row <= 1e-5",
+        name="token_drop_f32", source="token_drop.cu",
+        errs=[("fused row", err, 1e-5, "kept rows bitwise")],
         fn=lambda: token_drop(z, scores, k),
         ms=time_ms(lambda: token_drop(z, scores, k)),
         plain_ms=time_ms(lambda: token_drop_plain(z, scores, k)),
@@ -211,33 +275,99 @@ def check_token_drop(torch, dev):
         shapes=f"z[{B},{N},{D}] k={k} n_valid={list(n_valid)}")
 
 
+def check_token_package(torch, dev):
+    """The soft TDM at the main path's first soft TDM (z [4, 197, 384],
+    k = 138, no package yet) and at a later one (a token-padded tile of
+    rows with 140, 120, 100 and 72 real tokens, the package of each at its
+    own body index n_valid - 2, carried masses, k = 70); timed at the
+    later one."""
+    from repro_torch.kernels.token_package import (token_package,
+                                                   token_package_plain)
+    g = torch.Generator().manual_seed(4)
+    D = 384
+    cases = []
+    for B, N, k, n_valid, has_pkg in ((4, 197, 138, (197, 180, 160, 140),
+                                       False),
+                                      (4, 140, 70, (140, 120, 100, 72),
+                                       True)):
+        z = torch.randn((B, N, D), generator=g).to(dev)
+        scores = _tdm_scores(torch, dev, g, B, N, n_valid)
+        mass = pos = None
+        if has_pkg:
+            mass = torch.rand((B,), generator=g).to(dev)
+            pos = torch.tensor([n - 2 for n in n_valid], device=dev)
+        out, m = token_package(z, scores, k, mass, pos)
+        ref, m_ref = token_package_plain(z, scores, k, mass, pos)
+        torch.cuda.synchronize()
+        require(torch.equal(out[:, :k + 1], ref[:, :k + 1]),
+                "token_package: CLS/kept rows differ from the plain version")
+        cases.append(((out[:, k + 1] - ref[:, k + 1]).abs().max().item(),
+                      (m - m_ref).abs().max().item()))
+    n_bytes = 4 * (z.numel() + scores.numel() + B * (k + 2) * D + 3 * B)
+    bnd, by = bound_ms(n_bytes, 2 * B * (N - 1) * D + B * (N - 1))
+    return dict(
+        name="token_package_f32", source="token_package.cu",
+        errs=[("package row", max(c[0] for c in cases), 1e-5,
+               "kept rows bitwise"),
+              ("new_mass", max(c[1] for c in cases), 1e-5, "")],
+        fn=lambda: token_package(z, scores, k, mass, pos),
+        ms=time_ms(lambda: token_package(z, scores, k, mass, pos)),
+        plain_ms=time_ms(lambda: token_package_plain(z, scores, k, mass,
+                                                     pos)),
+        library_ms=None, library_call=None,
+        bound_ms=bnd, bound_by=by,
+        shapes=f"z[4,197,{D}] k=138 (first); z[{B},{N},{D}] k={k} "
+               f"n_valid={list(n_valid)} with package (timed)")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: main path
 # ---------------------------------------------------------------------------
-REPEATS = 5  # timed serves of the stream per pipeline depth
+REPEATS = 5       # timed serves of the fp32 stream per pipeline depth
+TIER_REPEATS = 3  # timed serves of each tier's soft stream
+# the entry points each serving path must launch in every serve
+PATH_KERNELS = {
+    "fp32": ("sbmm_f32", "flash_attention_f32", "token_drop_f32"),
+    "fp16": ("sbmm_f16w", "flash_attention_f16", "token_drop_f32",
+             "token_package_f32"),
+    "int8": ("sbmm_i8_channel", "flash_attention_f32", "token_drop_f32",
+             "token_package_f32"),
+    "int8-block": ("sbmm_i8_block", "flash_attention_f32", "token_drop_f32",
+                   "token_package_f32"),
+}
+TIERS = (("fp16", "fp16", "channel"), ("int8", "int8", "channel"),
+         ("int8-block", "int8", "block"))  # (path, precision, granularity)
 
 
-def make_engine(cfg, params, scores, depth, dev, tracer=None):
+def make_engine(cfg, params, scores, depth, dev, tracer=None,
+                precision="fp32", granularity="channel"):
     from repro_torch.serving.vision import VisionEngine, VisionEngineConfig
     return VisionEngine.from_pruned(
         cfg, params, scores, device=dev, tracer=tracer,
         vc=VisionEngineConfig(max_batch=4, planner="full",
-                              pipeline_depth=depth))
+                              pipeline_depth=depth, precision=precision,
+                              quant_granularity=granularity))
 
 
 PIPE_KEYS = ("steps", "pipeline_block_s", "pipeline_dispatch_s",
-             "pipeline_overlap_hits")
+             "pipeline_overlap_hits", "dispatch_fp32", "dispatch_fp16",
+             "dispatch_int8", "dequant_dispatches", "plan_precision_fp32",
+             "plan_precision_fp16", "plan_precision_int8")
 
 
-def serve_stream(torch, backend, eng):
-    """Serve the 16-request stream once on ``eng``: launch counts set to 0
-    just before and read just after; the host's waits on the card other
-    than the pipeline's events (blocking copies, ``.item()``) counted by
-    PyTorch's sync debug mode. Returns (requests, {uid: logits}, wall
-    seconds, launch counts, {engine steps, pipeline block / dispatch
-    seconds and overlap hits, and ``host_syncs``, of this serve})."""
+def serve_stream(torch, backend, eng, soft=False):
+    """Serve the 16-request stream once on ``eng`` (with ``soft``, every
+    other request soft-pruned): launch counts set to 0 just before and
+    read just after; the host's waits on the card other than the
+    pipeline's events (blocking copies, ``.item()``) counted by PyTorch's
+    sync debug mode. Returns (requests, {uid: logits}, wall seconds,
+    launch counts, {engine steps, pipeline block / dispatch seconds and
+    overlap hits, dispatches and admissions per precision, and
+    ``host_syncs``, of this serve})."""
     from repro_torch.launch.serve_vision import make_requests
     reqs = make_requests(eng.cfg, 16, arrival_spread=4, seed=0)
+    for r in reqs:
+        r.soft_prune = soft and r.uid % 2 == 0
     before = eng.stats()
     torch.cuda.synchronize()
     backend.reset_launches()
@@ -259,7 +389,106 @@ def serve_stream(torch, backend, eng):
     return reqs, out, dt, counts, pipe
 
 
+# engine vs offline oracle, relative to max(1, |ref|), per tier. The fp32
+# and int8 tiers keep fp32 activations: the engine differs from the
+# unbatched oracle only where cuBLAS picks another algorithm for another
+# row count (1.0e-6 measured). At fp16 such differences can flip the fp16
+# rounding of q/k/v elements and attention outputs (one fp16 ulp is up to
+# ~1e-3 relative to the element) and the flips carry through the later
+# layers: the engine measured 2.19e-4, so the tier is held to 5e-4.
+# ``rounding_witness`` measures the same effect on the oracle alone.
+ORACLE_TOL = {"fp32": 1e-4, "int8": 1e-4, "fp16": 5e-4}
+
+
+def check_against_oracle(torch, cfg, eng, reqs, out, precision, label):
+    """Every request against the offline forward at its soft flag and the
+    path's tier: ``ORACLE_TOL`` relative to max(1, |ref|), top-1 equal.
+    Returns the largest relative difference."""
+    import numpy as np
+    from repro_torch.core import packed_runner as PR
+    tol = ORACLE_TOL[precision]
+    worst = 0.0
+    for r in reqs:
+        require(out[r.uid].shape == (cfg.num_classes,)
+                and bool(np.isfinite(out[r.uid]).all()),
+                f"{label}: uid {r.uid} logits not finite/shaped")
+        ref = PR.forward_vit_packed(
+            cfg, eng.segments.params, eng.segments.packed, r.patches[None],
+            segments=eng.segments, soft=r.soft_prune, precision=precision,
+            schedule=PR.keep_schedule(cfg, r_t=r.r_t)).logits[0]
+        ref = ref.cpu().numpy()
+        err = float(np.abs(out[r.uid] - ref).max())
+        scale = max(1.0, float(np.abs(ref).max()))
+        worst = max(worst, err / scale)
+        require(err <= tol * scale, f"{label}: uid {r.uid}: engine vs "
+                                    f"offline oracle max|d|={err:.3g} > "
+                                    f"{tol}*{scale:.3g}")
+        require(int(np.argmax(out[r.uid])) == int(np.argmax(ref)),
+                f"{label}: uid {r.uid}: top-1 differs from the offline "
+                f"oracle")
+    print(f"{label}: engine vs offline forward_vit_packed: top-1 "
+          f"{len(reqs)}/{len(reqs)} equal, max|d|/max(1,max|ref|) = "
+          f"{worst:.3g} (tolerance {tol})", flush=True)
+    return worst
+
+
+def rounding_witness(torch, cfg, eng, reqs, precision, label):
+    """How far the offline oracle alone moves when a random half of its
+    input elements move by one fp32 ulp, the size of a change of
+    summation order: at ``precision`` and at fp32, relative to max(1,
+    |ref|), each request at its soft flag. Printed, not checked."""
+    import numpy as np
+    from repro_torch.core import packed_runner as PR
+    rng = np.random.default_rng(5)
+    moved = {}
+    for prec in (precision, "fp32"):
+        worst = 0.0
+        for r in reqs:
+            x = r.patches[None]
+            x_ulp = np.where(rng.random(x.shape) < 0.5,
+                             np.nextafter(x, np.float32(np.inf)), x)
+            ys = [PR.forward_vit_packed(
+                cfg, eng.segments.params, eng.segments.packed, xi,
+                segments=eng.segments, soft=r.soft_prune, precision=prec,
+                schedule=PR.keep_schedule(cfg, r_t=r.r_t)).logits[0]
+                for xi in (x, x_ulp)]
+            err = (ys[1] - ys[0]).abs().max().item()
+            worst = max(worst, err / max(1.0, ys[0].abs().max().item()))
+        moved[prec] = worst
+    print(f"{label}: offline oracle moved by one fp32 ulp on half its "
+          f"inputs: max|d|/max(1,max|ref|) = {moved[precision]:.3g} at "
+          f"{precision}, {moved['fp32']:.3g} at fp32", flush=True)
+    return moved
+
+
+def require_launched(counts, path, label):
+    for name in PATH_KERNELS[path]:
+        require(counts[name] > 0, f"{label}: kernel {name} never launched "
+                                  f"on the {path} path")
+
+
+def print_serve(label, out, walls, counts, syncs, pipe):
+    dt = statistics.median(walls)
+    steps = pipe["steps"]
+    print(f"{label}: {len(out)} images, {steps} steps; wall over "
+          f"{len(walls)} serves median {dt:.4f} s (min {min(walls):.4f}, "
+          f"max {max(walls):.4f}): {len(out) / dt:.2f} images/s, "
+          f"{dt / steps * 1e3:.3f} ms/step; launches per serve="
+          f"{ {k: v for k, v in counts.items() if v} }; host syncs besides "
+          f"the step events per serve (warm-up first)={syncs}; last serve: "
+          f"dispatch {pipe['pipeline_dispatch_s'] * 1e3:.2f} ms, block on "
+          f"events {pipe['pipeline_block_s'] * 1e3:.2f} ms, "
+          f"{pipe['pipeline_overlap_hits']}/{steps} steps done before their "
+          f"completion; dispatches fp32/fp16/int8 "
+          f"{pipe['dispatch_fp32']}/{pipe['dispatch_fp16']}/"
+          f"{pipe['dispatch_int8']}, dequant {pipe['dequant_dispatches']}",
+          flush=True)
+    return dt
+
+
 def main_path(torch, dev):
+    """Returns ({path: launch counts of its last timed serve}, {path: host
+    syncs per serve}, the model, {path: median wall of its serves})."""
     import numpy as np
     from repro_torch.configs import DEIT_SMALL
     from repro_torch.core import packed_runner as PR
@@ -270,59 +499,28 @@ def main_path(torch, dev):
     cfg = DEIT_SMALL
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
     scores = PG.init_scores(cfg, params, torch.Generator().manual_seed(7))
-    runs, syncs = {}, {}
+    runs, syncs, path_counts, walls_by = {}, {}, {}, {}
+    # (a) fp32, hard TDM, pipeline depths 1 and 2
     for depth in (1, 2):
         eng = make_engine(cfg, params, scores, depth, dev)
-        syncs[depth] = [serve_stream(torch, backend, eng)[4]["host_syncs"]]
+        key = f"fp32 depth {depth}"
+        syncs[key] = [serve_stream(torch, backend, eng)[4]["host_syncs"]]
         walls = []  # warm-up serve above
         for _ in range(REPEATS):
             reqs, out, dt, counts, pipe = serve_stream(torch, backend, eng)
             require(sorted(out) == [r.uid for r in reqs],
-                    f"depth {depth}: not every request was served")
-            for uid, lg in out.items():
-                require(lg.shape == (cfg.num_classes,)
-                        and bool(np.isfinite(lg).all()),
-                        f"depth {depth}: uid {uid} logits not finite/shaped")
-            for name, n in counts.items():
-                require(n > 0, f"depth {depth}: kernel {name} never "
-                               f"launched on the main path")
+                    f"{key}: not every request was served")
+            require_launched(counts, "fp32", key)
             walls.append(dt)
-            syncs[depth].append(pipe["host_syncs"])
-        dt = statistics.median(walls)
-        steps = pipe["steps"]
-        print(f"main path depth={depth}: {len(out)} images, {steps} steps; "
-              f"wall over {REPEATS} serves median {dt:.4f} s (min "
-              f"{min(walls):.4f}, max {max(walls):.4f}): "
-              f"{len(out) / dt:.2f} images/s, {dt / steps * 1e3:.3f} ms/step;"
-              f" launches per serve={counts}; host syncs besides the step "
-              f"events per serve (warm-up first)={syncs[depth]}; last "
-              f"serve: dispatch "
-              f"{pipe['pipeline_dispatch_s'] * 1e3:.2f} ms, block on events "
-              f"{pipe['pipeline_block_s'] * 1e3:.2f} ms, "
-              f"{pipe['pipeline_overlap_hits']}/{steps} steps done before "
-              f"their completion", flush=True)
-        runs[depth] = (eng, reqs, out, counts, dt)
+            syncs[key].append(pipe["host_syncs"])
+        walls_by[key] = print_serve(f"main path {key}", out, walls, counts,
+                                    syncs[key], pipe)
+        runs[depth] = (eng, reqs, out)
+        if depth == 1:
+            path_counts["fp32"] = counts
 
-    eng, reqs, out, counts, wall_d1 = runs[1]
-    tol = 1e-4
-    worst = 0.0
-    for r in reqs:
-        ref = PR.forward_vit_packed(
-            cfg, eng.segments.params, eng.segments.packed, r.patches[None],
-            segments=eng.segments,
-            schedule=PR.keep_schedule(cfg, r_t=r.r_t)).logits[0]
-        ref = ref.cpu().numpy()
-        err = float(np.abs(out[r.uid] - ref).max())
-        scale = max(1.0, float(np.abs(ref).max()))
-        worst = max(worst, err / scale)
-        require(err <= tol * scale, f"uid {r.uid}: engine vs offline "
-                                    f"oracle max|d|={err:.3g} > {tol}*{scale:.3g}")
-        require(int(np.argmax(out[r.uid])) == int(np.argmax(ref)),
-                f"uid {r.uid}: top-1 differs from the offline oracle")
-    print(f"engine vs offline forward_vit_packed: top-1 16/16 equal, "
-          f"max|d|/max(1,max|ref|) = {worst:.3g} (tolerance {tol})",
-          flush=True)
-
+    eng, reqs, out = runs[1]
+    check_against_oracle(torch, cfg, eng, reqs, out, "fp32", "fp32 depth 1")
     out2 = runs[2][2]
     d12 = max(float(np.abs(out[u] - out2[u]).max()) for u in out)
     require(d12 <= 1e-5, f"depth 1 vs 2: max|d|={d12:.3g} > 1e-5")
@@ -348,14 +546,46 @@ def main_path(torch, dev):
             "packed vs masked-dense: top-1 differs")
     print(f"packed (kernels) vs masked-dense (plain), no TDM: max|d| = "
           f"{err:.3g} (tolerance 1e-4 x {scale:.3g})", flush=True)
-    return counts, syncs, (cfg, params, scores, wall_d1)
+
+    # (b) the fp16 and int8 tiers, every other request soft-pruned
+    for path, precision, granularity in TIERS:
+        eng = make_engine(cfg, params, scores, 1, dev, precision=precision,
+                          granularity=granularity)
+        key = f"{path} soft"
+        syncs[key] = [serve_stream(torch, backend, eng,
+                                   soft=True)[4]["host_syncs"]]
+        walls = []
+        for _ in range(TIER_REPEATS):
+            reqs, out, dt, counts, pipe = serve_stream(torch, backend, eng,
+                                                       soft=True)
+            require(sorted(out) == [r.uid for r in reqs],
+                    f"{key}: not every request was served")
+            require_launched(counts, path, key)
+            require(pipe[f"plan_precision_{precision}"] == len(reqs),
+                    f"{key}: {pipe[f'plan_precision_{precision}']} of "
+                    f"{len(reqs)} requests admitted at {precision}")
+            require(pipe[f"dispatch_{precision}"] > 0,
+                    f"{key}: no dispatch at {precision}")
+            require((pipe["dequant_dispatches"] > 0) == (precision == "int8"),
+                    f"{key}: dequant dispatches "
+                    f"{pipe['dequant_dispatches']}")
+            walls.append(dt)
+            syncs[key].append(pipe["host_syncs"])
+        walls_by[key] = print_serve(f"main path {key}", out, walls, counts,
+                                    syncs[key], pipe)
+        check_against_oracle(torch, cfg, eng, reqs, out, precision, key)
+        if precision == "fp16":
+            rounding_witness(torch, cfg, eng, reqs, precision, key)
+        path_counts[path] = counts
+    return path_counts, syncs, (cfg, params, scores, walls_by)
 
 
 # ---------------------------------------------------------------------------
 # Phase 5: device time by kernel, busy share, host spans (torch.profiler)
 # ---------------------------------------------------------------------------
-KERNEL_SYMBOLS = {"sbmm": "sbmm_kernel", "flash_attention": "flash_kernel",
-                  "token_drop": "token_drop_kernel"}
+def kernel_symbol(entry_point: str) -> str:
+    """The CUDA kernel an entry point launches (``csrc/*.cu``)."""
+    return f"{entry_point}_kernel"
 
 
 def _device_rows(prof):
@@ -380,23 +610,60 @@ def _host_rows(prof):
     return sorted(rows, key=lambda r: -r[2])
 
 
-def profile_run(torch, dev, checks, cfg, params, scores, wall_d1) -> None:
-    """Device time per launch of each kernel at the phase-3 shapes (stored
-    as ``c["device_ms"]``); for one depth-1 serve of the main-path stream,
-    device busy time by kernel and the host spans. The device idle share is
-    given against the profiled serve's wall time and against the
-    unprofiled median (``wall_d1``) — the profiler slows the host, not the
-    card."""
+def profile_serve(torch, dev, cfg, params, scores, wall, label, soft=False,
+                  precision="fp32", granularity="channel"):
+    """For one depth-1 serve of a path: device busy time by kernel, idle
+    share against the profiled serve's wall and against the unprofiled
+    median (``wall``: the profiler slows the host, not the card), the
+    engine's host spans and the host's self time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import backend
     from repro_torch.obs import Tracer
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    tracer = Tracer()
+    eng = make_engine(cfg, params, scores, 1, dev, tracer=tracer,
+                      precision=precision, granularity=granularity)
+    serve_stream(torch, backend, eng, soft=soft)  # warm-up
+    n_warm = len(tracer.span_log)
+    with profile(activities=acts) as prof:
+        _, _, dt, counts, pipe = serve_stream(torch, backend, eng, soft=soft)
+    wall_us = dt * 1e6
+    rows = _device_rows(prof)
+    busy_us = sum(r[2] for r in rows)
+    spans = {}
+    for sp in tracer.span_log[n_warm:]:
+        spans[sp["name"]] = spans.get(sp["name"], 0.0) + sp["dur_ms"]
+    print(f"profile {label} (depth 1, 16 images, {pipe['steps']} steps, "
+          f"{sum(r[1] for r in rows)} device launches): wall "
+          f"{wall_us:.0f} us profiled / {wall * 1e6:.0f} us unprofiled "
+          f"median, device busy {busy_us:.0f} us, idle share "
+          f"{1.0 - busy_us / wall_us:.3f} profiled / "
+          f"{1.0 - busy_us / (wall * 1e6):.3f} unprofiled; host spans (ms) "
+          + json.dumps({k: round(v, 3) for k, v in spans.items()}),
+          flush=True)
+    for name in backend.ENTRY_POINTS:
+        mine = [r for r in rows if kernel_symbol(name) in r[0]]
+        if mine:
+            print(f"  {name}: {sum(r[1] for r in mine)} launches, "
+                  f"{sum(r[2] for r in mine):.1f} us on the card", flush=True)
+    for n, k, us in rows[:12]:
+        print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+    for n, k, us in _host_rows(prof)[:15]:
+        print(f"  host   {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+
+
+def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
+    """Device time per launch of each kernel entry point at the phase-3
+    shapes (stored as ``c["device_ms"]``); then one serve of each path
+    (``profile_serve``)."""
+    from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for c in checks:
         with profile(activities=acts) as prof:
             for _ in range(20):
                 c["fn"]()
             torch.cuda.synchronize()
-        sym = KERNEL_SYMBOLS[c["name"]]
+        sym = kernel_symbol(c["name"])
         mine = [r for r in _device_rows(prof) if sym in r[0]]
         require(bool(mine), f"profiler saw no {sym} launch")
         calls = sum(r[1] for r in mine)
@@ -405,39 +672,24 @@ def profile_run(torch, dev, checks, cfg, params, scores, wall_d1) -> None:
         print(f"profile {c['name']}: device {us / calls:.2f} us/launch "
               f"({calls} launches); wrapper {c['ms'] * 1e3:.2f} us/call",
               flush=True)
+    profile_serve(torch, dev, cfg, params, scores, walls["fp32 depth 1"],
+                  "main path fp32")
+    for path, precision, granularity in TIERS:
+        profile_serve(torch, dev, cfg, params, scores,
+                      walls[f"{path} soft"], f"main path {path} soft",
+                      soft=True, precision=precision,
+                      granularity=granularity)
 
-    tracer = Tracer()
-    eng = make_engine(cfg, params, scores, 1, dev, tracer=tracer)
-    serve_stream(torch, backend, eng)  # warm-up
-    n_warm = len(tracer.span_log)
-    with profile(activities=acts) as prof:
-        _, _, dt, counts, pipe = serve_stream(torch, backend, eng)
-    wall_us = dt * 1e6
-    rows = _device_rows(prof)
-    busy_us = sum(r[2] for r in rows)
-    by_kernel = {}
-    for name, sym in KERNEL_SYMBOLS.items():
-        mine = [r for r in rows if sym in r[0]]
-        by_kernel[name] = {"launches": sum(r[1] for r in mine),
-                           "device_us": sum(r[2] for r in mine)}
-    spans = {}
-    for sp in tracer.span_log[n_warm:]:
-        spans[sp["name"]] = spans.get(sp["name"], 0.0) + sp["dur_ms"]
-    print(f"profile main path (depth 1, 16 images, {pipe['steps']} steps, "
-          f"{sum(r[1] for r in rows)} device launches): wall "
-          f"{wall_us:.0f} us profiled / {wall_d1 * 1e6:.0f} us unprofiled "
-          f"median, device busy {busy_us:.0f} us, idle share "
-          f"{1.0 - busy_us / wall_us:.3f} profiled / "
-          f"{1.0 - busy_us / (wall_d1 * 1e6):.3f} unprofiled; host spans (ms) "
-          + json.dumps({k: round(v, 3) for k, v in spans.items()}),
-          flush=True)
-    for name, v in by_kernel.items():
-        print(f"  {name}: {v['launches']} launches, {v['device_us']:.1f} us "
-              f"on the card", flush=True)
-    for n, k, us in rows[:12]:
-        print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
-    for n, k, us in _host_rows(prof)[:15]:
-        print(f"  host   {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+
+REPLACES = {  # the reference's pallas_call each kernel stands in for
+    "sbmm.cu": "src/repro/kernels/sbmm/sbmm.py:75",
+    "sbmm_quant.cu": "src/repro/kernels/sbmm/quant.py:80",
+    "flash_attention.cu":
+        "src/repro/kernels/flash_attention/flash_attention.py:92",
+    "token_drop.cu": "src/repro/kernels/token_drop/token_drop.py:62",
+    "token_package.cu":
+        "src/repro/kernels/token_package/token_package.py:68",
+}
 
 
 def main() -> int:
@@ -463,33 +715,37 @@ def main() -> int:
     build_s = backend.build(verbose=True)
     print(f"build: {build_s:.2f} s", flush=True)
 
-    checks = [check_sbmm(torch, dev), check_flash_attention(torch, dev),
-              check_token_drop(torch, dev)]
+    checks = [*check_sbmm(torch, dev),
+              check_flash_attention(torch, dev, half=False),
+              check_flash_attention(torch, dev, half=True),
+              check_token_drop(torch, dev), check_token_package(torch, dev)]
+    require(sorted(c["name"] for c in checks) == sorted(backend.ENTRY_POINTS),
+            "a kernel entry point has no check")
     for c in checks:
-        ok = c.pop("ok", c["err"] <= c["tol"])
-        print(f"kernel {c['name']}: {c['shapes']} max_abs_err={c['err']:.3g} "
-              f"tolerance={c['tol']:.3g} ({c['tol_rule']}) "
+        c["err"] = max(e[1] for e in c["errs"])
+        errs = "; ".join(f"{out}: max_abs_err={err:.3g} <= {tol:.3g}"
+                         + (f" ({rule})" if rule else "")
+                         for out, err, tol, rule in c["errs"])
+        print(f"kernel {c['name']}: {c['shapes']} {errs} "
               f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
               f"library_ms={c['library_ms']} ({c['library_call']}) "
               f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']})", flush=True)
-        require(ok, f"kernel {c['name']} disagrees with its plain version")
+        require(all(err <= tol for _, err, tol, _ in c["errs"]),
+                f"kernel {c['name']} disagrees with its plain version")
 
-    counts, syncs, model = main_path(torch, dev)
+    path_counts, syncs, model = main_path(torch, dev)
     profile_run(torch, dev, checks, *model)
-    for depth, n in syncs.items():
-        require(not any(n), f"depth {depth}: the engine waited on the card "
-                            f"outside the pipeline's step events: {n}")
+    for key, n in syncs.items():
+        require(not any(n), f"{key}: the engine waited on the card outside "
+                            f"the pipeline's step events: {n}")
 
-    replaces = {
-        "sbmm": "src/repro/kernels/sbmm/sbmm.py:75",
-        "flash_attention":
-            "src/repro/kernels/flash_attention/flash_attention.py:92",
-        "token_drop": "src/repro/kernels/token_drop/token_drop.py:62"}
+    launches = {name: sum(c[name] for c in path_counts.values())
+                for name in backend.ENTRY_POINTS}
     print(json.dumps({"kernels": [
         {"name": c["name"], "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{c['name']}.cu",
-         "replaces": replaces[c["name"]],
-         "launches": counts[c["name"]], "max_abs_err": c["err"],
+         "source": f"src/repro_torch/kernels/csrc/{c['source']}",
+         "replaces": REPLACES[c["source"]],
+         "launches": launches[c["name"]], "max_abs_err": c["err"],
          "ms": c["ms"], "kernel_ms": c["ms"], "device_ms": c["device_ms"],
          "plain_ms": c["plain_ms"],
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

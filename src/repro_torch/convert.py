@@ -6,7 +6,7 @@ Nothing here imports the reference package: a param tree is any nested
 dict/list of array-likes (``jax.tree_util.tree_map(np.asarray, params)``
 gives one), and a packed weight is any object with the ``PackedWeight``
 attributes (``blocks``, ``header``, ``counts``, ``col_perm``, ``shape``,
-``block_size``).
+``block_size``); a quantized one also has ``scales`` and ``granularity``.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import PackedWeight
+from repro_torch.core.quant import QuantizedPackedWeight
 
 
 def params_from_jax(np_tree, device: "str | torch.device" = "cpu"):
@@ -29,7 +30,8 @@ def params_from_jax(np_tree, device: "str | torch.device" = "cpu"):
 
 
 def packed_from_jax(pw, device: "str | torch.device" = "cpu") -> PackedWeight:
-    """A reference ``PackedWeight`` -> this package's, on ``device``."""
+    """A reference ``PackedWeight`` -> this package's, on ``device``
+    (blocks keep their dtype: fp16 blocks stay fp16)."""
     return PackedWeight(
         blocks=torch.as_tensor(np.array(pw.blocks), device=device),
         header=torch.as_tensor(np.array(pw.header, np.int32), device=device),
@@ -40,6 +42,27 @@ def packed_from_jax(pw, device: "str | torch.device" = "cpu") -> PackedWeight:
     )
 
 
+def quantized_from_jax(qpw, device: "str | torch.device" = "cpu"
+                       ) -> QuantizedPackedWeight:
+    """A reference ``QuantizedPackedWeight`` -> this package's, on
+    ``device`` (int8 blocks and fp32 scales as they are)."""
+    return QuantizedPackedWeight(
+        blocks=torch.as_tensor(np.array(qpw.blocks, np.int8), device=device),
+        scales=torch.as_tensor(np.array(qpw.scales, np.float32),
+                               device=device),
+        header=torch.as_tensor(np.array(qpw.header, np.int32), device=device),
+        counts=torch.as_tensor(np.array(qpw.counts, np.int32), device=device),
+        col_perm=np.asarray(qpw.col_perm),
+        shape=tuple(int(s) for s in qpw.shape),
+        block_size=int(qpw.block_size),
+        granularity=str(qpw.granularity))
+
+
 def packed_dict_from_jax(packed: Dict, device: "str | torch.device" = "cpu"
-                         ) -> Dict[str, PackedWeight]:
-    return {path: packed_from_jax(pw, device) for path, pw in packed.items()}
+                         ) -> Dict[str, object]:
+    """A reference ``pack_model`` dict, at any precision, -> this
+    package's: a weight with ``scales`` converts to a
+    :class:`QuantizedPackedWeight`, any other to a :class:`PackedWeight`."""
+    return {path: (quantized_from_jax(pw, device) if hasattr(pw, "scales")
+                   else packed_from_jax(pw, device))
+            for path, pw in packed.items()}

@@ -1,16 +1,18 @@
 """Packed-model execution — the deployment path of the paper's accelerator,
-on the card; the port of the reference package's ``core/packed_runner.py``
-(fp32 tier, hard TDM).
+on the card; the port of the reference package's ``core/packed_runner.py``.
 
 After simultaneous pruning, ``pack_model`` hardens the masks and converts
 every block-pruned attention weight into the block-compressed SBMM format.
 The forward then runs the ViT with those weights through the hand-written
 kernels:
 
-* q/k/v/o projections — ``kernels.sbmm`` (K1);
+* q/k/v/o projections — ``kernels.sbmm`` (K1: fp32 or fp16 blocks; int8
+  blocks with scales through its dequant-in-kernel variant);
 * attention with per-row ``n_valid`` and, at TDM layers, the CLS-row
-  scores — ``kernels.flash_attention`` (K2);
-* the TDM's gather + fuse — ``kernels.token_drop`` (K3).
+  scores — ``kernels.flash_attention`` (K2: fp32, or fp16 operands);
+* the hard TDM's gather + fuse — ``kernels.token_drop`` (K3);
+* the soft TDM's gather + package update — ``kernels.token_package``
+  (K4).
 
 Embedding, LayerNorm, the masked-dense MLP and the head are plain PyTorch
 (cuBLAS matmuls in full fp32), as the reference leaves them to XLA.
@@ -29,8 +31,14 @@ optionally takes ``n_valid`` ([B] int32, real token count per row):
 token-padded rows are masked out of attention and score exactly 0 in the
 TDM, so batching never leaks padding into a request's logits.
 
-Soft TDM, the fp16/int8 tiers and the STE training path are later slices
-(ROADMAP queue A); asking for them raises ``NotImplementedError``.
+Precision tiers (``core.quant``): the weight precision rides in the
+packed dict (``PackedVitSegments.packed_for``); ``"fp16"`` also casts q, k
+and v to fp16 before the attention, whose fp16 output is cast back to
+fp32 before the ``wo`` projection. Embed and head run fp32 at every tier.
+
+Soft pruning (``soft=True``): each TDM folds its dropped tokens into a
+package token that carries their score mass (``token_pruning.tdm_soft``);
+the mass threads from one soft TDM to the next.
 """
 from __future__ import annotations
 
@@ -41,26 +49,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import packing
+from repro_torch.core import quant as Q
 from repro_torch.core import token_pruning as TP
 from repro_torch.kernels.backend import host_to_device, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.sbmm import sbmm
 from repro_torch.kernels.token_drop import token_drop
+from repro_torch.kernels.token_package import token_package
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import pruning_glue as PG
-
-SOFT_TODO = ("soft pruning (package-token TDM) is not ported yet: ROADMAP "
-             "queue A, next slice (soft TDM + token_package kernel)")
-PRECISION_TODO = ("only the fp32 tier is ported: fp16 and int8 are ROADMAP "
-                  "queue A/B items (fp16 tier, int8 dequant SBMM)")
-
-
-def _require_fp32(precision: str) -> None:
-    if precision != "fp32":
-        raise NotImplementedError(f"precision={precision!r}: "
-                                  + PRECISION_TODO)
-
 
 def pack_model(cfg: ModelConfig, params: Dict, scores: Dict,
                lanes: int = 8) -> Dict[str, packing.PackedWeight]:
@@ -115,6 +113,15 @@ def tdm_keep_count(n_tokens: int, r_t: float) -> int:
     return TP.num_kept_tokens(n_tokens, r_t, has_cls=True) - 2
 
 
+def tdm_soft_keep_count(n_tokens: int, r_t: float, has_pkg: bool) -> int:
+    """Top-k count for a SOFT TDM at ``n_tokens`` real tokens: as
+    :func:`tdm_keep_count`, except that once a package row exists
+    (``has_pkg``: every soft TDM after the first) it is pinned, so ``k``
+    clamps at the ``n_tokens - 2`` real body rows."""
+    k = tdm_keep_count(n_tokens, r_t)
+    return min(k, n_tokens - 2) if has_pkg else k
+
+
 def keep_schedule(cfg: ModelConfig, r_t: Optional[float] = None,
                   use_tdm: Optional[bool] = None) -> Tuple[float, ...]:
     """Uniform per-step keep schedule: ``r_t`` (default ``cfg.pruning.r_t``)
@@ -132,9 +139,8 @@ def token_trajectory(cfg: ModelConfig, n_patches: int,
                      soft: bool = False) -> Tuple[int, ...]:
     """Real token count a single image carries *after* each segment of
     ``vit_segments`` (head repeats the final count). ``schedule`` gives
-    the keep rate per TDM segment; ``None`` broadcasts ``r_t``."""
-    if soft:
-        raise NotImplementedError(SOFT_TODO)
+    the keep rate per TDM segment; ``None`` broadcasts ``r_t``. ``soft``
+    prices the soft TDM (``tdm_soft_keep_count``'s package-row clamp)."""
     n = n_patches + 1  # + CLS
     counts = []
     ordinal = 0
@@ -148,7 +154,10 @@ def token_trajectory(cfg: ModelConfig, n_patches: int,
                 raise ValueError(
                     f"keep schedule has {len(schedule_t)} entries but the "
                     f"segment plan reaches TDM ordinal {ordinal}")
-            n = tdm_keep_count(n, schedule_t[ordinal]) + 2
+            r = schedule_t[ordinal]
+            k = (tdm_soft_keep_count(n, r, has_pkg=ordinal > 0) if soft
+                 else tdm_keep_count(n, r))
+            n = k + 2
             ordinal += 1
         counts.append(n)
     return tuple(counts)
@@ -172,12 +181,15 @@ def _bias(ap: Dict, name: str):
 
 def _encoder_attn(cfg: ModelConfig, params: Dict, packed: Dict,
                   x: torch.Tensor, i: int, *, collect_scores: bool = False,
-                  n_valid: Optional[torch.Tensor] = None
+                  n_valid: Optional[torch.Tensor] = None,
+                  precision: str = "fp32"
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention sublayer + residual of encoder layer ``i``: projections
-    through SBMM when packed, attention (and the TDM scores) through the
-    flash-attention kernel. ``n_valid`` masks token padding; padded rows'
-    scores are exactly 0."""
+    through SBMM when packed (at the packed dict's precision), attention
+    (and the TDM scores) through the flash-attention kernel. ``n_valid``
+    masks token padding; padded rows' scores are exactly 0. ``"fp16"``
+    casts q, k and v to fp16; the attention output comes back in fp16 and
+    is cast to fp32 before ``wo``, and the scores stay fp32."""
     H, Dh = cfg.num_heads, cfg.head_dim
     lp = params["layers"][i]
     ap = lp["attn"]
@@ -189,13 +201,15 @@ def _encoder_attn(cfg: ModelConfig, params: Dict, packed: Dict,
         Bc, Nc, H, Dh)
     v = (_proj(params, packed, i, "wv", h) + _bias(ap, "bv")).reshape(
         Bc, Nc, H, Dh)
+    if precision == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
     scores = None
     if collect_scores:
         o, scores = flash_attention(q, k, v, kv_len=n_valid,
                                     collect_scores=True)
     else:
         o = flash_attention(q, k, v, kv_len=n_valid)
-    o = o.reshape(Bc, Nc, H * Dh)
+    o = o.to(x.dtype).reshape(Bc, Nc, H * Dh)
     attn_out = _proj(params, packed, i, "wo", o) + _bias(ap, "bo")
     return x + attn_out, scores
 
@@ -220,10 +234,12 @@ def vit_embed(cfg: ModelConfig, params: Dict,
 
 def vit_layers(cfg: ModelConfig, params: Dict, packed: Dict,
                x: torch.Tensor, lo: int, hi: int,
-               n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+               n_valid: Optional[torch.Tensor] = None,
+               precision: str = "fp32") -> torch.Tensor:
     """Encoder layers [lo, hi) at constant token count."""
     for i in range(lo, hi):
-        x, _ = _encoder_attn(cfg, params, packed, x, i, n_valid=n_valid)
+        x, _ = _encoder_attn(cfg, params, packed, x, i, n_valid=n_valid,
+                             precision=precision)
         x = _encoder_mlp(cfg, params, x, i)
     return x
 
@@ -231,7 +247,8 @@ def vit_layers(cfg: ModelConfig, params: Dict, packed: Dict,
 def vit_tdm_layer(cfg: ModelConfig, params: Dict, packed: Dict,
                   x: torch.Tensor, layer: int, r_t: Optional[float] = None,
                   k: Optional[int] = None,
-                  n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  n_valid: Optional[torch.Tensor] = None,
+                  precision: str = "fp32") -> torch.Tensor:
     """Encoder layer ``layer`` with the TDM between its attention and MLP
     sublayers: [B, N, D] -> [B, k + 2, D]. ``k`` must be passed when rows
     are token-padded; otherwise it derives from N and ``r_t``."""
@@ -241,9 +258,33 @@ def vit_tdm_layer(cfg: ModelConfig, params: Dict, packed: Dict,
         k = tdm_keep_count(x.shape[1], cfg.pruning.r_t if r_t is None
                            else r_t)
     x, scores = _encoder_attn(cfg, params, packed, x, layer,
-                              collect_scores=True, n_valid=n_valid)
+                              collect_scores=True, n_valid=n_valid,
+                              precision=precision)
     x = token_drop(x, scores, k)
     return _encoder_mlp(cfg, params, x, layer)
+
+
+def vit_tdm_soft_layer(cfg: ModelConfig, params: Dict, packed: Dict,
+                       x: torch.Tensor, layer: int, k: int,
+                       pkg_mass: Optional[torch.Tensor] = None,
+                       n_valid: Optional[torch.Tensor] = None,
+                       precision: str = "fp32"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft-pruning variant of :func:`vit_tdm_layer`: the dropped tokens
+    fold into a persistent package token (``kernels.token_package``). Same
+    output token count as the hard TDM, plus the package mass ([B]) the
+    next soft TDM needs (``pkg_mass=None`` marks the first TDM, where no
+    package row exists yet). With ``pkg_mass`` and ``n_valid``, each row's
+    package sits at its own valid-token boundary (body index
+    ``n_valid - 2``), so token-padded tiles pin the right row."""
+    x, scores = _encoder_attn(cfg, params, packed, x, layer,
+                              collect_scores=True, n_valid=n_valid,
+                              precision=precision)
+    pkg_pos = None
+    if pkg_mass is not None and n_valid is not None:
+        pkg_pos = n_valid - 2
+    x, mass = token_package(x, scores, k, pkg_mass=pkg_mass, pkg_pos=pkg_pos)
+    return _encoder_mlp(cfg, params, x, layer), mass
 
 
 def vit_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -253,22 +294,37 @@ def vit_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def run_fused_steps(cfg: ModelConfig, params: Dict, packed: Dict,
-                    x: torch.Tensor, steps: Tuple[Tuple, ...]) -> torch.Tensor:
+                    x: torch.Tensor, steps: Tuple[Tuple, ...],
+                    pkg_mass: Optional[torch.Tensor] = None,
+                    precision: str = "fp32") -> torch.Tensor:
     """Compose consecutive segments into one call: ``steps`` is a tuple of
-    ``(segment, k)`` pairs (``k`` only for TDM segments). The express-lane
-    body for requests that are singletons in every bucket — unbatched and
-    unpadded, so no ``n_valid`` is needed."""
+    ``(segment, k)`` pairs, or ``(segment, k, soft)`` triples for soft TDM
+    steps (``k`` only for TDM segments). The express-lane body for
+    requests that are singletons in every bucket — unbatched and unpadded,
+    so no ``n_valid`` is needed. ``pkg_mass`` seeds the package mass for a
+    lane entered after a soft request's first TDM ran tiled; the mass
+    threads through the soft steps. ``precision`` applies to the encoder
+    steps only: embed and head run fp32."""
     for step in steps:
-        seg, k = step
+        seg, k = step[0], step[1]
+        soft = bool(step[2]) if len(step) > 2 else False
         kind = seg[0]
         if kind == "embed":
             x = vit_embed(cfg, params, x)
         elif kind == "layers":
-            x = vit_layers(cfg, params, packed, x, seg[1], seg[2])
+            x = vit_layers(cfg, params, packed, x, seg[1], seg[2],
+                           precision=precision)
         elif kind == "tdm":
             if k is None:
                 raise ValueError("fused tdm steps need an explicit k")
-            x = vit_tdm_layer(cfg, params, packed, x, seg[1], k=k)
+            if soft:
+                x, pkg_mass = vit_tdm_soft_layer(
+                    cfg, params, packed, x, seg[1], k=k, pkg_mass=pkg_mass,
+                    precision=precision)
+            else:
+                x = vit_tdm_layer(cfg, params, packed, x, seg[1], k=k,
+                                  precision=precision)
+                pkg_mass = None  # a hard TDM treats the package as a token
         elif kind == "head":
             x = vit_head(cfg, params, x)
         else:
@@ -298,27 +354,34 @@ def forward_vit_packed(cfg: ModelConfig, params: Dict,
     walks the same ``vit_segments`` plan through the same segment bodies,
     unbatched and unpadded. ``schedule`` is a per-TDM-segment keep
     schedule (``None`` broadcasts ``cfg.pruning.r_t``). ``segments``
-    reuses an executor (e.g. an engine's), whose device then wins."""
-    if soft:
-        raise NotImplementedError(SOFT_TODO)
-    _require_fp32(precision)
+    reuses an executor (e.g. an engine's), whose device then wins.
+    ``soft`` selects the package-token soft TDM; ``precision`` runs the
+    encoder segments at that tier's weights and kernels."""
     runner = segments if segments is not None else PackedVitSegments(
         cfg, params, packed, use_tdm=use_tdm, device=device)
     if schedule is None:
         schedule = keep_schedule(cfg, use_tdm=use_tdm)
     x = torch.as_tensor(patches, dtype=torch.float32).to(runner.device)
     n = patches.shape[1] + 1  # + CLS after embed
+    pkg_mass = None
     ordinal = 0
     for seg in runner.plan:
         if seg[0] == "tdm":
-            k = tdm_keep_count(n, schedule[ordinal])
-            x = runner.run(seg, x, k=k)
+            r = schedule[ordinal]
+            if soft:
+                k = tdm_soft_keep_count(n, r, has_pkg=ordinal > 0)
+                x, pkg_mass = runner.run(seg, x, k=k, soft=True,
+                                         pkg_mass=pkg_mass,
+                                         precision=precision)
+            else:
+                k = tdm_keep_count(n, r)
+                x = runner.run(seg, x, k=k, precision=precision)
             n = k + 2
             ordinal += 1
         elif seg[0] == "head":
             return M.Output(runner.run(seg, x))
         else:
-            x = runner.run(seg, x)
+            x = runner.run(seg, x, precision=precision)
     raise AssertionError("vit_segments plan must end with ('head',)")
 
 
@@ -339,21 +402,52 @@ class PackedVitSegments:
     triple, behind a ledger of dispatched tile shapes.
 
     The ledger keys are the reference's compile-ledger keys: each distinct
-    (segment, tile shape, masked?, k) combination is recorded once.
-    PyTorch runs eagerly, so nothing compiles per shape; the ledger still
-    bounds what the batcher lets through (its bucket set)."""
+    (segment, tile shape, masked?, k[, "soft"][, precision]) combination is
+    recorded once. PyTorch runs eagerly, so nothing compiles per shape;
+    the ledger still bounds what the batcher lets through (its bucket
+    set)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict,
                  packed: Dict[str, packing.PackedWeight],
                  use_tdm: Optional[bool] = None,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 quant_granularity: str = "channel"):
+        if quant_granularity not in Q.GRANULARITIES:
+            raise ValueError(
+                f"quant_granularity must be one of {Q.GRANULARITIES}, "
+                f"got {quant_granularity!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = M.to_device(params, self.device)
         self.packed = {path: pw.to(self.device) for path, pw in packed.items()}
         self.plan = vit_segments(cfg, use_tdm)
+        self.quant_granularity = quant_granularity
+        # the packed dict per precision, derived from the fp32 one on
+        # first use (embed/MLP/head weights are the same at every tier)
+        self._packed_by: Dict[str, Dict] = {"fp32": self.packed}
         self._compiled: set = set()
         self._fused_trajectories: set = set()
+
+    def packed_for(self, precision: str) -> Dict:
+        """The packed dict at ``precision``: the fp32 dict itself, or its
+        fp16/int8 form (``core.quant``, at this runner's
+        ``quant_granularity``), quantized on first use and memoized. The
+        int8 pass reads the fp32 blocks back to the host once."""
+        if precision not in Q.PRECISIONS:
+            raise ValueError(f"precision must be one of {Q.PRECISIONS}, "
+                             f"got {precision!r}")
+        pk = self._packed_by.get(precision)
+        if pk is None:
+            pk = Q.quantize_packed_dict(self.packed, precision,
+                                        self.quant_granularity)
+            self._packed_by[precision] = pk
+        return pk
+
+    @staticmethod
+    def _ledger_key(base: Tuple, precision: str) -> Tuple:
+        # fp32 keys are the plain ones; other tiers append their marker
+        # (after the soft marker)
+        return base if precision == "fp32" else base + (precision,)
 
     def _valid_rows(self, n_valid, x: torch.Tensor
                     ) -> Optional[torch.Tensor]:
@@ -371,47 +465,68 @@ class PackedVitSegments:
     def run(self, seg: Segment, x: torch.Tensor,
             n_valid: Optional[np.ndarray] = None,
             k: Optional[int] = None, soft: bool = False,
-            precision: str = "fp32") -> torch.Tensor:
+            pkg_mass: Optional[torch.Tensor] = None,
+            precision: str = "fp32"):
         """Execute one segment on a dense tile ``x``. ``n_valid`` ([B]) is
         required whenever rows are token-padded; ``k`` is required for
-        ``tdm`` segments (uniform across the tile by batcher
-        construction)."""
-        if soft:
-            raise NotImplementedError(SOFT_TODO)
-        _require_fp32(precision)
+        ``tdm`` segments (uniform across the tile by batcher construction).
+        ``soft`` selects the package-token TDM: the call takes the tile's
+        package masses (``None`` before the first TDM) and returns
+        ``(y, new_mass)`` instead of ``y``. ``precision`` selects the
+        weights and kernels of the encoder segments; embed and head ignore
+        it (always fp32)."""
         kind = seg[0]
         nv = self._valid_rows(n_valid, x)
-        self._compiled.add((seg, tuple(x.shape), nv is not None, k))
+        base = ((seg, tuple(x.shape), nv is not None, k, "soft") if soft
+                else (seg, tuple(x.shape), nv is not None, k))
         if kind == "embed":
+            self._compiled.add(base)
             return vit_embed(self.cfg, self.params, x)
         if kind == "layers":
-            return vit_layers(self.cfg, self.params, self.packed, x,
-                              seg[1], seg[2], n_valid=nv)
+            self._compiled.add(self._ledger_key(base, precision))
+            return vit_layers(self.cfg, self.params,
+                              self.packed_for(precision), x, seg[1], seg[2],
+                              n_valid=nv, precision=precision)
         if kind == "tdm":
             if k is None:
                 raise ValueError("tdm segments need an explicit k "
                                  "(per-request keep count)")
-            return vit_tdm_layer(self.cfg, self.params, self.packed, x,
-                                 seg[1], k=k, n_valid=nv)
+            self._compiled.add(self._ledger_key(base, precision))
+            if soft:
+                return vit_tdm_soft_layer(
+                    self.cfg, self.params, self.packed_for(precision), x,
+                    seg[1], k=k, pkg_mass=pkg_mass, n_valid=nv,
+                    precision=precision)
+            return vit_tdm_layer(self.cfg, self.params,
+                                 self.packed_for(precision), x, seg[1], k=k,
+                                 n_valid=nv, precision=precision)
         if kind == "head":
+            self._compiled.add(base)
             return vit_head(self.cfg, self.params, x)
         raise ValueError(f"unknown segment {seg!r}")
 
     def run_fused(self, steps: Tuple[Tuple, ...], x: torch.Tensor,
+                  pkg_mass: Optional[torch.Tensor] = None,
                   precision: str = "fp32") -> torch.Tensor:
         """Express lane: execute ``steps`` — consecutive ``(segment, k)``
-        pairs — as one call for a bucket-singleton request. Recorded once
-        per distinct (steps, entry shape) in ``fused_trajectory_count``."""
-        _require_fp32(precision)
-        if any(len(s) > 2 and s[2] for s in steps):
-            raise NotImplementedError(SOFT_TODO)
-        steps = tuple((tuple(s[0]), None if s[1] is None else int(s[1]))
-                      for s in steps)
+        pairs, or ``(segment, k, soft)`` triples for soft TDM steps — as
+        one call for a bucket-singleton request. ``pkg_mass`` ([1]) seeds
+        the package mass when the lane starts after a soft request's first
+        TDM. Recorded once per distinct (steps, entry shape, precision) in
+        ``fused_trajectory_count``."""
+        steps = tuple(
+            (tuple(s[0]), None if s[1] is None else int(s[1]))
+            + ((True,) if len(s) > 2 and s[2] else ())
+            for s in steps)
         if not steps:
             raise ValueError("fused run needs at least one step")
-        self._fused_trajectories.add((steps, tuple(x.shape)))
-        self._compiled.add((("fused",) + steps, tuple(x.shape), False, None))
-        return run_fused_steps(self.cfg, self.params, self.packed, x, steps)
+        self._fused_trajectories.add(
+            self._ledger_key((steps, tuple(x.shape)), precision))
+        self._compiled.add(self._ledger_key(
+            (("fused",) + steps, tuple(x.shape), False, None), precision))
+        return run_fused_steps(self.cfg, self.params,
+                               self.packed_for(precision), x, steps,
+                               pkg_mass=pkg_mass, precision=precision)
 
     # -- shape ledger --------------------------------------------------------
     @property

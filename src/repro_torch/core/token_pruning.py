@@ -1,5 +1,6 @@
 """Dynamic token pruning (paper §IV-B) — the Token Dropping Module (TDM),
-hard variant; the port of the reference package's ``core/token_pruning.py``.
+hard and soft variants; the port of the reference package's
+``core/token_pruning.py``.
 
 Token importance is the CLS row of the attention matrix averaged over
 heads. Given keep-rate ``r_t``, the top ``⌈(N−1)·r_t⌉`` non-CLS tokens are
@@ -10,6 +11,9 @@ Top-k is **stable**: ties break toward the lower index, as
 ``jax.lax.top_k`` does. Token-padded rows of a ragged batch score exactly
 0, so with this rule they lose every tie against a real token and are
 never kept; ``torch.topk`` on the card makes no such promise.
+
+The soft variant (:func:`tdm_soft`) keeps one persistent package token
+that carries the dropped tokens' score mass across TDM layers.
 """
 from __future__ import annotations
 
@@ -69,3 +73,79 @@ def tdm(z: torch.Tensor, scores: torch.Tensor, r_t: float | None,
     parts = [z[:, :1, :]] if has_cls else []
     parts += [kept, fused[:, None, :]]
     return torch.cat(parts, dim=1), top_idx
+
+
+def package_weights(s_body: torch.Tensor, k: int,
+                    pkg_mass: torch.Tensor | None = None,
+                    pkg_pos: torch.Tensor | None = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k selection and RAW package weights of the soft TDM over body
+    scores ``s_body`` [B, n_body]: ``(top_idx [B, k], w [B, n_body])``.
+    ``w`` holds the dropped rows' scores, 0 at kept rows and, when a
+    package exists (``pkg_mass`` [B]), the carried mass at the package row
+    ``pkg_pos`` [B] (body index; default the last body row), which scores
+    ``-inf`` in the selection so it is never kept."""
+    B, n_body = s_body.shape
+    s32 = s_body.float()
+    is_pkg = None
+    sel = s32
+    if pkg_mass is not None:
+        if pkg_pos is None:
+            pkg_pos = torch.full((B,), n_body - 1, dtype=torch.int64,
+                                 device=s_body.device)
+        pos = torch.arange(n_body, device=s_body.device)
+        is_pkg = pos[None, :] == pkg_pos.to(torch.int64)[:, None]
+        sel = s32.masked_fill(is_pkg, float("-inf"))
+    _, top_idx = stable_topk(sel, k)
+    keep = torch.zeros(s_body.shape, dtype=torch.bool, device=s_body.device)
+    keep.scatter_(1, top_idx, True)
+    w = torch.where(keep, 0.0, s32)
+    if is_pkg is not None:
+        w = torch.where(is_pkg, pkg_mass.float()[:, None], w)
+    return top_idx, w
+
+
+def tdm_soft(z: torch.Tensor, scores: torch.Tensor, r_t: float | None = None,
+             has_cls: bool = True, k: int | None = None,
+             pkg_mass: torch.Tensor | None = None,
+             pkg_pos: torch.Tensor | None = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft-pruning TDM: the dropped tokens fold into ONE persistent
+    package token instead of a fresh fused token at every TDM. At each
+    TDM the previous package re-enters the aggregation at its carried mass,
+
+        package' = (sum_dropped s_i z_i + mass z_pkg) / (sum s_i + mass),
+        mass'    = sum_dropped s_i + mass,
+
+    with RAW (un-normalized) weights, the form the ``token_package`` kernel
+    computes. The output length is the hard TDM's (``1 + k + 1``).
+
+    z, scores, ``k``: as in :func:`tdm` (padded rows must score 0).
+    ``pkg_mass`` [B]: the carried mass when a body row of ``z`` is a
+    package from an earlier soft TDM (``None`` for the first); the package
+    is pinned out of the top-k, so ``k <= N_body - 1`` (a ``k`` derived
+    from ``r_t`` clamps itself, an explicit one raises). ``pkg_pos`` [B]:
+    the package's body index per row (default the last body row; the
+    serving engine passes ``n_valid - 2`` for token-padded tiles).
+
+    Returns ``(z_out [B, k + 2, D], new_mass [B])``.
+    """
+    B, N, D = z.shape
+    n_body = N - 1 if has_cls else N
+    if k is None:
+        k = max(1, math.ceil(n_body * r_t))
+        if pkg_mass is not None:
+            k = min(k, n_body - 1)
+    if pkg_mass is not None and k > n_body - 1:
+        raise ValueError(f"soft TDM with a package row keeps the package "
+                         f"plus k={k} of {n_body - 1} real body tokens — "
+                         f"k must be <= {n_body - 1}")
+    body = z[:, 1:, :] if has_cls else z
+    s_body = scores[:, 1:] if has_cls else scores
+    top_idx, w = package_weights(s_body, k, pkg_mass, pkg_pos)
+    kept = torch.gather(body, 1, top_idx[..., None].expand(B, k, D))
+    denom = w.sum(dim=1, keepdim=True) + 1e-9
+    package = torch.einsum("bn,bnd->bd", w, body.float()) / denom
+    parts = [z[:, :1, :]] if has_cls else []
+    parts += [kept, package.to(z.dtype)[:, None, :]]
+    return torch.cat(parts, dim=1), w.sum(dim=1)

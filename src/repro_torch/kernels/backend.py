@@ -9,17 +9,19 @@ Rules every kernel wrapper of this package follows:
   changes that.
 * A wrapper given a CPU tensor runs the plain version — the CPU parity
   tests hold the port against the reference package that way.
-* Each launch adds one to the wrapper's count in :data:`LAUNCHES`, at the
-  launch site and nowhere else, so a run can show that the main path went
-  through the kernels.
+* Each launch adds one to its C entry point's count in :data:`LAUNCHES`
+  (``sbmm_f32`` and ``sbmm_f16w`` apart, though one library holds both),
+  at the launch site and nowhere else, so a run can show that the main
+  path went through every kernel it needs.
 
 Build: each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface under ``build/repro_torch_kernels/`` at
 the repository root, at first use, and loaded with ``ctypes``. All sources
 compile concurrently (one ``nvcc`` each). A library's file name carries a
-hash of its source, so an edited source is rebuilt and a stale library is
-never loaded. Every C entry point returns ``cudaGetLastError()`` after its
-launch; :func:`check` turns a non-zero code into an exception.
+hash of its source and of the shared headers (``csrc/*.cuh``), so an
+edited source is rebuilt and a stale library is never loaded. Every C
+entry point returns ``cudaGetLastError()`` after its launch; :func:`check`
+turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
@@ -40,20 +42,27 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("sbmm", "flash_attention", "token_drop")
+P, I = ctypes.c_void_p, ctypes.c_int
+_SBMM = [P, P, P, P, I, I, I, I, P]
+_SBMM_QUANT = [P, P, P, P, P, I, I, I, I, P]
+_FLASH = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
+# C entry points and their signatures, by library (csrc/<library>.cu)
+_ENTRY_POINTS = {
+    "sbmm": {"sbmm_f32": _SBMM, "sbmm_f16w": _SBMM},
+    "sbmm_quant": {"sbmm_i8_block": _SBMM_QUANT,
+                   "sbmm_i8_channel": _SBMM_QUANT},
+    "flash_attention": {"flash_attention_f32": _FLASH,
+                        "flash_attention_f16": _FLASH},
+    "token_drop": {"token_drop_f32": [P, P, P, P, I, I, I, I, P]},
+    "token_package": {"token_package_f32": [P, P, P, P, P, I, I, I, I, P]},
+}
+KERNELS = tuple(_ENTRY_POINTS)  # one library each
+ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)
 
-# launches per kernel wrapper (see module docstring)
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# launches per C entry point (see module docstring)
+LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-P, I = ctypes.c_void_p, ctypes.c_int
-# C signatures of the entry points, by library
-_ARGTYPES = {
-    "sbmm": ("sbmm_f32", [P, P, P, P, I, I, I, I, P]),
-    "flash_attention": ("flash_attention_f32",
-                        [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]),
-    "token_drop": ("token_drop_f32", [P, P, P, P, I, I, I, I, P]),
-}
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +122,10 @@ def on_card(*tensors: torch.Tensor) -> bool:
 # Build and load
 # ---------------------------------------------------------------------------
 def _lib_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -164,10 +176,10 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _ENTRY_POINTS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -188,13 +200,16 @@ def _error_string(err: int) -> str:
     return cudart.cudaGetErrorString(err).decode()
 
 
-def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``; kernels launch on it."""
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+def launch(lib_name: str, entry_point: str, device: torch.device,
+           *args) -> None:
+    """Call C entry point ``entry_point`` of library ``lib_name`` (built
+    and loaded on first use) with ``args`` and PyTorch's current stream on
+    ``device`` (every entry point takes the stream last), raise if the
+    launch failed, and count it."""
+    fn = getattr(library(lib_name), entry_point)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(entry_point, fn(*args, stream))
+    LAUNCHES[entry_point] += 1
 
 
 def reset_launches() -> None:
@@ -203,5 +218,5 @@ def reset_launches() -> None:
 
 
 def launches() -> Dict[str, int]:
-    """A copy of the launch counts, by kernel."""
+    """A copy of the launch counts, by C entry point."""
     return dict(LAUNCHES)

@@ -1,18 +1,27 @@
-// Flash attention for the packed ViT on Hopper CUDA cores, fp32:
-// non-causal, a per-row key count kv_len[b], and the CLS row's attention
-// probabilities as a by-product (the TDM scores).
+// Flash attention for the packed ViT on Hopper CUDA cores: non-causal, a
+// per-row key count kv_len[b], and the CLS row's attention probabilities
+// as a by-product (the TDM scores). Two entry points over the operand
+// type: `flash_attention_f32` (fp32 q, k, v and output) and
+// `flash_attention_f16` (fp16 q, k, v, fp16 output) for the fp16 tier.
 //
 // Replaces the Pallas kernel `_flash_kernel` / `flash_attention_pallas`
 // (src/repro/kernels/flash_attention/flash_attention.py) in the form the
 // reference main path needs: there, `flash_attention_jnp(..., kv_len=)`
-// plus `attention_probs_row(q[:, 0], k, kv_len=)` (core/packed_runner.py).
+// plus `attention_probs_row(q[:, 0], k, kv_len=)` (core/packed_runner.py),
+// on fp32 operands in the fp32 tier and on fp16-cast ones in the fp16
+// tier. Both compute in fp32 from the operands as given; the output comes
+// back in the operands' type (`flash_attention_jnp` returns q.dtype), so
+// the fp16 entry point rounds o to fp16 on its store, and the
+// probabilities are fp32 in both.
 //
 // One thread block per (q tile of 32 rows, head, batch row), 128 threads:
 // four threads own one query row. The block loops over key tiles of 32
 // with an online softmax (running max m, denominator l and the [32, Dh]
 // output accumulator, all fp32 in registers). Keys at or past kv_len[b]
 // score -inf, and tiles wholly past kv_len[b] are never loaded — padded
-// tokens cost nothing and carry zero probability mass.
+// tokens cost nothing and carry zero probability mass. Operands are
+// converted to fp32 as they are staged in shared memory, so the arithmetic
+// below is the same for both entry points.
 //
 // The block that holds query row 0 then recomputes row 0's scores with
 // the identical fma order and writes probs[b, h, j] = exp(s_0j - m) / l
@@ -20,11 +29,13 @@
 // left to the caller, so no atomics and no order dependence.
 //
 // Bound on the H100: at the main path's shapes (B <= 4, H = 6, N <= 197,
-// Dh = 64) the call does ~2e8 fp32 operations on ~5 MB — bound by the fp32
-// CUDA-core rate. Q, K and V tiles are staged in shared memory (each K/V
-// tile read once per q tile) and the [N, N] score matrix never leaves the
-// chip. Tensor cores are deliberately unused: the fp32 tier must not round
-// through TF32.
+// Dh = 64) the call does ~2e8 fp32 operations on ~5 MB (~2.5 MB with fp16
+// operands) — bound by the fp32 CUDA-core rate. Q, K and V tiles are
+// staged in shared memory (each K/V tile read once per q tile) and the
+// [N, N] score matrix never leaves the chip. Tensor cores are deliberately
+// unused: the fp32 tier must not round through TF32, and the fp16 tier's
+// reference keeps its products and sums in fp32.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -34,12 +45,17 @@ constexpr int kTQ = 32;
 constexpr int kTK = 32;
 constexpr int kThreads = 128;  // 4 threads per query row
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const int* __restrict__ kv_len,
-             float* __restrict__ o, float* __restrict__ probs, int N, int H,
-             float scale) {
+// operand loads as fp32, and the output store in the operands' type
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __half* p) { return __half2float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__half* p, float v) { *p = __float2half_rn(v); }
+
+template <typename T, int DH>
+__device__ __forceinline__ void flash_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ kv_len, T* __restrict__ o,
+    float* __restrict__ probs, int N, int H, float scale) {
   constexpr int kDPT = DH / 4;   // output dims per thread
   constexpr int kKPT = kTK / 4;  // keys per thread per tile
   __shared__ float qs[kTQ][DH + 1];
@@ -54,15 +70,15 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int quad = t & 3;
   // never read past the row's N tokens; no kv_len = every key is valid
   const int L = kv_len != nullptr ? min(kv_len[b], N) : N;
-  const size_t ld = static_cast<size_t>(H) * DH;  // token stride
-  const size_t base = static_cast<size_t>(b) * N * ld + h * DH;
-  const float* qb = q + base;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  const size_t ldt = static_cast<size_t>(H) * DH;  // token stride
+  const size_t base = static_cast<size_t>(b) * N * ldt + h * DH;
+  const T* qb = q + base;
+  const T* kb = k + base;
+  const T* vb = v + base;
 
   for (int e = t; e < kTQ * DH; e += kThreads) {
     const int r = e / DH, d = e % DH, n = qt * kTQ + r;
-    qs[r][d] = n < N ? qb[n * ld + d] : 0.f;
+    qs[r][d] = n < N ? ld(qb + n * ldt + d) : 0.f;
   }
 
   float m = -INFINITY, l = 0.f;
@@ -76,8 +92,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = t; e < kTK * DH; e += kThreads) {
       const int r = e / DH, d = e % DH, n = kt * kTK + r;
       const bool ok = n < L;
-      ks[r][d] = ok ? kb[n * ld + d] : 0.f;
-      vs[r][d] = ok ? vb[n * ld + d] : 0.f;
+      ks[r][d] = ok ? ld(kb + n * ldt + d) : 0.f;
+      vs[r][d] = ok ? ld(vb + n * ldt + d) : 0.f;
     }
     __syncthreads();
 
@@ -122,9 +138,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int n = qt * kTQ + row;
   if (n < N) {
-    float* ob = o + base + n * ld;
+    T* ob = o + base + n * ldt;
 #pragma unroll
-    for (int i = 0; i < kDPT; ++i) ob[quad + 4 * i] = acc[i] / l;
+    for (int i = 0; i < kDPT; ++i) st(ob + quad + 4 * i, acc[i] / l);
   }
 
   if (probs != nullptr && qt == 0) {
@@ -139,7 +155,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (j < L) {
         float a = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < DH; ++d) a = fmaf(qs[0][d], kb[j * ld + d], a);
+        for (int d = 0; d < DH; ++d) a = fmaf(qs[0][d], ld(kb + j * ldt + d), a);
         a *= scale;
         p = expf(a - row0_m) / row0_l;
       }
@@ -149,33 +165,70 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           void* o, void* probs, int B, int N, int H, float scale,
-           cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const int* __restrict__ kv_len,
+                           float* __restrict__ o, float* __restrict__ probs,
+                           int N, int H, float scale) {
+  flash_body<float, DH>(q, k, v, kv_len, o, probs, N, H, scale);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_f16_kernel(const __half* __restrict__ q,
+                           const __half* __restrict__ k,
+                           const __half* __restrict__ v,
+                           const int* __restrict__ kv_len,
+                           __half* __restrict__ o, float* __restrict__ probs,
+                           int N, int H, float scale) {
+  flash_body<__half, DH>(q, k, v, kv_len, o, probs, N, H, scale);
+}
+
+template <typename T>
+using FlashKernel = void (*)(const T*, const T*, const T*, const int*, T*,
+                             float*, int, int, float);
+
+template <typename T>
+int launch(FlashKernel<T> k16, FlashKernel<T> k64, const void* q,
+           const void* k, const void* v, const void* kv_len, void* o,
+           void* probs, int B, int N, int H, int Dh, float scale,
+           void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  FlashKernel<T> kernel = Dh == 16 ? k16 : Dh == 64 ? k64 : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((N + kTQ - 1) / kTQ, H, B);
-  flash_kernel<DH><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(kv_len),
-      static_cast<float*>(o), static_cast<float*>(probs), N, H, scale);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(kv_len),
+      static_cast<T*>(o), static_cast<float*>(probs), N, H, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o [B, N, H, Dh] fp32 contiguous; kv_len [B] int32 in [1, N]
-// (larger values act as N; a row with no key comes out NaN, as in the
-// plain version) or null (all N keys);
+// q, k, v, o [B, N, H, Dh] fp32 contiguous, Dh in {16, 64}; kv_len [B]
+// int32 in [1, N] (larger values act as N; a row with no key comes out
+// NaN, as in the plain version) or null (all N keys);
 // probs [B, H, N] fp32 or null (then no CLS-row probabilities).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    const void* kv_len, void* o, void* probs,
                                    int B, int N, int H, int Dh, float scale,
                                    void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
-  if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 16: return launch<16>(q, k, v, kv_len, o, probs, B, N, H, scale, st);
-    case 64: return launch<64>(q, k, v, kv_len, o, probs, B, N, H, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch<float>(flash_attention_f32_kernel<16>,
+                       flash_attention_f32_kernel<64>, q, k, v, kv_len, o,
+                       probs, B, N, H, Dh, scale, stream);
+}
+
+// As flash_attention_f32 with q, k, v and o fp16 (o rounded to nearest);
+// probs stay fp32.
+extern "C" int flash_attention_f16(const void* q, const void* k, const void* v,
+                                   const void* kv_len, void* o, void* probs,
+                                   int B, int N, int H, int Dh, float scale,
+                                   void* stream) {
+  return launch<__half>(flash_attention_f16_kernel<16>,
+                        flash_attention_f16_kernel<64>, q, k, v, kv_len, o,
+                        probs, B, N, H, Dh, scale, stream);
 }

@@ -32,12 +32,9 @@ def _token_drop_cuda(z: torch.Tensor, keep_idx: torch.Tensor,
     B, N, D = z.shape
     k = keep_idx.shape[1]
     out = torch.empty((B, k + 2, D), dtype=torch.float32, device=z.device)
-    lib = backend.library(NAME)
-    err = lib.token_drop_f32(z.data_ptr(), keep_idx.data_ptr(), w.data_ptr(),
-                             out.data_ptr(), B, N, D, k,
-                             backend.stream_ptr(z.device))
-    backend.check(NAME, err)
-    backend.count_launch(NAME)
+    backend.launch(NAME, "token_drop_f32", z.device, z.data_ptr(),
+                   keep_idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+                   B, N, D, k)
     return out
 
 

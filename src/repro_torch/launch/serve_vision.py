@@ -18,9 +18,11 @@ with the LM path (fifo / shortest_prompt_first / prune_pressure_aware);
 ``--quality`` / ``--keep-floor`` turn on the QualityController (graceful
 quality degradation: keep rates tighten down a quantized grid under
 queue/deadline pressure — ``strict``, the default, is off).
+``--precision`` makes the fp16 or int8 tier available: the planner prices
+each request at fp32 and at the tier and dispatches the cheaper.
 ``--device`` picks the card (``cuda``, the default) or the CPU, where the
 kernels' plain PyTorch versions run. Weights are random, drawn from
-``--seed`` with ``torch.Generator``; the fp32 tier is the only one ported.
+``--seed`` with ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -128,7 +130,8 @@ def serve(arch: str = "deit-small", num_requests: int = 16, slots: int = 4,
     return {"outputs": out, "seconds": dt,
             "images_per_s": len(out) / dt,
             "events": list(engine.events),
-            "stats": engine.stats()}
+            "stats": engine.stats(),
+            "quantization": engine.quantization_report()}
 
 
 def main():
@@ -169,9 +172,13 @@ def main():
     ap.add_argument("--keep-floor", type=float, default=0.4,
                     help="controller keep-rate floor: no request is ever "
                          "tightened below this, whatever the load")
-    ap.add_argument("--precision", default="fp32", choices=("fp32",),
-                    help="serving precision tier (fp16/int8 are not "
-                         "ported yet)")
+    ap.add_argument("--precision", default="fp32",
+                    choices=("fp32", "fp16", "int8"),
+                    help="serving precision tier: fp32 = the reference "
+                         "path; fp16/int8 let the planner price each "
+                         "request's trajectory at the tier and dispatch "
+                         "its kernels when strictly cheaper "
+                         "(quality=strict requests stay fp32)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the kernels on the card) or cpu "
                          "(their plain PyTorch versions)")
@@ -209,6 +216,16 @@ def main():
               f"tile_shapes={st['jit_compile_count']} <= "
               f"buckets+trajectories={st['compile_budget']}")
         print(plan_stats_line(st))
+        q = out["quantization"]
+        print(f"precision={st['precision']} "
+              f"(granularity={q['granularity']}) "
+              f"quant_error={q['quant_max_abs_error']:.5f} "
+              f"packed_bytes={q['packed_bytes_fp32']} -> "
+              f"{q['packed_bytes']} "
+              f"dispatches=" + "/".join(
+                  f"{p}:{st[f'dispatch_{p}']}"
+                  for p in ("fp32", "fp16", "int8")) +
+              f" dequant={st['dequant_dispatches']}")
         if st["quality_mode"] != "strict":
             print(f"quality={st['quality_mode']} "
                   f"floor={st['quality_keep_floor']} tightened="

@@ -1,6 +1,5 @@
 """VisionEngine — continuous-batching inference for the packed, pruned ViT,
-on the card; the port of the reference package's ``serving/vision.py``
-(fp32 tier, hard TDM).
+on the card; the port of the reference package's ``serving/vision.py``.
 
 * Admission rides the ``Scheduler`` (one admit/retire event stream,
   policy-pluggable — FIFO, shortest-prompt-first, prune-pressure-aware).
@@ -28,8 +27,11 @@ tolerance, and bitwise only where those libraries allow it.
 
 Requests may carry per-request keep rates (``r_t``) and arbitrary patch
 counts — both sources of raggedness; ``arrival_step`` staggers admission.
-Soft pruning and the fp16/int8 tiers are later slices and raise
-``NotImplementedError``.
+A request may ask for soft pruning (``soft_prune``: a package token
+carries the dropped tokens' mass across TDM layers). An engine serves at
+a precision tier (``VisionEngineConfig.precision``): at ``fp16`` or
+``int8`` the planner prices each request's trajectory at fp32 and at the
+tier and takes the cheaper, and ``quality="strict"`` requests stay fp32.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import packed_runner as PR
+from repro_torch.core import quant as Q
 from repro_torch.core.complexity import vit_num_tokens
 from repro_torch.kernels.backend import host_to_device, resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
@@ -75,7 +78,9 @@ class VisionRequest:
     quality: Optional[str] = None    # accuracy/latency preference for the
     # QualityController: "strict" pins the base schedule even under load,
     # "degrade" invites maximum tightening, None follows the engine mode.
-    soft_prune: bool = False         # soft-pruning TDM: not ported yet
+    soft_prune: bool = False         # soft-pruning TDM: dropped tokens fold
+    # into a persistent package token (TP.tdm_soft) instead of a fresh
+    # fused token at every TDM
     logits: Optional[np.ndarray] = None
     done: bool = False
     prune_load: Optional[float] = None   # predicted post-prune token load
@@ -108,13 +113,21 @@ class VisionEngineConfig:
     # quantized keep-rate grid the controller resolves onto (bounds the
     # distinct TDM k values, hence dispatch shapes)
     keep_floor: float = 0.4   # no request is ever tightened below this
-    precision: str = "fp32"   # serving precision tier (fp32 only so far)
+    precision: str = "fp32"   # serving precision tier: at "fp16"/"int8"
+    # the planner prices each request's trajectory at fp32 AND the tier
+    # and picks the cheaper (fp32 ties win); quality="strict" requests stay
+    # fp32. Encoder segments only: embed and head run fp32 at every tier.
+    quant_granularity: str = "channel"  # int8 scales: "block" = one per
+    # kept block, "channel" = one per output channel of each kept block
 
     def __post_init__(self):
-        if self.precision != "fp32":
-            raise NotImplementedError(
-                f"VisionEngineConfig.precision={self.precision!r}: "
-                + PR.PRECISION_TODO)
+        if self.precision not in Q.PRECISIONS:
+            raise ValueError(f"VisionEngineConfig.precision must be one of "
+                             f"{Q.PRECISIONS}, got {self.precision!r}")
+        if self.quant_granularity not in Q.GRANULARITIES:
+            raise ValueError(f"VisionEngineConfig.quant_granularity must be "
+                             f"one of {Q.GRANULARITIES}, "
+                             f"got {self.quant_granularity!r}")
         if self.max_batch <= 0:
             raise ValueError(f"VisionEngineConfig.max_batch must be a "
                              f"positive slot count, got {self.max_batch}")
@@ -147,7 +160,13 @@ class _Live:
     x: torch.Tensor      # patches (pre-embed) or [n_tokens, D] activations
     n_tokens: int        # real rows of x (grouping key)
     schedule: Tuple[float, ...]  # BASE per-TDM keep schedule
+    soft: bool = False   # package-token soft TDM for this request
+    pkg_mass: Optional[torch.Tensor] = None  # carried package mass (0-d,
+    # on the device) after the first soft TDM; updated at dispatch
     admit_t: float = 0.0  # monotonic admission time (deadline slack base)
+    precision: str = "fp32"  # execution precision chosen at admission
+    # (planner-priced; "strict" quality pins fp32), fixed per request so
+    # its tiles stay precision-uniform
 
 
 class VisionEngine:
@@ -167,7 +186,12 @@ class VisionEngine:
         self.vc = vc if vc is not None else VisionEngineConfig()
         self.device = resolve_device(device)
         self.segments = PR.PackedVitSegments(
-            cfg, params, packed, use_tdm=self.vc.use_tdm, device=self.device)
+            cfg, params, packed, use_tdm=self.vc.use_tdm, device=self.device,
+            quant_granularity=self.vc.quant_granularity)
+        if self.vc.precision != "fp32":
+            # quantize the tier's weights now: done lazily, the int8 pass
+            # would read the blocks back to the host inside a serve
+            self.segments.packed_for(self.vc.precision)
         self.scheduler = Scheduler(self.vc.max_batch, policy=policy)
         self.batcher = RaggedBatcher(token_tile=self.vc.token_tile,
                                      mode=self.vc.mode,
@@ -191,6 +215,11 @@ class VisionEngine:
         self.plan_ahead_drops = 0
         self.steps = 0
         self.images_served = 0
+        # tiles + lanes dispatched per execution precision, and how many of
+        # them ran the int8 dequant-in-kernel SBMM (counted at dispatch)
+        self.precision_dispatches: Dict[str, int] = {
+            p: 0 for p in Q.PRECISIONS}
+        self.dequant_dispatches = 0
         self._n_patches_max = vit_num_tokens(cfg) - 1
         self._use_tdm = (cfg.pruning.token_pruning_enabled
                          if self.vc.use_tdm is None else self.vc.use_tdm)
@@ -249,14 +278,16 @@ class VisionEngine:
                 sched = self._base_schedule(r)
                 traj = PR.token_trajectory(
                     self.cfg, r.n_patches, use_tdm=self._use_tdm,
-                    schedule=sched if self._use_tdm else None)
+                    schedule=sched if self._use_tdm else None,
+                    soft=r.soft_prune)
                 r.prune_load_base = float(sum(traj))
                 r.prune_load = r.prune_load_base
                 r.submit_t = time.monotonic()
                 if r.deadline_ms is not None:
                     cm = self.planner.cost_model
                     r.solo_ms = cm.ms(cm.trajectory_cycles(
-                        self._traj_from(0, r.n_patches, sched)))
+                        self._traj_from(0, r.n_patches, sched, r.soft_prune,
+                                        precision=self._precision_for(r))))
                     r.prune_load *= min(1.0, r.deadline_ms
                                         / max(r.solo_ms, 1e-9))
             self._pending.append((base + r.arrival_step, r))
@@ -315,7 +346,8 @@ class VisionEngine:
                  else self._base_schedule(r))
         cm = self.planner.cost_model
         return cm.ms(cm.trajectory_cycles(
-            self._traj_from(0, r.n_patches, sched)))
+            self._traj_from(0, r.n_patches, sched, r.soft_prune,
+                            precision=self._precision_for(r))))
 
     def modeled_backlog_ms(self) -> float:
         """Modeled time to drain the engine's current commitment."""
@@ -323,7 +355,8 @@ class VisionEngine:
         ms = sum(self.modeled_request_ms(r) for r in self.scheduler.waiting)
         for st in self._live.values():
             ms += cm.ms(cm.trajectory_cycles(self._traj_from(
-                st.seg_idx, st.n_tokens, st.schedule)))
+                st.seg_idx, st.n_tokens, st.schedule, st.soft,
+                precision=st.precision)))
         return ms
 
     def stats(self) -> Dict[str, Any]:
@@ -341,6 +374,9 @@ class VisionEngine:
             "plan_ahead_hits": self.plan_ahead_hits,
             "plan_ahead_drops": self.plan_ahead_drops,
             "precision": self.vc.precision,
+            **{f"dispatch_{p}": n
+               for p, n in self.precision_dispatches.items()},
+            "dequant_dispatches": self.dequant_dispatches,
             **{f"sched_{k}": v for k, v in self.scheduler.stats().items()},
             **{f"pipeline_{k}": v for k, v in self.pipeline.stats().items()},
             **{f"batcher_{k}": v for k, v in self.batcher.stats().items()},
@@ -360,10 +396,26 @@ class VisionEngine:
                 f"{prefix}.quality_tightened_level_{lvl:g}").set(n)
         return registry
 
+    def quantization_report(self) -> Dict[str, Any]:
+        """Weight-quantization accounting at the engine's tier: the max-abs
+        weight delta against the fp32 packed dict and the packed model size
+        at both tiers (surviving blocks + headers + scales, at their dtype
+        widths). An fp32 engine reports zero error without quantizing."""
+        fp32_bytes = Q.packed_dict_nbytes(self.segments.packed)
+        rep = {"precision": self.vc.precision,
+               "granularity": self.vc.quant_granularity,
+               "packed_bytes_fp32": fp32_bytes,
+               "packed_bytes": fp32_bytes,
+               "quant_max_abs_error": 0.0}
+        if self.vc.precision != "fp32":
+            qd = self.segments.packed_for(self.vc.precision)
+            rep["packed_bytes"] = Q.packed_dict_nbytes(qd)
+            rep["quant_max_abs_error"] = Q.max_abs_error(
+                self.segments.packed, qd)
+        return rep
+
     # -- engine internals --------------------------------------------------
     def _validate(self, r: VisionRequest) -> None:
-        if r.soft_prune:
-            raise NotImplementedError(f"request {r.uid}: " + PR.SOFT_TODO)
         n = r.n_patches
         if not 1 <= n <= self._n_patches_max:
             raise ValueError(
@@ -417,7 +469,24 @@ class VisionEngine:
                 x=host_to_device(req.patches, self.device),
                 n_tokens=req.n_patches,
                 schedule=self._base_schedule(req),
-                admit_t=time.monotonic())
+                soft=req.soft_prune,
+                admit_t=time.monotonic(),
+                precision=self._precision_for(req, record=True))
+
+    def _precision_for(self, r: VisionRequest, record: bool = False) -> str:
+        """Execution precision for ``r``. fp32 engines and
+        ``quality="strict"`` requests take fp32 without asking the planner;
+        otherwise the planner prices the request's whole trajectory at fp32
+        and at the engine's tier and takes the strictly cheaper (fp32 on a
+        tie). ``record=True`` only at admission, so pricing probes do not
+        count as decisions."""
+        if self.vc.precision == "fp32" or r.quality == "strict":
+            return "fp32"
+        sched = self._base_schedule(r)
+        cands = [(p, self._traj_from(0, r.n_patches, sched, r.soft_prune,
+                                     precision=p))
+                 for p in ("fp32", self.vc.precision)]
+        return self.planner.choose_precision(cands, record=record)
 
     def _base_schedule(self, r: VisionRequest) -> Tuple[float, ...]:
         """The request's own per-TDM keep schedule BEFORE any controller
@@ -438,23 +507,36 @@ class VisionEngine:
                 1.0, max(left, 0.0) / max(req.solo_ms, 1e-9))
 
     def _traj_from(self, seg_idx: int, n_tokens: int,
-                   schedule: Sequence[float]):
+                   schedule: Sequence[float], soft: bool = False,
+                   precision: str = "fp32"):
         """Remaining (stage key, entry token count) trajectory from segment
         ``seg_idx`` at ``n_tokens`` real tokens under ``schedule``. A
-        stage key is ``(si, segment, k)`` — the batcher grouping identity,
-        with the static keep count at TDM segments (tiles must be
-        k-uniform). Offsets align with engine steps, which the planner's
-        fusion and deadline logic rely on."""
+        stage key is ``(si, segment, k[, "soft"][, precision])`` — the
+        batcher grouping identity: the static keep count at TDM segments
+        (tiles must be k-uniform), a ``"soft"`` marker on soft TDM stages
+        (soft and hard requests never share a TDM tile), and the precision
+        on the weight-bearing (layers/tdm) stages of a non-fp32 request
+        (embed and head run fp32 and batch across tiers). Offsets align
+        with engine steps, which the planner's fusion and deadline logic
+        rely on."""
+        mark = () if precision == "fp32" else (precision,)
         entries = []
         n = n_tokens
         ti = self._tdm_before[seg_idx]
         for si in range(seg_idx, len(self.segments.plan)):
             seg = self.segments.plan[si]
             if seg[0] == "tdm":
-                k = PR.tdm_keep_count(n, schedule[ti])
-                entries.append(((si, seg, k), n))
+                r = schedule[ti]
+                if soft:
+                    k = PR.tdm_soft_keep_count(n, r, has_pkg=ti > 0)
+                    entries.append(((si, seg, k, "soft") + mark, n))
+                else:
+                    k = PR.tdm_keep_count(n, r)
+                    entries.append(((si, seg, k) + mark, n))
                 n = k + 2
                 ti += 1
+            elif seg[0] == "layers":
+                entries.append(((si, seg, None) + mark, n))
             else:
                 entries.append(((si, seg, None), n))
                 if seg[0] == "embed":
@@ -475,7 +557,8 @@ class VisionEngine:
 
             def rem(sched, _st=st, _cm=cm):
                 return _cm.ms(_cm.trajectory_cycles(self._traj_from(
-                    _st.seg_idx, _st.n_tokens, sched)))
+                    _st.seg_idx, _st.n_tokens, sched, _st.soft,
+                    precision=_st.precision)))
 
         return q.resolve(st.schedule, done=done,
                          preference=st.req.quality,
@@ -484,13 +567,24 @@ class VisionEngine:
 
     def _plan_item(self, st: _Live, now: float,
                    schedule: Sequence[float]) -> PlanItem:
-        traj = self._traj_from(st.seg_idx, st.n_tokens, schedule)
+        traj = self._traj_from(st.seg_idx, st.n_tokens, schedule, st.soft,
+                               precision=st.precision)
         left = None
         if st.req.deadline_ms is not None:
             left = st.req.deadline_ms - (now - st.admit_t) * 1e3
         return PlanItem(stage=traj[0][0], n_tokens=st.n_tokens,
                         cap=self._token_cap(st), trajectory=traj,
                         deadline_left_ms=left)
+
+    @staticmethod
+    def _parse_stage(stage) -> Tuple[Tuple, Optional[int], bool, str]:
+        """A stage key ``(si, segment, k[, "soft"][, precision])`` as
+        ``(segment, k, soft, precision)``: the inverse of ``_traj_from``'s
+        keys ("soft" is not a precision, so the markers cannot collide)."""
+        seg, k = stage[1], stage[2]
+        rest = stage[3:]
+        precision = next((m for m in rest if m in Q.PRECISIONS), "fp32")
+        return seg, k, "soft" in rest, precision
 
     def _token_cap(self, st: _Live) -> Optional[int]:
         """Hard bound on the padded token tile: the embed stage indexes the
@@ -580,7 +674,8 @@ class VisionEngine:
         for tile in plan.tiles:
             member_slots = [slots[i] for i in tile.members]
             states = [self._live[s] for s in member_slots]
-            seg, k = tile.stage[1], tile.stage[2]
+            # the stage key decides what runs; states only supply data
+            seg, k, soft, prec = self._parse_stage(tile.stage)
             feat = states[0].x.shape[-1]
             rows = [F.pad(st.x, (0, 0, 0, tile.n_tile - st.n_tokens))
                     for st in states]
@@ -596,13 +691,27 @@ class VisionEngine:
                 n_valid = np.concatenate(
                     [n_valid, np.full(tile.b_tile - len(states), tile.n_tile,
                                       np.int32)])
-            tile_runs.append((member_slots, seg, k, batch, n_valid))
+            pkg_mass = None
+            if soft and self._tdm_before[tile.stage[0]] > 0:
+                # every member past its first soft TDM carries a package
+                # mass; batch-pad rows get 0 (their packages are don't-care)
+                pkg_mass = torch.stack([st.pkg_mass for st in states])
+                if tile.b_tile > len(states):
+                    pkg_mass = F.pad(pkg_mass,
+                                     (0, tile.b_tile - len(states)))
+            tile_runs.append((member_slots, seg, k, soft, prec, batch,
+                              n_valid, pkg_mass))
 
         lane_runs = []
         for lane in plan.lanes:
             slot = slots[lane.member]
-            steps = tuple((stage[1], stage[2]) for stage, _ in lane.trajectory)
-            lane_runs.append((slot, steps, self._live[slot].x[None]))
+            st = self._live[slot]
+            steps = []
+            for stage, _ in lane.trajectory:
+                seg, k, soft, _prec = self._parse_stage(stage)
+                steps.append((seg, k, True) if soft else (seg, k))
+            seed = None if st.pkg_mass is None else st.pkg_mass.reshape(1)
+            lane_runs.append((slot, tuple(steps), st.x[None], seed))
         if tr.enabled:
             tr.end("stage", track="engine")
 
@@ -613,9 +722,23 @@ class VisionEngine:
             # event covers it, so completion reads it without another wait
             produced.append((req, y[row].to("cpu", non_blocking=True)))
 
+        def count_dispatch(prec):
+            self.precision_dispatches[prec] += 1
+            if prec == "int8":
+                self.dequant_dispatches += 1
+
         def run_tile(run):
-            member_slots, seg, k, batch, n_valid = run
-            y = self.segments.run(seg, batch, n_valid=n_valid, k=k)
+            (member_slots, seg, k, soft, prec, batch, n_valid,
+             pkg_mass) = run
+            count_dispatch(prec)
+            mass = None
+            if soft:
+                y, mass = self.segments.run(seg, batch, n_valid=n_valid, k=k,
+                                            soft=True, pkg_mass=pkg_mass,
+                                            precision=prec)
+            else:
+                y = self.segments.run(seg, batch, n_valid=n_valid, k=k,
+                                      precision=prec)
             kind = seg[0]
             for b, slot in enumerate(member_slots):
                 st = self._live[slot]
@@ -625,8 +748,10 @@ class VisionEngine:
                 elif kind == "layers":
                     st.x = y[b, : st.n_tokens]
                 elif kind == "tdm":
-                    st.n_tokens = k + 2       # CLS + k kept + fused
+                    st.n_tokens = k + 2       # CLS + k kept + fused/package
                     st.x = y[b, : st.n_tokens]
+                    if soft:
+                        st.pkg_mass = mass[b]
                 else:  # head
                     emit(st.req, y, b)
                 st.seg_idx += 1
@@ -635,9 +760,11 @@ class VisionEngine:
         def dispatch():
             # urgent tiles (the plan's leading tiles) dispatch BEFORE lanes
             handles = [run_tile(run) for run in tile_runs[:n_urgent]]
-            for slot, steps, x1 in lane_runs:
+            for slot, steps, x1, seed in lane_runs:
                 st = self._live[slot]
-                y = self.segments.run_fused(steps, x1)
+                count_dispatch(st.precision)
+                y = self.segments.run_fused(steps, x1, pkg_mass=seed,
+                                            precision=st.precision)
                 emit(st.req, y, 0)
                 st.seg_idx = n_segs
                 handles.append(y)

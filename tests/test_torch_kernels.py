@@ -4,8 +4,12 @@ On the CPU each kernel wrapper runs its plain PyTorch version; these tests
 hold those versions (and the wrappers' padding, permutation and top-k
 logic around them) against the reference's Pallas kernels in interpret
 mode and its jnp oracles, on the same numpy inputs. Tolerances are fp32
-reassociation bounds (stated per assertion). The CUDA kernels themselves
-run only on the card (``tests/test_torch_gpu.py``, marked ``gpu``)."""
+reassociation bounds (stated per assertion); int8 blocks and scales, and
+every gathered row, must be equal. The reference's Pallas
+``token_package_pallas`` raises under the installed jax (``pl.store``), so
+the soft TDM is held against ``token_pruning.tdm_soft``. The CUDA kernels
+themselves run only on the card (``tests/test_torch_gpu.py``, marked
+``gpu``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,21 +17,28 @@ import pytest
 import torch
 
 from repro.core import packing as JP
+from repro.core import quant as JQ
 from repro.core import token_pruning as JTP
 from repro.kernels.sbmm import sbmm as j_sbmm
+from repro.kernels.sbmm import sbmm_quant_ref as j_sbmm_quant_ref
 from repro.kernels.sbmm import sbmm_ref as j_sbmm_ref
 from repro.models import attention as JA
 
 from repro_torch import convert
 from repro_torch.core import packing as TPK
+from repro_torch.core import quant as TQ
 from repro_torch.core import token_pruning as TTP
 from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention)
-from repro_torch.kernels.sbmm import pad_input, sbmm, sbmm_raw
+from repro_torch.kernels.sbmm import (pad_input, sbmm, sbmm_quant_raw,
+                                      sbmm_raw)
 from repro_torch.kernels.token_drop import token_drop
+from repro_torch.kernels.token_package import token_package
 
 FP32_TOL = 1e-5  # per-op fp32 bound (sums of <= a few hundred terms)
+FP16_ATTN_TOL = 2e-3  # fp16 attention output: one fp16 rounding of values
+# whose fp32 sums differ in order (the reference's own fp16 test bound)
 
 
 def _mask(counts_per_col, n_row_blocks, rng):
@@ -84,10 +95,85 @@ def test_sbmm_rejects_wrong_input_width():
 
 
 def test_sbmm_rejects_half_blocks():
-    pk = TPK.pack_weight(np.ones((16, 16), np.float16),
-                         np.ones((1, 1), np.float32), 16)
-    with pytest.raises(NotImplementedError, match="int8"):
-        sbmm(torch.ones((2, 16)), pk)
+    """fp16 blocks are taken now (the fp16 tier); blocks no kernel takes —
+    int8 without scales, bf16 — are rejected."""
+    w = np.arange(256, dtype=np.float32).reshape(16, 16) / 64
+    pk = TPK.pack_weight(w.astype(np.float16), np.ones((1, 1), np.float32),
+                         16)
+    x = torch.ones((2, 16))
+    np.testing.assert_array_equal(sbmm(x, pk).numpy(),
+                                  (x @ torch.from_numpy(w)).numpy())
+    for dtype in (torch.int8, torch.bfloat16):
+        with pytest.raises(TypeError, match="fp16 blocks"):
+            sbmm_raw(x, pk.blocks.to(dtype), pk.header)
+    with pytest.raises(TypeError, match="int8 blocks"):
+        sbmm_quant_raw(x, pk.blocks, pk.header, torch.ones((1, 1)))
+
+
+@pytest.mark.parametrize("M,K,N,counts", [
+    (1, 64, 48, (1, 3, 2)),
+    (70, 40, 64, (0, 3, 2, 1)),
+])
+def test_sbmm_half_blocks_match_reference(M, K, N, counts):
+    """fp16 blocks (the reference's ``quantize_packed(.., "fp16")``)
+    against the reference's Pallas SBMM in interpret mode, where
+    ``jnp.dot`` promotes the fp16 block to fp32: fp32 arithmetic."""
+    rng = np.random.default_rng(M + K)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    pk_j = JQ.quantize_packed(JP.pack_weight(w, _mask(counts, -(-K // 16),
+                                                      rng), 16), "fp16")
+    pk_t = convert.packed_from_jax(pk_j)
+    assert pk_t.blocks.dtype == torch.float16
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    y_t = sbmm(torch.from_numpy(x), pk_t).numpy()
+    y_j = np.asarray(j_sbmm(jnp.asarray(x), pk_j, tm=64, interpret=True))
+    np.testing.assert_allclose(y_t, y_j, atol=FP32_TOL, rtol=FP32_TOL)
+    # the port's own fp16 quantization is the same cast
+    own = TQ.quantize_packed(convert.packed_from_jax(
+        JQ.dequantize_packed(pk_j)), "fp16")
+    assert torch.equal(own.blocks, pk_t.blocks)
+
+
+@pytest.mark.parametrize("granularity", ["block", "channel"])
+@pytest.mark.parametrize("M,K,N,counts", [
+    (1, 64, 48, (1, 3, 2)),
+    (33, 40, 48, (3, 1, 2)),        # K padding, M > one row tile of 16
+    (70, 64, 64, (0, 4, 2, 1)),     # an empty column, M > 64 rows
+])
+def test_sbmm_quant_matches_reference(M, K, N, counts, granularity):
+    """int8 blocks: the port quantizes bit-identically to the reference,
+    converts its weights exactly, and its dequant SBMM (plain version here)
+    agrees with the reference's Pallas kernel in interpret mode and with
+    its order-matched oracle ``sbmm_quant_ref`` (fp32 arithmetic)."""
+    rng = np.random.default_rng(M * 10 + K)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    pk_j = JP.pack_weight(w, _mask(counts, -(-K // 16), rng), 16)
+    q_j = JQ.quantize_packed(pk_j, "int8", granularity)
+    q_t = convert.packed_dict_from_jax({"w": q_j})["w"]
+    q_o = TQ.quantize_packed(convert.packed_from_jax(pk_j), "int8",
+                             granularity)
+    assert isinstance(q_t, TQ.QuantizedPackedWeight)
+    for q in (q_t, q_o):
+        assert q.granularity == granularity
+        assert q.blocks.dtype == torch.int8
+        np.testing.assert_array_equal(q.blocks.numpy(), np.asarray(q_j.blocks))
+        np.testing.assert_array_equal(q.scales.numpy(), np.asarray(q_j.scales))
+        np.testing.assert_array_equal(q.header.numpy(), np.asarray(q_j.header))
+        assert q.nbytes() == q_j.nbytes()
+        np.testing.assert_array_equal(q.to_dense().numpy(),
+                                      np.asarray(q_j.to_dense()))
+    assert TQ.quantization_error(convert.packed_from_jax(pk_j), q_o) == \
+        JQ.quantization_error(pk_j, q_j)
+
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    y_t = sbmm(torch.from_numpy(x), q_t).numpy()
+    y_j = np.asarray(j_sbmm(jnp.asarray(x), q_j, tm=64, interpret=True))
+    np.testing.assert_allclose(y_t, y_j, atol=FP32_TOL, rtol=FP32_TOL)
+    xp = pad_input(torch.from_numpy(x), q_t)
+    raw_t = sbmm_quant_raw(xp, q_t.blocks, q_t.header, q_t.scales).numpy()
+    raw_j = np.asarray(j_sbmm_quant_ref(jnp.asarray(xp.numpy()), q_j.blocks,
+                                        q_j.header, q_j.scales))
+    np.testing.assert_allclose(raw_t, raw_j, atol=FP32_TOL, rtol=FP32_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +215,46 @@ def test_flash_attention_plain_matches_reference(B, N, H, Dh, lens):
     assert o_only.shape == (B, N, H, Dh)
 
 
+@pytest.mark.parametrize("B,N,H,Dh,lens", [
+    (2, 33, 4, 16, None),
+    (4, 33, 4, 16, (33, 20, 9, 1)),
+    (3, 65, 6, 64, (65, 40, 17)),
+])
+def test_flash_attention_fp16_matches_reference(B, N, H, Dh, lens):
+    """fp16 operands (the fp16 tier): against ``flash_attention_jnp`` and
+    ``attention_probs_row`` on the same fp16-cast q, k, v. The output is
+    fp16, as the reference's (it returns ``q.dtype``); the scores fp32."""
+    rng = np.random.default_rng(N * 11 + B)
+    q, k, v = (rng.standard_normal((B, N, H, Dh)).astype(np.float16)
+               for _ in range(3))
+    kv = None if lens is None else np.asarray(lens, np.int32)
+    o_t, s_t = flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        kv_len=None if kv is None else torch.from_numpy(kv),
+        collect_scores=True)
+    assert o_t.dtype == torch.float16 and s_t.dtype == torch.float32
+    jkv = None if kv is None else jnp.asarray(kv)
+    o_j = JA.flash_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=False, kv_len=jkv)
+    assert o_j.dtype == jnp.float16
+    s_j = JA.attention_probs_row(jnp.asarray(q)[:, 0], jnp.asarray(k),
+                                 kv_len=jkv).mean(axis=1)
+    np.testing.assert_allclose(o_t.float().numpy(),
+                               np.asarray(o_j, np.float32),
+                               atol=FP16_ATTN_TOL, rtol=FP16_ATTN_TOL)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    if lens is not None:
+        for b, L in enumerate(lens):
+            assert (s_t[b, L:] == 0).all()
+
+
+def test_causal_attention_is_unported():
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(NotImplementedError, match="LM serving path"):
+        flash_attention(q, q, q, causal=True)
+
+
 # ---------------------------------------------------------------------------
 # K3 token drop
 # ---------------------------------------------------------------------------
@@ -152,6 +278,93 @@ def test_token_drop_plain_matches_tdm(B, N, D, k, n_valid):
     np.testing.assert_array_equal(out_t[:, :k + 1], out_j[:, :k + 1])
     np.testing.assert_allclose(out_t[:, k + 1], out_j[:, k + 1],
                                atol=FP32_TOL, rtol=FP32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K4 token package (soft TDM)
+# ---------------------------------------------------------------------------
+def _soft_scores(rng, B, N, n_valid):
+    s = rng.random((B, N)).astype(np.float32)
+    for b, nv in enumerate(n_valid):
+        s[b, nv:] = 0.0  # token-padded rows score exactly 0
+    return s / s.sum(axis=1, keepdims=True)
+
+
+def _assert_soft_equal(out_t, mass_t, out_j, mass_j, k):
+    out_j = np.asarray(out_j)
+    assert out_t.shape == out_j.shape
+    # CLS and kept rows are copies: bitwise; the package is a weighted mean
+    np.testing.assert_array_equal(out_t[:, :k + 1], out_j[:, :k + 1])
+    np.testing.assert_allclose(out_t[:, k + 1], out_j[:, k + 1],
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    np.testing.assert_allclose(mass_t, np.asarray(mass_j), atol=FP32_TOL,
+                               rtol=FP32_TOL)
+
+
+@pytest.mark.parametrize("B,N,D,k1,ks2,n_valid", [
+    (1, 17, 32, 8, (5,), (17,)),
+    (3, 33, 64, 12, (9, 7, 4), (33, 25, 17)),
+    (2, 9, 16, 7, (7, 3), (9, 9)),   # k = N - 2: everything but one kept
+])
+def test_token_package_matches_reference_tdm_soft(B, N, D, k1, ks2, n_valid):
+    """Two chained soft TDMs. The first (no package) on a token-padded
+    batch; the second on a token-padded tile built from each row's first
+    output at its own keep count ``ks2[b]``, so every row's package sits at
+    its own body index ``n_valid - 2`` (``pkg_pos``), as in the engine.
+    Both packages' ``token_package`` (and the port's ``tdm_soft``) against
+    the reference's ``token_pruning.tdm_soft``."""
+    rng = np.random.default_rng(N * 5 + D)
+    z = rng.standard_normal((B, N, D)).astype(np.float32)
+    s = _soft_scores(rng, B, N, n_valid)
+    out_t, mass_t = token_package(torch.from_numpy(z), torch.from_numpy(s),
+                                  k1)
+    out_j, mass_j = JTP.tdm_soft(jnp.asarray(z), jnp.asarray(s), k=k1)
+    _assert_soft_equal(out_t.numpy(), mass_t.numpy(), out_j, mass_j, k1)
+
+    # second TDM: row b carries ks2[b] + 2 real tokens (its package last)
+    rows = [JTP.tdm_soft(jnp.asarray(z[b:b + 1]), jnp.asarray(s[b:b + 1]),
+                         k=kb) for b, kb in enumerate(ks2)]
+    n2 = np.array([kb + 2 for kb in ks2], np.int32)
+    width = int(n2.max())
+    z2 = np.zeros((B, width, D), np.float32)
+    mass = np.zeros(B, np.float32)
+    for b, (zb, mb) in enumerate(rows):
+        z2[b, :n2[b]] = np.asarray(zb)[0]
+        mass[b] = float(np.asarray(mb)[0])
+    s2 = _soft_scores(rng, B, width, n2)
+    k2 = int(n2.min()) - 2
+    pkg_pos = n2 - 2
+    out_t, mass_t = token_package(
+        torch.from_numpy(z2), torch.from_numpy(s2), k2,
+        pkg_mass=torch.from_numpy(mass), pkg_pos=torch.from_numpy(pkg_pos))
+    out_j, mass_j = JTP.tdm_soft(jnp.asarray(z2), jnp.asarray(s2), k=k2,
+                                 pkg_mass=jnp.asarray(mass),
+                                 pkg_pos=jnp.asarray(pkg_pos))
+    _assert_soft_equal(out_t.numpy(), mass_t.numpy(), out_j, mass_j, k2)
+    # the package is never kept, and carries its old mass forward
+    kept_idx, w = TTP.package_weights(torch.from_numpy(s2[:, 1:]), k2,
+                                      torch.from_numpy(mass),
+                                      torch.from_numpy(pkg_pos))
+    for b in range(B):
+        assert int(pkg_pos[b]) not in kept_idx[b].tolist()
+        assert float(w[b, pkg_pos[b]]) == float(mass[b])
+    # the port's tdm_soft derives k from r_t with the reference's clamp
+    for r_t in (0.5, 1.0):
+        o_t, m_t = TTP.tdm_soft(torch.from_numpy(z2), torch.from_numpy(s2),
+                                r_t, pkg_mass=torch.from_numpy(mass))
+        o_j, m_j = JTP.tdm_soft(jnp.asarray(z2), jnp.asarray(s2), r_t,
+                                pkg_mass=jnp.asarray(mass))
+        _assert_soft_equal(o_t.numpy(), m_t.numpy(), o_j, m_j,
+                           o_t.shape[1] - 2)
+
+
+def test_token_package_rejects_k_past_the_package():
+    z, s = torch.zeros((1, 6, 8)), torch.rand((1, 6))
+    token_package(z, s, 5)  # no package yet: every body row may be kept
+    with pytest.raises(ValueError, match="outside"):
+        token_package(z, s, 5, pkg_mass=torch.ones(1))
+    with pytest.raises(ValueError, match="k must be"):
+        TTP.tdm_soft(z, s, k=5, pkg_mass=torch.ones(1))
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +402,19 @@ def test_card_tensors_never_take_the_plain_path(monkeypatch):
     q = torch.zeros((1, 5, 2, 16))
     with pytest.raises(RuntimeError, match="no flash_attention kernel"):
         flash_attention(q, q, q, torch.tensor([5], dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="no flash_attention kernel"):
+        flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(RuntimeError, match="no token_drop kernel"):
         token_drop(torch.zeros((1, 5, 8)), torch.rand((1, 5)), 2)
-    assert backend.launches() == {n: 0 for n in backend.KERNELS}
+    with pytest.raises(RuntimeError, match="no token_package kernel"):
+        token_package(torch.zeros((1, 5, 8)), torch.rand((1, 5)), 2,
+                      pkg_mass=torch.ones(1))
+    q8 = TQ.quantize_packed(pk, "int8", "channel")
+    with pytest.raises(RuntimeError, match="no sbmm_quant kernel"):
+        sbmm(x, q8)
+    with pytest.raises(RuntimeError, match="no sbmm kernel"):
+        sbmm(x, TQ.quantize_packed(pk, "fp16"))
+    assert backend.launches() == {n: 0 for n in backend.ENTRY_POINTS}
 
 
 def test_mixed_or_unknown_devices_raise():

@@ -3,7 +3,10 @@ package, on the CPU, at the reduced DeiT-Small config.
 
 * Same request stream through both engines: the same ExecutionPlan
   sequence, the same scheduler event stream, logits per uid within 1e-4
-  (fp32, different summation orders between XLA and PyTorch).
+  (fp32, different summation orders between XLA and PyTorch) at the fp32
+  and int8 tiers and 2e-3 at the fp16 tier (an fp16 rounding of the
+  attention output); soft-pruned and precision-tiered requests carry the
+  same stage keys and precision decisions in both.
 * The port's engine against its own offline oracle (``forward_vit_packed``)
   on unmasked tiles: BITWISE. The kernels' plain versions and the eager
   CPU matmuls of embed/MLP/head compute each row the same whatever the row
@@ -25,6 +28,7 @@ import torch
 
 from repro.configs import DEIT_SMALL as J_DEIT
 from repro.core import packed_runner as JPR
+from repro.core import quant as JQ
 from repro.models import model as JM
 from repro.models import pruning_glue as JPG
 from repro.serving import planner as JPL
@@ -37,6 +41,7 @@ from repro.serving.vision import (VisionEngine as JEngine,
 from repro_torch import convert
 from repro_torch.configs import DEIT_SMALL as T_DEIT
 from repro_torch.core import packed_runner as PR
+from repro_torch.core import quant as Q
 from repro_torch.kernels.backend import host_to_device
 from repro_torch.launch import serve_vision as SV
 from repro_torch.models import model as M
@@ -50,6 +55,7 @@ from repro_torch.serving.vision import (VisionEngine, VisionEngineConfig,
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 LOGIT_TOL = 1e-4
+TIER_TOL = {"fp32": LOGIT_TOL, "int8": LOGIT_TOL, "fp16": 2e-3}
 
 # (n_patches, r_t, arrival_step): mixed sizes, keep rates and arrivals
 MIXES = [(16, None, 0), (9, 0.5, 0), (4, 0.7, 1), (16, 0.5, 2),
@@ -74,12 +80,33 @@ def vit():
         tcfg, tmasked, convert.packed_dict_from_jax(jpacked))
 
 
-def _requests(cls, cfg, mixes):
+def _requests(cls, cfg, mixes, soft_every=0, strict_uid=None):
+    """Requests of ``mixes``; every ``soft_every``-th (from uid 0) asks for
+    soft pruning, and ``strict_uid`` for quality "strict"."""
     rng = np.random.default_rng(0)
     pdim = cfg.patch_size ** 2 * 3
     return [cls(uid=i, patches=rng.standard_normal((n, pdim)).astype(
-        np.float32), r_t=r_t, arrival_step=arr)
+        np.float32), r_t=r_t, arrival_step=arr,
+        soft_prune=bool(soft_every) and i % soft_every == 0,
+        quality="strict" if i == strict_uid else None)
         for i, (n, r_t, arr) in enumerate(mixes)]
+
+
+def _all_tdm(cfg):
+    """The config with a TDM at every layer (soft TDMs chain)."""
+    return cfg.replace(pruning=dataclasses.replace(
+        cfg.pruning, tdm_layers=tuple(range(cfg.num_layers))))
+
+
+@pytest.fixture(scope="module")
+def soft_vit(vit):
+    """The reduced model with a TDM at every layer; one reference executor
+    shared by the reference engines."""
+    (jcfg, jmasked, jpacked, _), (tcfg, tmasked, tpacked) = vit
+    jcfg, tcfg = _all_tdm(jcfg), _all_tdm(tcfg)
+    jseg = JPR.PackedVitSegments(jcfg, jmasked, jpacked,
+                                 donate_activations=True)
+    return (jcfg, jmasked, jpacked, jseg), (tcfg, tmasked, tpacked)
 
 
 def _plan_tuple(plan):
@@ -163,14 +190,105 @@ def test_padded_tiles_stay_close_to_oracle(vit):
 
 
 def test_unported_request_modes_raise(vit):
+    """Soft requests and the fp16/int8 tiers are served now (parity tests
+    below); a tier or scale granularity that does not exist raises."""
     _, (cfg, masked, packed) = vit
-    eng = VisionEngine(cfg, masked, packed, device="cpu")
-    req = _requests(VisionRequest, cfg, MIXES[:1])[0]
-    req.soft_prune = True
-    with pytest.raises(NotImplementedError, match="soft"):
-        eng.serve([req])
-    with pytest.raises(NotImplementedError, match="fp32"):
-        VisionEngineConfig(precision="int8")
+    eng = VisionEngine(cfg, masked, packed,
+                       VisionEngineConfig(precision="int8"), device="cpu")
+    reqs = _requests(VisionRequest, cfg, MIXES[:2], soft_every=1)
+    out = eng.serve(reqs)
+    assert sorted(out) == [0, 1]
+    assert eng.stats()["dequant_dispatches"] > 0
+    with pytest.raises(ValueError, match="precision"):
+        VisionEngineConfig(precision="fp64")
+    with pytest.raises(ValueError, match="quant_granularity"):
+        VisionEngineConfig(precision="int8", quant_granularity="row")
+
+
+@pytest.mark.parametrize("precision,planner,granularity", [
+    ("fp32", "full", "channel"), ("fp16", "full", "channel"),
+    ("int8", "off", "channel"), ("int8", "full", "block"),
+])
+def test_soft_tiered_engine_matches_reference_engine(soft_vit, precision,
+                                                     planner, granularity):
+    """Half the requests soft-pruned (package masses chained through three
+    soft TDMs), one pinned to fp32 by quality "strict", the rest at the
+    engine's tier: the same plans, stage keys, events, precision decisions
+    and dispatch counts as the reference engine, logits within the tier's
+    tolerance, and the same quantization report."""
+    (jcfg, jmasked, jpacked, jseg), (tcfg, tmasked, tpacked) = soft_vit
+    kw = dict(max_batch=3, planner=planner, precision=precision,
+              quant_granularity=granularity)
+    jeng = JEngine(jcfg, jmasked, jpacked, JVC(**kw))
+    if granularity == "channel":
+        jeng.segments = jseg  # shared jit caches (the default granularity)
+    teng = VisionEngine(tcfg, tmasked, tpacked, VisionEngineConfig(**kw),
+                        device="cpu")
+    jplans, tplans = _record_plans(jeng), _record_plans(teng)
+    jout = jeng.serve(_requests(JReq, jcfg, MIXES, 2, strict_uid=3))
+    tout = teng.serve(_requests(VisionRequest, tcfg, MIXES, 2,
+                                strict_uid=3))
+    assert tplans == jplans
+    assert "'soft'" in repr(tplans)  # soft stage keys were planned
+    assert list(teng.events) == list(jeng.events)
+    tol = TIER_TOL[precision]
+    for uid in jout:
+        np.testing.assert_allclose(tout[uid], np.asarray(jout[uid]),
+                                   atol=tol, rtol=tol)
+    st, sj = teng.stats(), jeng.stats()
+    keys = [f"dispatch_{p}" for p in Q.PRECISIONS] + [
+        "dequant_dispatches", "steps"] + [
+        f"plan_precision_{p}" for p in Q.PRECISIONS]
+    assert {k: st[k] for k in keys} == {k: sj[k] for k in keys}
+    if precision != "fp32":
+        assert st[f"dispatch_{precision}"] > 0
+    assert (st["dequant_dispatches"] > 0) == (precision == "int8")
+    assert teng.quantization_report() == jeng.quantization_report()
+
+
+@pytest.mark.parametrize("precision,depth", [("fp16", 1), ("int8", 2)])
+def test_soft_tiered_engine_matches_own_oracle(soft_vit, precision, depth):
+    """Balanced buckets with token_tile=1: each uid, soft or hard, at its
+    own precision (strict -> fp32), bit-exact against the unbatched
+    offline oracle at that precision (see the module docstring)."""
+    _, (cfg, masked, packed) = soft_vit
+    eng = VisionEngine(cfg, masked, packed,
+                       VisionEngineConfig(max_batch=3, planner="full",
+                                          pipeline_depth=depth,
+                                          precision=precision),
+                       device="cpu")
+    reqs = _requests(VisionRequest, cfg, MIXES, 2, strict_uid=3)
+    out = eng.serve(reqs)
+    assert eng.stats()["batcher_padding_waste"] == 0.0
+    for r in reqs:
+        ref = PR.forward_vit_packed(
+            cfg, masked, packed, r.patches[None], segments=eng.segments,
+            schedule=PR.keep_schedule(cfg, r_t=r.r_t), soft=r.soft_prune,
+            precision="fp32" if r.quality == "strict" else precision
+        ).logits[0].numpy()
+        assert np.array_equal(out[r.uid], ref), f"uid {r.uid}"
+
+
+def test_soft_padded_tiles_stay_close_to_oracle(soft_vit):
+    """token_tile=8 pads tokens: each soft request's package is pinned at
+    its own ``n_valid - 2`` inside the padded tiles (int8 tier)."""
+    _, (cfg, masked, packed) = soft_vit
+    eng = VisionEngine(cfg, masked, packed,
+                       VisionEngineConfig(max_batch=3, token_tile=8,
+                                          precision="int8"),
+                       device="cpu")
+    reqs = _requests(VisionRequest, cfg, MIXES, soft_every=1)
+    out = eng.serve(reqs)
+    assert eng.stats()["batcher_padding_waste"] > 0.0
+    assert any(masked and key[-2:] == ("soft", "int8")
+               for key in eng.segments.compiled_tiles()
+               for masked in [key[2]])
+    for r in reqs:
+        ref = PR.forward_vit_packed(
+            cfg, masked, packed, r.patches[None], device="cpu", soft=True,
+            schedule=PR.keep_schedule(cfg, r_t=r.r_t),
+            precision="int8").logits[0].numpy()
+        np.testing.assert_allclose(out[r.uid], ref, atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +365,15 @@ def test_serve_launcher_runs_on_cpu(monkeypatch, capsys):
                                       "--requests", "3", "--json"])
     SV.main()
     assert '"top1"' in capsys.readouterr().out
+    res = SV.serve(num_requests=4, slots=2, precision="int8", device="cpu")
+    assert res["stats"]["dispatch_int8"] > 0
+    assert res["quantization"]["packed_bytes"] < \
+        res["quantization"]["packed_bytes_fp32"]
+    monkeypatch.setattr(sys, "argv", ["serve_vision", "--device", "cpu",
+                                      "--requests", "3", "--precision",
+                                      "fp16"])
+    SV.main()
+    assert "precision=fp16 (granularity=channel)" in capsys.readouterr().out
 
 
 def test_default_device_is_the_card(vit):
