@@ -15,12 +15,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    over fp32, fp16 and int8 blocks with per-block and per-channel scales;
    B=4 x N=197 tokens x 6 heads for attention on fp32 and fp16 operands;
    k=138 for the hard TDM; the soft TDM's first application and a later
-   one with package masses at per-row positions in a token-padded tile),
-   with fixed seeds: error and tolerance per output, kernel/plain/library
-   times (CUDA events, median of 21 runs of 10 calls after warm-up) and
-   each kernel's least possible time on an H100 SXM (published HBM rate,
-   fp32 CUDA-core rate, and fp16 tensor-core rate for the products of two
-   fp16 values).
+   one with package masses at per-row positions in a token-padded tile;
+   causal GQA attention at full-width Minitron-4B, a per-slot prefill of
+   a 512-token bucket and a batch-4 decode against a 572-slot bf16
+   cache), with fixed seeds: error and tolerance per output,
+   kernel/plain/library times (CUDA events, median of 21 runs of 10 calls
+   after warm-up) and each kernel's least possible time on an H100 SXM
+   (published HBM rate, fp32 CUDA-core rate, and the fp16/bf16
+   tensor-core rate for the products of two 16-bit values).
 4. Main path, one serving path after another, each driven with the launch
    counts set to 0 just before a serve and read just after: full-width
    DeiT-Small (12 layers, D=384, 224 px; random weights from a seed)
@@ -43,13 +45,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    oracle alone moves for a one-ulp change of its fp32 input; at fp32 the
    two depths agree and the packed forward agrees with the plain
    masked-dense reference (no kernel) with token pruning off.
+   c. The dense LM: full-width Minitron-4B (32 layers, D=3072, 24 query
+      over 8 KV heads, vocab 256000; random weights from seed 0 drawn on
+      the card, served from a bf16 copy) answering 8 requests (prompts of
+      96, 200, 384 and 500 tokens, twice; 32 new tokens each) through
+      ``ServeEngine`` with 4 slots and a 572-slot cache: continuous at
+      pipeline depths 1 and 2, continuous with KV pruning (keep 0.5 every
+      4 steps) and static waves, each after one warm-up and timed over 2
+      serves. Checks: every request gets 32 tokens; the causal kernel
+      launches once per layer of every prefill and decode call, both of
+      which run; the pruned serve prunes; depths 1 and 2 give identical
+      tokens; the teacher-forced oracle (``forward_lm`` over prompt plus
+      generated tokens, no cache) puts each engine token's logit within
+      0.05 of its position's largest (continuous depth 1 and static);
+      no host wait besides the step events. Prints tokens/s, steps, ms
+      per step and per decode step, and one decode step timed alone.
 5. Profile (``torch.profiler``): each kernel's device time per launch at
    the phase-3 shapes; for one depth-1 serve of each path, the device-busy
    and idle share, the device time by kernel and the engine's host spans
    (plan / stage / dispatch / complete), and the host's self time by
-   operator and CUDA runtime call.
+   operator and CUDA runtime call; the same for one continuous depth-1
+   serve of the LM.
 6. A ``kernels`` JSON line (one entry per C entry point; ``launches``
-   summed over the last timed serve of each path), then the last line
+   summed over the last timed serve of each path, the LM's continuous
+   depth-1 serve for the causal kernel, whose entry lists each of its
+   shapes under ``cases`` and heads with the decode case), then the last
+   line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -66,7 +87,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 on CUDA cores,
-# fp16 operands with fp32 accumulation on tensor cores, HBM3
+# fp16 or bf16 operands with fp32 accumulation on tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -106,9 +127,9 @@ def time_ms(fn, samples: int = 21, calls: int = 10, warmup: int = 5) -> float:
 def bound_ms(n_bytes: float, n_ops: float, n_ops_f16: float = 0.0):
     """The least time of a call on the card: the larger of its bytes over
     the HBM rate and its operations over their peak rate. ``n_ops`` need
-    fp32 (CUDA cores); ``n_ops_f16`` are products of two fp16 values,
-    exact in fp32, so they could run on the fp16 tensor cores with fp32
-    accumulation, alongside the CUDA cores."""
+    fp32 (CUDA cores); ``n_ops_f16`` are products of two fp16 (or two
+    bf16) values, exact in fp32, so they could run on the 16-bit tensor
+    cores with fp32 accumulation, alongside the CUDA cores."""
     t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
     t_ops = max(n_ops / PEAK_FP32_FLOPS, n_ops_f16 / PEAK_FP16_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -240,6 +261,118 @@ def check_flash_attention(torch, dev, half: bool):
                       f"(bool key mask)"),
         bound_ms=bnd, bound_by=by,
         shapes=f"q,k,v[{B},{N},{H},{Dh}] {str(dt)[6:]} kv_len={list(lens)}")
+
+
+# the causal kernel's cases at full-width Minitron-4B (24 query heads over
+# 8 KV heads, Dh 128, a 572-slot cache): a per-slot prefill of a 512-token
+# bucket holding a prompt of 500 or 384 tokens, and a batch-4 decode
+LM_CAUSAL_CASES = (
+    ("prefill kv_start=12", 1, 512, [0], [512], [12]),
+    ("prefill kv_start=128", 1, 512, [0], [512], [128]),
+    ("decode", 4, 1, [129, 289, 419, 570], [130, 290, 420, 571],
+     [32, 56, 0, 12]),
+)
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the largest element
+
+
+def check_flash_attention_causal(torch, dev):
+    """``flash_attention_causal_bf16`` against its plain version at the LM
+    path's shapes (``LM_CAUSAL_CASES``): the output within one bf16 ulp of
+    the largest plain element at rows with a valid key (both round fp32
+    sums taken in another order to bf16; left-pad rows have no key, where
+    the kernel writes 0 and the plain version averages V: checked finite),
+    the decode row's head-mean probabilities within 1e-6 and exactly 0 at
+    masked keys. The entry's headline numbers are the decode case's; each
+    case keeps its own under ``cases``."""
+    import torch.nn.functional as F
+    from repro_torch.configs import MINITRON_4B
+    from repro_torch.kernels.flash_attention import (attention_causal_plain,
+                                                     flash_attention)
+    Hq, KV, Dh = (MINITRON_4B.num_heads, MINITRON_4B.num_kv_heads,
+                  MINITRON_4B.head_dim)
+    S = 572
+    g = torch.Generator().manual_seed(8)
+    cases = []
+    for label, B, Nq, off, lens, starts in LM_CAUSAL_CASES:
+        q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
+        k, v = (torch.randn((B, S, KV, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        off_t, len_t, st_t = (torch.tensor(x, dtype=torch.int32, device=dev)
+                              for x in (off, lens, starts))
+        decode = Nq == 1
+
+        def kern(q=q, k=k, v=v, b=(off_t, len_t, st_t), decode=decode):
+            return flash_attention(q, k, v, causal=True, q_offset=b[0],
+                                   kv_len=b[1], kv_start=b[2],
+                                   collect_scores=decode)
+
+        def plain(q=q, k=k, v=v, b=(off_t, len_t, st_t), decode=decode):
+            o, p = attention_causal_plain(q, k, v, *b, collect_probs=decode)
+            return (o, p.mean(dim=1)) if decode else o
+
+        res, ref = kern(), plain()
+        torch.cuda.synchronize()
+        o, o_ref = (res[0], ref[0]) if decode else (res, ref)
+        require(o.dtype == torch.bfloat16
+                and bool(torch.isfinite(o.float()).all()),
+                f"flash_attention_causal ({label}): output {o.dtype} or "
+                f"not finite")
+        # keys row i of batch row b sees: [start, min(len, off + i + 1))
+        seen = [[max(0, min(lens[b], off[b] + i + 1) - starts[b])
+                 for i in range(Nq)] for b in range(B)]
+        real = torch.tensor(seen, device=dev) > 0
+        d = (o.float() - o_ref.float()).abs().amax(dim=(2, 3))
+        err_o = d[real].max().item()
+        tol_o = BF16_ULP * o_ref.float()[real].abs().max().item()
+        errs = [(f"o ({label})", err_o, tol_o,
+                 "one bf16 ulp at max|plain|")]
+        if decode:
+            errs.append((f"probs ({label})",
+                         (res[1] - ref[1]).abs().max().item(), 1e-6, ""))
+            keys = torch.arange(S, device=dev)
+            masked = (keys < st_t[:, None]) | (keys >= len_t[:, None])
+            require(bool((res[1][masked] == 0).all()),
+                    "flash_attention_causal: nonzero probability at a "
+                    "masked key")
+        # the work these inputs need: every (row, head, valid key) pair
+        # takes 2 Dh operations for Q.K (bf16 x bf16, exact in fp32: the
+        # bf16 tensor-core rate), 2 Dh for P.V (fp32 P) and ~4 for the
+        # softmax; bytes: q and o once, the K/V window [start, len) once,
+        # the decode probabilities once
+        pairs = Hq * sum(map(sum, seen))
+        window = sum(lens[b] - starts[b] for b in range(B))
+        n_bytes = (2 * 2 * q.numel() + 2 * 2 * window * KV * Dh + 12 * B
+                   + (4 * B * Hq * S if decode else 0))
+        bnd, by = bound_ms(n_bytes, (2 * Dh + 4) * pairs, 2 * Dh * pairs)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        pos = off_t[:, None] + torch.arange(Nq, device=dev)
+        keys = torch.arange(S, device=dev)
+        amask = ((keys >= st_t[:, None, None]) & (keys < len_t[:, None, None])
+                 & (keys <= pos[:, :, None]))[:, None]
+
+        def library(qh=qh, kh=kh, vh=vh, amask=amask):
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  attn_mask=amask,
+                                                  enable_gqa=True)
+
+        cases.append(dict(
+            label=label, errs=errs, fn=kern, ms=time_ms(kern),
+            plain_ms=time_ms(plain), library_ms=time_ms(library),
+            bound_ms=bnd, bound_by=by,
+            shapes=f"q[{B},{Nq},{Hq},{Dh}] k,v[{B},{S},{KV},{Dh}] bf16 "
+                   f"q_offset={off if B > 1 else off[0]} kv_len={lens} "
+                   f"kv_start={starts}"))
+    head = cases[-1]
+    return dict(
+        name="flash_attention_causal_bf16", source="flash_attention.cu",
+        errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        library_ms=head["library_ms"],
+        library_call="F.scaled_dot_product_attention(enable_gqa=True) on "
+                     "bf16 (bool causal window mask)",
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cases),
+        cases=cases)
 
 
 def _tdm_scores(torch, dev, g, B, N, n_valid):
@@ -581,6 +714,225 @@ def main_path(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4, LM: full-width Minitron-4B through ServeEngine
+# ---------------------------------------------------------------------------
+LM_PROMPTS = (96, 200, 384, 500)  # prompt lengths, twice over: 8 requests
+LM_MAX_NEW, LM_MAX_BATCH, LM_MAX_LEN = 32, 4, 572
+LM_REPEATS = 2    # timed serves of each LM path, in turns after warm-ups
+# (label, continuous, EngineConfig overrides); the teacher-forced oracle
+# holds the unpruned serves (pruning changes the function it computes)
+LM_SERVES = (
+    ("continuous depth 1", True, {}),
+    ("continuous depth 2", True, dict(pipeline_depth=2)),
+    ("continuous kv-prune", True, dict(kv_prune_keep=0.5,
+                                       kv_prune_interval=4)),
+    ("static waves", False, {}),
+)
+# the engine's token against the offline forward (no cache, B=1), per
+# generated token: the largest logit at that position minus the logit of
+# the engine's token. The engine batches 4 rows and reads a KV cache where
+# the forward runs one 600-token sequence, so cuBLAS picks other bf16
+# GEMMs and a rounding can flip; a wrong cache row, mask or RoPE phase
+# would leave the engine's tokens near random (gaps of ~0.7 at this
+# model's logit scale). 0.05 is the CPU bound of the port against the
+# reference at bf16 (tests/test_torch_lm.py).
+LM_ORACLE_TOL = 0.05
+LM_KEYS = ("runner_prefill_calls", "runner_prefill_slot_calls",
+           "runner_decode_calls", "prune_events", "pipeline_steps",
+           "pipeline_block_s", "admissions")
+
+
+def lm_requests(cfg):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=LM_MAX_NEW)
+            for i, n in enumerate(LM_PROMPTS * 2)]
+
+
+def serve_lm(torch, backend, eng, continuous):
+    """Serve the 8-request stream once on ``eng``, launch counts set to 0
+    just before and read just after, host waits besides the step events
+    counted by PyTorch's sync debug mode. Returns (requests, outputs,
+    wall seconds, launch counts, this serve's deltas of ``LM_KEYS`` plus
+    ``host_syncs``)."""
+    reqs = lm_requests(eng.cfg)
+    before = eng.stats()
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = eng.serve(reqs, continuous=continuous)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = backend.launches()
+    after = eng.stats()
+    st = {k: after[k] - before[k] for k in LM_KEYS}
+    st["host_syncs"] = sum("synchronizing CUDA operation" in str(w.message)
+                           for w in caught)
+    return reqs, out, dt, counts, st
+
+
+def check_lm_oracle(torch, cfg, params, reqs, dev, label):
+    """The teacher-forced oracle: for each request, ``forward_lm`` over the
+    prompt plus the engine's tokens (no cache, B=1, ``logits_for="all"``);
+    each engine token's logit within ``LM_ORACLE_TOL`` of its position's
+    largest. Prints the share of exact argmax matches."""
+    import numpy as np
+    from repro_torch.models import model as M
+    worst, exact, n = 0.0, 0, 0
+    for r in reqs:
+        seq = np.concatenate([r.prompt, r.generated[:-1]]).astype(np.int64)
+        logits = M.forward_lm(cfg, params, torch.from_numpy(seq)[None].to(
+            dev), logits_for="all").logits[0, len(r.prompt) - 1:]
+        gen = torch.tensor(r.generated, device=dev)
+        gap = logits.max(dim=1).values - logits.gather(1, gen[:, None])[:, 0]
+        worst = max(worst, gap.max().item())
+        exact += int((gap == 0).sum().item())
+        n += len(r.generated)
+    require(worst <= LM_ORACLE_TOL,
+            f"{label}: an engine token's oracle logit lies {worst:.4g} below "
+            f"its position's largest (tolerance {LM_ORACLE_TOL})")
+    print(f"{label}: teacher-forced oracle: {exact}/{n} tokens the exact "
+          f"argmax ({exact / n:.3f}), largest gap {worst:.4g} (tolerance "
+          f"{LM_ORACLE_TOL})", flush=True)
+    return worst, exact / n
+
+
+def lm_engine(cfg, params, dev, tracer=None, **kw):
+    from repro_torch.serving import EngineConfig, ServeEngine
+    return ServeEngine(cfg, params, EngineConfig(
+        max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN, **kw), tracer=tracer,
+        device=dev)
+
+
+def lm_path(torch, dev):
+    """Full-width Minitron-4B (random weights from seed 0, drawn on the
+    card; the serving copy holds its matrices in bf16) serving 8 requests
+    on each of ``LM_SERVES``. Returns ({"lm": launch counts of the last
+    timed depth-1 serve}, {serve: host syncs per serve}, (cfg, params,
+    {serve: median wall})."""
+    from repro_torch.configs import MINITRON_4B
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as M
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.runner import serving_params
+    cfg = MINITRON_4B
+    t0 = time.perf_counter()
+    params = serving_params(cfg, M.init_params(
+        cfg, torch.Generator(dev).manual_seed(0), device=dev))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"lm: {cfg.name} at full width and depth ({cfg.num_layers} layers, "
+          f"D={cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV "
+          f"heads, Dh={cfg.head_dim}, vocab {cfg.vocab_size}), "
+          f"{n_params / 1e9:.3f} B params, bf16 serving copy made in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    # every engine warmed up first, then the timed serves in turns, so the
+    # paths share the host's load alike
+    engines, tracers, syncs, walls, last = {}, {}, {}, {}, {}
+    for label, continuous, kw in LM_SERVES:
+        tracers[label] = Tracer()
+        engines[label] = lm_engine(cfg, params, dev, tracer=tracers[label],
+                                   **kw)
+        syncs[label] = [serve_lm(torch, backend, engines[label],
+                                 continuous)[4]["host_syncs"]]
+        walls[label] = []
+    for _ in range(LM_REPEATS):
+        for label, continuous, kw in LM_SERVES:
+            n_warm = len(tracers[label].span_log)
+            reqs, out, dt, counts, st = serve_lm(torch, backend,
+                                                 engines[label], continuous)
+            walls[label].append(dt)
+            syncs[label].append(st["host_syncs"])
+            require(sorted(out) == list(range(len(reqs)))
+                    and all(len(t) == LM_MAX_NEW for t in out.values()),
+                    f"lm {label}: not every request got {LM_MAX_NEW} tokens")
+            calls = (st["runner_prefill_calls"]
+                     + st["runner_prefill_slot_calls"])
+            require(calls > 0 and st["runner_decode_calls"] > 0,
+                    f"lm {label}: prefill or decode never ran: {st}")
+            n_k = counts["flash_attention_causal_bf16"]
+            want = cfg.num_layers * (calls + st["runner_decode_calls"])
+            require(n_k == want,
+                    f"lm {label}: flash_attention_causal_bf16 launched "
+                    f"{n_k} times, not once per layer of every prefill and "
+                    f"decode call ({want})")
+            if kw.get("kv_prune_keep", 1.0) < 1.0:
+                require(st["prune_events"] >= 1,
+                        f"lm {label}: no KV prune fired")
+            last[label] = (reqs, out, counts, st, n_warm)
+    walls_by, tokens = {}, {}
+    for label, continuous, _ in LM_SERVES:
+        reqs, out, counts, st, n_warm = last[label]
+        wall = statistics.median(walls[label])
+        calls = st["runner_prefill_calls"] + st["runner_prefill_slot_calls"]
+        steps = (st["pipeline_steps"] if continuous
+                 else calls + st["runner_decode_calls"])
+        dec = [sp for sp in tracers[label].span_log[n_warm:]
+               if sp["attrs"].get("label") == "lm-decode"]
+        dec_ms = (sum(sp["dur_ms"] for sp in dec) / st["runner_decode_calls"]
+                  if dec else float("nan"))
+        n_tok = sum(len(t) for t in out.values())
+        print(f"lm {label}: {len(out)} requests x {LM_MAX_NEW} tokens, "
+              f"{steps} steps ({calls} prefill calls, "
+              f"{st['runner_decode_calls']} decode steps); wall over "
+              f"{len(walls[label])} serves "
+              f"{[round(w, 4) for w in walls[label]]} median {wall:.4f} s: "
+              f"{n_tok / wall:.2f} tokens/s, "
+              f"{wall / steps * 1e3:.3f} ms/step; decode step dispatch + "
+              f"completion {dec_ms:.3f} ms (pipeline spans; a step latency "
+              f"at depth 1 only), block on step events "
+              f"{st['pipeline_block_s'] * 1e3:.2f} ms in all; prune events "
+              f"{st['prune_events']}; kernel launches "
+              f"{counts['flash_attention_causal_bf16']}; host syncs besides "
+              f"the step events per serve (warm-up first)={syncs[label]}",
+              flush=True)
+        walls_by[label] = wall
+        tokens[label] = (reqs, out)
+    require(tokens["continuous depth 1"][1] == tokens["continuous depth 2"][1],
+            "lm: depth 1 and depth 2 gave different tokens")
+    print("lm: depth 1 and depth 2 tokens identical (8/8 requests)",
+          flush=True)
+    for label in ("continuous depth 1", "static waves"):
+        check_lm_oracle(torch, cfg, params, tokens[label][0], dev,
+                        f"lm {label}")
+    # one batch-4 decode step on the card, timed alone: every live slot at
+    # the decode check's lengths
+    from repro_torch.models import steps as ST
+    eng = lm_engine(cfg, params, dev)
+    caches = ST.init_caches(cfg, LM_MAX_BATCH, LM_MAX_LEN, device=dev)
+    lens = torch.tensor(LM_CAUSAL_CASES[-1][4], dtype=torch.int32,
+                        device=dev) - 1
+    caches = [c._replace(length=lens.clone()) for c in caches]
+    starts = torch.tensor(LM_CAUSAL_CASES[-1][5], dtype=torch.int32,
+                          device=dev)
+    toks = torch.zeros((LM_MAX_BATCH,), dtype=torch.int64, device=dev)
+    step_ms = time_ms(lambda: eng.runner.decode(toks, caches, starts),
+                      samples=5, calls=5, warmup=2)
+    print(f"lm: one decode step alone (B=4, 572-slot cache, windows of "
+          f"{LM_CAUSAL_CASES[-1][4]} keys): {step_ms:.3f} ms", flush=True)
+    return ({"lm": last["continuous depth 1"][2]}, syncs,
+            (cfg, params, walls_by))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: device time by kernel, busy share, host spans (torch.profiler)
 # ---------------------------------------------------------------------------
 def kernel_symbol(entry_point: str) -> str:
@@ -610,33 +962,22 @@ def _host_rows(prof):
     return sorted(rows, key=lambda r: -r[2])
 
 
-def profile_serve(torch, dev, cfg, params, scores, wall, label, soft=False,
-                  precision="fp32", granularity="channel"):
-    """For one depth-1 serve of a path: device busy time by kernel, idle
-    share against the profiled serve's wall and against the unprofiled
-    median (``wall``: the profiler slows the host, not the card), the
-    engine's host spans and the host's self time."""
-    from torch.profiler import ProfilerActivity, profile
+def report_profile(prof, dt, wall, tracer, n_warm, label, what):
+    """Print one profiled serve: device busy time and idle share against
+    the profiled wall ``dt`` and the unprofiled median ``wall`` (the
+    profiler slows the host, not the card), device time per kernel entry
+    point, the engine's host spans after the first ``n_warm``, and the
+    largest device and host entries."""
     from repro_torch.kernels import backend
-    from repro_torch.obs import Tracer
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    tracer = Tracer()
-    eng = make_engine(cfg, params, scores, 1, dev, tracer=tracer,
-                      precision=precision, granularity=granularity)
-    serve_stream(torch, backend, eng, soft=soft)  # warm-up
-    n_warm = len(tracer.span_log)
-    with profile(activities=acts) as prof:
-        _, _, dt, counts, pipe = serve_stream(torch, backend, eng, soft=soft)
     wall_us = dt * 1e6
     rows = _device_rows(prof)
     busy_us = sum(r[2] for r in rows)
     spans = {}
     for sp in tracer.span_log[n_warm:]:
         spans[sp["name"]] = spans.get(sp["name"], 0.0) + sp["dur_ms"]
-    print(f"profile {label} (depth 1, 16 images, {pipe['steps']} steps, "
-          f"{sum(r[1] for r in rows)} device launches): wall "
-          f"{wall_us:.0f} us profiled / {wall * 1e6:.0f} us unprofiled "
-          f"median, device busy {busy_us:.0f} us, idle share "
+    print(f"profile {label} ({what}, {sum(r[1] for r in rows)} device "
+          f"launches): wall {wall_us:.0f} us profiled / {wall * 1e6:.0f} us "
+          f"unprofiled median, device busy {busy_us:.0f} us, idle share "
           f"{1.0 - busy_us / wall_us:.3f} profiled / "
           f"{1.0 - busy_us / (wall * 1e6):.3f} unprofiled; host spans (ms) "
           + json.dumps({k: round(v, 3) for k, v in spans.items()}),
@@ -652,26 +993,66 @@ def profile_serve(torch, dev, cfg, params, scores, wall, label, soft=False,
         print(f"  host   {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
 
 
+def profile_serve(torch, dev, cfg, params, scores, wall, label, soft=False,
+                  precision="fp32", granularity="channel"):
+    """For one depth-1 serve of a vision path: ``report_profile``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import backend
+    from repro_torch.obs import Tracer
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    tracer = Tracer()
+    eng = make_engine(cfg, params, scores, 1, dev, tracer=tracer,
+                      precision=precision, granularity=granularity)
+    serve_stream(torch, backend, eng, soft=soft)  # warm-up
+    n_warm = len(tracer.span_log)
+    with profile(activities=acts) as prof:
+        _, _, dt, counts, pipe = serve_stream(torch, backend, eng, soft=soft)
+    report_profile(prof, dt, wall, tracer, n_warm, label,
+                   f"depth 1, 16 images, {pipe['steps']} steps")
+
+
+def profile_lm(torch, dev, cfg, params, walls):
+    """For one depth-1 continuous serve of the LM: ``report_profile``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import backend
+    from repro_torch.obs import Tracer
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    tracer = Tracer()
+    eng = lm_engine(cfg, params, dev, tracer=tracer)
+    serve_lm(torch, backend, eng, True)  # warm-up
+    n_warm = len(tracer.span_log)
+    with profile(activities=acts) as prof:
+        _, _, dt, _, st = serve_lm(torch, backend, eng, True)
+    report_profile(prof, dt, walls["continuous depth 1"], tracer, n_warm,
+                   "lm continuous", f"depth 1, 8 requests x {LM_MAX_NEW} "
+                   f"tokens, {st['pipeline_steps']} steps")
+
+
 def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
     """Device time per launch of each kernel entry point at the phase-3
     shapes (stored as ``c["device_ms"]``); then one serve of each path
     (``profile_serve``)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for c in checks:
-        with profile(activities=acts) as prof:
-            for _ in range(20):
-                c["fn"]()
-            torch.cuda.synchronize()
-        sym = kernel_symbol(c["name"])
-        mine = [r for r in _device_rows(prof) if sym in r[0]]
-        require(bool(mine), f"profiler saw no {sym} launch")
-        calls = sum(r[1] for r in mine)
-        us = sum(r[2] for r in mine)
-        c["device_ms"] = us / calls / 1e3
-        print(f"profile {c['name']}: device {us / calls:.2f} us/launch "
-              f"({calls} launches); wrapper {c['ms'] * 1e3:.2f} us/call",
-              flush=True)
+    for check in checks:
+        for c in check.get("cases", [check]):
+            with profile(activities=acts) as prof:
+                for _ in range(20):
+                    c["fn"]()
+                torch.cuda.synchronize()
+            sym = kernel_symbol(check["name"])
+            mine = [r for r in _device_rows(prof) if sym in r[0]]
+            require(bool(mine), f"profiler saw no {sym} launch")
+            calls = sum(r[1] for r in mine)
+            us = sum(r[2] for r in mine)
+            c["device_ms"] = us / calls / 1e3
+            c["max_abs_err"] = c["err"]
+            print(f"profile {check['name']}"
+                  + (f" ({c['label']})" if "label" in c else "")
+                  + f": device {us / calls:.2f} us/launch ({calls} "
+                  f"launches); wrapper {c['ms'] * 1e3:.2f} us/call",
+                  flush=True)
+        check["device_ms"] = c["device_ms"]  # the last case's: the headline
     profile_serve(torch, dev, cfg, params, scores, walls["fp32 depth 1"],
                   "main path fp32")
     for path, precision, granularity in TIERS:
@@ -718,26 +1099,34 @@ def main() -> int:
     checks = [*check_sbmm(torch, dev),
               check_flash_attention(torch, dev, half=False),
               check_flash_attention(torch, dev, half=True),
-              check_token_drop(torch, dev), check_token_package(torch, dev)]
+              check_token_drop(torch, dev), check_token_package(torch, dev),
+              check_flash_attention_causal(torch, dev)]
     require(sorted(c["name"] for c in checks) == sorted(backend.ENTRY_POINTS),
             "a kernel entry point has no check")
-    for c in checks:
-        c["err"] = max(e[1] for e in c["errs"])
-        errs = "; ".join(f"{out}: max_abs_err={err:.3g} <= {tol:.3g}"
-                         + (f" ({rule})" if rule else "")
-                         for out, err, tol, rule in c["errs"])
-        print(f"kernel {c['name']}: {c['shapes']} {errs} "
-              f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-              f"library_ms={c['library_ms']} ({c['library_call']}) "
-              f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']})", flush=True)
-        require(all(err <= tol for _, err, tol, _ in c["errs"]),
-                f"kernel {c['name']} disagrees with its plain version")
+    for check in checks:
+        check["err"] = max(e[1] for e in check["errs"])
+        for c in check.get("cases", [check]):
+            c["err"] = max(e[1] for e in c["errs"])
+            errs = "; ".join(f"{out}: max_abs_err={err:.3g} <= {tol:.3g}"
+                             + (f" ({rule})" if rule else "")
+                             for out, err, tol, rule in c["errs"])
+            print(f"kernel {check['name']}: {c['shapes']} {errs} "
+                  f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
+                  f"library_ms={c['library_ms']} ({check['library_call']}) "
+                  f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']})",
+                  flush=True)
+        require(all(err <= tol for _, err, tol, _ in check["errs"]),
+                f"kernel {check['name']} disagrees with its plain version")
 
     path_counts, syncs, model = main_path(torch, dev)
+    lm_counts, lm_syncs, lm_model = lm_path(torch, dev)
+    path_counts.update(lm_counts)
+    syncs.update({f"lm {k}": v for k, v in lm_syncs.items()})
     profile_run(torch, dev, checks, *model)
+    profile_lm(torch, dev, *lm_model)
     for key, n in syncs.items():
         require(not any(n), f"{key}: the engine waited on the card outside "
-                            f"the pipeline's step events: {n}")
+                            f"its step events: {n}")
 
     launches = {name: sum(c[name] for c in path_counts.values())
                 for name in backend.ENTRY_POINTS}
@@ -749,7 +1138,11 @@ def main() -> int:
          "ms": c["ms"], "kernel_ms": c["ms"], "device_ms": c["device_ms"],
          "plain_ms": c["plain_ms"],
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-         "library_ms": c["library_ms"]} for c in checks]}), flush=True)
+         "library_ms": c["library_ms"],
+         **({"cases": [{k: case[k] for k in (
+             "label", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")} for case in c["cases"]]}
+            if "cases" in c else {})} for c in checks]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,9 +4,12 @@ from __future__ import annotations
 from typing import Dict
 
 from .base import ModelConfig, PruningConfig
-from .archs import DEIT_SMALL
+from .archs import (COMMAND_R_PLUS_104B, DEIT_SMALL, MINITRON_4B, QWEN3_14B,
+                    STABLELM_1_6B)
 
-_REGISTRY: Dict[str, ModelConfig] = {DEIT_SMALL.name: DEIT_SMALL}
+_REGISTRY: Dict[str, ModelConfig] = {
+    c.name: c for c in (DEIT_SMALL, COMMAND_R_PLUS_104B, QWEN3_14B,
+                        MINITRON_4B, STABLELM_1_6B)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -17,4 +20,6 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
-__all__ = ["ModelConfig", "PruningConfig", "get_config", "DEIT_SMALL"]
+__all__ = ["ModelConfig", "PruningConfig", "get_config", "DEIT_SMALL",
+           "COMMAND_R_PLUS_104B", "QWEN3_14B", "MINITRON_4B",
+           "STABLELM_1_6B"]

@@ -1,8 +1,14 @@
-"""The paper's own model, DeiT-Small — the one architecture this package
-serves. The configuration is identical to the reference package's."""
+"""The architectures this package serves: the paper's own DeiT-Small and
+the four dense LMs (public-literature configs, sources inline). Each
+configuration is identical to the reference package's."""
 from __future__ import annotations
 
 from .base import ModelConfig, PruningConfig
+
+# Default pruning posture for LM archs: the paper's technique is available as
+# a first-class switch; configs ship with it OFF (r_b=r_t=1.0) so the faithful
+# dense baseline is the default, and benchmarks/examples flip it on.
+_NO_PRUNE = PruningConfig()
 
 # --------------------------------------------------------------------------
 # The paper's own model: DeiT-Small (12L, D=384, 6 heads, ImageNet-1k).
@@ -26,4 +32,68 @@ DEIT_SMALL = ModelConfig(
         lambda_reg=1e-4, distill_temperature=4.0,
     ),
     skip_shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+)
+
+# --------------------------------------------------------------------------
+# Dense LM family
+# --------------------------------------------------------------------------
+# [hf:CohereForAI/c4ai-command-r-v01; unverified]
+COMMAND_R_PLUS_104B = ModelConfig(
+    name="command-r-plus-104b",
+    family="dense",
+    num_layers=64,
+    d_model=12288,
+    num_heads=96,
+    num_kv_heads=8,
+    d_ff=33792,
+    vocab_size=256000,
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),  # full attention: O(N^2) at 524k — skipped
+)
+
+# [hf:Qwen/Qwen3-8B; hf] — qk_norm, GQA
+QWEN3_14B = ModelConfig(
+    name="qwen3-14b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    d_ff=17408,
+    vocab_size=151936,
+    qk_norm=True,
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),
+)
+
+# [arXiv:2407.14679; hf] — pruned nemotron
+MINITRON_4B = ModelConfig(
+    name="minitron-4b",
+    family="dense",
+    num_layers=32,
+    d_model=3072,
+    num_heads=24,
+    num_kv_heads=8,
+    d_ff=9216,
+    vocab_size=256000,
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),
+)
+
+# [hf:stabilityai/stablelm-2-1_6b; unverified] — MHA (kv=32)
+STABLELM_1_6B = ModelConfig(
+    name="stablelm-1.6b",
+    family="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=5632,
+    vocab_size=100352,
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),
 )

@@ -10,13 +10,14 @@ attributes (``blocks``, ``header``, ``counts``, ``col_perm``, ``shape``,
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.quant import QuantizedPackedWeight
+from repro_torch.models.attention import KVCache
 
 
 def params_from_jax(np_tree, device: "str | torch.device" = "cpu"):
@@ -27,6 +28,44 @@ def params_from_jax(np_tree, device: "str | torch.device" = "cpu"):
     if isinstance(np_tree, (list, tuple)):
         return type(np_tree)(params_from_jax(v, device) for v in np_tree)
     return torch.as_tensor(np.array(np_tree), device=device)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree whose leaves are stacked on a leading axis."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def lm_params_from_jax(np_tree, device: "str | torch.device" = "cpu"
+                       ) -> Dict:
+    """A reference dense-LM param tree, whose ``layers`` are stacked arrays
+    (``[L, ...]``), -> this package's layout: ``layers`` as a list of
+    per-layer dicts, every leaf a torch tensor on ``device``."""
+    tree = dict(np_tree)
+    stacked = tree.pop("layers")
+    n = len(np.asarray(stacked["ln1"]))
+    out = params_from_jax(tree, device)
+    out["layers"] = [params_from_jax(_layer(stacked, i), device)
+                     for i in range(n)]
+    return out
+
+
+def kv_caches_from_jax(cache, device: "str | torch.device" = "cpu"
+                       ) -> List[KVCache]:
+    """A reference stacked ``KVCache`` (leaves ``[L, B, ...]``) -> one
+    ``KVCache`` per layer on ``device`` (dtypes kept; bf16 arrays pass
+    through fp32, which holds them exactly)."""
+    def t(a, i):
+        a = np.asarray(a)[i]
+        if a.dtype.name == "bfloat16":
+            return torch.as_tensor(a.astype(np.float32),
+                                   device=device).to(torch.bfloat16)
+        return torch.as_tensor(np.array(a), device=device)
+    n = np.asarray(cache.length).shape[0]
+    return [KVCache(*(t(a, i) for a in (cache.k, cache.v, cache.length,
+                                        cache.attn_mass)))
+            for i in range(n)]
 
 
 def packed_from_jax(pw, device: "str | torch.device" = "cpu") -> PackedWeight:

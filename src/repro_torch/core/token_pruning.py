@@ -14,6 +14,9 @@ never kept; ``torch.topk`` on the card makes no such promise.
 
 The soft variant (:func:`tdm_soft`) keeps one persistent package token
 that carries the dropped tokens' score mass across TDM layers.
+
+Beyond the paper, the same scoring prunes the LMs' KV caches in decode
+(:func:`kv_prune_scores`, :func:`select_kv_keep`, :func:`compact_kv_cache`).
 """
 from __future__ import annotations
 
@@ -149,3 +152,58 @@ def tdm_soft(z: torch.Tensor, scores: torch.Tensor, r_t: float | None = None,
     parts = [z[:, :1, :]] if has_cls else []
     parts += [kept, package.to(z.dtype)[:, None, :]]
     return torch.cat(parts, dim=1), w.sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper: dynamic KV-cache pruning for decode (SpAtten-style adaptation
+# of the paper's token scoring to autoregressive serving).
+# ---------------------------------------------------------------------------
+def kv_prune_scores(accum_attn: torch.Tensor, cache_len,
+                    start=None) -> torch.Tensor:
+    """``accum_attn [B, N_cache]`` is attention mass accumulated over decode
+    steps and heads. Returns the same scores, masked to ``-inf`` outside
+    the valid cache window ``[start, cache_len)`` — both may be scalar or
+    per-slot ``[B]``; ``start`` masks left-padding so pad slots never
+    compete with real tokens."""
+    n = accum_attn.shape[-1]
+    pos = torch.arange(n, device=accum_attn.device)
+    valid = pos < torch.as_tensor(cache_len,
+                                  device=accum_attn.device)[..., None]
+    if start is not None:
+        valid = valid & (pos >= torch.as_tensor(
+            start, device=accum_attn.device)[..., None])
+    return torch.where(valid, accum_attn, float("-inf"))
+
+
+def select_kv_keep(accum_attn: torch.Tensor, keep: int,
+                   invalid_first: bool = False) -> torch.Tensor:
+    """Indices of the ``keep`` highest-mass cached tokens, ties toward the
+    lower index (as ``jax.lax.top_k``: ties are certain right after a
+    prune, which resets the mass to zeros).
+
+    ``keep`` is clamped to the score width, and picks whose score is
+    ``-inf`` (slots masked out by :func:`kv_prune_scores`) are grouped away
+    from the valid picks: valid indices stay in temporal order and invalid
+    ones are packed at the back — or at the front with
+    ``invalid_first=True``, so a caller can express the garbage prefix as
+    a per-slot ``start`` offset."""
+    n = accum_attn.shape[-1]
+    keep = max(1, min(keep, n))
+    vals, idx = stable_topk(accum_attn, keep)
+    invalid = torch.isneginf(vals)
+    if invalid_first:
+        key = torch.where(invalid, idx, idx + n)
+    else:
+        key = torch.where(invalid, idx + n, idx)
+    return torch.sort(key, dim=-1).values % n
+
+
+def compact_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     keep_idx: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather kept cache entries to the front. Shapes: ``[B, N, H, Dh]``;
+    keep_idx ``[B, keep]``."""
+    def gather(c):
+        idx = keep_idx[:, :, None, None].expand(-1, -1, *c.shape[2:])
+        return torch.gather(c, 1, idx)
+    return gather(k_cache), gather(v_cache)

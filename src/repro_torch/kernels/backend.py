@@ -46,13 +46,15 @@ P, I = ctypes.c_void_p, ctypes.c_int
 _SBMM = [P, P, P, P, I, I, I, I, P]
 _SBMM_QUANT = [P, P, P, P, P, I, I, I, I, P]
 _FLASH = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
+_FLASH_CAUSAL = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
 # C entry points and their signatures, by library (csrc/<library>.cu)
 _ENTRY_POINTS = {
     "sbmm": {"sbmm_f32": _SBMM, "sbmm_f16w": _SBMM},
     "sbmm_quant": {"sbmm_i8_block": _SBMM_QUANT,
                    "sbmm_i8_channel": _SBMM_QUANT},
     "flash_attention": {"flash_attention_f32": _FLASH,
-                        "flash_attention_f16": _FLASH},
+                        "flash_attention_f16": _FLASH,
+                        "flash_attention_causal_bf16": _FLASH_CAUSAL},
     "token_drop": {"token_drop_f32": [P, P, P, P, I, I, I, I, P]},
     "token_package": {"token_package_f32": [P, P, P, P, P, I, I, I, I, P]},
 }
@@ -70,9 +72,12 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # ---------------------------------------------------------------------------
 def set_numerics() -> None:
     """The fp32 tier never runs on TF32 tensor cores: cuBLAS matmuls and
-    cuDNN convolutions both stay full fp32."""
+    cuDNN convolutions both stay full fp32. bf16 matmuls (the LMs'
+    projections) accumulate in fp32 without reduced-precision split-K
+    reductions, as XLA's do."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:

@@ -1,4 +1,5 @@
-from repro_torch.kernels.flash_attention.ops import (attention_plain,
+from repro_torch.kernels.flash_attention.ops import (attention_causal_plain,
+                                                     attention_plain,
                                                      flash_attention)
 
-__all__ = ["flash_attention", "attention_plain"]
+__all__ = ["flash_attention", "attention_plain", "attention_causal_plain"]

@@ -1,15 +1,18 @@
-"""The ViT (the paper's model): params, patchify and the dense oracle
-forward — the ViT half of the reference package's ``models/model.py``.
+"""The models: the ViT (the paper's model) and the dense LM family —
+params, patchify, the ViT's dense oracle forward and the LM forward; the
+port of the reference package's ``models/model.py`` for those families.
 
-Params are a nested dict with the reference's layout (``layers`` is a
-list of per-layer dicts, weights ``[in, out]``), so trees converted from
-the reference package (``repro_torch.convert``) drop in unchanged.
-:func:`forward_vit` runs plain PyTorch only — no kernel — and is the
-masked-dense oracle the packed path is held against.
+Params are a nested dict with the reference's layout, except that
+``layers`` is a list of per-layer dicts where the reference stacks them
+on a leading axis (weights ``[in, out]``); ``convert`` turns the
+reference's trees into this layout. :func:`forward_vit` runs plain
+PyTorch only — no kernel — and is the masked-dense oracle the packed path
+is held against. :func:`forward_lm` runs its attention through the
+``flash_attention`` kernel wrapper (the kernel for CUDA tensors).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -21,36 +24,65 @@ from repro_torch.models import layers as L
 
 
 class Output(NamedTuple):
-    logits: torch.Tensor
+    logits: Optional[torch.Tensor]
+    caches: Any = None    # LM prefill/decode: one KVCache per layer
+    hidden: Optional[torch.Tensor] = None  # LM: the final-norm hidden states
 
 
-def _attn_params(g: torch.Generator, cfg: ModelConfig) -> Dict:
-    H, Dh, D = cfg.num_heads, cfg.head_dim, cfg.d_model
-    p = {"wq": L.dense_init(g, D, H * Dh), "wk": L.dense_init(g, D, H * Dh),
-         "wv": L.dense_init(g, D, H * Dh), "wo": L.dense_init(g, H * Dh, D)}
+def _attn_params(g: torch.Generator, cfg: ModelConfig,
+                 dtype=torch.float32) -> Dict:
+    H, KV, Dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    dev = g.device
+    p = {"wq": L.dense_init(g, D, H * Dh, dtype),
+         "wk": L.dense_init(g, D, KV * Dh, dtype),
+         "wv": L.dense_init(g, D, KV * Dh, dtype),
+         "wo": L.dense_init(g, H * Dh, D, dtype)}
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=dev)
     if cfg.use_bias:
-        p.update(bq=torch.zeros(H * Dh), bk=torch.zeros(H * Dh),
-                 bv=torch.zeros(H * Dh), bo=torch.zeros(D))
+        p.update(bq=zeros(H * Dh), bk=zeros(KV * Dh), bv=zeros(KV * Dh),
+                 bo=zeros(D))
+    if cfg.qk_norm:
+        p.update(q_norm=torch.ones(Dh, dtype=dtype, device=dev),
+                 k_norm=torch.ones(Dh, dtype=dtype, device=dev))
     return p
 
 
-def _mlp_params(g: torch.Generator, cfg: ModelConfig) -> Dict:
+def _mlp_params(g: torch.Generator, cfg: ModelConfig, glu: bool = False,
+                dtype=torch.float32) -> Dict:
     D, F = cfg.d_model, cfg.d_ff
-    p = {"wi": L.dense_init(g, D, F), "wo": L.dense_init(g, F, D)}
+    if glu:
+        return {"wg": L.dense_init(g, D, F, dtype),
+                "wi": L.dense_init(g, D, F, dtype),
+                "wo": L.dense_init(g, F, D, dtype)}
+    p = {"wi": L.dense_init(g, D, F, dtype),
+         "wo": L.dense_init(g, F, D, dtype)}
     if cfg.use_bias:
-        p.update(bi=torch.zeros(F), bo=torch.zeros(D))
+        p.update(bi=torch.zeros(F, dtype=dtype, device=g.device),
+                 bo=torch.zeros(D, dtype=dtype, device=g.device))
     return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: "str | torch.device" = "cuda") -> Dict:
-    """Random fp32 ViT params drawn from ``generator`` (on the CPU, so a
-    seed gives the same weights on every device), placed on ``device``.
-    The init rules match the reference's; the numbers differ (another
-    generator) — tests convert the reference's params instead."""
+    """Random params drawn from ``generator`` and placed on ``device``. The
+    init rules match the reference's; the numbers differ (another
+    generator) — tests convert the reference's params instead.
+
+    The ViT's are fp32, drawn on the CPU so a seed gives the same weights
+    on every device. The dense LM's are in ``cfg.param_dtype`` and drawn
+    on the generator's device: a generator on the card makes full-width
+    weights there without a pass through host memory."""
+    if cfg.fuse_qkv:
+        raise NotImplementedError(
+            "fuse_qkv (a training perf lever of the reference's "
+            "launch/perf.py) is not ported; the port keeps wq, wk, wv apart")
+    if cfg.family == "dense":
+        return _init_dense(cfg, generator, resolve_device(device))
     if cfg.family != "vit":
         raise NotImplementedError(
-            f"family {cfg.family!r}: this package serves the ViT only")
+            f"family {cfg.family!r}: this package serves the ViT and the "
+            f"dense LMs (MoE, SSM, hybrid, VLM and audio: ROADMAP queue A, "
+            f"item 8)")
     dev = resolve_device(device)
     g = generator
     D = cfg.d_model
@@ -71,6 +103,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "head": L.dense_init(g, D, cfg.num_classes),
     }
     return to_device(params, dev)
+
+
+def _init_dense(cfg: ModelConfig, g: torch.Generator,
+                dev: torch.device) -> Dict:
+    """embed → [RMSNorm, attention, RMSNorm, SwiGLU] × L → RMSNorm →
+    unembed (``model.py:94-113`` of the reference, layers as a list)."""
+    dtype = getattr(torch, cfg.param_dtype)
+    D = cfg.d_model
+    ones = lambda: torch.ones(D, dtype=dtype, device=g.device)
+    p: Dict[str, Any] = {
+        "embed": L.embed_init(g, cfg.vocab_size, D, dtype),
+        "ln_f": ones(),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.dense_init(g, D, cfg.vocab_size, dtype)
+    p["layers"] = [{"ln1": ones(), "ln2": ones(),
+                    "attn": _attn_params(g, cfg, dtype),
+                    "mlp": _mlp_params(g, cfg, glu=True, dtype=dtype)}
+                   for _ in range(cfg.num_layers)]
+    return to_device(p, dev)
 
 
 def to_device(tree, device: torch.device):
@@ -120,3 +172,62 @@ def forward_vit(cfg: ModelConfig, params: Dict, patches: torch.Tensor,
 
     x = L.layer_norm(x, params["ln_f_s"], params["ln_f_b"], cfg.norm_eps)
     return Output(L.linear(x[:, 0], params["head"]).float())
+
+
+# ===========================================================================
+# The dense LM
+# ===========================================================================
+def unembed_matrix(params: Dict) -> torch.Tensor:
+    w = params.get("unembed")
+    return w if w is not None else params["embed"].T
+
+
+def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+               mode: str = "train", caches: Optional[List] = None,
+               logits_for: str = "all",
+               valid_start: Optional[torch.Tensor] = None) -> Output:
+    """Dense-LM forward: ``tokens`` [B, N] int.
+
+    ``mode``: "train" (full sequence, no cache), "prefill" (full sequence
+    into ``caches``) or "decode" (one token per row against ``caches``);
+    ``caches`` is one ``KVCache`` per layer, updated in place
+    (``attention_block``). ``logits_for``: "all" gives [B, N, V] logits,
+    "last" only the final position's ([B, 1, V]), "none" none (hidden
+    states only). Logits are computed in the activation dtype
+    (``cfg.dtype``) and returned in fp32. ``valid_start`` ([B] int32):
+    per-row index of the first real token; earlier (left-padded)
+    positions are masked out of every attention and of the KV
+    ``attn_mass`` accumulation."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"forward_lm serves the dense family; {cfg.family!r} is a later "
+            f"slice (ROADMAP queue A, item 8)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got "
+                         f"{mode!r}")
+    adt = getattr(torch, cfg.dtype)
+    eps = cfg.norm_eps
+    x = params["embed"][tokens].to(adt)
+    want_cache = mode != "train"
+    if want_cache and (caches is None or len(caches) != cfg.num_layers):
+        raise ValueError(f"mode {mode!r} needs one KVCache per layer "
+                         f"({cfg.num_layers})")
+    new_caches = [] if want_cache else None
+    for i, lp in enumerate(params["layers"]):
+        h, nc = A.attention_block(
+            L.rms_norm(x, lp["ln1"], eps), lp["attn"], cfg,
+            cache=caches[i] if want_cache else None, valid_start=valid_start)
+        x = x + h
+        x = x + L.glu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"])
+        if want_cache:
+            new_caches.append(nc)
+
+    x = L.rms_norm(x, params["ln_f"], eps)
+    if logits_for == "none":
+        return Output(None, new_caches, hidden=x)
+    w_un = unembed_matrix(params).to(adt)
+    if logits_for == "last":
+        logits = (x[:, -1] @ w_un)[:, None]
+    else:
+        logits = x @ w_un
+    return Output(logits.float(), new_caches, hidden=x)

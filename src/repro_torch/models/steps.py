@@ -1,0 +1,118 @@
+"""Serve steps for the dense LM — the serving half of the reference
+package's ``models/steps.py``: cache constructors, whole-batch prefill,
+per-slot prefill (a B=1 prefill scattered into one row of the live batched
+cache) and the decode step.
+
+The reference jits these; PyTorch runs them eagerly, so they are plain
+functions. Caches are a list with one ``KVCache`` per layer, and every
+step updates the caches it is given in place and returns them.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import model as M
+
+# Families whose serve state is pure KV cache — left-padding can be masked
+# exactly via valid_start (the reference's list; this package serves the
+# dense family).
+MASKABLE_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+# Families whose serve state is purely per-layer KV caches — a single slot
+# can be prefilled in isolation and scattered into the live batch.
+SLOT_PREFILL_FAMILIES = ("dense", "moe")
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"serve steps for family {cfg.family!r} are a later slice "
+            f"(ROADMAP queue A, item 8); this package serves 'dense'")
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device="cuda") -> List[A.KVCache]:
+    """Zeroed serve caches for ``cfg``: one ``KVCache`` per layer, on
+    ``device`` (the card unless the CPU is asked for)."""
+    _require_dense(cfg)
+    return [A.init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                            dtype, device) for _ in range(cfg.num_layers)]
+
+
+def make_prefill(cfg: ModelConfig):
+    """``prefill(params, batch, caches) -> (next_token [B], caches)``;
+    ``batch`` may carry "valid_start" ([B] int32): first real token per
+    row — left-padded prompt positions are masked out of attention."""
+    _require_dense(cfg)
+
+    def prefill(params, batch, caches):
+        out = M.forward_lm(cfg, params, batch["tokens"], mode="prefill",
+                           caches=caches, logits_for="last",
+                           valid_start=batch.get("valid_start"))
+        return torch.argmax(out.logits[:, -1], dim=-1), out.caches
+    return prefill
+
+
+def _blank_row_caches(caches: List[A.KVCache]) -> List[A.KVCache]:
+    """A zeroed B=1 copy of the serve caches (KVCache entries only)."""
+    def one(c):
+        if not isinstance(c, A.KVCache):
+            raise TypeError(
+                "per-slot prefill needs a pure KV-cache list; got "
+                f"{type(c).__name__} (recurrent/encoder state — use the "
+                "whole-batch prefill path)")
+        return A.KVCache(*(torch.zeros((1,) + t.shape[1:], dtype=t.dtype,
+                                       device=t.device) for t in c))
+    return [one(c) for c in caches]
+
+
+def _scatter_row_caches(live: List[A.KVCache], row: List[A.KVCache],
+                        slot: int) -> List[A.KVCache]:
+    """Write the B=1 caches ``row`` into batch row ``slot`` of ``live``, in
+    place, and return ``live``."""
+    for dst, src in zip(live, row):
+        for d, s in zip(dst, src):
+            d[slot] = s[0].to(d.dtype)
+    return live
+
+
+def make_prefill_slot(cfg: ModelConfig):
+    """Prefill ONE admitted prompt into one slot of the live batched cache.
+
+    Returns ``prefill_slot(params, batch, caches, slot) -> (next_token [1],
+    caches)``: ``batch["tokens"]`` is a single (bucket-padded) prompt row
+    ``[1, Lb]`` with ``batch["valid_start"]`` ``[1]`` marking its left
+    padding. The prompt runs through a B=1 prefill against a blank cache
+    row, which is then written into batch row ``slot`` of ``caches`` —
+    admission costs one prompt's FLOPs instead of a whole-batch
+    re-prefill."""
+    if cfg.family not in SLOT_PREFILL_FAMILIES:
+        raise ValueError(
+            f"per-slot prefill unsupported for family '{cfg.family}' "
+            f"(supported: {SLOT_PREFILL_FAMILIES}); serve this family "
+            "through the whole-batch prefill path")
+    _require_dense(cfg)
+
+    def prefill_slot(params, batch, caches, slot: int):
+        row = _blank_row_caches(caches)
+        out = M.forward_lm(cfg, params, batch["tokens"], mode="prefill",
+                           caches=row, logits_for="last",
+                           valid_start=batch.get("valid_start"))
+        next_tok = torch.argmax(out.logits[:, -1], dim=-1)  # [1]
+        return next_tok, _scatter_row_caches(caches, out.caches, slot)
+    return prefill_slot
+
+
+def make_decode_step(cfg: ModelConfig):
+    """One token in, one token out, caches updated in place."""
+    _require_dense(cfg)
+
+    def decode(params, token, caches, valid_start=None):
+        out = M.forward_lm(cfg, params, token, mode="decode", caches=caches,
+                           valid_start=valid_start)
+        return torch.argmax(out.logits[:, -1], dim=-1), out.caches
+    return decode

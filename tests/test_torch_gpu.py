@@ -11,13 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import DEIT_SMALL
+from repro_torch.configs import DEIT_SMALL, MINITRON_4B
 from repro_torch.core import packed_runner as PR
 from repro_torch.core import quant as Q
 from repro_torch.core import token_pruning as TTP
 from repro_torch.core.packing import pack_weight
 from repro_torch.kernels import backend
-from repro_torch.kernels.flash_attention import (attention_plain,
+from repro_torch.kernels.flash_attention import (attention_causal_plain,
+                                                 attention_plain,
                                                  flash_attention)
 from repro_torch.kernels.sbmm import sbmm
 from repro_torch.kernels.token_drop import token_drop
@@ -26,6 +27,8 @@ from repro_torch.kernels.token_package import (token_package,
 from repro_torch.launch.serve_vision import make_requests
 from repro_torch.models import model as M
 from repro_torch.models import pruning_glue as PG
+from repro_torch.serving import EngineConfig, Request, ServeEngine
+from repro_torch.serving.runner import serving_params
 from repro_torch.serving.vision import VisionEngine, VisionEngineConfig
 
 pytestmark = pytest.mark.gpu
@@ -216,3 +219,121 @@ def test_soft_int8_serve_on_card_matches_oracle(dev):
         scale = max(1.0, float(np.abs(ref).max()))
         assert float(np.abs(out[r.uid] - ref).max()) <= 1e-4 * scale
         assert int(np.argmax(out[r.uid])) == int(np.argmax(ref))
+
+
+# ---------------------------------------------------------------------------
+# the dense LM path
+# ---------------------------------------------------------------------------
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the largest element
+
+
+def _causal_case(dev, B, Nq, Hq, KV, Dh, S, q_offset, kv_len, kv_start,
+                 seed=0):
+    """The causal kernel and its plain version on the same bf16 operands:
+    output rows with a valid key within one bf16 ulp of the largest plain
+    element (both round fp32 sums taken in another order), rows without
+    one finite (the kernel writes 0 there, the plain version averages V);
+    at Nq == 1 the head-mean probabilities within 1e-6, exactly 0 at
+    masked keys."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, Dh), generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    bounds = [torch.tensor(x, dtype=torch.int32, device=dev)
+              for x in (q_offset, kv_len, kv_start)]
+    decode = Nq == 1
+    before = backend.launches()["flash_attention_causal_bf16"]
+    res = flash_attention(q, k, v, causal=True, q_offset=bounds[0],
+                          kv_len=bounds[1], kv_start=bounds[2],
+                          collect_scores=decode)
+    o_ref, p_ref = attention_causal_plain(q, k, v, *bounds,
+                                          collect_probs=decode)
+    o = res[0] if decode else res
+    assert backend.launches()["flash_attention_causal_bf16"] == before + 1
+    assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o.float()).all())
+    pos = torch.tensor(q_offset, device=dev)[:, None] + torch.arange(
+        Nq, device=dev)
+    real = (pos >= bounds[2][:, None]) & (bounds[2][:, None] < bounds[1][
+        :, None])  # rows that see a key
+    err = (o.float() - o_ref.float()).abs().amax(dim=(2, 3))[real].max()
+    assert err <= BF16_ULP * o_ref.float().abs().max()
+    if decode:
+        scores = res[1]
+        torch.testing.assert_close(scores, p_ref.mean(1), atol=1e-6,
+                                   rtol=0)
+        keys = torch.arange(S, device=dev)
+        masked = (keys < bounds[2][:, None]) | (keys >= bounds[1][:, None])
+        assert bool((scores[masked] == 0).all())
+    return o
+
+
+def test_causal_kernel_matches_plain_on_card(dev):
+    """``flash_attention_causal_bf16`` at the reduced LM shapes (GQA 4:1,
+    Dh 16: left-pad rows, a row behind a compacted prefix, a decode row at
+    the buffer's end) and at full-width Minitron-4B (24 query heads over 8
+    KV heads, Dh 128: a 512-token bucket holding prompts of 500 and 384
+    tokens, and a batch-4 decode against a 572-slot cache)."""
+    _causal_case(dev, 3, 8, 4, 1, 16, 20, [0, 0, 4], [8, 8, 12], [0, 3, 6])
+    _causal_case(dev, 3, 1, 4, 1, 16, 20, [7, 12, 19], [8, 13, 20],
+                 [0, 5, 2])
+    _causal_case(dev, 2, 1, 2, 2, 16, 20, [5, 9], [6, 10], [1, 0])
+    for start in (12, 128):
+        o = _causal_case(dev, 1, 512, 24, 8, 128, 572, [0], [512], [start])
+        assert bool((o[0, :start] == 0).all())  # left-pad rows: no key
+    lens = [130, 290, 420, 571]
+    _causal_case(dev, 4, 1, 24, 8, 128, 572, [n - 1 for n in lens], lens,
+                 [32, 56, 0, 12])
+
+
+def _teacher_forced_gaps(cfg, params, req, dev):
+    """For each token the engine generated, the offline forward's
+    (no cache, B=1) largest logit at that position minus its logit for
+    the engine's token."""
+    seq = np.concatenate([req.prompt, req.generated[:-1]]).astype(np.int64)
+    logits = M.forward_lm(cfg, params, torch.from_numpy(seq)[None].to(dev),
+                          logits_for="all").logits[0]
+    rows = logits[len(req.prompt) - 1:]
+    chosen = rows.gather(1, torch.tensor(req.generated, device=dev)[:, None])
+    return (rows.max(dim=1).values - chosen[:, 0]).cpu().numpy()
+
+
+@pytest.mark.parametrize("continuous", [False, True])
+def test_lm_engine_on_card_matches_oracle(dev, continuous):
+    """Reduced Minitron-4B (bf16 activations, GQA 4:1) served on the card
+    through the causal kernel, in prefill and decode: every request gets
+    its tokens, the engine waits on the card only at step boundaries, and
+    each token's logit in the teacher-forced offline forward lies within
+    0.05 of that position's largest (the CPU bound against the
+    reference); with KV pruning on, prunes fire and every request still
+    gets its tokens."""
+    cfg = MINITRON_4B.reduced()
+    params = serving_params(cfg, M.init_params(
+        cfg, torch.Generator(dev).manual_seed(0), device=dev))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 11, 30, 8)]
+    for keep in (1.0, 0.5):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_batch=3, max_len=64, kv_prune_keep=keep,
+            kv_prune_interval=2 if keep < 1 else 0), device=dev)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=10)
+                for i, p in enumerate(prompts)]
+        backend.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng.serve(reqs, continuous=continuous)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert sorted(out) == list(range(5))
+        assert all(len(t) == 10 for t in out.values())
+        st = eng.stats()
+        calls = (st["runner_prefill_calls"] + st["runner_prefill_slot_calls"]
+                 + st["runner_decode_calls"])
+        assert st["runner_decode_calls"] > 0
+        assert backend.launches()["flash_attention_causal_bf16"] == \
+            cfg.num_layers * calls
+        if keep < 1:
+            assert st["prune_events"] > 0
+            continue
+        for r in reqs:
+            assert _teacher_forced_gaps(cfg, params, r, dev).max() <= 0.05

@@ -35,6 +35,7 @@ from repro_torch.kernels.sbmm import (pad_input, sbmm, sbmm_quant_raw,
                                       sbmm_raw)
 from repro_torch.kernels.token_drop import token_drop
 from repro_torch.kernels.token_package import token_package
+from repro_torch.models.attention import flash_attention_torch
 
 FP32_TOL = 1e-5  # per-op fp32 bound (sums of <= a few hundred terms)
 FP16_ATTN_TOL = 2e-3  # fp16 attention output: one fp16 rounding of values
@@ -250,9 +251,13 @@ def test_flash_attention_fp16_matches_reference(B, N, H, Dh, lens):
 
 
 def test_causal_attention_is_unported():
-    q = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="LM serving path"):
-        flash_attention(q, q, q, causal=True)
+    """Causal mode is ported (the LM path's kernel; its parity tests are in
+    ``test_torch_lm.py``): on CPU tensors it runs the plain causal
+    version."""
+    q = torch.randn((1, 4, 2, 16), generator=torch.Generator().manual_seed(0))
+    o = flash_attention(q, q, q, causal=True)
+    assert torch.equal(o, flash_attention_torch(q, q, q, causal=True))
+    assert torch.equal(o[:, 0], q[:, 0])  # the first row sees only itself
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +409,9 @@ def test_card_tensors_never_take_the_plain_path(monkeypatch):
         flash_attention(q, q, q, torch.tensor([5], dtype=torch.int32))
     with pytest.raises(RuntimeError, match="no flash_attention kernel"):
         flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(RuntimeError, match="no flash_attention kernel"):
+        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                        causal=True)
     with pytest.raises(RuntimeError, match="no token_drop kernel"):
         token_drop(torch.zeros((1, 5, 8)), torch.rand((1, 5)), 2)
     with pytest.raises(RuntimeError, match="no token_package kernel"):

@@ -236,8 +236,9 @@ def test_patchify_matches_reference():
 
 def test_unported_modes_raise(vit):
     """Soft TDM and the fp16/int8 tiers are ported (their parity tests
-    follow); what is still unported raises: causal attention (the LM
-    path) and the LM families' stacked layers."""
+    follow), and so is causal attention with the dense LM path
+    (``test_torch_lm.py``); what is still unported raises: the LM
+    families other than dense, and stacked layers in the pruning glue."""
     _, t = vit
     cfg = t["cfg"]
     x = _patches(cfg, 1, 16)
@@ -247,9 +248,9 @@ def test_unported_modes_raise(vit):
                                       soft=soft, precision=precision,
                                       device="cpu").logits
             assert y.shape == (1, cfg.num_classes)
-    q = torch.zeros((1, 4, cfg.num_heads, cfg.head_dim))
-    with pytest.raises(NotImplementedError, match="LM serving path"):
-        PR.flash_attention(q, q, q, causal=True)
+    with pytest.raises(NotImplementedError, match="queue A, item 8"):
+        M.init_params(get_config("deit-small").replace(family="moe"),
+                      torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="stacked layer axes"):
         PG.init_scores(cfg, {"layers": {"attn": {"wq": torch.zeros(
             (2, 4, 4))}}}, torch.Generator().manual_seed(0))
