@@ -16,9 +16,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    B=4 x N=197 tokens x 6 heads for attention on fp32 and fp16 operands;
    k=138 for the hard TDM; the soft TDM's first application and a later
    one with package masses at per-row positions in a token-padded tile;
-   causal GQA attention at full-width Minitron-4B, a per-slot prefill of
-   a 512-token bucket and a batch-4 decode against a 572-slot bf16
-   cache), with fixed seeds: error and tolerance per output,
+   causal GQA attention at full-width Minitron-4B through the kernel the
+   wrapper picks: a per-slot prefill of a 512-token bucket, a batch-4
+   decode and a decode row spanning all 9 key splits against a 572-slot
+   bf16 cache, two launches bitwise equal), with fixed seeds: error and tolerance per output,
    kernel/plain/library times (CUDA events, median of 21 runs of 10 calls
    after warm-up) and each kernel's least possible time on an H100 SXM
    (published HBM rate, fp32 CUDA-core rate, and the fp16/bf16
@@ -52,9 +53,10 @@ Phases, in order; any failure exits non-zero and prints no result:
       ``ServeEngine`` with 4 slots and a 572-slot cache: continuous at
       pipeline depths 1 and 2, continuous with KV pruning (keep 0.5 every
       4 steps) and static waves, each after one warm-up and timed over 2
-      serves. Checks: every request gets 32 tokens; the causal kernel
-      launches once per layer of every prefill and decode call, both of
-      which run; the pruned serve prunes; depths 1 and 2 give identical
+      serves. Checks: every request gets 32 tokens; the decode kernel
+      launches once per layer of every decode call and the prefill kernel
+      once per layer of every prefill call, both of which run; the pruned
+      serve prunes; depths 1 and 2 give identical
       tokens; the teacher-forced oracle (``forward_lm`` over prompt plus
       generated tokens, no cache) puts each engine token's logit within
       0.05 of its position's largest (continuous depth 1 and static);
@@ -65,12 +67,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    and idle share, the device time by kernel and the engine's host spans
    (plan / stage / dispatch / complete), and the host's self time by
    operator and CUDA runtime call; the same for one continuous depth-1
-   serve of the LM.
+   serve of the LM, with the decode and prefill kernels' device time and
+   launches, each and together, against its device busy time.
 6. A ``kernels`` JSON line (one entry per C entry point; ``launches``
    summed over the last timed serve of each path, the LM's continuous
-   depth-1 serve for the causal kernel, whose entry lists each of its
-   shapes under ``cases`` and heads with the decode case), then the last
-   line
+   depth-1 serve for the causal kernels, whose entries list each of their
+   shapes under ``cases`` and head with the first), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -263,36 +265,44 @@ def check_flash_attention(torch, dev, half: bool):
         shapes=f"q,k,v[{B},{N},{H},{Dh}] {str(dt)[6:]} kv_len={list(lens)}")
 
 
-# the causal kernel's cases at full-width Minitron-4B (24 query heads over
-# 8 KV heads, Dh 128, a 572-slot cache): a per-slot prefill of a 512-token
-# bucket holding a prompt of 500 or 384 tokens, and a batch-4 decode
+# the causal kernels' cases at full-width Minitron-4B (24 query heads over 8
+# KV heads, Dh 128, a 572-slot cache): a per-slot prefill of a 512-token
+# bucket holding a prompt of 500 or 384 tokens (``flash_prefill_bf16``), a
+# batch-4 decode and a decode row whose window spans all 9 of the cache's
+# 64-key splits (``flash_decode_bf16``); the first case of each kernel is
+# its headline
 LM_CAUSAL_CASES = (
     ("prefill kv_start=12", 1, 512, [0], [512], [12]),
     ("prefill kv_start=128", 1, 512, [0], [512], [128]),
     ("decode", 4, 1, [129, 289, 419, 570], [130, 290, 420, 571],
      [32, 56, 0, 12]),
+    ("decode 9 splits", 1, 1, [571], [572], [0]),
 )
+LM_DECODE = LM_CAUSAL_CASES[2]  # the serve's decode shape
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the largest element
 
 
 def check_flash_attention_causal(torch, dev):
-    """``flash_attention_causal_bf16`` against its plain version at the LM
-    path's shapes (``LM_CAUSAL_CASES``): the output within one bf16 ulp of
-    the largest plain element at rows with a valid key (both round fp32
-    sums taken in another order to bf16; left-pad rows have no key, where
-    the kernel writes 0 and the plain version averages V: checked finite),
-    the decode row's head-mean probabilities within 1e-6 and exactly 0 at
-    masked keys. The entry's headline numbers are the decode case's; each
-    case keeps its own under ``cases``."""
+    """The two causal kernels, each through the wrapper at the LM path's
+    shapes (``LM_CAUSAL_CASES``; the wrapper picks ``flash_decode_bf16``
+    for one query row, ``flash_prefill_bf16`` for more) against the plain
+    version: the output within one bf16 ulp of the largest plain element
+    at rows with a valid key (both round fp32 sums taken in another order
+    to bf16; left-pad rows have no key, where the kernel writes 0 and the
+    plain version averages V: checked 0), the decode row's head-mean
+    probabilities within 1e-6 and exactly 0 at masked keys, and two calls
+    bitwise equal. Returns one entry per kernel, each case's numbers under
+    ``cases``, the first case's as the entry's."""
     import torch.nn.functional as F
     from repro_torch.configs import MINITRON_4B
+    from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import (attention_causal_plain,
                                                      flash_attention)
     Hq, KV, Dh = (MINITRON_4B.num_heads, MINITRON_4B.num_kv_heads,
                   MINITRON_4B.head_dim)
     S = 572
     g = torch.Generator().manual_seed(8)
-    cases = []
+    cases = {"flash_prefill_bf16": [], "flash_decode_bf16": []}
     for label, B, Nq, off, lens, starts in LM_CAUSAL_CASES:
         q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
         k, v = (torch.randn((B, S, KV, Dh), generator=g).to(
@@ -300,6 +310,7 @@ def check_flash_attention_causal(torch, dev):
         off_t, len_t, st_t = (torch.tensor(x, dtype=torch.int32, device=dev)
                               for x in (off, lens, starts))
         decode = Nq == 1
+        name = "flash_decode_bf16" if decode else "flash_prefill_bf16"
 
         def kern(q=q, k=k, v=v, b=(off_t, len_t, st_t), decode=decode):
             return flash_attention(q, k, v, causal=True, q_offset=b[0],
@@ -310,17 +321,24 @@ def check_flash_attention_causal(torch, dev):
             o, p = attention_causal_plain(q, k, v, *b, collect_probs=decode)
             return (o, p.mean(dim=1)) if decode else o
 
-        res, ref = kern(), plain()
+        before = backend.launches()[name]
+        res, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
+        require(backend.launches()[name] == before + 2,
+                f"causal attention ({label}) did not launch {name}")
         o, o_ref = (res[0], ref[0]) if decode else (res, ref)
+        require(all(torch.equal(x, y) for x, y in zip(
+            res if decode else (res,), again if decode else (again,))),
+            f"{name} ({label}): two launches on the same inputs differ")
         require(o.dtype == torch.bfloat16
                 and bool(torch.isfinite(o.float()).all()),
-                f"flash_attention_causal ({label}): output {o.dtype} or "
-                f"not finite")
+                f"{name} ({label}): output {o.dtype} or not finite")
         # keys row i of batch row b sees: [start, min(len, off + i + 1))
         seen = [[max(0, min(lens[b], off[b] + i + 1) - starts[b])
                  for i in range(Nq)] for b in range(B)]
         real = torch.tensor(seen, device=dev) > 0
+        require(bool((o[~real] == 0).all()),
+                f"{name} ({label}): a row without a key is not 0")
         d = (o.float() - o_ref.float()).abs().amax(dim=(2, 3))
         err_o = d[real].max().item()
         tol_o = BF16_ULP * o_ref.float()[real].abs().max().item()
@@ -332,18 +350,21 @@ def check_flash_attention_causal(torch, dev):
             keys = torch.arange(S, device=dev)
             masked = (keys < st_t[:, None]) | (keys >= len_t[:, None])
             require(bool((res[1][masked] == 0).all()),
-                    "flash_attention_causal: nonzero probability at a "
-                    "masked key")
+                    f"{name}: nonzero probability at a masked key")
         # the work these inputs need: every (row, head, valid key) pair
         # takes 2 Dh operations for Q.K (bf16 x bf16, exact in fp32: the
-        # bf16 tensor-core rate), 2 Dh for P.V (fp32 P) and ~4 for the
-        # softmax; bytes: q and o once, the K/V window [start, len) once,
-        # the decode probabilities once
+        # bf16 tensor-core rate), 2 Dh for P.V and ~4 for the softmax. The
+        # prefill kernel runs P.V on the tensor cores as two bf16 products
+        # (P split into hi and lo): 4 Dh at the bf16 rate; the decode
+        # kernel keeps P fp32: 2 Dh at the fp32 rate. Bytes: q and o once,
+        # the K/V window [start, len) once, the decode probabilities once.
         pairs = Hq * sum(map(sum, seen))
         window = sum(lens[b] - starts[b] for b in range(B))
         n_bytes = (2 * 2 * q.numel() + 2 * 2 * window * KV * Dh + 12 * B
                    + (4 * B * Hq * S if decode else 0))
-        bnd, by = bound_ms(n_bytes, (2 * Dh + 4) * pairs, 2 * Dh * pairs)
+        bnd, by = (bound_ms(n_bytes, (2 * Dh + 4) * pairs, 2 * Dh * pairs)
+                   if decode else
+                   bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs))
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         pos = off_t[:, None] + torch.arange(Nq, device=dev)
         keys = torch.arange(S, device=dev)
@@ -355,24 +376,27 @@ def check_flash_attention_causal(torch, dev):
                                                   attn_mask=amask,
                                                   enable_gqa=True)
 
-        cases.append(dict(
+        cases[name].append(dict(
             label=label, errs=errs, fn=kern, ms=time_ms(kern),
             plain_ms=time_ms(plain), library_ms=time_ms(library),
             bound_ms=bnd, bound_by=by,
             shapes=f"q[{B},{Nq},{Hq},{Dh}] k,v[{B},{S},{KV},{Dh}] bf16 "
                    f"q_offset={off if B > 1 else off[0]} kv_len={lens} "
                    f"kv_start={starts}"))
-    head = cases[-1]
-    return dict(
-        name="flash_attention_causal_bf16", source="flash_attention.cu",
-        errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
-        ms=head["ms"], plain_ms=head["plain_ms"],
-        library_ms=head["library_ms"],
-        library_call="F.scaled_dot_product_attention(enable_gqa=True) on "
-                     "bf16 (bool causal window mask)",
-        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cases),
-        cases=cases)
+    checks = []
+    for name, cs in cases.items():
+        head = cs[0]
+        checks.append(dict(
+            name=name, source=f"{name[:-5]}.cu",
+            errs=[e for c in cs for e in c["errs"]], fn=head["fn"],
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            library_ms=head["library_ms"],
+            library_call="F.scaled_dot_product_attention(enable_gqa=True) "
+                         "on bf16 (bool causal window mask)",
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cs),
+            cases=cs))
+    return checks
 
 
 def _tdm_scores(torch, dev, g, B, N, n_valid):
@@ -860,12 +884,15 @@ def lm_path(torch, dev):
                      + st["runner_prefill_slot_calls"])
             require(calls > 0 and st["runner_decode_calls"] > 0,
                     f"lm {label}: prefill or decode never ran: {st}")
-            n_k = counts["flash_attention_causal_bf16"]
-            want = cfg.num_layers * (calls + st["runner_decode_calls"])
-            require(n_k == want,
-                    f"lm {label}: flash_attention_causal_bf16 launched "
-                    f"{n_k} times, not once per layer of every prefill and "
-                    f"decode call ({want})")
+            n_dec = counts["flash_decode_bf16"]
+            n_pre = counts["flash_prefill_bf16"]
+            require(n_dec == cfg.num_layers * st["runner_decode_calls"]
+                    and n_pre == cfg.num_layers * calls,
+                    f"lm {label}: flash_decode_bf16 / flash_prefill_bf16 "
+                    f"launched {n_dec} / {n_pre} times, not once per layer "
+                    f"of every decode / prefill call "
+                    f"({cfg.num_layers * st['runner_decode_calls']} / "
+                    f"{cfg.num_layers * calls})")
             if kw.get("kv_prune_keep", 1.0) < 1.0:
                 require(st["prune_events"] >= 1,
                         f"lm {label}: no KV prune fired")
@@ -892,8 +919,9 @@ def lm_path(torch, dev):
               f"completion {dec_ms:.3f} ms (pipeline spans; a step latency "
               f"at depth 1 only), block on step events "
               f"{st['pipeline_block_s'] * 1e3:.2f} ms in all; prune events "
-              f"{st['prune_events']}; kernel launches "
-              f"{counts['flash_attention_causal_bf16']}; host syncs besides "
+              f"{st['prune_events']}; kernel launches decode / prefill "
+              f"{counts['flash_decode_bf16']} / "
+              f"{counts['flash_prefill_bf16']}; host syncs besides "
               f"the step events per serve (warm-up first)={syncs[label]}",
               flush=True)
         walls_by[label] = wall
@@ -910,16 +938,14 @@ def lm_path(torch, dev):
     from repro_torch.models import steps as ST
     eng = lm_engine(cfg, params, dev)
     caches = ST.init_caches(cfg, LM_MAX_BATCH, LM_MAX_LEN, device=dev)
-    lens = torch.tensor(LM_CAUSAL_CASES[-1][4], dtype=torch.int32,
-                        device=dev) - 1
+    lens = torch.tensor(LM_DECODE[4], dtype=torch.int32, device=dev) - 1
     caches = [c._replace(length=lens.clone()) for c in caches]
-    starts = torch.tensor(LM_CAUSAL_CASES[-1][5], dtype=torch.int32,
-                          device=dev)
+    starts = torch.tensor(LM_DECODE[5], dtype=torch.int32, device=dev)
     toks = torch.zeros((LM_MAX_BATCH,), dtype=torch.int64, device=dev)
     step_ms = time_ms(lambda: eng.runner.decode(toks, caches, starts),
                       samples=5, calls=5, warmup=2)
     print(f"lm: one decode step alone (B=4, 572-slot cache, windows of "
-          f"{LM_CAUSAL_CASES[-1][4]} keys): {step_ms:.3f} ms", flush=True)
+          f"{LM_DECODE[4]} keys): {step_ms:.3f} ms", flush=True)
     return ({"lm": last["continuous depth 1"][2]}, syncs,
             (cfg, params, walls_by))
 
@@ -991,6 +1017,7 @@ def report_profile(prof, dt, wall, tracer, n_warm, label, what):
         print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
     for n, k, us in _host_rows(prof)[:15]:
         print(f"  host   {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+    return rows, busy_us
 
 
 def profile_serve(torch, dev, cfg, params, scores, wall, label, soft=False,
@@ -1012,7 +1039,9 @@ def profile_serve(torch, dev, cfg, params, scores, wall, label, soft=False,
 
 
 def profile_lm(torch, dev, cfg, params, walls):
-    """For one depth-1 continuous serve of the LM: ``report_profile``."""
+    """For one depth-1 continuous serve of the LM: ``report_profile``, then
+    the causal kernels' device time and launches, each and together,
+    against the serve's device busy time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import backend
     from repro_torch.obs import Tracer
@@ -1023,9 +1052,19 @@ def profile_lm(torch, dev, cfg, params, walls):
     n_warm = len(tracer.span_log)
     with profile(activities=acts) as prof:
         _, _, dt, _, st = serve_lm(torch, backend, eng, True)
-    report_profile(prof, dt, walls["continuous depth 1"], tracer, n_warm,
-                   "lm continuous", f"depth 1, 8 requests x {LM_MAX_NEW} "
-                   f"tokens, {st['pipeline_steps']} steps")
+    rows, busy_us = report_profile(
+        prof, dt, walls["continuous depth 1"], tracer, n_warm,
+        "lm continuous", f"depth 1, 8 requests x {LM_MAX_NEW} tokens, "
+        f"{st['pipeline_steps']} steps")
+    causal = {name: [(k, us) for n, k, us in rows if kernel_symbol(name) in n]
+              for name in ("flash_decode_bf16", "flash_prefill_bf16")}
+    parts = [f"{name} {sum(k for k, _ in r)} launches "
+             f"{sum(us for _, us in r) / 1e3:.3f} ms"
+             for name, r in causal.items()]
+    total_us = sum(us for r in causal.values() for _, us in r)
+    print(f"profile lm continuous: causal attention {total_us / 1e3:.3f} ms "
+          f"of {busy_us / 1e3:.3f} ms device busy "
+          f"({total_us / busy_us:.3f}): " + ", ".join(parts), flush=True)
 
 
 def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
@@ -1052,7 +1091,7 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                   + f": device {us / calls:.2f} us/launch ({calls} "
                   f"launches); wrapper {c['ms'] * 1e3:.2f} us/call",
                   flush=True)
-        check["device_ms"] = c["device_ms"]  # the last case's: the headline
+        check["device_ms"] = check.get("cases", [check])[0]["device_ms"]
     profile_serve(torch, dev, cfg, params, scores, walls["fp32 depth 1"],
                   "main path fp32")
     for path, precision, granularity in TIERS:
@@ -1066,6 +1105,10 @@ REPLACES = {  # the reference's pallas_call each kernel stands in for
     "sbmm.cu": "src/repro/kernels/sbmm/sbmm.py:75",
     "sbmm_quant.cu": "src/repro/kernels/sbmm/quant.py:80",
     "flash_attention.cu":
+        "src/repro/kernels/flash_attention/flash_attention.py:92",
+    "flash_decode.cu":
+        "src/repro/kernels/flash_attention/flash_attention.py:92",
+    "flash_prefill.cu":
         "src/repro/kernels/flash_attention/flash_attention.py:92",
     "token_drop.cu": "src/repro/kernels/token_drop/token_drop.py:62",
     "token_package.cu":
@@ -1100,7 +1143,7 @@ def main() -> int:
               check_flash_attention(torch, dev, half=False),
               check_flash_attention(torch, dev, half=True),
               check_token_drop(torch, dev), check_token_package(torch, dev),
-              check_flash_attention_causal(torch, dev)]
+              *check_flash_attention_causal(torch, dev)]
     require(sorted(c["name"] for c in checks) == sorted(backend.ENTRY_POINTS),
             "a kernel entry point has no check")
     for check in checks:

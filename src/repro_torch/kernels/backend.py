@@ -46,15 +46,17 @@ P, I = ctypes.c_void_p, ctypes.c_int
 _SBMM = [P, P, P, P, I, I, I, I, P]
 _SBMM_QUANT = [P, P, P, P, P, I, I, I, I, P]
 _FLASH = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
-_FLASH_CAUSAL = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
+_FLASH_DECODE = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
+_FLASH_PREFILL = [P] * 7 + [I] * 6 + [ctypes.c_float, P]
 # C entry points and their signatures, by library (csrc/<library>.cu)
 _ENTRY_POINTS = {
     "sbmm": {"sbmm_f32": _SBMM, "sbmm_f16w": _SBMM},
     "sbmm_quant": {"sbmm_i8_block": _SBMM_QUANT,
                    "sbmm_i8_channel": _SBMM_QUANT},
     "flash_attention": {"flash_attention_f32": _FLASH,
-                        "flash_attention_f16": _FLASH,
-                        "flash_attention_causal_bf16": _FLASH_CAUSAL},
+                        "flash_attention_f16": _FLASH},
+    "flash_decode": {"flash_decode_bf16": _FLASH_DECODE},
+    "flash_prefill": {"flash_prefill_bf16": _FLASH_PREFILL},
     "token_drop": {"token_drop_f32": [P, P, P, P, I, I, I, I, P]},
     "token_package": {"token_package_f32": [P, P, P, P, P, I, I, I, I, P]},
 }

@@ -3,26 +3,30 @@ scores as a by-product) and the LMs' causal grouped-query form (per-row
 ``q_offset``, ``kv_len`` and ``kv_start``, the decode row's attention
 probabilities as a by-product).
 
-Kernel K2 of the port: ``kernels/csrc/flash_attention.cu`` replaces the
-reference package's Pallas ``_flash_kernel`` / ``flash_attention_pallas``
+Kernel K2 of the port: ``kernels/csrc/flash_attention.cu``,
+``flash_decode.cu`` and ``flash_prefill.cu`` replace the reference
+package's Pallas ``_flash_kernel`` / ``flash_attention_pallas``
 (``kernels/flash_attention/flash_attention.py``) in the forms the serving
 paths need; on the reference paths these stages are ``flash_attention_jnp``
 and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
-``models/attention.attention_block`` for the LMs). Three entry points:
+``models/attention.attention_block`` for the LMs). Four entry points:
 
 * ``flash_attention_f32`` / ``flash_attention_f16``: non-causal, q, k, v
   of one shape and one type, fp32 arithmetic, output in the operands'
   type (``flash_attention_jnp`` returns ``q.dtype``);
-* ``flash_attention_causal_bf16``: causal, bf16 q [B, Nq, Hq, Dh] against
-  a bf16 KV cache [B, S, KV, Dh] read in place per query head
-  (head h reads KV head h // (Hq / KV)), fp32 arithmetic, bf16 output.
+* causal, bf16 q [B, Nq, Hq, Dh] against a bf16 KV cache [B, S, KV, Dh]
+  read in place per query head (head h reads KV head h // (Hq / KV)),
+  bf16 output, picked by ``Nq``: ``flash_decode_bf16`` for one query row
+  (split over the key window, fp32 on CUDA cores, the row's
+  probabilities as a by-product) and ``flash_prefill_bf16`` for more
+  (Q.K^T and P.V on the bf16 tensor cores, fp32 accumulation).
 
 What bounds each kernel on the H100 and how the design answers that is
 noted in the CUDA source.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -32,11 +36,17 @@ from repro_torch.models import attention as A
 NAME = "flash_attention"
 ENTRY_POINTS = {torch.float32: "flash_attention_f32",
                 torch.float16: "flash_attention_f16"}
-CAUSAL_ENTRY_POINT = "flash_attention_causal_bf16"
+# the causal kernels: (library, entry point), by whether Nq == 1
+CAUSAL_KERNELS = {True: ("flash_decode", "flash_decode_bf16"),
+                  False: ("flash_prefill", "flash_prefill_bf16")}
+DECODE_SPLIT = 64  # keys per decode block (kSplit in csrc/flash_decode.cu)
 HEAD_DIMS = (16, 64)  # head widths the non-causal kernel is instantiated
 # for: full DeiT-Small (64) and its reduced test config (16)
-CAUSAL_HEAD_DIMS = (16, 128)  # the causal kernel's: Minitron-4B (128) and
+CAUSAL_HEAD_DIMS = (16, 128)  # the causal kernels': Minitron-4B (128) and
 # the reduced LM configs (16)
+# the decode kernel's arrival counters, by (device, stream): zero between
+# launches (the combining block of each launch resets its own)
+_ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,30 +104,53 @@ def _row_bound(x, B: int, device, name: str) -> Optional[torch.Tensor]:
     return t.contiguous()
 
 
+def _arrivals(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters for a decode launch on
+    ``device``'s current stream, allocated once and grown as needed."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool):
     B, Nq, Hq, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
+    decode = Nq == 1
+    lib, entry = CAUSAL_KERNELS[decode]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"{CAUSAL_ENTRY_POINT} takes q, k, v all bf16, got "
+        raise TypeError(f"{entry} takes q, k, v all bf16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if Dh not in CAUSAL_HEAD_DIMS:
-        raise ValueError(f"{CAUSAL_ENTRY_POINT} takes head_dim in "
+        raise ValueError(f"{entry} takes head_dim in "
                          f"{CAUSAL_HEAD_DIMS}, got {Dh}")
-    if collect_probs and Nq != 1:
-        raise ValueError(f"{CAUSAL_ENTRY_POINT} writes the probabilities of "
-                         f"a decode row only (Nq == 1), got Nq={Nq}")
+    if collect_probs and not decode:
+        raise ValueError(f"causal attention writes the probabilities of a "
+                         f"decode row only (Nq == 1), got Nq={Nq}")
     bounds = [_row_bound(x, B, q.device, name) for x, name in
               ((q_offset, "q_offset"), (kv_len, "kv_len"),
                (kv_start, "kv_start"))]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    probs = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-             if collect_probs else None)
     ptr = lambda t: None if t is None else t.data_ptr()
-    backend.launch(NAME, CAUSAL_ENTRY_POINT, q.device, q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), *(ptr(t) for t in bounds),
-                   o.data_ptr(), ptr(probs), B, Nq, S, Hq, KV, Dh,
-                   Dh ** -0.5)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(ptr(t) for t in bounds), o.data_ptr()]
+    probs = None
+    if decode:
+        n_split = -(-S // DECODE_SPLIT)
+        if collect_probs:
+            probs = torch.empty((B, Hq, S), dtype=torch.float32,
+                                device=q.device)
+        part = torch.empty((B, KV, n_split, Hq // KV, Dh + 2),
+                           dtype=torch.float32, device=q.device)
+        backend.launch(lib, entry, q.device, *args, ptr(probs),
+                       part.data_ptr(), _arrivals(q.device, B * KV).data_ptr(),
+                       B, S, Hq, KV, Dh, n_split, Dh ** -0.5)
+    else:
+        backend.launch(lib, entry, q.device, *args, B, Nq, S, Hq, KV, Dh,
+                       Dh ** -0.5)
     return o, probs
 
 
@@ -136,7 +169,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probabilities averaged over heads.
 
     ``causal=True`` (the LMs): q [B, Nq, Hq, Dh] against k, v
-    [B, S, KV, Dh], all bf16 on the card; query row i of batch row b
+    [B, S, KV, Dh], all bf16 on the card (the decode kernel for
+    ``Nq == 1``, the prefill kernel otherwise); query row i of batch row b
     sees keys in [kv_start[b], min(kv_len[b], q_offset[b] + i + 1))
     (each a scalar or [B]; defaults 0, S and 0). ``collect_scores``
     (decode, Nq == 1) adds the row's probabilities averaged over heads,

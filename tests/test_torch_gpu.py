@@ -229,12 +229,13 @@ BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the largest element
 
 def _causal_case(dev, B, Nq, Hq, KV, Dh, S, q_offset, kv_len, kv_start,
                  seed=0):
-    """The causal kernel and its plain version on the same bf16 operands:
+    """The causal kernel the wrapper picks (``flash_decode_bf16`` for
+    Nq == 1, ``flash_prefill_bf16`` otherwise) and its plain version on the
+    same bf16 operands: launched once per call, two calls bitwise equal;
     output rows with a valid key within one bf16 ulp of the largest plain
     element (both round fp32 sums taken in another order), rows without
-    one finite (the kernel writes 0 there, the plain version averages V);
-    at Nq == 1 the head-mean probabilities within 1e-6, exactly 0 at
-    masked keys."""
+    one exactly 0 (the plain version averages V there); at Nq == 1 the
+    head-mean probabilities within 1e-6, exactly 0 at masked keys."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
     k, v = (torch.randn((B, S, KV, Dh), generator=g).to(dev, torch.bfloat16)
@@ -242,36 +243,50 @@ def _causal_case(dev, B, Nq, Hq, KV, Dh, S, q_offset, kv_len, kv_start,
     bounds = [torch.tensor(x, dtype=torch.int32, device=dev)
               for x in (q_offset, kv_len, kv_start)]
     decode = Nq == 1
-    before = backend.launches()["flash_attention_causal_bf16"]
-    res = flash_attention(q, k, v, causal=True, q_offset=bounds[0],
-                          kv_len=bounds[1], kv_start=bounds[2],
-                          collect_scores=decode)
+    entry = "flash_decode_bf16" if decode else "flash_prefill_bf16"
+    other = "flash_prefill_bf16" if decode else "flash_decode_bf16"
+    before = backend.launches()
+
+    def kern():
+        return flash_attention(q, k, v, causal=True, q_offset=bounds[0],
+                               kv_len=bounds[1], kv_start=bounds[2],
+                               collect_scores=decode)
+
+    res, again = kern(), kern()
     o_ref, p_ref = attention_causal_plain(q, k, v, *bounds,
                                           collect_probs=decode)
+    after = backend.launches()
+    assert after[entry] == before[entry] + 2
+    assert after[other] == before[other]
     o = res[0] if decode else res
-    assert backend.launches()["flash_attention_causal_bf16"] == before + 1
+    for x, y in zip(res if decode else (res,),
+                    again if decode else (again,)):
+        assert torch.equal(x, y)  # bitwise repeatable
     assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o.float()).all())
     pos = torch.tensor(q_offset, device=dev)[:, None] + torch.arange(
         Nq, device=dev)
     real = (pos >= bounds[2][:, None]) & (bounds[2][:, None] < bounds[1][
         :, None])  # rows that see a key
-    err = (o.float() - o_ref.float()).abs().amax(dim=(2, 3))[real].max()
-    assert err <= BF16_ULP * o_ref.float().abs().max()
+    assert bool((o[~real] == 0).all())
+    if bool(real.any()):
+        err = (o.float() - o_ref.float()).abs().amax(dim=(2, 3))[real].max()
+        assert err <= BF16_ULP * o_ref.float()[real].abs().max()
     if decode:
         scores = res[1]
-        torch.testing.assert_close(scores, p_ref.mean(1), atol=1e-6,
-                                   rtol=0)
         keys = torch.arange(S, device=dev)
         masked = (keys < bounds[2][:, None]) | (keys >= bounds[1][:, None])
         assert bool((scores[masked] == 0).all())
+        live = real[:, 0]  # the plain version spreads a keyless row evenly
+        torch.testing.assert_close(scores[live], p_ref.mean(1)[live],
+                                   atol=1e-6, rtol=0)
     return o
 
 
 def test_causal_kernel_matches_plain_on_card(dev):
-    """``flash_attention_causal_bf16`` at the reduced LM shapes (GQA 4:1,
-    Dh 16: left-pad rows, a row behind a compacted prefix, a decode row at
-    the buffer's end) and at full-width Minitron-4B (24 query heads over 8
-    KV heads, Dh 128: a 512-token bucket holding prompts of 500 and 384
+    """Both causal kernels at the reduced LM shapes (GQA 4:1, Dh 16:
+    left-pad rows, a row behind a compacted prefix, a decode row at the
+    buffer's end) and at full-width Minitron-4B (24 query heads over 8 KV
+    heads, Dh 128: a 512-token bucket holding prompts of 500 and 384
     tokens, and a batch-4 decode against a 572-slot cache)."""
     _causal_case(dev, 3, 8, 4, 1, 16, 20, [0, 0, 4], [8, 8, 12], [0, 3, 6])
     _causal_case(dev, 3, 1, 4, 1, 16, 20, [7, 12, 19], [8, 13, 20],
@@ -283,6 +298,56 @@ def test_causal_kernel_matches_plain_on_card(dev):
     lens = [130, 290, 420, 571]
     _causal_case(dev, 4, 1, 24, 8, 128, 572, [n - 1 for n in lens], lens,
                  [32, 56, 0, 12])
+
+
+@pytest.mark.parametrize("Dh", [16, 128])
+def test_decode_kernel_windows_on_card(dev, Dh):
+    """``flash_decode_bf16`` (64 keys per split) at GQA 3:1 over a
+    1000-slot cache, one batch row per kind of window: shorter than one
+    split, within one split away from its edges (``kv_start`` and
+    ``kv_len`` inside it), across a split edge, across 16 splits, no
+    valid key (``kv_start`` at ``kv_len``: output and probabilities 0),
+    and across 11 splits from a ``kv_start`` inside the first. Each row
+    decodes the last token of its cache (``q_offset`` = ``kv_len`` - 1),
+    as the engine does: the plain probabilities mask by ``kv_len``
+    alone."""
+    lens = [5, 120, 140, 1000, 40, 700]
+    starts = [0, 70, 60, 20, 40, 3]
+    offs = [n - 1 for n in lens]
+    o = _causal_case(dev, 6, 1, 6, 2, Dh, 1000, offs, lens, starts, seed=1)
+    assert bool((o[4] == 0).all())
+
+
+@pytest.mark.parametrize("Dh", [16, 128])
+@pytest.mark.parametrize("Hq,KV", [(6, 2), (8, 2)])
+def test_prefill_kernel_shapes_on_card(dev, Dh, Hq, KV):
+    """``flash_prefill_bf16`` at GQA 3:1 and 4:1: 37 positions (row
+    counts 111 and 148, not multiples of the 64-row tile), two batch rows
+    with other windows: a prompt after 30 cached keys whose first 9 are
+    pruned away, and a left-padded prompt (``kv_start`` 20 at
+    ``q_offset`` 0: its first 20 rows see no key)."""
+    _causal_case(dev, 2, 37, Hq, KV, Dh, 90, [30, 0], [67, 37], [9, 20],
+                 seed=2)
+
+
+def test_causal_kernels_bitwise_repeatable_across_serves(dev):
+    """Two serves of the reduced Minitron-4B on the card at pipeline
+    depths 1 and 2 give identical tokens: the decode kernel's split
+    combine takes its sums in a fixed order."""
+    cfg = MINITRON_4B.reduced()
+    params = serving_params(cfg, M.init_params(
+        cfg, torch.Generator(dev).manual_seed(0), device=dev))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (70, 9, 130)]
+    outs = []
+    for depth in (1, 2):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_batch=3, max_len=200, pipeline_depth=depth), device=dev)
+        outs.append(eng.serve([Request(uid=i, prompt=p, max_new_tokens=12)
+                               for i, p in enumerate(prompts)],
+                              continuous=True))
+    assert outs[0] == outs[1]
 
 
 def _teacher_forced_gaps(cfg, params, req, dev):
@@ -300,12 +365,12 @@ def _teacher_forced_gaps(cfg, params, req, dev):
 @pytest.mark.parametrize("continuous", [False, True])
 def test_lm_engine_on_card_matches_oracle(dev, continuous):
     """Reduced Minitron-4B (bf16 activations, GQA 4:1) served on the card
-    through the causal kernel, in prefill and decode: every request gets
-    its tokens, the engine waits on the card only at step boundaries, and
-    each token's logit in the teacher-forced offline forward lies within
-    0.05 of that position's largest (the CPU bound against the
-    reference); with KV pruning on, prunes fire and every request still
-    gets its tokens."""
+    through the causal kernels, each launched once per layer of its own
+    calls (prefill and decode): every request gets its tokens, the engine
+    waits on the card only at step boundaries, and each token's logit in
+    the teacher-forced offline forward lies within 0.05 of that position's
+    largest (the CPU bound against the reference); with KV pruning on,
+    prunes fire and every request still gets its tokens."""
     cfg = MINITRON_4B.reduced()
     params = serving_params(cfg, M.init_params(
         cfg, torch.Generator(dev).manual_seed(0), device=dev))
@@ -330,8 +395,11 @@ def test_lm_engine_on_card_matches_oracle(dev, continuous):
         calls = (st["runner_prefill_calls"] + st["runner_prefill_slot_calls"]
                  + st["runner_decode_calls"])
         assert st["runner_decode_calls"] > 0
-        assert backend.launches()["flash_attention_causal_bf16"] == \
-            cfg.num_layers * calls
+        n = backend.launches()
+        assert n["flash_decode_bf16"] == \
+            cfg.num_layers * st["runner_decode_calls"]
+        assert n["flash_prefill_bf16"] == cfg.num_layers * (
+            calls - st["runner_decode_calls"])
         if keep < 1:
             assert st["prune_events"] > 0
             continue

@@ -409,7 +409,7 @@ def test_card_tensors_never_take_the_plain_path(monkeypatch):
         flash_attention(q, q, q, torch.tensor([5], dtype=torch.int32))
     with pytest.raises(RuntimeError, match="no flash_attention kernel"):
         flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(RuntimeError, match="no flash_attention kernel"):
+    with pytest.raises(RuntimeError, match="no flash_prefill kernel"):
         flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
                         causal=True)
     with pytest.raises(RuntimeError, match="no token_drop kernel"):
