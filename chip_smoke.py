@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel/plain/library times (CUDA events, median of 21 runs of 10 calls
    after warm-up) and each kernel's least possible time on an H100 SXM
    (published HBM rate, fp32 CUDA-core rate, and the fp16/bf16
-   tensor-core rate for the products of two 16-bit values).
+   tensor-core rate for the products of two 16-bit values). Each SBMM
+   entry point also recomputes every row of its 788-row call alone (M = 1)
+   and must match it bitwise, and prints the host's cost of issuing one
+   ``sbmm()`` call and one library call; the host's cost of reading the
+   current stream is printed once.
 4. Main path, one serving path after another, each driven with the launch
    counts set to 0 just before a serve and read just after: full-width
    DeiT-Small (12 layers, D=384, 224 px; random weights from a seed)
@@ -63,13 +67,16 @@ Phases, in order; any failure exits non-zero and prints no result:
       no host wait besides the step events. Prints tokens/s, steps, ms
       per step and per decode step, and one decode step timed alone.
 5. Profile (``torch.profiler``): each kernel's device time per launch at
-   the phase-3 shapes; for one depth-1 serve of each path, the device-busy
+   the phase-3 shapes and its library call's device time per call (an
+   ``sbmm()`` call that runs more than its one kernel on the card fails
+   the run); for one depth-1 serve of each path, the device-busy
    and idle share, the device time by kernel and the engine's host spans
    (plan / stage / dispatch / complete), and the host's self time by
    operator and CUDA runtime call; the same for one continuous depth-1
    serve of the LM, with the decode and prefill kernels' device time and
    launches, each and together, against its device busy time.
-6. A ``kernels`` JSON line (one entry per C entry point; ``launches``
+6. A ``kernels`` JSON line (one entry per C entry point, with the library
+   call's device time as ``library_device_ms``; ``launches``
    summed over the last timed serve of each path, the LM's continuous
    depth-1 serve for the causal kernels, whose entries list each of their
    shapes under ``cases`` and head with the first), then the last line
@@ -143,15 +150,33 @@ def bound_ms(n_bytes: float, n_ops: float, n_ops_f16: float = 0.0):
 SBMM_SHAPE = (788, 384, 384, 16)  # M, K, N, b
 
 
+def host_ms(torch, fn, calls: int = 200) -> float:
+    """Host time per call of ``fn``: the host's clock around ``calls``
+    calls issued back to back without waiting on the card (the card keeps
+    up, so this is what issuing one call costs the host)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
 def check_sbmm(torch, dev):
     """The four SBMM entry points on one packed weight: fp32 blocks, fp16
-    blocks, int8 blocks with per-block and per-channel scales."""
+    blocks, int8 blocks with per-block and per-channel scales; each
+    against its plain version, and each row of the 788-row call recomputed
+    alone (M = 1) bitwise equal to it."""
     import numpy as np
     from repro_torch.core import block_pruning as BP
     from repro_torch.core import quant as Q
     from repro_torch.core.packing import pack_weight
+    from repro_torch.kernels import backend
     from repro_torch.kernels.sbmm import (pad_input, sbmm, sbmm_plain,
-                                          sbmm_quant_plain, unpermute)
+                                          sbmm_quant_plain)
     M, K, N, b = SBMM_SHAPE
     g = torch.Generator().manual_seed(1)
     w = torch.randn((K, N), generator=g) * 0.05
@@ -162,6 +187,12 @@ def check_sbmm(torch, dev):
             "sbmm check needs a non-identity col_perm")
     x = torch.randn((M, K), generator=g).to(dev)
     kept = int((pw.header >= 0).sum())
+    stream_us = (host_ms(torch, lambda: torch.cuda.current_stream(
+        dev).cuda_stream, 2000) * 1e3, host_ms(
+        torch, lambda: backend.current_stream(dev), 2000) * 1e3)
+    print(f"host: reading the current stream {stream_us[0]:.3f} us per call "
+          f"through torch.cuda.current_stream(dev).cuda_stream, "
+          f"{stream_us[1]:.3f} us through backend.current_stream", flush=True)
     variants = (("sbmm_f32", pw, "sbmm.cu"),
                 ("sbmm_f16w", Q.quantize_packed(pw, "fp16"), "sbmm.cu"),
                 ("sbmm_i8_block", Q.quantize_packed(pw, "int8", "block"),
@@ -174,15 +205,26 @@ def check_sbmm(torch, dev):
 
         def plain(q=q, quant=quant):
             xp = pad_input(x, q)
-            y = (sbmm_quant_plain(xp, q.blocks, q.header, q.scales) if quant
-                 else sbmm_plain(xp, q.blocks, q.header))
-            return unpermute(y, q)
+            return (sbmm_quant_plain(xp, q.blocks, q.header, q.scales,
+                                     q.col_map, N) if quant
+                    else sbmm_plain(xp, q.blocks, q.header, q.col_map, N))
 
         y, ref = sbmm(x, q), plain()
         torch.cuda.synchronize()
+        require(y.shape == (M, N) and y.is_contiguous(),
+                f"{name}: output {tuple(y.shape)}, not [{M}, {N}] contiguous")
         err = (y - ref).abs().max().item()
         tol = 1e-4 * ref.abs().max().item()
+        split = [r for r in range(M) if not torch.equal(sbmm(x[r:r + 1], q)[0],
+                                                         y[r])]
+        require(not split, f"{name}: {len(split)} of {M} rows computed alone "
+                           f"(M = 1) differ bitwise from the {M}-row call, "
+                           f"first {split[:1]}")
         w_dense = q.to_dense().float()  # dequantized: the library's input
+
+        def library(w_dense=w_dense):
+            return x @ w_dense
+
         n_bytes = (4 * (x.numel() + pw.header.numel() + M * N)
                    + q.blocks.numel() * q.blocks.element_size()
                    + (q.scales.numel() * 4 if quant else 0)
@@ -194,12 +236,15 @@ def check_sbmm(torch, dev):
             errs=[("y", err, tol, "1e-4 x max|plain|")],
             fn=lambda q=q: sbmm(x, q),
             ms=time_ms(lambda q=q: sbmm(x, q)), plain_ms=time_ms(plain),
-            library_ms=time_ms(lambda w_dense=w_dense: x @ w_dense),
+            library_fn=library, library_ms=time_ms(library),
             library_call="x @ W_dense (cuBLAS fp32 on the dequantized "
                          "weight)",
+            host=(host_ms(torch, lambda q=q: sbmm(x, q)),
+                  host_ms(torch, library)),
             bound_ms=bnd, bound_by=by,
             shapes=f"x[{M},{K}] blocks{list(q.blocks.shape)} "
-                   f"{str(q.blocks.dtype)[6:]} kept={kept}"))
+                   f"{str(q.blocks.dtype)[6:]} kept={kept}; rows at M=1 "
+                   f"bitwise those at M={M}"))
     return checks
 
 
@@ -248,6 +293,10 @@ def check_flash_attention(torch, dev, half: bool):
                + 4 * (B + B * N))
     bnd, by = (bound_ms(n_bytes, n_pv + n_rest, n_qk) if half
                else bound_ms(n_bytes, n_qk + n_pv + n_rest))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask)
+
     return dict(
         name="flash_attention_f16" if half else "flash_attention_f32",
         source="flash_attention.cu",
@@ -257,8 +306,7 @@ def check_flash_attention(torch, dev, half: bool):
         ms=time_ms(lambda: flash_attention(q, k, v, kv_len,
                                            collect_scores=True)),
         plain_ms=time_ms(plain),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=amask)),
+        library_fn=library, library_ms=time_ms(library),
         library_call=(f"F.scaled_dot_product_attention on {str(dt)[6:]} "
                       f"(bool key mask)"),
         bound_ms=bnd, bound_by=by,
@@ -378,7 +426,8 @@ def check_flash_attention_causal(torch, dev):
 
         cases[name].append(dict(
             label=label, errs=errs, fn=kern, ms=time_ms(kern),
-            plain_ms=time_ms(plain), library_ms=time_ms(library),
+            plain_ms=time_ms(plain), library_fn=library,
+            library_ms=time_ms(library),
             bound_ms=bnd, bound_by=by,
             shapes=f"q[{B},{Nq},{Hq},{Dh}] k,v[{B},{S},{KV},{Dh}] bf16 "
                    f"q_offset={off if B > 1 else off[0]} kv_len={lens} "
@@ -390,7 +439,7 @@ def check_flash_attention_causal(torch, dev):
             name=name, source=f"{name[:-5]}.cu",
             errs=[e for c in cs for e in c["errs"]], fn=head["fn"],
             ms=head["ms"], plain_ms=head["plain_ms"],
-            library_ms=head["library_ms"],
+            library_fn=head["library_fn"], library_ms=head["library_ms"],
             library_call="F.scaled_dot_product_attention(enable_gqa=True) "
                          "on bf16 (bool causal window mask)",
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -427,7 +476,7 @@ def check_token_drop(torch, dev):
         fn=lambda: token_drop(z, scores, k),
         ms=time_ms(lambda: token_drop(z, scores, k)),
         plain_ms=time_ms(lambda: token_drop_plain(z, scores, k)),
-        library_ms=None, library_call=None,
+        library_fn=None, library_ms=None, library_call=None,
         bound_ms=bnd, bound_by=by,
         shapes=f"z[{B},{N},{D}] k={k} n_valid={list(n_valid)}")
 
@@ -471,7 +520,7 @@ def check_token_package(torch, dev):
         ms=time_ms(lambda: token_package(z, scores, k, mass, pos)),
         plain_ms=time_ms(lambda: token_package_plain(z, scores, k, mass,
                                                      pos)),
-        library_ms=None, library_call=None,
+        library_fn=None, library_ms=None, library_call=None,
         bound_ms=bnd, bound_by=by,
         shapes=f"z[4,197,{D}] k=138 (first); z[{B},{N},{D}] k={k} "
                f"n_valid={list(n_valid)} with package (timed)")
@@ -1069,29 +1118,53 @@ def profile_lm(torch, dev, cfg, params, walls):
 
 def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
     """Device time per launch of each kernel entry point at the phase-3
-    shapes (stored as ``c["device_ms"]``); then one serve of each path
-    (``profile_serve``)."""
+    shapes (stored as ``c["device_ms"]``) and of its library call
+    (``c["library_device_ms"]``, all the call's device work); an
+    ``sbmm()`` call must run one device kernel and nothing else. Then one
+    serve of each path (``profile_serve``)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    n = 20
     for check in checks:
         for c in check.get("cases", [check]):
             with profile(activities=acts) as prof:
-                for _ in range(20):
+                for _ in range(n):
                     c["fn"]()
                 torch.cuda.synchronize()
+            rows = _device_rows(prof)
             sym = kernel_symbol(check["name"])
-            mine = [r for r in _device_rows(prof) if sym in r[0]]
+            mine = [r for r in rows if sym in r[0]]
             require(bool(mine), f"profiler saw no {sym} launch")
             calls = sum(r[1] for r in mine)
             us = sum(r[2] for r in mine)
+            if check["name"].startswith("sbmm"):
+                others = [r for r in rows if sym not in r[0]]
+                require(calls <= n and not others,
+                        f"{n} sbmm() calls ran {calls} {sym} launches and "
+                        f"other device work {others}: more than one kernel "
+                        f"per call")
             c["device_ms"] = us / calls / 1e3
             c["max_abs_err"] = c["err"]
+            c["library_device_ms"] = None
+            if c["library_fn"] is not None:
+                with profile(activities=acts) as prof:
+                    for _ in range(n):
+                        c["library_fn"]()
+                    torch.cuda.synchronize()
+                lib_rows = _device_rows(prof)
+                c["library_device_ms"] = sum(r[2] for r in lib_rows) / n / 1e3
+            lib = ("" if c["library_device_ms"] is None else
+                   f"; library {c['library_device_ms'] * 1e3:.2f} us/call on "
+                   f"the card ({sum(r[1] for r in lib_rows) / n:g} device "
+                   f"launches per call)")
             print(f"profile {check['name']}"
                   + (f" ({c['label']})" if "label" in c else "")
                   + f": device {us / calls:.2f} us/launch ({calls} "
-                  f"launches); wrapper {c['ms'] * 1e3:.2f} us/call",
+                  f"launches); wrapper {c['ms'] * 1e3:.2f} us/call" + lib,
                   flush=True)
-        check["device_ms"] = check.get("cases", [check])[0]["device_ms"]
+        head = check.get("cases", [check])[0]
+        check["device_ms"] = head["device_ms"]
+        check["library_device_ms"] = head["library_device_ms"]
     profile_serve(torch, dev, cfg, params, scores, walls["fp32 depth 1"],
                   "main path fp32")
     for path, precision, granularity in TIERS:
@@ -1153,10 +1226,13 @@ def main() -> int:
             errs = "; ".join(f"{out}: max_abs_err={err:.3g} <= {tol:.3g}"
                              + (f" ({rule})" if rule else "")
                              for out, err, tol, rule in c["errs"])
+            host = ("" if "host" not in c else
+                    f" host_ms={c['host'][0]:.4f} (library "
+                    f"{c['host'][1]:.4f}; issuing a call, no wait)")
             print(f"kernel {check['name']}: {c['shapes']} {errs} "
                   f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
                   f"library_ms={c['library_ms']} ({check['library_call']}) "
-                  f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']})",
+                  f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']})" + host,
                   flush=True)
         require(all(err <= tol for _, err, tol, _ in check["errs"]),
                 f"kernel {check['name']} disagrees with its plain version")
@@ -1182,9 +1258,11 @@ def main() -> int:
          "plain_ms": c["plain_ms"],
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
          "library_ms": c["library_ms"],
+         "library_device_ms": c["library_device_ms"],
          **({"cases": [{k: case[k] for k in (
              "label", "max_abs_err", "ms", "device_ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms")} for case in c["cases"]]}
+             "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+             for case in c["cases"]]}
             if "cases" in c else {})} for c in checks]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,8 @@ runs offline in numpy exactly as in the reference, so ``header`` and
 torch tensors on the caller's device.
 
 Offline load balancing: ``balance_columns`` orders columns heaviest-first
-(LPT); the permutation is folded into the stored layout and undone after
-the SBMM (``kernels.sbmm.sbmm``).
+(LPT); the permutation is folded into the stored layout and undone
+by the SBMM kernel's store (``col_map``, ``kernels.sbmm.sbmm``).
 """
 from __future__ import annotations
 
@@ -37,16 +37,14 @@ class PackedWeight:
     col_perm: np.ndarray  # permutation applied to block-columns
     shape: Tuple[int, int]
     block_size: int
-    # stored slot of each logical block column (int64, on the blocks'
-    # device): ``y_logical[:, c] = y_stored[:, inv_perm[c]]``. Built with
-    # the weight, so no forward pays a host-to-device copy for it.
-    inv_perm: torch.Tensor = dataclasses.field(init=False, repr=False,
-                                               compare=False)
+    # logical block column of each stored one (int32, on the blocks'
+    # device): the SBMM kernel writes stored column j at col_map[j]. Built
+    # with the weight, so no forward pays a host-to-device copy for it.
+    col_map: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                              compare=False)
 
     def __post_init__(self) -> None:
-        inv = np.empty(self.n_cols, dtype=np.int64)
-        inv[np.asarray(self.col_perm)] = np.arange(self.n_cols)
-        self.inv_perm = torch.as_tensor(inv, device=self.blocks.device)
+        self.col_map = col_map_of(self.col_perm, self.blocks.device)
 
     @property
     def n_cols(self) -> int:
@@ -90,6 +88,13 @@ class PackedWeight:
                     continue
                 dense[r * b:(r + 1) * b, c * b:(c + 1) * b] = blocks[pc, s]
         return torch.as_tensor(dense[:m1, :m2], device=self.blocks.device)
+
+
+def col_map_of(col_perm: np.ndarray,
+               device: torch.device) -> torch.Tensor:
+    """``col_perm`` as the SBMM kernels' int32 ``col_map`` on ``device``."""
+    return torch.as_tensor(np.asarray(col_perm, dtype=np.int32),
+                           device=device)
 
 
 def balance_columns(col_counts: np.ndarray, lanes: int = 8) -> np.ndarray:

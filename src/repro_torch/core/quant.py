@@ -30,7 +30,7 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.packing import PackedWeight
+from repro_torch.core.packing import PackedWeight, col_map_of
 
 __all__ = ["PRECISIONS", "PRECISION_BYTES", "GRANULARITIES",
            "QuantizedPackedWeight", "quantize_packed", "dequantize_packed",
@@ -58,14 +58,12 @@ class QuantizedPackedWeight:
     shape: Tuple[int, int]
     block_size: int
     granularity: str = "block"
-    # stored slot of each logical block column, as in PackedWeight
-    inv_perm: torch.Tensor = dataclasses.field(init=False, repr=False,
-                                               compare=False)
+    # logical block column of each stored one, as in PackedWeight
+    col_map: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                              compare=False)
 
     def __post_init__(self) -> None:
-        inv = np.empty(self.n_cols, dtype=np.int64)
-        inv[np.asarray(self.col_perm)] = np.arange(self.n_cols)
-        self.inv_perm = torch.as_tensor(inv, device=self.blocks.device)
+        self.col_map = col_map_of(self.col_perm, self.blocks.device)
 
     @property
     def n_cols(self) -> int:

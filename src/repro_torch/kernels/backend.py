@@ -43,8 +43,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 P, I = ctypes.c_void_p, ctypes.c_int
-_SBMM = [P, P, P, P, I, I, I, I, P]
-_SBMM_QUANT = [P, P, P, P, P, I, I, I, I, P]
+_SBMM = [P] * 5 + [I] * 5 + [P]
+_SBMM_QUANT = [P] * 6 + [I] * 5 + [P]
 _FLASH = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
 _FLASH_DECODE = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
 _FLASH_PREFILL = [P] * 7 + [I] * 6 + [ctypes.c_float, P]
@@ -67,6 +67,7 @@ ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)
 LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, ctypes._CFuncPtr] = {}  # resolved C entry points
 
 
 # ---------------------------------------------------------------------------
@@ -209,14 +210,23 @@ def _error_string(err: int) -> str:
 
 def launch(lib_name: str, entry_point: str, device: torch.device,
            *args) -> None:
-    """Call C entry point ``entry_point`` of library ``lib_name`` (built
-    and loaded on first use) with ``args`` and PyTorch's current stream on
-    ``device`` (every entry point takes the stream last), raise if the
-    launch failed, and count it."""
-    fn = getattr(library(lib_name), entry_point)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    check(entry_point, fn(*args, stream))
+    """Call C entry point ``entry_point`` of library ``lib_name`` (built,
+    loaded and resolved on first use) with ``args`` and PyTorch's current
+    stream on ``device``, read at this call (every entry point takes the
+    stream last), raise if the launch failed, and count it."""
+    fn = _FNS.get(entry_point)
+    if fn is None:
+        fn = _FNS[entry_point] = getattr(library(lib_name), entry_point)
+    check(entry_point, fn(*args, current_stream(device)))
     LAUNCHES[entry_point] += 1
+
+
+def current_stream(device: torch.device) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on ``device``, read
+    by the getter ``torch.cuda.current_stream`` wraps: that call also
+    builds a ``Stream`` object each time, many times the cost of the read
+    (``chip_smoke.py`` prints both)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def reset_launches() -> None:

@@ -1,34 +1,16 @@
 // Pieces shared by the two causal GQA attention kernels (flash_decode.cu,
-// flash_prefill.cu): 16-byte asynchronous copies into shared memory and
-// the per-row key window of a query row.
+// flash_prefill.cu): the per-row key window of a query row and the shared
+// memory limit; their asynchronous copies come from cp_async.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace causal {
 
 using bf16 = __nv_bfloat16;
-
-// Copy 16 bytes from global to shared memory without staging them in
-// registers; with `valid` false nothing is read and the 16 bytes are zeroed
-// (`src` must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Batch row b's bounds: query row i sees keys [lo, min(len, off + i + 1)).
 // Null bounds default to q_offset 0, kv_len S and kv_start 0; kv_len past

@@ -135,20 +135,20 @@ flash_decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int e = t; e < kSplit * kChunks; e += kThreads) {
     const int r = e / kChunks, ch = e % kChunks, c = c0 + r;
     const bool ok = c >= lo && c < hi;
-    causal::cp_async16(ks + r * kLd + ch * 8, ok ? kb + c * slot + ch * 8 : kb,
+    cp_async16(ks + r * kLd + ch * 8, ok ? kb + c * slot + ch * 8 : kb,
                        ok);
   }
-  causal::cp_async_commit();
+  cp_async_commit();
   for (int e = t; e < kSplit * kChunks; e += kThreads) {
     const int r = e / kChunks, ch = e % kChunks, c = c0 + r;
     const bool ok = c >= lo && c < hi;
-    causal::cp_async16(vs + r * kLd + ch * 8, ok ? vb + c * slot + ch * 8 : vb,
+    cp_async16(vs + r * kLd + ch * 8, ok ? vb + c * slot + ch * 8 : vb,
                        ok);
   }
-  causal::cp_async_commit();
+  cp_async_commit();
   const bf16* qb = q + (static_cast<size_t>(b) * Hq + g * per) * DH;
   for (int e = t; e < per * DH; e += kThreads) qf[e] = __bfloat162float(qb[e]);
-  causal::cp_async_wait<1>();  // K has landed; V may still be in flight
+  cp_async_wait<1>();  // K has landed; V may still be in flight
   __syncthreads();
 
   // scores: one (head, key) pair per thread at a time, K read 16 bytes at
@@ -214,7 +214,7 @@ flash_decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       ml[per + h] = l;
     }
   }
-  causal::cp_async_wait<0>();
+  cp_async_wait<0>();
   __syncthreads();
 
   // the partial: acc[d] = sum_r p[r] v[r][d], keys split over kGroups

@@ -154,8 +154,8 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
       const int r = e / kChunks, ch = e % kChunks, c = tile * kBc + r;
       const bool ok = c >= lo && c < block_hi;
       const size_t at = ok ? c * slot + ch * 8 : 0;
-      causal::cp_async16(ks + r * kLd + ch * 8, kb + at, ok);
-      causal::cp_async16(vs + r * kLd + ch * 8, vb + at, ok);
+      cp_async16(ks + r * kLd + ch * 8, kb + at, ok);
+      cp_async16(vs + r * kLd + ch * 8, vb + at, ok);
     }
   };
 
@@ -166,11 +166,11 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
         ok ? ((static_cast<size_t>(b) * Nq + j / per) * Hq + g * per + j % per) *
                      DH + ch * 8
            : 0;
-    causal::cp_async16(qs + r * kLd + ch * 8, q + at, ok);
+    cp_async16(qs + r * kLd + ch * 8, q + at, ok);
   }
   if (t0 < t1) load_kv(t0, 0);
-  causal::cp_async_commit();
-  causal::cp_async_wait<0>();
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
   // this warp's 16 Q rows as A fragments, all of Dh
@@ -194,10 +194,10 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
     const int stage = (kt - t0) & 1;
     if (kt + 1 < t1) {
       load_kv(kt + 1, stage ^ 1);
-      causal::cp_async_commit();
-      causal::cp_async_wait<1>();
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      causal::cp_async_wait<0>();
+      cp_async_wait<0>();
     }
     __syncthreads();
     const bf16* ks = kvs + 2 * stage * L::kTile;

@@ -20,7 +20,9 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attention import (attention_causal_plain,
                                                  attention_plain,
                                                  flash_attention)
-from repro_torch.kernels.sbmm import sbmm
+from repro_torch.core.quant import dequantize_blocks
+from repro_torch.kernels.sbmm import (sbmm, sbmm_plain, sbmm_quant_raw,
+                                      sbmm_raw)
 from repro_torch.kernels.token_drop import token_drop
 from repro_torch.kernels.token_package import (token_package,
                                                token_package_plain)
@@ -219,6 +221,109 @@ def test_soft_int8_serve_on_card_matches_oracle(dev):
         scale = max(1.0, float(np.abs(ref).max()))
         assert float(np.abs(out[r.uid] - ref).max()) <= 1e-4 * scale
         assert int(np.argmax(out[r.uid])) == int(np.argmax(ref))
+
+
+# ---------------------------------------------------------------------------
+# the SBMM entry points
+# ---------------------------------------------------------------------------
+SBMM_MS = (1, 5, 64, 65, 197, 788)
+SBMM_KINDS = {"sbmm_f32": ("fp32", None), "sbmm_f16w": ("fp16", None),
+              "sbmm_i8_block": ("int8", "block"),
+              "sbmm_i8_channel": ("int8", "channel")}
+
+
+def _interleave_padding(header, *per_slot, rng):
+    """Move each header row's -1 padding in among its live slots, which
+    keep their order, and each per-slot tensor (blocks, scales) with it."""
+    C, S = header.shape
+    order = np.empty((C, S), np.int64)
+    for c in range(C):
+        n = int((header[c] >= 0).sum())
+        at = np.sort(rng.choice(S, n, replace=False))
+        order[c, at] = np.arange(n)
+        order[c, np.setdiff1d(np.arange(S), at)] = np.arange(n, S)
+    idx = torch.from_numpy(order).to(header.device)
+    return [torch.stack([t[c][idx[c]] for c in range(C)])
+            for t in (header, *per_slot)]
+
+
+def _sbmm_weight(dev, entry):
+    """A [384, 376] weight at r_b ~0.5 with block column counts spread
+    from 0 (an empty column) to 24, so the heaviest-first permutation is
+    not the identity; N = 376 leaves the last block column half used."""
+    rng = np.random.default_rng(3)
+    K, N = 384, 376
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    mask = (rng.random((K // 16, -(-N // 16))) < 0.5).astype(np.float32)
+    mask[:, 5] = 0.0
+    mask[:, 7] = 1.0
+    pk = pack_weight(w, mask, 16, device=dev)
+    assert not np.array_equal(pk.col_perm, np.arange(pk.n_cols))
+    assert int(pk.counts.min()) == 0
+    precision, granularity = SBMM_KINDS[entry]
+    return Q.quantize_packed(pk, precision, granularity or "block")
+
+
+@pytest.mark.parametrize("entry", list(SBMM_KINDS))
+def test_sbmm_entry_point_on_card(dev, entry):
+    """One SBMM entry point at M in {1, 5, 64, 65, 197, 788}: within 1e-4
+    of the largest plain element; each row's bits independent of M and of
+    the row tile (every row of the 788-row call recomputed alone, and the
+    first M rows at every M); the logical-order store bitwise the
+    stored-order output un-permuted; exactly one device kernel per
+    ``sbmm()`` call; a misaligned x raises; a header with its -1 padding
+    moved in among the live slots gives the stored-order output's bits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q = _sbmm_weight(dev, entry)
+    quant = isinstance(q, Q.QuantizedPackedWeight)
+    K, N = q.shape
+    C = q.n_cols
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((max(SBMM_MS), K), generator=g).to(dev)
+    blocks = dequantize_blocks(q.blocks, q.scales) if quant else q.blocks
+    inv = np.argsort(q.col_perm)
+    before = backend.launches()[entry]
+    y_all = sbmm(x, q)
+    for M in SBMM_MS:
+        y = sbmm(x[:M], q)
+        ref = sbmm_plain(x[:M], blocks, q.header, q.col_map, N)
+        assert y.shape == (M, N) and y.is_contiguous()
+        torch.testing.assert_close(y, ref, rtol=0,
+                                   atol=1e-4 * ref.abs().max().item())
+        assert torch.equal(y, y_all[:M])
+        raw = (sbmm_quant_raw(x[:M], q.blocks, q.header, q.scales) if quant
+               else sbmm_raw(x[:M], q.blocks, q.header))
+        assert torch.equal(raw.view(M, C, 16)[:, inv].reshape(M, -1)[:, :N],
+                           y)
+    for r in range(x.shape[0]):
+        assert torch.equal(sbmm(x[r:r + 1], q)[0], y_all[r]), r
+    header, blk, *sc = _interleave_padding(
+        q.header, q.blocks, *([q.scales] if quant else []),
+        rng=np.random.default_rng(5))
+    hdr = header.cpu().numpy()
+    assert ((hdr[:, :-1] < 0) & (hdr[:, 1:] >= 0)).any()
+    assert torch.equal(sbmm_quant_raw(x, blk, header, sc[0]) if quant
+                       else sbmm_raw(x, blk, header), raw)
+    assert backend.launches()[entry] == before + 2 + 2 * len(SBMM_MS) + \
+        x.shape[0]
+
+    sbmm(x, q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            sbmm(x, q)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    assert sum(n for _, n in kernels) == 20, kernels
+    assert all(f"{entry}_kernel" in k for k, _ in kernels), kernels
+
+    misaligned = torch.empty(8 * K + 1, device=dev)[1:].view(8, K)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sbmm(misaligned, q)
 
 
 # ---------------------------------------------------------------------------

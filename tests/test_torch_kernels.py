@@ -31,7 +31,8 @@ from repro_torch.core import token_pruning as TTP
 from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention)
-from repro_torch.kernels.sbmm import (pad_input, sbmm, sbmm_quant_raw,
+from repro_torch.kernels.sbmm import (pad_input, sbmm, sbmm_plain,
+                                      sbmm_quant_plain, sbmm_quant_raw,
                                       sbmm_raw)
 from repro_torch.kernels.token_drop import token_drop
 from repro_torch.kernels.token_package import token_package
@@ -54,38 +55,139 @@ def _mask(counts_per_col, n_row_blocks, rng):
 # ---------------------------------------------------------------------------
 # K1 sbmm
 # ---------------------------------------------------------------------------
+SBMM_KINDS = ("fp32", "fp16", "int8-block", "int8-channel")
+
+
+def _weights(kind, w, mask):
+    """The reference's packed weight of ``kind`` and the port's conversion
+    of it, after checking that the port packs and quantizes the same
+    weight identically on its own."""
+    pk_j = JP.pack_weight(w, mask, 16)
+    own = TPK.pack_weight(w, mask, 16)
+    assert np.array_equal(own.col_perm, pk_j.col_perm)
+    assert np.array_equal(own.header.numpy(), np.asarray(pk_j.header))
+    assert np.array_equal(own.counts.numpy(), np.asarray(pk_j.counts))
+    assert np.array_equal(own.blocks.numpy(), np.asarray(pk_j.blocks))
+    assert np.array_equal(own.to_dense().numpy(), np.asarray(pk_j.to_dense()))
+    if kind == "fp32":
+        return pk_j, convert.packed_from_jax(pk_j)
+    if kind == "fp16":
+        q_j = JQ.quantize_packed(pk_j, "fp16")
+        q_t = convert.packed_from_jax(q_j)
+        assert q_t.blocks.dtype == torch.float16
+        assert torch.equal(TQ.quantize_packed(own, "fp16").blocks, q_t.blocks)
+        return q_j, q_t
+    granularity = kind.split("-")[1]
+    q_j = JQ.quantize_packed(pk_j, "int8", granularity)
+    q_t = convert.packed_dict_from_jax({"w": q_j})["w"]
+    q_o = TQ.quantize_packed(own, "int8", granularity)
+    assert isinstance(q_t, TQ.QuantizedPackedWeight)
+    for q in (q_t, q_o):
+        assert q.granularity == granularity and q.blocks.dtype == torch.int8
+        np.testing.assert_array_equal(q.blocks.numpy(), np.asarray(q_j.blocks))
+        np.testing.assert_array_equal(q.scales.numpy(), np.asarray(q_j.scales))
+        np.testing.assert_array_equal(q.header.numpy(), np.asarray(q_j.header))
+        assert q.nbytes() == q_j.nbytes()
+        np.testing.assert_array_equal(q.to_dense().numpy(),
+                                      np.asarray(q_j.to_dense()))
+    assert TQ.quantization_error(own, q_o) == \
+        JQ.quantization_error(pk_j, q_j)
+    return q_j, q_t
+
+
 @pytest.mark.parametrize("M,K,N,counts", [
     (1, 64, 48, (1, 3, 2)),
-    (5, 40, 48, (3, 1, 2)),        # K not a multiple of 16: padding path
+    (33, 40, 40, (3, 1, 2)),       # K padding; N = 40: padded last column
     (70, 64, 64, (0, 4, 2, 1)),    # an empty column, M > one 64-row tile
 ])
-def test_sbmm_plain_matches_reference(M, K, N, counts):
-    rng = np.random.default_rng(M * 1000 + K)
+@pytest.mark.parametrize("kind", SBMM_KINDS)
+def test_sbmm_plain_matches_reference(kind, M, K, N, counts):
+    """Each block kind (fp32, fp16, int8 with per-block or per-column
+    scales): the port packs and quantizes as the reference does, and the
+    plain versions agree with the reference in both contracts — with the
+    weight's ``col_map`` and logical width, against its Pallas ``sbmm``
+    (interpret mode: un-permuted and sliced); with ``arange(C)`` and
+    ``C·16`` (``sbmm_raw`` / ``sbmm_quant_raw``), against its stored-order
+    oracle ``sbmm_ref`` / ``sbmm_quant_ref``. fp32 arithmetic throughout
+    (the fp16 block is widened, as the reference's ``jnp.dot`` does)."""
+    rng = np.random.default_rng(M * 1000 + K * 10 + SBMM_KINDS.index(kind))
     w = rng.standard_normal((K, N)).astype(np.float32)
-    mask = _mask(counts, -(-K // 16), rng)
-    pk_j = JP.pack_weight(w, mask, 16)
-    pk_t = convert.packed_from_jax(pk_j)
-    assert not np.array_equal(pk_t.col_perm, np.arange(pk_t.n_cols))
-    assert (pk_t.header == -1).any()
+    q_j, q_t = _weights(kind, w, _mask(counts, -(-K // 16), rng))
+    assert not np.array_equal(q_t.col_perm, np.arange(q_t.n_cols))
+    assert (q_t.header == -1).any()
+    assert q_t.col_map.dtype == torch.int32
+    assert np.array_equal(q_t.col_map.numpy(), q_t.col_perm)
+    quant = isinstance(q_t, TQ.QuantizedPackedWeight)
     x = rng.standard_normal((M, K)).astype(np.float32)
+    xp = pad_input(torch.from_numpy(x), q_t)
+    C = q_t.n_cols
 
-    y_t = sbmm(torch.from_numpy(x), pk_t).numpy()
-    y_j = np.asarray(j_sbmm(jnp.asarray(x), pk_j, tm=64, interpret=True))
-    np.testing.assert_allclose(y_t, y_j, atol=FP32_TOL, rtol=FP32_TOL)
+    y_j = np.asarray(j_sbmm(jnp.asarray(x), q_j, tm=64, interpret=True))
+    y_plain = (sbmm_quant_plain(xp, q_t.blocks, q_t.header, q_t.scales,
+                                q_t.col_map, N) if quant
+               else sbmm_plain(xp, q_t.blocks, q_t.header, q_t.col_map, N))
+    assert y_plain.shape == (M, N)
+    np.testing.assert_allclose(y_plain.numpy(), y_j, atol=FP32_TOL,
+                               rtol=FP32_TOL)
+    np.testing.assert_array_equal(sbmm(torch.from_numpy(x), q_t).numpy(),
+                                  y_plain.numpy())
 
-    # raw (stored column order) against the reference's scatter oracle
-    xp = pad_input(torch.from_numpy(x), pk_t)
-    raw_t = sbmm_raw(xp, pk_t.blocks, pk_t.header).numpy()
-    raw_j = np.asarray(j_sbmm_ref(jnp.asarray(xp.numpy()), pk_j.blocks,
-                                  pk_j.header))
+    raw_t = (sbmm_quant_raw(xp, q_t.blocks, q_t.header, q_t.scales) if quant
+             else sbmm_raw(xp, q_t.blocks, q_t.header)).numpy()
+    raw_j = np.asarray(
+        j_sbmm_quant_ref(jnp.asarray(xp.numpy()), q_j.blocks, q_j.header,
+                         q_j.scales) if quant
+        else j_sbmm_ref(jnp.asarray(xp.numpy()), q_j.blocks, q_j.header))
+    assert raw_t.shape == (M, C * 16)
     np.testing.assert_allclose(raw_t, raw_j, atol=FP32_TOL, rtol=FP32_TOL)
 
-    # the port packs identically on its own
-    pk_o = TPK.pack_weight(w, mask, 16)
-    assert np.array_equal(pk_o.col_perm, pk_j.col_perm)
-    assert np.array_equal(pk_o.header.numpy(), np.asarray(pk_j.header))
-    assert np.array_equal(pk_o.blocks.numpy(), np.asarray(pk_j.blocks))
-    assert np.array_equal(pk_o.to_dense().numpy(), np.asarray(pk_j.to_dense()))
+
+def _interleave_padding(header, *per_slot, rng):
+    """Move each header row's -1 padding in among its live slots, which
+    keep their order, and each per-slot tensor (blocks, scales) with it."""
+    C, S = header.shape
+    order = np.empty((C, S), np.int64)
+    for c in range(C):
+        n = int((header[c] >= 0).sum())
+        at = np.sort(rng.choice(S, n, replace=False))
+        order[c, at] = np.arange(n)
+        order[c, np.setdiff1d(np.arange(S), at)] = np.arange(n, S)
+    idx = torch.from_numpy(order)
+    return [torch.stack([t[c][idx[c]] for c in range(C)])
+            for t in (header, *per_slot)]
+
+
+@pytest.mark.parametrize("kind", SBMM_KINDS)
+def test_sbmm_raw_skips_padding_between_live_slots(kind):
+    """The raw wrappers take a header whose -1 padding sits anywhere, not
+    only after the live slots as ``pack_weight`` lays it out: the result
+    equals the reference's ``sbmm_ref`` / ``sbmm_quant_ref`` on the same
+    header (fp32 reassociation bound) and, bitwise, the wrapper's own
+    result on the packed order, whose live slots come in the same order."""
+    rng = np.random.default_rng(11 + SBMM_KINDS.index(kind))
+    K, N, M = 128, 64, 9
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    pk = TPK.pack_weight(w, _mask((2, 5, 0, 3), K // 16, rng), 16)
+    q = (pk if kind == "fp32" else
+         TQ.quantize_packed(pk, "fp16") if kind == "fp16" else
+         TQ.quantize_packed(pk, "int8", kind.split("-")[1]))
+    quant = isinstance(q, TQ.QuantizedPackedWeight)
+    header, blocks, *scales = _interleave_padding(
+        q.header, q.blocks, *([q.scales] if quant else []), rng=rng)
+    hdr = header.numpy()
+    assert ((hdr[:, :-1] < 0) & (hdr[:, 1:] >= 0)).any()
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+
+    y = (sbmm_quant_raw(x, blocks, header, scales[0]) if quant
+         else sbmm_raw(x, blocks, header))
+    ref = np.asarray(
+        j_sbmm_quant_ref(jnp.asarray(x.numpy()), blocks.numpy(), hdr,
+                         scales[0].numpy()) if quant
+        else j_sbmm_ref(jnp.asarray(x.numpy()), blocks.numpy(), hdr))
+    np.testing.assert_allclose(y.numpy(), ref, atol=FP32_TOL, rtol=FP32_TOL)
+    packed_order = (sbmm_quant_raw(x, q.blocks, q.header, q.scales) if quant
+                    else sbmm_raw(x, q.blocks, q.header))
+    assert torch.equal(y, packed_order)
 
 
 def test_sbmm_rejects_wrong_input_width():
@@ -109,72 +211,6 @@ def test_sbmm_rejects_half_blocks():
             sbmm_raw(x, pk.blocks.to(dtype), pk.header)
     with pytest.raises(TypeError, match="int8 blocks"):
         sbmm_quant_raw(x, pk.blocks, pk.header, torch.ones((1, 1)))
-
-
-@pytest.mark.parametrize("M,K,N,counts", [
-    (1, 64, 48, (1, 3, 2)),
-    (70, 40, 64, (0, 3, 2, 1)),
-])
-def test_sbmm_half_blocks_match_reference(M, K, N, counts):
-    """fp16 blocks (the reference's ``quantize_packed(.., "fp16")``)
-    against the reference's Pallas SBMM in interpret mode, where
-    ``jnp.dot`` promotes the fp16 block to fp32: fp32 arithmetic."""
-    rng = np.random.default_rng(M + K)
-    w = rng.standard_normal((K, N)).astype(np.float32)
-    pk_j = JQ.quantize_packed(JP.pack_weight(w, _mask(counts, -(-K // 16),
-                                                      rng), 16), "fp16")
-    pk_t = convert.packed_from_jax(pk_j)
-    assert pk_t.blocks.dtype == torch.float16
-    x = rng.standard_normal((M, K)).astype(np.float32)
-    y_t = sbmm(torch.from_numpy(x), pk_t).numpy()
-    y_j = np.asarray(j_sbmm(jnp.asarray(x), pk_j, tm=64, interpret=True))
-    np.testing.assert_allclose(y_t, y_j, atol=FP32_TOL, rtol=FP32_TOL)
-    # the port's own fp16 quantization is the same cast
-    own = TQ.quantize_packed(convert.packed_from_jax(
-        JQ.dequantize_packed(pk_j)), "fp16")
-    assert torch.equal(own.blocks, pk_t.blocks)
-
-
-@pytest.mark.parametrize("granularity", ["block", "channel"])
-@pytest.mark.parametrize("M,K,N,counts", [
-    (1, 64, 48, (1, 3, 2)),
-    (33, 40, 48, (3, 1, 2)),        # K padding, M > one row tile of 16
-    (70, 64, 64, (0, 4, 2, 1)),     # an empty column, M > 64 rows
-])
-def test_sbmm_quant_matches_reference(M, K, N, counts, granularity):
-    """int8 blocks: the port quantizes bit-identically to the reference,
-    converts its weights exactly, and its dequant SBMM (plain version here)
-    agrees with the reference's Pallas kernel in interpret mode and with
-    its order-matched oracle ``sbmm_quant_ref`` (fp32 arithmetic)."""
-    rng = np.random.default_rng(M * 10 + K)
-    w = rng.standard_normal((K, N)).astype(np.float32)
-    pk_j = JP.pack_weight(w, _mask(counts, -(-K // 16), rng), 16)
-    q_j = JQ.quantize_packed(pk_j, "int8", granularity)
-    q_t = convert.packed_dict_from_jax({"w": q_j})["w"]
-    q_o = TQ.quantize_packed(convert.packed_from_jax(pk_j), "int8",
-                             granularity)
-    assert isinstance(q_t, TQ.QuantizedPackedWeight)
-    for q in (q_t, q_o):
-        assert q.granularity == granularity
-        assert q.blocks.dtype == torch.int8
-        np.testing.assert_array_equal(q.blocks.numpy(), np.asarray(q_j.blocks))
-        np.testing.assert_array_equal(q.scales.numpy(), np.asarray(q_j.scales))
-        np.testing.assert_array_equal(q.header.numpy(), np.asarray(q_j.header))
-        assert q.nbytes() == q_j.nbytes()
-        np.testing.assert_array_equal(q.to_dense().numpy(),
-                                      np.asarray(q_j.to_dense()))
-    assert TQ.quantization_error(convert.packed_from_jax(pk_j), q_o) == \
-        JQ.quantization_error(pk_j, q_j)
-
-    x = rng.standard_normal((M, K)).astype(np.float32)
-    y_t = sbmm(torch.from_numpy(x), q_t).numpy()
-    y_j = np.asarray(j_sbmm(jnp.asarray(x), q_j, tm=64, interpret=True))
-    np.testing.assert_allclose(y_t, y_j, atol=FP32_TOL, rtol=FP32_TOL)
-    xp = pad_input(torch.from_numpy(x), q_t)
-    raw_t = sbmm_quant_raw(xp, q_t.blocks, q_t.header, q_t.scales).numpy()
-    raw_j = np.asarray(j_sbmm_quant_ref(jnp.asarray(xp.numpy()), q_j.blocks,
-                                        q_j.header, q_j.scales))
-    np.testing.assert_allclose(raw_t, raw_j, atol=FP32_TOL, rtol=FP32_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +286,7 @@ def test_flash_attention_fp16_matches_reference(B, N, H, Dh, lens):
             assert (s_t[b, L:] == 0).all()
 
 
-def test_causal_attention_is_unported():
+def test_causal_attention_runs_plain_on_cpu_tensors():
     """Causal mode is ported (the LM path's kernel; its parity tests are in
     ``test_torch_lm.py``): on CPU tensors it runs the plain causal
     version."""
@@ -422,6 +458,29 @@ def test_card_tensors_never_take_the_plain_path(monkeypatch):
         sbmm(x, q8)
     with pytest.raises(RuntimeError, match="no sbmm kernel"):
         sbmm(x, TQ.quantize_packed(pk, "fp16"))
+    assert backend.launches() == {n: 0 for n in backend.ENTRY_POINTS}
+
+
+def test_sbmm_kernel_path_rejects_what_the_kernel_cannot_take(monkeypatch):
+    """On the card path the SBMM wrappers raise, before any launch, on an
+    x that does not start 16-byte aligned (the kernel copies it 16 bytes
+    at a time) or is not contiguous; they copy nothing to make it fit."""
+    def no_library(name):
+        raise AssertionError("a kernel was launched")
+
+    monkeypatch.setattr(backend, "on_card", lambda *ts: True)
+    monkeypatch.setattr(backend, "library", no_library)
+    pk = TPK.pack_weight(np.ones((16, 16), np.float32),
+                         np.ones((1, 1), np.float32), 16)
+    for q in (pk, TQ.quantize_packed(pk, "fp16"),
+              TQ.quantize_packed(pk, "int8", "block"),
+              TQ.quantize_packed(pk, "int8", "channel")):
+        misaligned = torch.zeros(4 * 16 + 1)[1:].view(4, 16)
+        assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            sbmm(misaligned, q)
+        with pytest.raises(ValueError, match="contiguous"):
+            sbmm(torch.zeros((16, 4)).t(), q)
     assert backend.launches() == {n: 0 for n in backend.ENTRY_POINTS}
 
 
