@@ -9,11 +9,16 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: require CUDA; print the card's name and power limit
    (``nvidia-smi``).
 2. Build: compile the hand-written kernels (``kernels/csrc/*.cu``, one
-   ``nvcc`` each, concurrently) and print the build seconds.
+   ``nvcc`` each, concurrently) and print the build seconds; from the
+   SASS, the fp32 non-causal attention kernels issue no tensor-core
+   instruction (no TF32) and the fp16 ones issue HMMA.
 3. Every kernel entry point against its plain PyTorch version on the
    card, at the main path's shapes (DeiT-Small: M=788 rows for the SBMMs
    over fp32, fp16 and int8 blocks with per-block and per-channel scales;
-   B=4 x N=197 tokens x 6 heads for attention on fp32 and fp16 operands;
+   B=4 x N=197 tokens x 6 heads for attention on fp32 and fp16 operands,
+   each row also computed alone and padded past its kv_len (bitwise
+   equal), plus rows without a key (kv_len <= 0: uniform over all N keys,
+   as in the reference) and Dh 16 at N = 17 and 65;
    k=138 for the hard TDM; the soft TDM's first application and a later
    one with package masses at per-row positions in a token-padded tile;
    causal GQA attention at full-width Minitron-4B through the kernel the
@@ -248,7 +253,26 @@ def check_sbmm(torch, dev):
     return checks
 
 
+# the non-causal kernels' edge cases (B, N, H, Dh, kv_len): rows without a
+# key (kv_len <= 0: all N keys alike, as the reference's NEG_INF mask
+# gives) beside a one-key row and a kv_len past N at the main path's
+# shape, and the reduced DeiT's Dh 16 at N = 17 and 65
+FLASH_EDGE_CASES = (
+    (4, 197, 6, 64, (0, -2, 1, 202)),
+    (4, 17, 6, 16, (17, 9, 1, 0)),
+    (4, 65, 6, 16, (65, 40, 17, 0)),
+)
+FLASH_PAD = 13  # tokens of padding past kv_len[b] in the row-bits check
+
+
 def check_flash_attention(torch, dev, half: bool):
+    """One non-causal entry point (fp32 or fp16 operands) at the main
+    path's shape against the plain version: o within 1e-4 (fp32) or 2e-3
+    (fp16) of the largest plain element, the head-mean scores within 1e-4
+    of theirs, exactly 0 at masked keys, all finite; the same gates on
+    ``FLASH_EDGE_CASES``; and each row of the main call bitwise equal to
+    the row computed alone (B = 1) and with ``FLASH_PAD`` tokens of
+    padding past its ``kv_len``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
@@ -256,52 +280,87 @@ def check_flash_attention(torch, dev, half: bool):
     lens = (197, 170, 140, 50)
     g = torch.Generator().manual_seed(2)
     dt = torch.float16 if half else torch.float32
+    name = "flash_attention_f16" if half else "flash_attention_f32"
     q, k, v = (torch.randn((B, N, H, Dh), generator=g).to(dev, dt)
                for _ in range(3))
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    # fp16 output: both sides round fp32 sums taken in another order to
+    # fp16, so an element may differ by one fp16 ulp (2e-3 as the CPU
+    # parity test of the fp16 tier)
+    rule_o = "2e-3" if half else "1e-4"
+
+    def gate(label, q, k, v, kv_len):
+        """(o, scores) of the kernel and its errors against the plain
+        version's, with their tolerances."""
+        o, sc = flash_attention(q, k, v, kv_len, collect_scores=True)
+        o_ref, p_ref = attention_plain(q, k, v, kv_len)
+        sc_ref = p_ref.mean(dim=1)
+        torch.cuda.synchronize()
+        require(o.dtype == dt and sc.dtype == torch.float32,
+                f"{name} ({label}): output {o.dtype}, scores {sc.dtype}")
+        require(bool(torch.isfinite(o.float()).all())
+                and bool(torch.isfinite(sc).all()),
+                f"{name} ({label}): an output or score is not finite")
+        for bi, L in enumerate(kv_len.tolist()):
+            require(L <= 0 or bool((sc[bi, L:] == 0).all()),
+                    f"{name} ({label}): nonzero score at a masked key "
+                    f"(row {bi})")
+        at = "" if label == "main" else f" ({label})"
+        return o, sc, [
+            ("o" + at, (o.float() - o_ref.float()).abs().max().item(),
+             float(rule_o) * o_ref.float().abs().max().item(),
+             f"{rule_o} x max|plain|"),
+            ("scores" + at, (sc - sc_ref).abs().max().item(),
+             1e-4 * sc_ref.abs().max().item(), "1e-4 x max|plain|")]
+
+    o, sc, errs = gate("main", q, k, v, kv_len)
+    for bi in range(B):
+        rows = [t[bi:bi + 1] for t in (q, k, v)]
+        one = flash_attention(*rows, kv_len[bi:bi + 1], collect_scores=True)
+        pad = [torch.cat([t, torch.randn((1, FLASH_PAD, H, Dh), generator=g)
+                          .to(dev, dt)], dim=1) for t in rows]
+        padded = flash_attention(*pad, kv_len[bi:bi + 1],
+                                 collect_scores=True)
+        require(torch.equal(one[0][0], o[bi]) and
+                torch.equal(one[1][0], sc[bi]),
+                f"{name}: row {bi} computed alone (B = 1) differs bitwise "
+                f"from the B = {B} call")
+        require(torch.equal(padded[0][0, :N], o[bi]) and
+                torch.equal(padded[1][0, :N], sc[bi]) and
+                bool((padded[1][0, N:] == 0).all()),
+                f"{name}: row {bi} with {FLASH_PAD} tokens of padding past "
+                f"kv_len differs bitwise")
+    for eb, en, eh, ed, elens in FLASH_EDGE_CASES:
+        eq, ek, ev = (torch.randn((eb, en, eh, ed), generator=g).to(dev, dt)
+                      for _ in range(3))
+        errs += gate(f"N={en} Dh={ed} kv_len={list(elens)}", eq, ek, ev,
+                     torch.tensor(elens, dtype=torch.int32, device=dev))[2]
 
     def plain():
         o, probs = attention_plain(q, k, v, kv_len)
         return o, probs.mean(dim=1)
 
-    o, sc = flash_attention(q, k, v, kv_len, collect_scores=True)
-    o_ref, sc_ref = plain()
-    torch.cuda.synchronize()
-    require(o.dtype == dt and sc.dtype == torch.float32,
-            f"flash_attention: output {o.dtype}, scores {sc.dtype}")
-    err_o = (o.float() - o_ref.float()).abs().max().item()
-    err_s = (sc - sc_ref).abs().max().item()
-    # fp16 output: both sides round fp32 sums taken in another order to
-    # fp16, so an element may differ by one fp16 ulp (2e-3 as the CPU
-    # parity test of the fp16 tier)
-    rule_o = "2e-3" if half else "1e-4"
-    tol_o = float(rule_o) * o_ref.float().abs().max().item()
-    tol_s = 1e-4 * sc_ref.abs().max().item()
-    for bi, L in enumerate(lens):
-        require(bool((sc[bi, L:] == 0).all()),
-                f"flash_attention: nonzero score at a masked key (row {bi})")
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     amask = (torch.arange(N, device=dev)[None, :]
              < kv_len[:, None])[:, None, None, :]
     sum_len = sum(lens)
-    # Q K^T and P V take 2 N sum_len H Dh operations each. P is fp32, so
-    # only Q K^T multiplies two fp16 values when the operands are fp16.
+    # Q K^T and P V take 2 N sum_len H Dh operations each. With fp16
+    # operands both run on the fp16 tensor cores: Q K^T multiplies two fp16
+    # values (exact in fp32), P V two fp16 halves of the fp32 P by V, so it
+    # is counted twice; with fp32 operands both run on the CUDA cores.
     n_qk = n_pv = 2 * N * sum_len * H * Dh
     n_rest = 2 * sum_len * H * Dh
     elt = 2 if half else 4
     n_bytes = (elt * (2 * B * N * H * Dh + 2 * sum_len * H * Dh)
                + 4 * (B + B * N))
-    bnd, by = (bound_ms(n_bytes, n_pv + n_rest, n_qk) if half
+    bnd, by = (bound_ms(n_bytes, n_rest, n_qk + 2 * n_pv) if half
                else bound_ms(n_bytes, n_qk + n_pv + n_rest))
 
     def library():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask)
 
     return dict(
-        name="flash_attention_f16" if half else "flash_attention_f32",
-        source="flash_attention.cu",
-        errs=[("o", err_o, tol_o, f"{rule_o} x max|plain|"),
-              ("scores", err_s, tol_s, "1e-4 x max|plain|")],
+        name=name, source="flash_attention.cu", errs=errs,
         fn=lambda: flash_attention(q, k, v, kv_len, collect_scores=True),
         ms=time_ms(lambda: flash_attention(q, k, v, kv_len,
                                            collect_scores=True)),
@@ -310,7 +369,38 @@ def check_flash_attention(torch, dev, half: bool):
         library_call=(f"F.scaled_dot_product_attention on {str(dt)[6:]} "
                       f"(bool key mask)"),
         bound_ms=bnd, bound_by=by,
-        shapes=f"q,k,v[{B},{N},{H},{Dh}] {str(dt)[6:]} kv_len={list(lens)}")
+        shapes=f"q,k,v[{B},{N},{H},{Dh}] {str(dt)[6:]} kv_len={list(lens)}; "
+               f"rows bitwise alone and padded by {FLASH_PAD}")
+
+
+def check_tensor_cores(backend):
+    """Which kernels of ``flash_attention.cu`` issue tensor-core
+    instructions, from their SASS: the fp32 tier's none (no TF32 or other
+    split product), the fp16 tier's HMMA. Prints the count per kernel."""
+    counts, fn = {}, None
+    for line in backend.disassemble("flash_attention").splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {}
+        elif fn is not None:
+            for op in ("HMMA", "HGMMA", "IMMA", "DMMA"):
+                if op in line:
+                    counts[fn][op] = counts[fn].get(op, 0) + 1
+    tiers = {}
+    for fn, ops in counts.items():
+        for tier in ("f32", "f16"):
+            if f"flash_attention_{tier}_kernel" in fn:
+                dh = fn.split("_kernelILi")[1].split("E")[0]
+                tiers[f"flash_attention_{tier}_kernel<{dh}>"] = ops
+    print("sass: tensor-core instructions per kernel " + json.dumps(tiers),
+          flush=True)
+    require(len(tiers) == 4, f"expected 4 non-causal kernels in the SASS, "
+                             f"found {sorted(tiers)}")
+    for kern, ops in tiers.items():
+        if "_f32_" in kern:
+            require(not ops, f"{kern} issues tensor-core instructions {ops}")
+        else:
+            require(ops.get("HMMA", 0) > 0, f"{kern} issues no HMMA")
 
 
 # the causal kernels' cases at full-width Minitron-4B (24 query heads over 8
@@ -1211,6 +1301,7 @@ def main() -> int:
 
     build_s = backend.build(verbose=True)
     print(f"build: {build_s:.2f} s", flush=True)
+    check_tensor_cores(backend)
 
     checks = [*check_sbmm(torch, dev),
               check_flash_attention(torch, dev, half=False),

@@ -192,6 +192,17 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def disassemble(name: str) -> str:
+    """The SASS of kernel library ``name`` (built on first use), as
+    ``cuobjdump -sass`` prints it: which instructions each kernel
+    issues."""
+    build([name])
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True,
+                          check=True).stdout
+
+
 def check(name: str, err: int) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:

@@ -1,6 +1,6 @@
 // Pieces shared by the two causal GQA attention kernels (flash_decode.cu,
-// flash_prefill.cu): the per-row key window of a query row and the shared
-// memory limit; their asynchronous copies come from cp_async.cuh.
+// flash_prefill.cu): the per-row key window of a query row; their
+// asynchronous copies and shared memory limit come from cp_async.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,17 +25,5 @@ struct Window {
   // the end of query row i's keys
   __device__ __forceinline__ int hi(int i) const { return min(len, off + i + 1); }
 };
-
-// Raise a kernel's dynamic shared memory limit to `bytes` once it needs
-// more than the default 48 KB; `raised` remembers the last limit set.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* raised) {
-  if (bytes <= 48 * 1024 || bytes <= *raised) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) *raised = bytes;
-  return err;
-}
 
 }  // namespace causal

@@ -1,7 +1,8 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80 and
 // later), shared by the kernels that stage tiles ahead of their use: the
-// causal attention kernels (flash_decode.cu, flash_prefill.cu) and the SBMM
-// tile (sbmm_tile.cuh).
+// attention kernels (flash_attention.cu, flash_decode.cu, flash_prefill.cu)
+// and the SBMM tile (sbmm_tile.cuh); and the shared memory limit of a kernel
+// whose staged tiles need more than the default.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,4 +33,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes` once it needs
+// more than the default 48 KB; `raised` remembers the last limit set.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* raised) {
+  if (bytes <= 48 * 1024 || bytes <= *raised) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) *raised = bytes;
+  return err;
 }

@@ -350,7 +350,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
   const int n_split = (S + kSplit - 1) / kSplit;
   const size_t bytes = DecodeSmem<DH>::bytes(Hq / KV, n_split);
   const cudaError_t err =
-      causal::allow_smem(flash_decode_bf16_kernel<DH>, bytes, &raised);
+      allow_smem(flash_decode_bf16_kernel<DH>, bytes, &raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(n_split, KV, B);
   flash_decode_bf16_kernel<DH><<<grid, kThreads, bytes, stream>>>(

@@ -27,7 +27,8 @@
 // bytes, so ldmatrix is conflict-free), double-buffered with 16-byte
 // cp.async: the next tile's copy runs under this tile's products.
 // Fragments come by ldmatrix (V transposed by ldmatrix.trans) into
-// mma.sync.m16n8k16 bf16 with fp32 accumulation: Q.K^T is exact in its
+// mma.sync.m16n8k16 bf16 with fp32 accumulation (the helpers are
+// mma16.cuh's, shared with flash_attention.cu): Q.K^T is exact in its
 // products as in the reference. P is fp32 and the tensor cores take bf16,
 // so P is split into hi = bf16(P) and lo = bf16(P - hi) and P.V issues two
 // MMAs into the fp32 accumulator: P is kept to ~2^-16 relative, far below
@@ -50,10 +51,15 @@
 #include <stdint.h>
 
 #include "causal_tile.cuh"
+#include "mma16.cuh"
 
 namespace {
 
 using causal::bf16;
+using mma16::ldmatrix_x4;
+using mma16::ldmatrix_x4_trans;
+using mma16::mma;
+using mma16::split_hi_lo;
 
 constexpr int kBr = 64;  // (position, head-in-group) rows per block
 constexpr int kBc = 64;  // keys per tile
@@ -66,49 +72,6 @@ struct PrefillSmem {
   // Q, then two stages of (K, V)
   static constexpr size_t kBytes = sizeof(bf16) * (kBr * kLd + 4 * kTile);
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x0, x1) = hi + lo with hi = bf16(x) and lo = bf16(x - hi), packed as
-// the A operand wants: the lower column in the lower half
-__device__ __forceinline__ void split_hi_lo(float x0, float x1, uint32_t& hi,
-                                            uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = pack(h);
-  lo = pack(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
@@ -214,8 +177,8 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
         uint32_t kf[4];
         ldmatrix_x4(kf, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
                             kd * 16 + ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], qa[kd], kf[0], kf[1]);
-        mma(s[2 * np + 1], qa[kd], kf[2], kf[3]);
+        mma<bf16>(s[2 * np], qa[kd], kf[0], kf[1]);
+        mma<bf16>(s[2 * np + 1], qa[kd], kf[2], kf[3]);
       }
     }
 
@@ -271,20 +234,20 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kBc / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      split_hi_lo(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_hi_lo(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_hi_lo(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_hi_lo(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      split_hi_lo<bf16>(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_hi_lo<bf16>(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_hi_lo<bf16>(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_hi_lo<bf16>(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
       for (int dp = 0; dp < DH / 16; ++dp) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, vs + (kk * 16 + ((lane >> 3) & 1) * 8 +
                                     (lane & 7)) * kLd +
                                   dp * 16 + (lane >> 4) * 8);
-        mma(acc[2 * dp], ph, vf[0], vf[1]);
-        mma(acc[2 * dp], pl, vf[0], vf[1]);
-        mma(acc[2 * dp + 1], ph, vf[2], vf[3]);
-        mma(acc[2 * dp + 1], pl, vf[2], vf[3]);
+        mma<bf16>(acc[2 * dp], ph, vf[0], vf[1]);
+        mma<bf16>(acc[2 * dp], pl, vf[0], vf[1]);
+        mma<bf16>(acc[2 * dp + 1], ph, vf[2], vf[3]);
+        mma<bf16>(acc[2 * dp + 1], pl, vf[2], vf[3]);
       }
     }
     __syncthreads();  // this stage is free for the load two tiles on
@@ -317,7 +280,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
   static size_t raised = 0;
   constexpr size_t kBytes = PrefillSmem<DH>::kBytes;
   const cudaError_t err =
-      causal::allow_smem(flash_prefill_bf16_kernel<DH>, kBytes, &raised);
+      allow_smem(flash_prefill_bf16_kernel<DH>, kBytes, &raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(KV, B, (Nq * (Hq / KV) + kBr - 1) / kBr);
   flash_prefill_bf16_kernel<DH><<<grid, kThreads, kBytes, stream>>>(

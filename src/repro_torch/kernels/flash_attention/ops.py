@@ -12,8 +12,9 @@ and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
 ``models/attention.attention_block`` for the LMs). Four entry points:
 
 * ``flash_attention_f32`` / ``flash_attention_f16``: non-causal, q, k, v
-  of one shape and one type, fp32 arithmetic, output in the operands'
-  type (``flash_attention_jnp`` returns ``q.dtype``);
+  of one shape and one type, fp32 sums, output in the operands' type
+  (``flash_attention_jnp`` returns ``q.dtype``): fp32 on the CUDA cores,
+  fp16 with Q.K^T and P.V on the fp16 tensor cores (fp32 accumulation);
 * causal, bf16 q [B, Nq, Hq, Dh] against a bf16 KV cache [B, S, KV, Dh]
   read in place per query head (head h reads KV head h // (Hq / KV)),
   bf16 output, picked by ``Nq``: ``flash_decode_bf16`` for one query row
@@ -74,11 +75,19 @@ def attention_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, probs
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the non-causal kernel stages
+    its operands 16 bytes at a time): copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _attention_cuda(q, k, v, kv_len, collect_scores: bool):
     B, N, H, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {Dh}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     probs = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
              if collect_scores else None)
@@ -164,9 +173,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for CPU tensors.
 
     Non-causal (the ViT): q, k, v [B, N, H, Dh], all fp32 or all fp16;
-    ``kv_len`` [B] int32 (keys >= kv_len[b] are masked; every row needs a
-    key; ``None`` = all N). ``collect_scores`` adds the CLS row's
-    probabilities averaged over heads.
+    ``kv_len`` a scalar or [B] int32 (keys >= kv_len[b] are masked,
+    kv_len[b] > N acts as N; ``None`` = all N). A row with kv_len[b] <= 0
+    has no valid key and, as in the reference (which masks with a finite
+    ``NEG_INF``), attends to all N keys alike: the mean of V, probabilities
+    1/N. ``collect_scores`` adds the CLS row's probabilities averaged over
+    heads.
 
     ``causal=True`` (the LMs): q [B, Nq, Hq, Dh] against k, v
     [B, S, KV, Dh], all bf16 on the card (the decode kernel for
@@ -211,8 +223,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"{v.dtype}")
         if kv_len is not None:
             kv_len = _row_bound(kv_len, B, q.device, "kv_len")
-        o, probs = _attention_cuda(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), kv_len, collect_scores)
+        o, probs = _attention_cuda(q, k, v, kv_len, collect_scores)
     if not collect_scores:
         return o
     return o, probs.mean(dim=1)

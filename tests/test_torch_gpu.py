@@ -70,6 +70,13 @@ def test_kernels_match_plain_on_card(dev):
     o_all = flash_attention(q, k, v)  # no kv_len: every key is valid
     torch.testing.assert_close(o_all, attention_plain(q, k, v)[0],
                                atol=1e-4, rtol=1e-4)
+    kv0 = torch.tensor([40, 0, 1], dtype=torch.int32, device=dev)
+    o, s = flash_attention(q, k, v, kv0, collect_scores=True)
+    o_ref, p_ref = attention_plain(q, k, v, kv0)  # row 1 has no key (C1)
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, p_ref.mean(1), atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(s[1], torch.full_like(s[1], 1 / 40),
+                               atol=0, rtol=1e-6)
 
     z = torch.randn((2, 40, 384), generator=g).to(dev)
     sc = torch.rand((2, 40), generator=g).to(dev)
@@ -108,6 +115,14 @@ def test_tier_and_soft_kernels_match_plain_on_card(dev):
     torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-3,
                                rtol=2e-3)
     torch.testing.assert_close(s, p_ref.mean(1), atol=1e-5, rtol=1e-4)
+    kv0 = torch.tensor([0, 23, 1], dtype=torch.int32, device=dev)
+    o, s = flash_attention(q, k, v, kv0, collect_scores=True)
+    o_ref, p_ref = attention_plain(q, k, v, kv0)  # row 0 has no key (C1)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-3,
+                               rtol=2e-3)
+    torch.testing.assert_close(s, p_ref.mean(1), atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(s[0], torch.full_like(s[0], 1 / 40),
+                               atol=0, rtol=1e-6)
 
     z = torch.randn((3, 40, 384), generator=g).to(dev)
     sc = torch.rand((3, 40), generator=g).to(dev)
@@ -127,6 +142,94 @@ def test_tier_and_soft_kernels_match_plain_on_card(dev):
     for name in ("sbmm_f16w", "sbmm_i8_block", "sbmm_i8_channel",
                  "flash_attention_f16", "token_package_f32"):
         assert after[name] > before[name], name
+
+
+# ---------------------------------------------------------------------------
+# the non-causal attention entry points
+# ---------------------------------------------------------------------------
+FLASH_NS = (1, 17, 64, 65, 197)
+
+
+def _device_kernels(fn, n=10):
+    """(name, launches) of the device work of ``n`` calls of ``fn``, from
+    the second of two profiled runs: the first warms the profiler up (a
+    process's first session can miss its first kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+@pytest.mark.parametrize("Dh", [16, 64])
+@pytest.mark.parametrize("tier", ["f32", "f16"])
+def test_flash_attention_on_card(dev, tier, Dh):
+    """One non-causal entry point at N in {1, 17, 64, 65, 197}, B = 4
+    rows with ``kv_len`` 0 (no key: the mean of V over all N keys,
+    probabilities 1/N), 1, N and N + 3 (acts as N): o within 1e-4 (fp32)
+    or 2e-3 (fp16) of the largest plain element and the head-mean scores
+    within 1e-4 of theirs, exactly 0 at masked keys, all finite; two calls
+    bitwise equal; each row's bits those of the row computed alone (B = 1)
+    and, for a row with keys, with 13 tokens of padding past ``kv_len``;
+    a misaligned q gives the same bits; one device kernel per call without
+    scores."""
+    dt = torch.float32 if tier == "f32" else torch.float16
+    entry = f"flash_attention_{tier}"
+    rule_o = 1e-4 if tier == "f32" else 2e-3
+    H = 3
+    g = torch.Generator().manual_seed(Dh)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g).to(dev, dt)
+
+    for N in FLASH_NS:
+        lens = [0, 1, N, N + 3]
+        B = len(lens)
+        q, k, v = rand(B, N, H, Dh), rand(B, N, H, Dh), rand(B, N, H, Dh)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = backend.launches()[entry]
+        o, sc = flash_attention(q, k, v, kv, collect_scores=True)
+        again = flash_attention(q, k, v, kv, collect_scores=True)
+        assert backend.launches()[entry] == before + 2
+        assert torch.equal(o, again[0]) and torch.equal(sc, again[1])
+        o_ref, p_ref = attention_plain(q, k, v, kv)
+        s_ref = p_ref.mean(1)
+        assert o.dtype == dt and bool(torch.isfinite(o.float()).all())
+        assert (o.float() - o_ref.float()).abs().max() <= \
+            rule_o * o_ref.float().abs().max(), N
+        assert (sc - s_ref).abs().max() <= 1e-4 * s_ref.abs().max(), N
+        assert bool((sc[1, 1:] == 0).all())
+        torch.testing.assert_close(sc[0], torch.full_like(sc[0], 1 / N),
+                                   atol=0, rtol=1e-6)
+        for b in range(B):
+            one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                  kv[b:b + 1], collect_scores=True)
+            assert torch.equal(one[0][0], o[b]) and \
+                torch.equal(one[1][0], sc[b]), (N, b)
+            if lens[b] <= 0:
+                continue  # a row without a key spans all N: padding moves it
+            pad = [torch.cat([t[b:b + 1], rand(1, 13, H, Dh)], dim=1)
+                   for t in (q, k, v)]
+            op, sp = flash_attention(*pad, kv[b:b + 1].clamp(max=N),
+                                     collect_scores=True)
+            assert torch.equal(op[0, :N], o[b]) and \
+                torch.equal(sp[0, :N], sc[b]), (N, b)
+            assert bool((sp[0, N:] == 0).all())
+        qm = torch.empty(q.numel() + 1, dtype=dt, device=dev)[1:].view_as(q)
+        qm.copy_(q)
+        assert qm.data_ptr() % 16 != 0
+        assert torch.equal(flash_attention(qm, k, v, kv), o)
+        kernels = _device_kernels(lambda: flash_attention(q, k, v, kv))
+        assert sum(n for _, n in kernels) == 10, kernels
+        assert all(f"{entry}_kernel" in name for name, _ in kernels), kernels
 
 
 def test_engine_on_card_matches_cpu_and_oracle(dev):

@@ -286,6 +286,47 @@ def test_flash_attention_fp16_matches_reference(B, N, H, Dh, lens):
             assert (s_t[b, L:] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "fp16"])
+def test_flash_attention_row_without_key_matches_reference(dtype):
+    """Rows without a valid key (``kv_len`` 0 and -3) beside a one-key row
+    and a row whose ``kv_len`` passes N: the reference masks with the
+    finite ``NEG_INF``, so an empty row attends to all N keys alike (the
+    mean of V, probabilities 1/N). The wrapper on CPU tensors is held
+    against ``flash_attention_jnp`` and ``attention_probs_row`` at the
+    fp32 or fp16 output bound; the card's kernels take the same rule
+    (``tests/test_torch_gpu.py``)."""
+    B, N, H, Dh = 4, 17, 4, 16
+    lens = np.asarray((0, -3, 1, N + 4), np.int32)
+    rng = np.random.default_rng(17)
+    np_dt = np.float32 if dtype == "fp32" else np.float16
+    q, k, v = (rng.standard_normal((B, N, H, Dh)).astype(np_dt)
+               for _ in range(3))
+    o_t, s_t = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               kv_len=torch.from_numpy(lens),
+                               collect_scores=True)
+    jkv = jnp.asarray(lens)
+    o_j = JA.flash_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=False, kv_len=jkv)
+    s_j = JA.attention_probs_row(jnp.asarray(q)[:, 0], jnp.asarray(k),
+                                 kv_len=jkv).mean(axis=1)
+    tol = FP32_TOL if dtype == "fp32" else FP16_ATTN_TOL
+    assert o_t.dtype == torch.from_numpy(q).dtype
+    assert bool(torch.isfinite(o_t.float()).all())
+    np.testing.assert_allclose(o_t.float().numpy(),
+                               np.asarray(o_j, np.float32), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    for b in (0, 1):  # the empty rows: uniform over all N keys
+        np.testing.assert_allclose(s_t[b].numpy(), np.full(N, 1.0 / N),
+                                   rtol=1e-6, atol=0)
+        mean_v = v[b].astype(np.float32).mean(axis=0)
+        np.testing.assert_allclose(
+            o_t[b].float().numpy(),
+            np.broadcast_to(mean_v, (N, H, Dh)), atol=tol, rtol=tol)
+    assert bool((s_t[2, 1:] == 0).all()) and float(s_t[2, 0]) == 1.0
+
+
 def test_causal_attention_runs_plain_on_cpu_tensors():
     """Causal mode is ported (the LM path's kernel; its parity tests are in
     ``test_torch_lm.py``): on CPU tensors it runs the plain causal
