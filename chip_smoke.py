@@ -19,8 +19,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    each row also computed alone and padded past its kv_len (bitwise
    equal), plus rows without a key (kv_len <= 0: uniform over all N keys,
    as in the reference) and Dh 16 at N = 17 and 65;
-   k=138 for the hard TDM; the soft TDM's first application and a later
-   one with package masses at per-row positions in a token-padded tile;
+   k=138 for the hard TDM (each row also computed alone, bitwise equal);
+   the soft TDM's first application and a later one with package masses
+   at per-row positions in a token-padded tile; both TDMs on random and
+   on tie-heavy scores (three levels, padded rows 0), kept rows bitwise;
    causal GQA attention at full-width Minitron-4B through the kernel the
    wrapper picks: a per-slot prefill of a 512-token bucket, a batch-4
    decode and a decode row spanning all 9 key splits against a 572-slot
@@ -72,16 +74,19 @@ Phases, in order; any failure exits non-zero and prints no result:
       no host wait besides the step events. Prints tokens/s, steps, ms
       per step and per decode step, and one decode step timed alone.
 5. Profile (``torch.profiler``): each kernel's device time per launch at
-   the phase-3 shapes and its library call's device time per call (an
-   ``sbmm()`` call that runs more than its one kernel on the card fails
-   the run); for one depth-1 serve of each path, the device-busy
+   the phase-3 shapes, the device time of all its wrapper call's device
+   work, and its library call's device time per call (an ``sbmm()``,
+   ``token_drop()`` or ``token_package()`` call that runs more than its
+   one kernel on the card fails the run); for one depth-1 serve of each
+   path, the device-busy
    and idle share, the device time by kernel and the engine's host spans
    (plan / stage / dispatch / complete), and the host's self time by
    operator and CUDA runtime call; the same for one continuous depth-1
    serve of the LM, with the decode and prefill kernels' device time and
    launches, each and together, against its device busy time.
-6. A ``kernels`` JSON line (one entry per C entry point, with the library
-   call's device time as ``library_device_ms``; ``launches``
+6. A ``kernels`` JSON line (one entry per C entry point, with the
+   wrapper call's device time as ``call_device_ms`` and the library
+   call's as ``library_device_ms``; ``launches``
    summed over the last timed serve of each path, the LM's continuous
    depth-1 serve for the causal kernels, whose entries list each of their
    shapes under ``cases`` and head with the first), then the last line
@@ -538,45 +543,68 @@ def check_flash_attention_causal(torch, dev):
     return checks
 
 
-def _tdm_scores(torch, dev, g, B, N, n_valid):
-    s = torch.rand((B, N), generator=g)
+def _tdm_scores(torch, dev, g, B, N, n_valid, ties=False):
+    """Scores of a token-padded TDM tile: random, or with ``ties`` a few
+    distinct levels (integers in [0, 3) / 8, so most rows tie); padded
+    rows score exactly 0."""
+    s = (torch.randint(0, 3, (B, N), generator=g).float() / 8 if ties
+         else torch.rand((B, N), generator=g))
     for bi, nv in enumerate(n_valid):
         s[bi, nv:] = 0.0  # token-padded rows score exactly 0
-    return (s / s.sum(dim=1, keepdim=True)).to(dev)
+    return (s if ties else s / s.sum(dim=1, keepdim=True)).to(dev)
 
 
 def check_token_drop(torch, dev):
+    """The hard TDM at the main path's shape (z [4, 197, 384], k = 138,
+    rows with 197, 180, 160 and 140 real tokens) on random and on
+    tie-heavy scores: CLS and kept rows bitwise the plain version's, the
+    fused row within 1e-5, and each row computed alone (its real tokens
+    only) bitwise equal to its row of the padded tile; timed on the random
+    scores."""
     from repro_torch.kernels.token_drop import token_drop, token_drop_plain
     B, N, D, k = 4, 197, 384, 138
     n_valid = (197, 180, 160, 140)
     g = torch.Generator().manual_seed(3)
     z = torch.randn((B, N, D), generator=g).to(dev)
-    scores = _tdm_scores(torch, dev, g, B, N, n_valid)
-
-    out, ref = token_drop(z, scores, k), token_drop_plain(z, scores, k)
-    torch.cuda.synchronize()
-    require(torch.equal(out[:, :k + 1], ref[:, :k + 1]),
-            "token_drop: CLS/kept rows differ from the plain version")
-    err = (out[:, k + 1] - ref[:, k + 1]).abs().max().item()
+    errs = []
+    for ties in (True, False):
+        scores = _tdm_scores(torch, dev, g, B, N, n_valid, ties)
+        label = " (tie-heavy)" if ties else ""
+        out, ref = token_drop(z, scores, k), token_drop_plain(z, scores, k)
+        torch.cuda.synchronize()
+        require(torch.equal(out[:, :k + 1], ref[:, :k + 1]),
+                f"token_drop{label}: CLS/kept rows differ from the plain "
+                f"version")
+        for bi, nv in enumerate(n_valid):
+            one = token_drop(z[bi:bi + 1, :nv].contiguous(),
+                             scores[bi:bi + 1, :nv], k)
+            require(torch.equal(one[0], out[bi]),
+                    f"token_drop{label}: row {bi} alone ({nv} tokens) "
+                    f"differs bitwise from its row of the padded tile")
+        errs.append(("fused row" + label,
+                     (out[:, k + 1] - ref[:, k + 1]).abs().max().item(),
+                     1e-5, "kept rows bitwise"))
     n_bytes = 4 * (z.numel() + scores.numel() + B * (k + 2) * D)
     bnd, by = bound_ms(n_bytes, 2 * B * (N - 1) * D)
     return dict(
-        name="token_drop_f32", source="token_drop.cu",
-        errs=[("fused row", err, 1e-5, "kept rows bitwise")],
+        name="token_drop_f32", source="token_drop.cu", errs=errs,
         fn=lambda: token_drop(z, scores, k),
         ms=time_ms(lambda: token_drop(z, scores, k)),
         plain_ms=time_ms(lambda: token_drop_plain(z, scores, k)),
         library_fn=None, library_ms=None, library_call=None,
         bound_ms=bnd, bound_by=by,
-        shapes=f"z[{B},{N},{D}] k={k} n_valid={list(n_valid)}")
+        shapes=f"z[{B},{N},{D}] k={k} n_valid={list(n_valid)}, random and "
+               f"tie-heavy scores; rows bitwise alone")
 
 
 def check_token_package(torch, dev):
     """The soft TDM at the main path's first soft TDM (z [4, 197, 384],
     k = 138, no package yet) and at a later one (a token-padded tile of
     rows with 140, 120, 100 and 72 real tokens, the package of each at its
-    own body index n_valid - 2, carried masses, k = 70); timed at the
-    later one."""
+    own body index n_valid - 2 as the engine passes it, int32, carried
+    masses, k = 70), each on random and on tie-heavy scores (the latter
+    with int64 package positions anywhere in a row: 0, mid-row, and
+    n_valid - 2); timed at the later one on random scores."""
     from repro_torch.kernels.token_package import (token_package,
                                                    token_package_plain)
     g = torch.Generator().manual_seed(4)
@@ -587,18 +615,23 @@ def check_token_package(torch, dev):
                                       (4, 140, 70, (140, 120, 100, 72),
                                        True)):
         z = torch.randn((B, N, D), generator=g).to(dev)
-        scores = _tdm_scores(torch, dev, g, B, N, n_valid)
-        mass = pos = None
-        if has_pkg:
-            mass = torch.rand((B,), generator=g).to(dev)
-            pos = torch.tensor([n - 2 for n in n_valid], device=dev)
-        out, m = token_package(z, scores, k, mass, pos)
-        ref, m_ref = token_package_plain(z, scores, k, mass, pos)
-        torch.cuda.synchronize()
-        require(torch.equal(out[:, :k + 1], ref[:, :k + 1]),
-                "token_package: CLS/kept rows differ from the plain version")
-        cases.append(((out[:, k + 1] - ref[:, k + 1]).abs().max().item(),
-                      (m - m_ref).abs().max().item()))
+        for ties in (True, False):
+            scores = _tdm_scores(torch, dev, g, B, N, n_valid, ties)
+            mass = pos = None
+            if has_pkg:
+                mass = torch.rand((B,), generator=g).to(dev)
+                pos = (torch.tensor((0, 50, 31, n_valid[3] - 2), device=dev)
+                       if ties else torch.tensor(
+                           [n - 2 for n in n_valid], dtype=torch.int32,
+                           device=dev))
+            out, m = token_package(z, scores, k, mass, pos)
+            ref, m_ref = token_package_plain(z, scores, k, mass, pos)
+            torch.cuda.synchronize()
+            require(torch.equal(out[:, :k + 1], ref[:, :k + 1]),
+                    "token_package: CLS/kept rows differ from the plain "
+                    "version" + (" (tie-heavy)" if ties else ""))
+            cases.append(((out[:, k + 1] - ref[:, k + 1]).abs().max().item(),
+                          (m - m_ref).abs().max().item()))
     n_bytes = 4 * (z.numel() + scores.numel() + B * (k + 2) * D + 3 * B)
     bnd, by = bound_ms(n_bytes, 2 * B * (N - 1) * D + B * (N - 1))
     return dict(
@@ -613,7 +646,8 @@ def check_token_package(torch, dev):
         library_fn=None, library_ms=None, library_call=None,
         bound_ms=bnd, bound_by=by,
         shapes=f"z[4,197,{D}] k=138 (first); z[{B},{N},{D}] k={k} "
-               f"n_valid={list(n_valid)} with package (timed)")
+               f"n_valid={list(n_valid)} with package (timed); random and "
+               f"tie-heavy scores")
 
 
 # ---------------------------------------------------------------------------
@@ -1206,11 +1240,18 @@ def profile_lm(torch, dev, cfg, params, walls):
           f"({total_us / busy_us:.3f}): " + ", ".join(parts), flush=True)
 
 
+# wrappers whose every call must run exactly one device kernel and nothing
+# else (no copy, fill or pre-pass)
+ONE_KERNEL_PER_CALL = ("sbmm", "token_drop", "token_package")
+
+
 def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
     """Device time per launch of each kernel entry point at the phase-3
-    shapes (stored as ``c["device_ms"]``) and of its library call
-    (``c["library_device_ms"]``, all the call's device work); an
-    ``sbmm()`` call must run one device kernel and nothing else. Then one
+    shapes (stored as ``c["device_ms"]``), the device time of all the
+    wrapper call's device work (``c["call_device_ms"]``) and of its library
+    call (``c["library_device_ms"]``, all the call's device work); an
+    ``sbmm()``, ``token_drop()`` or ``token_package()`` call must run one
+    device kernel and nothing else (``ONE_KERNEL_PER_CALL``). Then one
     serve of each path (``profile_serve``)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1227,13 +1268,14 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
             require(bool(mine), f"profiler saw no {sym} launch")
             calls = sum(r[1] for r in mine)
             us = sum(r[2] for r in mine)
-            if check["name"].startswith("sbmm"):
+            if check["name"].startswith(ONE_KERNEL_PER_CALL):
                 others = [r for r in rows if sym not in r[0]]
                 require(calls <= n and not others,
-                        f"{n} sbmm() calls ran {calls} {sym} launches and "
-                        f"other device work {others}: more than one kernel "
-                        f"per call")
+                        f"{n} calls of {check['name']}'s wrapper ran {calls} "
+                        f"{sym} launches and other device work {others}: "
+                        f"more than one kernel per call")
             c["device_ms"] = us / calls / 1e3
+            c["call_device_ms"] = sum(r[2] for r in rows) / n / 1e3
             c["max_abs_err"] = c["err"]
             c["library_device_ms"] = None
             if c["library_fn"] is not None:
@@ -1250,10 +1292,14 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
             print(f"profile {check['name']}"
                   + (f" ({c['label']})" if "label" in c else "")
                   + f": device {us / calls:.2f} us/launch ({calls} "
-                  f"launches); wrapper {c['ms'] * 1e3:.2f} us/call" + lib,
+                  f"launches), {c['call_device_ms'] * 1e3:.2f} us/call "
+                  f"over all its device work ({sum(r[1] for r in rows) / n:g}"
+                  f" device launches per call); wrapper "
+                  f"{c['ms'] * 1e3:.2f} us/call" + lib,
                   flush=True)
         head = check.get("cases", [check])[0]
         check["device_ms"] = head["device_ms"]
+        check["call_device_ms"] = head["call_device_ms"]
         check["library_device_ms"] = head["library_device_ms"]
     profile_serve(torch, dev, cfg, params, scores, walls["fp32 depth 1"],
                   "main path fp32")
@@ -1346,12 +1392,13 @@ def main() -> int:
          "replaces": REPLACES[c["source"]],
          "launches": launches[c["name"]], "max_abs_err": c["err"],
          "ms": c["ms"], "kernel_ms": c["ms"], "device_ms": c["device_ms"],
-         "plain_ms": c["plain_ms"],
+         "call_device_ms": c["call_device_ms"], "plain_ms": c["plain_ms"],
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
          "library_ms": c["library_ms"],
          "library_device_ms": c["library_device_ms"],
          **({"cases": [{k: case[k] for k in (
-             "label", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "label", "max_abs_err", "ms", "device_ms", "call_device_ms",
+             "plain_ms",
              "bound_ms", "bound_by", "library_ms", "library_device_ms")}
              for case in c["cases"]]}
             if "cases" in c else {})} for c in checks]}), flush=True)

@@ -10,9 +10,10 @@ kernels:
   blocks with scales through its dequant-in-kernel variant);
 * attention with per-row ``n_valid`` and, at TDM layers, the CLS-row
   scores — ``kernels.flash_attention`` (K2: fp32, or fp16 operands);
-* the hard TDM's gather + fuse — ``kernels.token_drop`` (K3);
-* the soft TDM's gather + package update — ``kernels.token_package``
-  (K4).
+* the hard TDM's stable top-k, drop weights, gather and fuse —
+  ``kernels.token_drop`` (K3), one launch;
+* the soft TDM's stable top-k, raw weights, gather and package update —
+  ``kernels.token_package`` (K4), one launch.
 
 Embedding, LayerNorm, the masked-dense MLP and the head are plain PyTorch
 (cuBLAS matmuls in full fp32), as the reference leaves them to XLA.

@@ -57,8 +57,8 @@ _ENTRY_POINTS = {
                         "flash_attention_f16": _FLASH},
     "flash_decode": {"flash_decode_bf16": _FLASH_DECODE},
     "flash_prefill": {"flash_prefill_bf16": _FLASH_PREFILL},
-    "token_drop": {"token_drop_f32": [P, P, P, P, I, I, I, I, P]},
-    "token_package": {"token_package_f32": [P, P, P, P, P, I, I, I, I, P]},
+    "token_drop": {"token_drop_f32": [P] * 3 + [I] * 5 + [P]},
+    "token_package": {"token_package_f32": [P] * 6 + [I] * 6 + [P]},
 }
 KERNELS = tuple(_ENTRY_POINTS)  # one library each
 ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)

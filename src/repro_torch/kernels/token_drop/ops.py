@@ -1,15 +1,19 @@
-"""Token drop — the hard TDM's gather + fuse, ``[B, N, D] -> [B, k+2, D]``.
+"""Token drop — the hard TDM, ``[B, N, D] -> [B, k+2, D]``.
 
 Kernel K3 of the port: ``kernels/csrc/token_drop.cu`` replaces the
 reference package's Pallas ``_token_drop_kernel`` / ``token_drop_pallas``
-(``kernels/token_drop/token_drop.py``); on the reference main path this
-stage is ``token_pruning.tdm``. What bounds it on the H100 and how the
-design answers that is noted in the CUDA source.
+(``kernels/token_drop/token_drop.py``) and the top-k and weights its
+wrapper computes outside it; on the reference main path this stage is
+``token_pruning.tdm``. What bounds it on the H100 and how the design
+answers that is noted in the CUDA source.
 
-The top-k (stable, ties toward the lower index) and the normalized drop
-weights are computed here, outside the kernel, as in the reference; the
-kernel copies CLS and the kept rows and writes the fused row, so the
-wrapper does no concatenation.
+On the card one call is one launch: the kernel reads the tokens and the
+scores in place, selects the top k (stable, ties toward the lower index),
+forms the normalized drop weights, copies CLS and the kept rows and writes
+the fused row. Nothing runs before it but views; what it does not take
+(more than :data:`MAX_TOKENS` tokens, D not a multiple of 4, a z that is
+not contiguous and 16-byte aligned) raises, and nothing is copied to make
+it fit.
 """
 from __future__ import annotations
 
@@ -19,6 +23,9 @@ from repro_torch.core import token_pruning as TP
 from repro_torch.kernels import backend
 
 NAME = "token_drop"
+# the largest N the TDM kernels take: their shared memory holds the scores
+# and ranks of 1024 body rows (``csrc/tdm_tile.cuh``, kMaxBody)
+MAX_TOKENS = 1025
 
 
 def token_drop_plain(z: torch.Tensor, scores: torch.Tensor,
@@ -27,15 +34,27 @@ def token_drop_plain(z: torch.Tensor, scores: torch.Tensor,
     return TP.tdm(z, scores, None, has_cls=True, k=k)[0]
 
 
-def _token_drop_cuda(z: torch.Tensor, keep_idx: torch.Tensor,
-                     w: torch.Tensor) -> torch.Tensor:
+def card_operands(name: str, z: torch.Tensor, scores: torch.Tensor) -> int:
+    """Check, for the TDM kernel ``name``, what it takes, raising on
+    anything else; returns the scores' row stride (the kernel reads them
+    in place, body from column 1)."""
     B, N, D = z.shape
-    k = keep_idx.shape[1]
-    out = torch.empty((B, k + 2, D), dtype=torch.float32, device=z.device)
-    backend.launch(NAME, "token_drop_f32", z.device, z.data_ptr(),
-                   keep_idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                   B, N, D, k)
-    return out
+    if z.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes fp32 tokens and scores, got "
+                        f"{z.dtype} and {scores.dtype}")
+    if N > MAX_TOKENS:
+        raise ValueError(f"{name} kernel takes at most {MAX_TOKENS} tokens, "
+                         f"got N={N}")
+    if D % 4:
+        raise ValueError(f"{name} kernel takes D a multiple of 4, got {D}")
+    if not z.is_contiguous() or z.data_ptr() % 16:
+        raise ValueError(f"{name} kernel takes a contiguous, 16-byte "
+                         f"aligned z")
+    if tuple(scores.shape) != (B, N) or scores.stride(1) != 1:
+        raise ValueError(f"{name} kernel takes scores [{B}, {N}] with unit "
+                         f"column stride, got {tuple(scores.shape)} strides "
+                         f"{scores.stride()}")
+    return scores.stride(0)
 
 
 def token_drop(z: torch.Tensor, scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -49,9 +68,8 @@ def token_drop(z: torch.Tensor, scores: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"k={k} outside [1, {N - 1}]")
     if not backend.on_card(z, scores):
         return token_drop_plain(z, scores, k)
-    if z.dtype != torch.float32:
-        raise TypeError(f"token_drop kernel takes fp32 tokens, got {z.dtype}")
-    keep_idx, w = TP.drop_weights(scores[:, 1:], k)
-    return _token_drop_cuda(z.contiguous(),
-                            keep_idx.to(torch.int32).contiguous(),
-                            w.contiguous())
+    s_stride = card_operands(NAME, z, scores)
+    out = torch.empty((B, k + 2, D), dtype=torch.float32, device=z.device)
+    backend.launch(NAME, "token_drop_f32", z.device, z.data_ptr(),
+                   scores.data_ptr(), out.data_ptr(), B, N, D, k, s_stride)
+    return out

@@ -23,7 +23,8 @@ from repro_torch.kernels.flash_attention import (attention_causal_plain,
 from repro_torch.core.quant import dequantize_blocks
 from repro_torch.kernels.sbmm import (sbmm, sbmm_plain, sbmm_quant_raw,
                                       sbmm_raw)
-from repro_torch.kernels.token_drop import token_drop
+from repro_torch.kernels.token_drop import token_drop, token_drop_plain
+from repro_torch.kernels.token_drop.ops import MAX_TOKENS
 from repro_torch.kernels.token_package import (token_package,
                                                token_package_plain)
 from repro_torch.launch.serve_vision import make_requests
@@ -427,6 +428,137 @@ def test_sbmm_entry_point_on_card(dev, entry):
     misaligned = torch.empty(8 * K + 1, device=dev)[1:].view(8, K)
     with pytest.raises(ValueError, match="16-byte aligned"):
         sbmm(misaligned, q)
+
+
+# ---------------------------------------------------------------------------
+# the TDM kernels
+# ---------------------------------------------------------------------------
+TDM_CASES = (  # B, N, D, real tokens per row (token-padded past them)
+    (1, 2, 16, (2,)),
+    (3, 17, 64, (17, 9, 4)),
+    (8, 65, 32, (65, 64, 40, 33, 20, 9, 5, 4)),
+    (4, 197, 384, (197, 180, 160, 140)),
+    (2, MAX_TOKENS, 64, (MAX_TOKENS, 700)),
+)
+
+
+def _tdm_inputs(dev, B, N, D, n_valid, ties, seed):
+    """z and scores of a token-padded TDM tile: random scores normalised
+    per row, or with ``ties`` three levels (integers in [0, 3) / 8, so most
+    rows tie); padded rows score exactly 0."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn((B, N, D), generator=g)
+    s = (torch.randint(0, 3, (B, N), generator=g).float() / 8 if ties
+         else torch.rand((B, N), generator=g))
+    for b, n in enumerate(n_valid):
+        s[b, n:] = 0.0
+    if not ties:
+        s = s / s.sum(dim=1, keepdim=True)
+    return z.to(dev), s.to(dev)
+
+
+def _assert_tdm_matches(out, ref, k, mass=None, mass_ref=None):
+    """CLS and kept rows bitwise the plain version's; the fused or package
+    row and the new mass within 1e-5."""
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert torch.equal(out[:, :k + 1], ref[:, :k + 1])
+    torch.testing.assert_close(out[:, k + 1], ref[:, k + 1], atol=1e-5,
+                               rtol=1e-5)
+    if mass is not None:
+        torch.testing.assert_close(mass, mass_ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", TDM_CASES, ids=lambda c: f"B{c[0]}-N{c[1]}")
+def test_token_drop_on_card(dev, case, ties):
+    """token_drop against its plain version at k = 1, the largest k every
+    row can fill with real tokens and k = N - 1; each row at the first two
+    computed alone (its real tokens only) bitwise equal to its row of the
+    padded tile."""
+    B, N, D, n_valid = case
+    z, s = _tdm_inputs(dev, B, N, D, n_valid, ties, seed=N + B)
+    for k in sorted({1, min(n_valid) - 1, N - 1}):
+        out = token_drop(z, s, k)
+        _assert_tdm_matches(out, token_drop_plain(z, s, k), k)
+        if k > min(n_valid) - 1:
+            continue
+        for b, n in enumerate(n_valid):
+            one = token_drop(z[b:b + 1, :n].contiguous(), s[b:b + 1, :n], k)
+            assert torch.equal(one[0], out[b]), (k, b)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", TDM_CASES, ids=lambda c: f"B{c[0]}-N{c[1]}")
+def test_token_package_on_card(dev, case, ties):
+    """token_package against its plain version: the first soft TDM (no
+    package) at k = 1 and N - 1; then with carried masses and the package
+    of row b at body index 0, n_valid - 2 or mid-row (b mod 3), int64
+    positions on tie-heavy scores and int32 (as the engine passes them)
+    on random ones, at k = 1 and the largest k every row can fill; each
+    row computed alone bitwise equal to its row of the padded tile."""
+    B, N, D, n_valid = case
+    z, s = _tdm_inputs(dev, B, N, D, n_valid, ties, seed=7 * N + B)
+    for k in sorted({1, N - 1}):
+        out, m = token_package(z, s, k)
+        ref, m_ref = token_package_plain(z, s, k)
+        _assert_tdm_matches(out, ref, k, m, m_ref)
+    if min(n_valid) < 3:
+        return  # a package needs one more real body row than it keeps
+    rng = np.random.default_rng(N)
+    pos = torch.tensor([(0, n - 2, int(rng.integers(1, max(2, n - 2))))[b % 3]
+                        for b, n in enumerate(n_valid)],
+                       dtype=torch.int64 if ties else torch.int32,
+                       device=dev)
+    mass = torch.rand((B,), generator=torch.Generator().manual_seed(B)
+                      ).to(dev)
+    for k in sorted({1, min(n_valid) - 2}):
+        out, m = token_package(z, s, k, mass, pos)
+        ref, m_ref = token_package_plain(z, s, k, mass, pos)
+        _assert_tdm_matches(out, ref, k, m, m_ref)
+        for b, n in enumerate(n_valid):
+            one, m1 = token_package(z[b:b + 1, :n].contiguous(),
+                                    s[b:b + 1, :n], k, mass[b:b + 1],
+                                    pos[b:b + 1])
+            assert torch.equal(one[0], out[b]) and torch.equal(m1[0], m[b])
+
+
+def test_token_drop_and_token_package_one_kernel_per_call(dev):
+    """At the main path's shapes each wrapper call is exactly one device
+    kernel, its own, with no copy, fill or pre-pass beside it: token_drop,
+    and token_package without a package and with int32 (the engine's) and
+    int64 positions; one launch counted per call."""
+    B, N, D = 4, 197, 384
+    z, s = _tdm_inputs(dev, B, N, D, (197, 180, 160, 140), True, seed=1)
+    mass = torch.rand((B,), generator=torch.Generator().manual_seed(2)
+                      ).to(dev)
+    pos = torch.tensor([195, 178, 158, 138], dtype=torch.int32, device=dev)
+    pos64 = pos.long()
+    calls = {
+        "token_drop_f32": [lambda: token_drop(z, s, 138)],
+        "token_package_f32": [
+            lambda: token_package(z, s, 138),
+            lambda: token_package(z, s, 70, mass, pos),
+            lambda: token_package(z, s, 70, mass, pos64)]}
+    for entry, fns in calls.items():
+        for fn in fns:
+            before = backend.launches()[entry]
+            kernels = _device_kernels(fn)
+            assert sum(n for _, n in kernels) == 10, kernels
+            assert all(f"{entry}_kernel" in k for k, _ in kernels), kernels
+            assert backend.launches()[entry] == before + 22  # 2 x (1 + 10)
+
+
+def test_token_drop_and_token_package_raise_above_max_tokens(dev):
+    """The kernels take at most MAX_TOKENS tokens; above it the wrappers
+    raise before any launch, and the plain version does not stand in."""
+    z = torch.zeros((1, MAX_TOKENS + 1, 16), device=dev)
+    s = torch.rand((1, MAX_TOKENS + 1), device=dev)
+    before = backend.launches()
+    with pytest.raises(ValueError, match="at most"):
+        token_drop(z, s, 5)
+    with pytest.raises(ValueError, match="at most"):
+        token_package(z, s, 5, torch.ones(1, device=dev))
+    assert backend.launches() == before
 
 
 # ---------------------------------------------------------------------------

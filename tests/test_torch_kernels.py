@@ -10,6 +10,8 @@ every gathered row, must be equal. The reference's Pallas
 the soft TDM is held against ``token_pruning.tdm_soft``. The CUDA kernels
 themselves run only on the card (``tests/test_torch_gpu.py``, marked
 ``gpu``)."""
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,7 @@ from repro_torch.kernels.sbmm import (pad_input, sbmm, sbmm_plain,
                                       sbmm_quant_plain, sbmm_quant_raw,
                                       sbmm_raw)
 from repro_torch.kernels.token_drop import token_drop
+from repro_torch.kernels.token_drop.ops import MAX_TOKENS
 from repro_torch.kernels.token_package import token_package
 from repro_torch.models.attention import flash_attention_torch
 
@@ -447,6 +450,144 @@ def test_token_package_rejects_k_past_the_package():
         token_package(z, s, 5, pkg_mass=torch.ones(1))
     with pytest.raises(ValueError, match="k must be"):
         TTP.tdm_soft(z, s, k=5, pkg_mass=torch.ones(1))
+
+
+@pytest.mark.parametrize("soft", [False, True],
+                         ids=["token_drop", "token_package"])
+@pytest.mark.parametrize("B,N,D,k,n_valid,levels", [
+    (3, 33, 32, 10, (33, 20, 12), 3),
+    (4, 9, 16, 1, (9, 5, 3, 9), 3),     # k = 1
+    (2, 17, 16, 14, (17, 17), 2),       # the largest k with a package
+])
+def test_tdm_tie_heavy_matches_reference(soft, B, N, D, k, n_valid, levels):
+    """The selection the kernels must reproduce, on scores with a few
+    distinct levels (most rows tie) and token-padded rows scoring 0: the
+    port's token_drop / token_package (the plain path on the CPU) against
+    the reference's tdm / tdm_soft, the soft TDM with each row's package
+    pinned mid-row. Kept rows bitwise; fused row and mass at FP32_TOL."""
+    rng = np.random.default_rng(N * 7 + k + levels)
+    z = rng.standard_normal((B, N, D)).astype(np.float32)
+    s = rng.integers(0, levels, (B, N)).astype(np.float32) / 8
+    for b, nv in enumerate(n_valid):
+        s[b, nv:] = 0.0
+    if not soft:
+        out_t = token_drop(torch.from_numpy(z), torch.from_numpy(s), k)
+        out_j, _ = JTP.tdm(jnp.asarray(z), jnp.asarray(s), None, k=k)
+        out_j = np.asarray(out_j)
+        np.testing.assert_array_equal(out_t.numpy()[:, :k + 1],
+                                      out_j[:, :k + 1])
+        np.testing.assert_allclose(out_t.numpy()[:, k + 1], out_j[:, k + 1],
+                                   atol=FP32_TOL, rtol=FP32_TOL)
+        return
+    mass = rng.random(B).astype(np.float32)
+    pos = np.array([nv // 2 for nv in n_valid], np.int32)  # mid-row
+    out_t, mass_t = token_package(
+        torch.from_numpy(z), torch.from_numpy(s), k,
+        pkg_mass=torch.from_numpy(mass), pkg_pos=torch.from_numpy(pos))
+    out_j, mass_j = JTP.tdm_soft(jnp.asarray(z), jnp.asarray(s), k=k,
+                                 pkg_mass=jnp.asarray(mass),
+                                 pkg_pos=jnp.asarray(pos))
+    _assert_soft_equal(out_t.numpy(), mass_t.numpy(), out_j, mass_j, k)
+
+
+TDM_CARD_CALLS = {  # name: (entry point, call, ints after the pointers)
+    "token_drop": ("token_drop_f32",
+                   lambda z, s, m, p: token_drop(z, s, 4), (3, 9, 8, 4, 12)),
+    "token_package-first": ("token_package_f32",
+                            lambda z, s, m, p: token_package(z, s, 4),
+                            (3, 9, 8, 4, 12, 0)),
+    "token_package-last-row": ("token_package_f32",
+                               lambda z, s, m, p: token_package(z, s, 4, m),
+                               (3, 9, 8, 4, 12, 0)),
+    "token_package-int32": ("token_package_f32",
+                            lambda z, s, m, p: token_package(z, s, 4, m, p),
+                            (3, 9, 8, 4, 12, 0)),
+    "token_package-int64": ("token_package_f32",
+                            lambda z, s, m, p: token_package(z, s, 4, m,
+                                                             p.long()),
+                            (3, 9, 8, 4, 12, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(TDM_CARD_CALLS))
+def test_tdm_card_path_is_one_launch(monkeypatch, name):
+    """On the card a token_drop / token_package call is exactly one launch,
+    with the argument list ``backend.py`` declares for its entry point: the
+    tokens and the scores read in place (rows 12 apart here), the package
+    mass and position as given (no pointer without a package, int64 flagged)
+    and the outputs; the top-k and the weights are the kernel's, so the
+    wrapper never reaches ``drop_weights``, ``package_weights`` or
+    ``torch.sort``."""
+    entry, call, ints = TDM_CARD_CALLS[name]
+    launches = []
+
+    def unreachable(*args, **kwargs):
+        raise AssertionError("the card path ran the top-k or the weights")
+
+    monkeypatch.setattr(backend, "on_card", lambda *ts: True)
+    monkeypatch.setattr(backend, "launch",
+                        lambda lib, fn, dev, *args: launches.append(
+                            (lib, fn, args)))
+    monkeypatch.setattr(TTP, "drop_weights", unreachable)
+    monkeypatch.setattr(TTP, "package_weights", unreachable)
+    monkeypatch.setattr(torch, "sort", unreachable)
+    z = torch.zeros((3, 9, 8))
+    s = torch.rand((3, 12))[:, :9]  # a view: read in place
+    m = torch.ones(3)
+    p = torch.tensor([7, 2, 0], dtype=torch.int32)
+    res = call(z, s, m, p)
+    assert len(launches) == 1
+    lib, fn, args = launches[0]
+    assert fn == entry
+    argtypes = backend._ENTRY_POINTS[lib][fn]
+    assert len(args) + 1 == len(argtypes)  # launch() appends the stream
+    n_ptr = argtypes.index(ctypes.c_int)
+    assert all(t is ctypes.c_void_p for t in argtypes[:n_ptr])
+    assert all(t is ctypes.c_int for t in argtypes[n_ptr:-1])
+    assert args[:2] == (z.data_ptr(), s.data_ptr())
+    assert args[n_ptr:] == ints
+    out, mass = res if isinstance(res, tuple) else (res, None)
+    assert out.shape == (3, 6, 8) and out.data_ptr() in args[:n_ptr]
+    if entry == "token_package_f32":
+        with_mass = "first" not in name
+        with_pos = with_mass and "last-row" not in name
+        assert args[2] == (m.data_ptr() if with_mass else None)
+        assert (args[3] is not None) == with_pos
+        assert mass.shape == (3,) and args[5] == mass.data_ptr()
+
+
+@pytest.mark.parametrize("what", ["above-max-tokens", "d-not-multiple-of-4",
+                                  "z-not-contiguous", "scores-strided",
+                                  "pos-float", "mass-shape"])
+def test_tdm_card_path_rejects_what_the_kernel_cannot_take(monkeypatch,
+                                                           what):
+    """On the card path the TDM wrappers raise, before any launch, on what
+    the kernel does not take; the plain version does not stand in, and
+    nothing is copied to make it fit."""
+    def no_launch(*args):
+        raise AssertionError("a kernel was launched")
+
+    monkeypatch.setattr(backend, "on_card", lambda *ts: True)
+    monkeypatch.setattr(backend, "launch", no_launch)
+    N = MAX_TOKENS + 1 if what == "above-max-tokens" else 9
+    D = 6 if what == "d-not-multiple-of-4" else 8
+    z = torch.zeros((2, N, D))
+    if what == "z-not-contiguous":
+        z = torch.zeros((2, D, N)).transpose(1, 2)
+    s = torch.rand((2, N))
+    if what == "scores-strided":
+        s = torch.rand((2, 2 * N))[:, ::2]
+    m, p = torch.ones(2), torch.tensor([3, 4])
+    if what == "pos-float":
+        p = p.float()
+    if what == "mass-shape":
+        m = torch.ones((2, 1))
+    err = TypeError if what == "pos-float" else ValueError
+    if what not in ("pos-float", "mass-shape"):
+        with pytest.raises(err):
+            token_drop(z, s, 3)
+    with pytest.raises(err):
+        token_package(z, s, 3, m, p)
 
 
 # ---------------------------------------------------------------------------
