@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: the quickest proof that the port builds and serves on the card.
+GPU: the quickest proof that the port builds, serves and trains on the
+card.
 
     python3 chip_smoke.py
 
@@ -84,16 +85,40 @@ Phases, in order; any failure exits non-zero and prints no result:
    operator and CUDA runtime call; the same for one continuous depth-1
    serve of the LM, with the decode and prefill kernels' device time and
    launches, each and together, against its device busy time.
-6. A ``kernels`` JSON line (one entry per C entry point, with the
+6. Training (``train_path``): the paper's Algorithm 1
+   (``core/simultaneous``) on full-width DeiT-Small: a student (seed 0,
+   its scores from the same generator) distilled from a dense DeiT-Small
+   teacher (seed 1), batches of 64 from ``synthetic_vit_batch`` by step,
+   AdamW (lr ``TRAIN_LR``, weight decay 0.01), ``total_steps`` 20, 11
+   steps, fp32 with TF32 asserted off. The forward is ``forward_vit``
+   (plain PyTorch, cuBLAS), differentiated by autograd: no kernel wrapper
+   may launch. Gates: (a) the last loss below the first; (b) each step's
+   r_b the cubic schedule's, non-increasing; (c) the scores moved; (d)
+   step 0 on the card against the same step on the CPU: kept token
+   indices at every TDM first, then the loss parts, then params and
+   scores after the update (``TRAIN_*_TOL``; again at AdamW lr = eps =
+   1, where the update is about the clipped gradient); (e) the trained
+   scores' hard masks packed and the model served (16 requests, fp32,
+   ``VisionEngine``): ``sbmm_f32``, ``flash_attention_f32`` and
+   ``token_drop_f32`` launched, logits against the offline oracle within
+   1e-4 and the packed forward against ``forward_vit`` on the masked
+   params (no TDM) within 1e-4. Prints the wall per step (median of 10
+   after step 0, the batch on the card beforehand), training images/s,
+   peak device memory, one profiled step's device busy and idle share,
+   and the trained model's block density, head retained ratio and
+   analytic compression ratio.
+7. A ``kernels`` JSON line (one entry per C entry point, with the
    wrapper call's device time as ``call_device_ms`` and the library
    call's as ``library_device_ms``; ``launches``
-   summed over the last timed serve of each path, the LM's continuous
+   summed over the last timed serve of each path, the trained model's
+   serve among them, the LM's continuous
    depth-1 serve for the causal kernels, whose entries list each of their
    shapes under ``cases`` and head with the first), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1020,12 +1045,13 @@ def lm_path(torch, dev):
     from repro_torch.models import model as M
     from repro_torch.obs import Tracer
     from repro_torch.serving.runner import serving_params
+    from repro_torch.tree import leaves
     cfg = MINITRON_4B
     t0 = time.perf_counter()
     params = serving_params(cfg, M.init_params(
         cfg, torch.Generator(dev).manual_seed(0), device=dev))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     print(f"lm: {cfg.name} at full width and depth ({cfg.num_layers} layers, "
           f"D={cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV "
           f"heads, Dh={cfg.head_dim}, vocab {cfg.vocab_size}), "
@@ -1121,14 +1147,6 @@ def lm_path(torch, dev):
           f"{LM_DECODE[4]} keys): {step_ms:.3f} ms", flush=True)
     return ({"lm": last["continuous depth 1"][2]}, syncs,
             (cfg, params, walls_by))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -1258,13 +1276,21 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
     n = 20
     for check in checks:
         for c in check.get("cases", [check]):
-            with profile(activities=acts) as prof:
-                for _ in range(n):
-                    c["fn"]()
-                torch.cuda.synchronize()
-            rows = _device_rows(prof)
             sym = kernel_symbol(check["name"])
-            mine = [r for r in rows if sym in r[0]]
+            # the profiler has been seen to return a window without its
+            # device records; such a window is profiled again
+            for attempt in range(3):
+                with profile(activities=acts) as prof:
+                    for _ in range(n):
+                        c["fn"]()
+                    torch.cuda.synchronize()
+                rows = _device_rows(prof)
+                mine = [r for r in rows if sym in r[0]]
+                if mine:
+                    break
+                print(f"profile {check['name']}: the profiler recorded no "
+                      f"{sym} launch in window {attempt + 1}; profiling "
+                      f"again", flush=True)
             require(bool(mine), f"profiler saw no {sym} launch")
             calls = sum(r[1] for r in mine)
             us = sum(r[2] for r in mine)
@@ -1308,6 +1334,290 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                       walls[f"{path} soft"], f"main path {path} soft",
                       soft=True, precision=precision,
                       granularity=granularity)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: training (Algorithm 1) at full width, the trained model served
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 64
+TRAIN_TOTAL = 20   # the cubic schedule's total_steps (warm-up 2, cool-down 2)
+TRAIN_STEPS = 11   # step 0 (card vs CPU, warm-up), then 10 timed steps
+TRAIN_LR = 1e-4    # AdamW, the paper's weight decay 0.01
+# Card vs CPU after step 0, fp32 both, other summation orders: the loss and
+# its parts within 1e-5 relative to max(1, |ref|). Params and scores after
+# the update, relative to max(1, |ref|): AdamW's first step moves an
+# element by lr·g/(|g| + eps), so a gradient's rounding noise δ near eps
+# = 1e-8 moves it by up to δ/eps of lr (0.146·lr measured on an NVIDIA
+# H100 80GB HBM3 at 700 W); the bound is 0.5·lr, and 2·lr for the
+# key biases (exact gradient 0: softmax ignores a shift of every key's
+# logit, so their step is the sign of the noise). The same step with lr =
+# eps = 1 moves an element by g/(|g| + 1), about its clipped gradient
+# (~1e-2, far above the params' fp32 spacing), so its bound, 1e-5 on every
+# leaf, holds the gradients themselves to 1e-5 (the clipped gradients
+# agree to ~1e-7). The schedule's r_b on the card within 1e-6 of the
+# CPU's.
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_ADAM_TOL = 0.5
+TRAIN_NOISE_TOL = 2.0
+TRAIN_LINEAR_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def record_kept(k_margins=None):
+    """Record the kept token indices of every TDM ``forward_vit`` runs (and,
+    into ``k_margins``, each TDM's smallest score gap at its k-th kept
+    token: how near a tie the selection came)."""
+    from repro_torch.core import token_pruning as TP
+    kept = []
+    inner = TP.tdm
+
+    def tdm(z, scores, r_t, *a, **kw):
+        out = inner(z, scores, r_t, *a, **kw)
+        kept.append(out[1].cpu().numpy())
+        if k_margins is not None:
+            k = out[1].shape[1]
+            s = scores[:, 1:].detach().sort(dim=1, descending=True).values
+            k_margins.append(float((s[:, k - 1] - s[:, k]).min()))
+        return out
+    TP.tdm = tdm
+    try:
+        yield kept
+    finally:
+        TP.tdm = inner
+
+
+def _step_errors(torch, card_tree, cpu_tree, lr):
+    """Worst |card - cpu| / max(1, |cpu|) over the leaves, in units of
+    ``lr``: (key biases, every other leaf), and the worst leaf's path."""
+    from repro_torch.tree import flatten_with_path, path_str
+    worst = {"bk": (0.0, ""), "other": (0.0, "")}
+    for (path, a), (_, b) in zip(flatten_with_path(card_tree),
+                                 flatten_with_path(cpu_tree)):
+        b = b.float()
+        err = ((a.cpu().float() - b).abs().max()
+               / max(1.0, b.abs().max().item())).item() / lr
+        key = "bk" if path and path[-1] == "bk" else "other"
+        if err > worst[key][0]:
+            worst[key] = (err, path_str(path))
+    return worst
+
+
+def train_path(torch, dev):
+    """Algorithm 1 on full-width DeiT-Small: a student (seed 0, scores from
+    the same generator) distilled from a dense DeiT-Small teacher (seed 1),
+    batches of 64 from ``synthetic_vit_batch`` by step, AdamW at
+    ``TRAIN_LR``, ``total_steps`` 20, ``TRAIN_STEPS`` steps. Gates: (a) the
+    last step's loss below the first; (b) each step's r_b the cubic
+    schedule's, non-increasing; (c) the scores moved; (d) step 0 on the
+    card against the same step on the CPU (kept indices at every TDM
+    first, then the loss parts, params and scores); (e) the trained scores'
+    hard masks packed and served by ``VisionEngine`` on the kernels,
+    against the oracles. No kernel wrapper runs during training. Returns
+    the trained serve's launch counts."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import DEIT_SMALL
+    from repro_torch.core import block_pruning as BP
+    from repro_torch.core import complexity as CX
+    from repro_torch.core import packed_runner as PR
+    from repro_torch.core import schedule as S
+    from repro_torch.core import simultaneous as SIM
+    from repro_torch.data import DataConfig, synthetic_vit_batch
+    from repro_torch.kernels import backend
+    from repro_torch.models import model as M
+    from repro_torch.models import pruning_glue as PG
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves, tree_map
+
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "training: fp32 matmuls must not run on TF32")
+    cfg = DEIT_SMALL
+    p = cfg.pruning
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01)
+    state, _ = SIM.init_state(cfg, torch.Generator().manual_seed(0), opt,
+                              device=dev)
+    teacher = M.init_params(cfg, torch.Generator().manual_seed(1),
+                            device=dev)
+    step = SIM.make_simultaneous_step(cfg, cfg, opt, TRAIN_TOTAL)
+    t0 = time.perf_counter()
+    host = [synthetic_vit_batch(cfg, TRAIN_BATCH, DataConfig(seed=0), i)
+            for i in range(TRAIN_STEPS)]
+    print(f"train: {cfg.name} at full width and depth, batch {TRAIN_BATCH}, "
+          f"{TRAIN_STEPS} of total_steps {TRAIN_TOTAL}, AdamW lr "
+          f"{TRAIN_LR}, r_b {p.r_b} (cubic, warm-up 2, cool-down 2), r_t "
+          f"{p.r_t} at layers {p.tdm_layers}; {len(leaves(state.params))} "
+          f"param and {len(state.scores)} score tensors; batches made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def on(dv, b):
+        return {"patches": torch.from_numpy(b["patches"]).to(dv),
+                "labels": torch.from_numpy(b["labels"]).to(dv)}
+
+    # (d) step 0 on the card, then on the CPU from the same state and batch;
+    # then both again at lr = eps = 1
+    cpu = torch.device("cpu")
+    state_cpu = tree_map(lambda t: t.to(cpu), state)
+    teacher_cpu = tree_map(lambda t: t.to(cpu), teacher)
+    backend.reset_launches()
+    margins = []
+    with record_kept(margins) as kept_card:
+        state1, m0 = step(state, teacher, on(dev, host[0]))
+    t0 = time.perf_counter()
+    with record_kept() as kept_cpu:
+        state1_cpu, m0_cpu = step(state_cpu, teacher_cpu, on(cpu, host[0]))
+    cpu_s = time.perf_counter() - t0
+    require(len(kept_card) == len(kept_cpu) == len(p.tdm_layers),
+            f"train step 0: {len(kept_card)} TDMs on the card, "
+            f"{len(kept_cpu)} on the CPU")
+    for layer, a, b in zip(p.tdm_layers, kept_card, kept_cpu):
+        rows = np.nonzero((a != b).any(axis=1))[0]
+        require(rows.size == 0, f"train step 0, TDM at layer {layer}: kept "
+                                f"indices differ card vs CPU in rows "
+                                f"{rows.tolist()}")
+    worst_loss = 0.0
+    for k in ("loss", "ce", "distill", "reg", "r_b"):
+        a, b = m0[k].item(), m0_cpu[k].item()
+        err = abs(a - b) / max(1.0, abs(b))
+        worst_loss = max(worst_loss, err)
+        require(err <= TRAIN_LOSS_TOL, f"train step 0: {k} card {a!r} vs "
+                                       f"CPU {b!r}")
+    lin = SIM.make_simultaneous_step(
+        cfg, cfg, AdamW(lr=1.0, eps=1.0, weight_decay=0.01), TRAIN_TOTAL)
+    lin_card = lin(state, teacher, on(dev, host[0]))[0]
+    lin_cpu = lin(state_cpu, teacher_cpu, on(cpu, host[0]))[0]
+    errs, errs_lin = {}, {}
+    for what in ("params", "scores"):
+        errs[what] = _step_errors(torch, getattr(state1, what),
+                                  getattr(state1_cpu, what), TRAIN_LR)
+        require(errs[what]["other"][0] <= TRAIN_ADAM_TOL
+                and errs[what]["bk"][0] <= TRAIN_NOISE_TOL,
+                f"train step 0: {what} after the update, card vs CPU, "
+                f"worst in units of lr: {errs[what]}")
+        errs_lin[what] = max(e[0] for e in _step_errors(
+            torch, getattr(lin_card, what), getattr(lin_cpu, what),
+            1.0).values())
+        require(errs_lin[what] <= TRAIN_LINEAR_TOL,
+                f"train step 0 at lr = eps = 1: {what} after the update, "
+                f"card vs CPU, worst {errs_lin[what]:.3g}")
+    print(f"train step 0 card vs CPU ({cpu_s:.1f} s on the CPU): kept "
+          f"indices equal at TDM layers {p.tdm_layers} (smallest score gap "
+          f"at the k-th kept token per TDM on the card: "
+          f"{[f'{g:.3g}' for g in margins]}); loss parts max|d|/max(1,|ref|)"
+          f" = {worst_loss:.3g} (tolerance {TRAIN_LOSS_TOL}); after the "
+          f"update, worst |d|/max(1,|ref|) in units of lr: params "
+          f"{errs['params']['other'][0]:.3g} ({errs['params']['other'][1]}),"
+          f" key biases {errs['params']['bk'][0]:.3g}, scores "
+          f"{errs['scores']['other'][0]:.3g} (tolerances {TRAIN_ADAM_TOL}, "
+          f"{TRAIN_NOISE_TOL}); at lr = eps = 1: params "
+          f"{errs_lin['params']:.3g},"
+          f" scores {errs_lin['scores']:.3g} (tolerance {TRAIN_LINEAR_TOL})",
+          flush=True)
+    del state1_cpu, state_cpu, teacher_cpu, lin_card, lin_cpu
+
+    # the timed steps
+    scores0 = state.scores
+    state, metrics, walls = state1, [m0], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(1, TRAIN_STEPS):
+        batch = on(dev, host[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, teacher, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(not any(backend.launches().values()),
+            f"training launched a kernel wrapper: {backend.launches()}")
+    losses = [m["loss"].item() for m in metrics]
+    rbs = [m["r_b"].item() for m in metrics]
+    sched = [S.cubic_keep_rate(i, TRAIN_TOTAL, p.r_b, 2, 2).item()
+             for i in range(TRAIN_STEPS)]
+    require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    require(all(abs(a - b) <= 1e-6 for a, b in zip(rbs, sched))
+            and all(a >= b for a, b in zip(rbs, rbs[1:])),
+            f"train: r_b {rbs} is not the cubic schedule {sched}")
+    moved = max((a - b).abs().max().item() for a, b in
+                zip(leaves(state.scores), leaves(scores0)))
+    require(moved > 0, "train: the scores did not move")
+    wall = statistics.median(walls)
+    print(f"train: losses {[round(x, 4) for x in losses]}; r_b "
+          f"{[round(x, 4) for x in rbs]} (the cubic schedule); scores moved "
+          f"by up to {moved:.3g}", flush=True)
+    print(f"train: wall per step median {wall * 1e3:.2f} ms over "
+          f"{len(walls)} steps (min {min(walls) * 1e3:.2f}, max "
+          f"{max(walls) * 1e3:.2f}; batch on the card before each step): "
+          f"{TRAIN_BATCH / wall:.1f} training images/s; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+
+    # device busy and idle share of one step (its result discarded)
+    batch = on(dev, host[-1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, teacher, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    busy_us = sum(r[2] for r in rows)
+    print(f"profile train step ({sum(r[1] for r in rows)} device launches): "
+          f"wall {dt * 1e6:.0f} us profiled / {wall * 1e6:.0f} us unprofiled "
+          f"median, device busy {busy_us:.0f} us, idle share "
+          f"{1.0 - busy_us / (dt * 1e6):.3f} profiled / "
+          f"{1.0 - busy_us / (wall * 1e6):.3f} unprofiled", flush=True)
+    for n, k, us in rows[:10]:
+        print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+
+    # the trained model: hard masks, its size, then served on the kernels
+    masks = PG.hard_masks(cfg, state.params, state.scores)
+    kept_blocks = sum(int(m.sum().item()) for m in masks.values())
+    n_blocks = sum(m.numel() for m in masks.values())
+    heads = [BP.head_retained_ratio(m, cfg.num_heads).item()
+             for path, m in masks.items() if path.endswith(("wq", "wk",
+                                                            "wv"))]
+    eng = make_engine(cfg, state.params, state.scores, 1, dev)
+    packed_bytes = sum(pw.nbytes() for pw in eng.segments.packed.values())
+    dense_bytes = sum(state.params["layers"][int(path.split("/")[1])]["attn"][
+        path.split("/")[-1]].numel() * 4 for path in masks)
+    print(f"train: trained model: attention block density "
+          f"{kept_blocks / n_blocks:.4f} ({kept_blocks} of {n_blocks} "
+          f"blocks), head retained ratio {statistics.mean(heads):.4f} "
+          f"(mean over {len(heads)} q/k/v masks, min {min(heads):.4f}), "
+          f"compression ratio {CX.compression_ratio(cfg, p):.4f} (analytic, "
+          f"core/complexity), packed attention weights {packed_bytes} of "
+          f"{dense_bytes} dense bytes", flush=True)
+    serve_stream(torch, backend, eng)  # warm-up
+    reqs, out, dt, counts, pipe = serve_stream(torch, backend, eng)
+    require(sorted(out) == [r.uid for r in reqs],
+            "trained fp32: not every request was served")
+    require_launched(counts, "fp32", "trained fp32")
+    require(pipe["host_syncs"] == 0, f"trained fp32: the engine waited on "
+                                     f"the card {pipe['host_syncs']} times "
+                                     f"outside its step events")
+    print_serve("train: trained model fp32", out, [dt], counts,
+                [pipe["host_syncs"]], pipe)
+    check_against_oracle(torch, cfg, eng, reqs, out, "fp32", "trained fp32")
+    n_patches = (cfg.image_size // cfg.patch_size) ** 2
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (2, n_patches, cfg.patch_size ** 2 * 3)),
+        dtype=torch.float32).to(dev)
+    y = PR.forward_vit_packed(cfg, eng.segments.params, eng.segments.packed,
+                              x, use_tdm=False, device=dev).logits
+    y_ref = PR.masked_dense_reference(cfg, state.params, state.scores, x,
+                                      use_tdm=False).logits
+    err = (y - y_ref).abs().max().item()
+    scale = max(1.0, y_ref.abs().max().item())
+    require(err <= 1e-4 * scale,
+            f"trained: packed vs masked-dense: max|d|={err:.3g}")
+    require(bool((y.argmax(-1) == y_ref.argmax(-1)).all()),
+            "trained: packed vs masked-dense: top-1 differs")
+    print(f"trained: packed (kernels) vs masked-dense forward_vit (plain), "
+          f"no TDM: max|d| = {err:.3g} (tolerance 1e-4 x {scale:.3g})",
+          flush=True)
+    return counts
 
 
 REPLACES = {  # the reference's pallas_call each kernel stands in for
@@ -1380,6 +1690,9 @@ def main() -> int:
     syncs.update({f"lm {k}": v for k, v in lm_syncs.items()})
     profile_run(torch, dev, checks, *model)
     profile_lm(torch, dev, *lm_model)
+    del lm_model
+    torch.cuda.empty_cache()
+    path_counts["trained fp32"] = train_path(torch, dev)
     for key, n in syncs.items():
         require(not any(n), f"{key}: the engine waited on the card outside "
                             f"its step events: {n}")

@@ -30,6 +30,14 @@ def params_from_jax(np_tree, device: "str | torch.device" = "cpu"):
     return torch.as_tensor(np.array(np_tree), device=device)
 
 
+def scores_from_jax(np_scores: Dict, device: "str | torch.device" = "cpu"
+                    ) -> Dict[str, torch.Tensor]:
+    """A reference scores dict ({path: array}) -> {path: tensor on
+    ``device``} (dtypes kept)."""
+    return {path: torch.as_tensor(np.array(s), device=device)
+            for path, s in np_scores.items()}
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a tree whose leaves are stacked on a leading axis."""
     if isinstance(tree, dict):

@@ -1,19 +1,28 @@
-"""Static block weight pruning (paper §IV-A), forward half — the port of
-the reference package's ``core/block_pruning.py``.
+"""Static block weight pruning (paper §IV-A) — the port of the reference
+package's ``core/block_pruning.py``.
 
-Every prunable weight ``W ∈ R^{M1×M2}`` owns a score matrix
+Every prunable weight ``W ∈ R^{M1×M2}`` owns a learnable score matrix
 ``S ∈ R^{⌈M1/b⌉×⌈M2/b⌉}`` (one score per ``b×b`` block). The binary mask is
 built by global top-k selection over ``S`` (keep rate ``r_b``) and applied
-as ``W ⊙ M``. MLP weights are pruned by whole columns / rows via score
-vectors (paper Fig. 3). The straight-through estimator that trains the
-scores belongs to the training slice; here the mask is a plain forward.
+as ``W ⊙ M``. Gradients reach ``S`` through a straight-through estimator
+(:class:`SteTopkMask`) that treats the top-k as the identity:
+
+    forward :  M = 1[S ∈ top-k(S)]
+    backward:  dL/dS_ij = Σ_{(u,v) ∈ block ij} dL/d(W⊙M)_uv · W_uv
+
+MLP weights are pruned by whole columns (``wi``) / rows (``wo``) via score
+vectors (paper Fig. 3); MSA weights use 2-D block scores, with the
+alternate pattern tying a ``W_p`` block column to a ``W_proj`` block row
+(paper Fig. 2). The sparsity regularizer (Eq. 8) is ``λ · Σ σ(S)``.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.tree import leaves
 
 
 def _hard_topk(scores: torch.Tensor, keep: int) -> torch.Tensor:
@@ -27,6 +36,26 @@ def _hard_topk(scores: torch.Tensor, keep: int) -> torch.Tensor:
         return torch.zeros_like(scores)
     kth = torch.sort(flat, descending=True).values[keep - 1]
     return (scores >= kth).to(scores.dtype)
+
+
+class SteTopkMask(torch.autograd.Function):
+    """Straight-through top-k mask: the forward is :func:`_hard_topk`, the
+    backward passes the cotangent through unchanged (no gradient to
+    ``keep``)."""
+
+    @staticmethod
+    def forward(ctx, scores: torch.Tensor, keep: int) -> torch.Tensor:
+        return _hard_topk(scores, keep)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+def ste_topk_mask(scores: torch.Tensor, keep: int) -> torch.Tensor:
+    """Binary mask keeping the ``keep`` largest entries of ``scores`` (ties
+    at the threshold kept), with the straight-through gradient."""
+    return SteTopkMask.apply(scores, int(keep))
 
 
 def score_shape(w_shape: Tuple[int, int], block_size: int) -> Tuple[int, int]:
@@ -51,11 +80,11 @@ def num_kept_blocks(w_shape: Tuple[int, int], block_size: int,
 
 def masked_weight(w: torch.Tensor, scores: torch.Tensor, r_b: float,
                   block_size: int) -> torch.Tensor:
-    """``W ⊙ M`` with the mask derived from block ``scores``."""
+    """``W ⊙ M`` with the STE mask derived from block ``scores``."""
     if r_b >= 1.0:
         return w
     keep = num_kept_blocks(tuple(w.shape), block_size, r_b)
-    bm = _hard_topk(scores, keep)
+    bm = ste_topk_mask(scores, keep)
     full = expand_block_mask(bm, tuple(w.shape), block_size)
     return w * full.to(w.dtype)
 
@@ -68,10 +97,26 @@ def masked_weight_vector(w: torch.Tensor, scores: torch.Tensor, r_b: float,
         return w
     n = w.shape[axis]
     keep = max(1, math.ceil(n * r_b))
-    m = _hard_topk(scores, keep)
+    m = ste_topk_mask(scores, keep)
     shape = [1, 1]
     shape[axis] = n
     return w * m.reshape(shape).to(w.dtype)
+
+
+def alternate_tie_mask(block_mask_p: torch.Tensor) -> torch.Tensor:
+    """Alternate pattern (paper Fig. 2): a fully pruned block column of
+    ``W_p`` makes the matching block row of ``W_proj`` redundant. Returns
+    the per-block-row keep vector of ``W_proj``."""
+    return (block_mask_p.sum(dim=0) > 0).to(block_mask_p.dtype)
+
+
+def head_retained_ratio(block_mask_p: torch.Tensor,
+                        heads: int) -> torch.Tensor:
+    """Fraction of heads with at least one surviving block column (paper
+    Table VI "Head Retained Ratio")."""
+    n = block_mask_p.shape[1]
+    per_head = block_mask_p.reshape(block_mask_p.shape[0], heads, n // heads)
+    return (per_head.sum(dim=(0, 2)) > 0).float().mean()
 
 
 def init_scores_for(w: torch.Tensor, block_size: int, kind: str,
@@ -92,8 +137,39 @@ def init_scores_for(w: torch.Tensor, block_size: int, kind: str,
     return s.to(w.device)
 
 
+def sparsity_regularizer(scores_tree) -> torch.Tensor:
+    """λ-free Eq. 8 term: ``Σ σ(S)`` over every score tensor in the
+    tree."""
+    ls = leaves(scores_tree)
+    if not ls:
+        return torch.zeros(())
+    return sum(torch.sigmoid(s).sum() for s in ls)
+
+
+def apply_pruning_to_param(name: str, w: torch.Tensor, scores: torch.Tensor,
+                           r_b: float, block_size: int) -> torch.Tensor:
+    """Dispatch by the score tensor's rank: 2-D block masks (MSA) vs MLP
+    column (``wi``-like names) / row score vectors."""
+    if scores.ndim == 2:
+        return masked_weight(w, scores, r_b, block_size)
+    axis = 1 if name.endswith(("w_int", "wi", "w_in")) else 0
+    return masked_weight_vector(w, scores, r_b, axis=axis)
+
+
 def hard_block_mask(scores: torch.Tensor, r_b: float,
                     w_shape: Tuple[int, int],
                     block_size: int) -> torch.Tensor:
     keep = num_kept_blocks(w_shape, block_size, r_b)
     return _hard_topk(scores, keep)
+
+
+def density_stats(block_mask: torch.Tensor) -> Dict[str, float]:
+    """Per-column density statistics of a block mask (α in Table II)."""
+    col_counts = block_mask.sum(dim=0)
+    total = block_mask.shape[0]
+    return {
+        "density": float(block_mask.float().mean()),
+        "alpha": float((col_counts / total).mean()),
+        "max_col": int(col_counts.max()),
+        "min_col": int(col_counts.min()),
+    }

@@ -1,0 +1,114 @@
+"""Training launcher for the ViT: configs, synthetic data, the training
+step, and (with ``--ckpt``) the fault-tolerant loop and checkpointing —
+the port of the reference package's ``launch/train.py`` for the ``vit``
+family.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deit-small \\
+        [--full] [--steps 50] [--batch 8] [--lr 1e-3] [--ckpt DIR] \\
+        [--device cpu]
+
+The reduced config is the default; ``--full`` trains the architecture at
+full width and depth. ``--device`` picks the card (``cuda``, the default)
+or the CPU. Weights are random, drawn from seed 0 with a
+``torch.Generator``; batches are ``data.synthetic_vit_batch`` by step, so
+a run restarted from ``--ckpt`` resumes exactly. The step is
+``models/steps.make_vit_train_step`` (classification, AdamW); the paper's
+Algorithm 1 is ``core/simultaneous``. Other families raise: LM training
+is a later slice (ROADMAP queue A, LM training).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, synthetic_vit_batch
+from repro_torch.dist.fault import FaultConfig, RestartableLoop
+from repro_torch.kernels.backend import host_to_device, resolve_device
+from repro_torch.models import model as M
+from repro_torch.models import steps as ST
+from repro_torch.optim import AdamW
+
+
+def make_state_factory(cfg, opt, device: torch.device, seed: int = 0):
+    def make_state():
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device=device)
+        return {"params": params, "scores": None, "opt": opt.init(params),
+                "step": 0}
+    return make_state
+
+
+def train(arch: str, steps: int = 50, batch: int = 8, lr: float = 1e-3,
+          ckpt_dir: str | None = None, reduced: bool = True,
+          checkpoint_every: int = 20, log_every: int = 10, seed: int = 0,
+          device: "str | torch.device" = "cuda"):
+    cfg = get_config(arch)
+    if cfg.family != "vit":
+        raise NotImplementedError(
+            f"training family {cfg.family!r}: this package trains the ViT; "
+            f"LM training is a later slice (ROADMAP queue A, LM training)")
+    if reduced:
+        cfg = cfg.reduced()
+    dev = resolve_device(device)
+    opt = AdamW(lr=lr)
+    dc = DataConfig(seed=seed)
+    vstep = ST.make_vit_train_step(cfg, opt)
+
+    def step_wrap(state, batch_np):
+        b = {"patches": host_to_device(batch_np["patches"], dev),
+             "labels": host_to_device(batch_np["labels"], dev,
+                                      dtype=batch_np["labels"].dtype)}
+        params, opt_state, metrics = vstep(state["params"], state["opt"], b)
+        return ({"params": params, "scores": None, "opt": opt_state,
+                 "step": state["step"] + 1}, metrics)
+
+    def data_fn(step):
+        return synthetic_vit_batch(cfg, batch, dc, step)
+
+    make_state = make_state_factory(cfg, opt, dev, seed)
+    if ckpt_dir:
+        loop = RestartableLoop(
+            CheckpointManager(ckpt_dir, keep=2),
+            FaultConfig(checkpoint_every=checkpoint_every),
+            make_state=make_state, step_fn=step_wrap, data_fn=data_fn,
+            state_to_tree=lambda s: {"params": s["params"], "opt": s["opt"]},
+            tree_to_state=lambda t, s: {**s, **t})
+        return loop.run(steps)
+
+    losses = []
+    state = make_state()
+    t0 = time.time()
+    for i in range(steps):
+        state, metrics = step_wrap(state, data_fn(i))
+        losses.append(float(metrics["loss"]))
+        if i % log_every == 0 or i == steps - 1:
+            print(f"step {i:4d} loss {losses[-1]:.4f} "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+    return {"losses": losses, "state": state}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    out = train(args.arch, args.steps, args.batch, args.lr, args.ckpt,
+                args.reduced, device=args.device)
+    if out["losses"]:
+        print(f"final loss: {out['losses'][-1]:.4f}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,7 @@ Params are a nested dict with the reference's layout, except that
 on a leading axis (weights ``[in, out]``); ``convert`` turns the
 reference's trees into this layout. :func:`forward_vit` runs plain
 PyTorch only — no kernel — and is the masked-dense oracle the packed path
-is held against. :func:`forward_lm` runs its attention through the
+is held against and the forward that training differentiates. :func:`forward_lm` runs its attention through the
 ``flash_attention`` kernel wrapper (the kernel for CUDA tensors).
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ from repro_torch.core import token_pruning as TP
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
 
 
 class Output(NamedTuple):
@@ -126,11 +127,7 @@ def _init_dense(cfg: ModelConfig, g: torch.Generator,
 
 
 def to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -231,3 +228,16 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     else:
         logits = x @ w_un
     return Output(logits.float(), new_caches, hidden=x)
+
+
+# ===========================================================================
+# Losses
+# ===========================================================================
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore: int = -1) -> torch.Tensor:
+    """Mean token-level cross entropy; ``labels == ignore`` masked out."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels != ignore
+    safe = torch.where(valid, labels, 0).long()
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return -(ll * valid).sum() / valid.sum().clamp(min=1)

@@ -14,47 +14,18 @@ a scores dict converted from the reference package keys the same leaves.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import block_pruning as BP
+from repro_torch.tree import Path, flatten_with_path, map_with_path
+from repro_torch.tree import path_str as _path_str
 
 _ATTN_KEYS = {"wq": "block", "wk": "block", "wv": "block", "wo": "block"}
 _MLP_COL = {"wi", "wg", "cm_wk"}
 _MLP_ROW = {"wo", "cm_wv"}
-
-Path = Tuple[Any, ...]
-
-
-def flatten_with_path(tree) -> Iterator[Tuple[Path, torch.Tensor]]:
-    """Leaves of a nested dict/list tree with their key paths, in the
-    order ``jax.tree_util`` flattens the same tree (sorted dict keys)."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            for path, leaf in flatten_with_path(tree[key]):
-                yield (key,) + path, leaf
-    elif isinstance(tree, (list, tuple)):
-        for i, sub in enumerate(tree):
-            for path, leaf in flatten_with_path(sub):
-                yield (i,) + path, leaf
-    else:
-        yield (), tree
-
-
-def map_with_path(fn, tree, path: Path = ()):
-    """Rebuild ``tree`` with every leaf replaced by ``fn(path, leaf)``."""
-    if isinstance(tree, dict):
-        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_with_path(fn, v, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
-
-
-def _path_str(path: Path) -> str:
-    return "/".join(str(p) for p in path)
 
 
 def prunable_kind(path: Path, leaf: torch.Tensor) -> str | None:
@@ -99,7 +70,8 @@ def init_scores(cfg: ModelConfig, params: Dict,
 
 def apply_pruning(cfg: ModelConfig, params: Dict, scores: Dict,
                   r_b: float | None = None) -> Dict:
-    """Masked params for the forward pass."""
+    """Masked params for the forward pass: differentiable in ``params``
+    and, through the straight-through estimator, in ``scores``."""
     p = cfg.pruning
     if r_b is None:
         r_b = p.r_b
@@ -123,6 +95,11 @@ def apply_pruning(cfg: ModelConfig, params: Dict, scores: Dict,
                                        axis=1 if kind == "col" else 0)
 
     return map_with_path(mask_one, params)
+
+
+def regularizer(scores: Dict) -> torch.Tensor:
+    """Eq. 8: Σ σ(S) over all score tensors (λ applied by the caller)."""
+    return BP.sparsity_regularizer(scores)
 
 
 def hard_masks(cfg: ModelConfig, params: Dict,

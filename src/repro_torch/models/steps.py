@@ -1,7 +1,9 @@
-"""Serve steps for the dense LM — the serving half of the reference
-package's ``models/steps.py``: cache constructors, whole-batch prefill,
-per-slot prefill (a B=1 prefill scattered into one row of the live batched
-cache) and the decode step.
+"""Step functions — the reference package's ``models/steps.py`` for the
+families this package runs: the ViT's training step, and the dense LM's
+serve steps: cache constructors, whole-batch prefill, per-slot prefill (a
+B=1 prefill scattered into one row of the live batched cache) and the
+decode step. LM training is a later slice (ROADMAP queue A, LM
+training).
 
 The reference jits these; PyTorch runs them eagerly, so they are plain
 functions. Caches are a list with one ``KVCache`` per layer, and every
@@ -9,13 +11,15 @@ step updates the caches it is given in place and returns them.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import AdamW
+from repro_torch.tree import leaves, unflatten
 
 # Families whose serve state is pure KV cache — left-padding can be masked
 # exactly via valid_start (the reference's list; this package serves the
@@ -116,3 +120,23 @@ def make_decode_step(cfg: ModelConfig):
                            valid_start=valid_start)
         return torch.argmax(out.logits[:, -1], dim=-1), out.caches
     return decode
+
+
+def make_vit_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None):
+    """ViT classification training (no distillation; ``core/simultaneous``
+    has the paper's Algorithm 1). Returns ``step(params, opt_state, batch)
+    -> (params, opt_state, {"loss"})`` over tensors on one device; the
+    forward is :func:`~repro_torch.models.model.forward_vit`, plain
+    PyTorch, differentiated by autograd."""
+    opt = optimizer or AdamW(lr=1e-3)
+
+    def step(params, opt_state, batch):
+        flat = [t.detach().requires_grad_(True) for t in leaves(params)]
+        tr = unflatten(params, flat)
+        out = M.forward_vit(cfg, tr, batch["patches"])
+        loss = M.softmax_xent(out.logits, batch["labels"])
+        grads = torch.autograd.grad(loss, flat)
+        params, opt_state = opt.update(unflatten(params, list(grads)),
+                                       opt_state, params)
+        return params, opt_state, {"loss": loss.detach()}
+    return step

@@ -745,3 +745,91 @@ def test_lm_engine_on_card_matches_oracle(dev, continuous):
             continue
         for r in reqs:
             assert _teacher_forced_gaps(cfg, params, r, dev).max() <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# Training (Algorithm 1): plain PyTorch on the card, no kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["block", "col", "row"])
+def test_ste_gradient_on_card_matches_cpu(dev, kind):
+    """The STE mask and the score gradient (the block, column or row sum
+    of g ⊙ W) on the card against the CPU, with ties at the threshold:
+    masks and the weight gradient equal, the score gradient within 1e-5
+    relative to max(1, max|ref|) (fp32 sums in another order)."""
+    from repro_torch.core import block_pruning as BP
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((40, 56)).astype(np.float32)
+    cot = rng.standard_normal((40, 56)).astype(np.float32)
+    shape = {"block": BP.score_shape(w.shape, 16), "col": (56,),
+             "row": (40,)}[kind]
+    s = (rng.integers(0, 4, size=shape) * 0.25).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        wt = torch.tensor(w, device=d, requires_grad=True)
+        st = torch.tensor(s, device=d, requires_grad=True)
+        if kind == "block":
+            mw = BP.masked_weight(wt, st, 0.5, 16)
+        else:
+            mw = BP.masked_weight_vector(wt, st, 0.5,
+                                         1 if kind == "col" else 0)
+        gw, gs = torch.autograd.grad(
+            (mw * torch.tensor(cot, device=d)).sum(), (wt, st))
+        out[str(d)] = [t.detach().cpu() for t in (mw, gw, gs)]
+    (mc, gwc, gsc), (mg, gwg, gsg) = out["cpu"], out[str(dev)]
+    assert torch.equal(mc, mg) and torch.equal(gwc, gwg)
+    assert ((gsg - gsc).abs().max() / max(1.0, gsc.abs().max())) <= 1e-5
+
+
+@pytest.mark.parametrize("eps", [1e-8, 1.0])
+def test_simultaneous_step_on_card_matches_cpu(dev, monkeypatch, eps):
+    """One Algorithm-1 step of the reduced DeiT-Small from step 5 (the
+    student on a blend of dense and STE-masked weights) on the card against
+    the same step on the CPU: kept token indices at every TDM first, then
+    the loss parts within 1e-5 relative, then params and scores after the
+    update relative to max(1, |ref|): within 0.25·lr at the paper's eps
+    and lr 2e-3 (2·lr for the key biases, whose exact gradient is 0),
+    within 1e-5 at lr = eps = 1 (``tests/test_torch_train.py`` gives the
+    reasons). No kernel wrapper launches."""
+    from repro_torch.core import simultaneous as SIM
+    from repro_torch.data import DataConfig, synthetic_vit_batch
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import flatten_with_path, tree_map
+    cfg = DEIT_SMALL.reduced()
+    lr = 2e-3 if eps < 1.0 else 1.0
+    opt = AdamW(lr=lr, eps=eps)
+    state, _ = SIM.init_state(cfg, torch.Generator().manual_seed(0), opt,
+                              device="cpu")
+    state = state._replace(step=torch.tensor(5, dtype=torch.int32))
+    teacher = M.init_params(cfg, torch.Generator().manual_seed(9), "cpu")
+    step = SIM.make_simultaneous_step(cfg, cfg, opt, 20)
+    b = synthetic_vit_batch(cfg, 8, DataConfig(seed=0), 0)
+    inner = TTP.tdm
+    res = {}
+    backend.reset_launches()
+    for d in ("cpu", dev):
+        kept = []
+
+        def tdm(*a, **kw):
+            o = inner(*a, **kw)
+            kept.append(o[1].cpu())
+            return o
+        monkeypatch.setattr(TTP, "tdm", tdm)
+        new, m = step(tree_map(lambda t: t.to(d), state),
+                      tree_map(lambda t: t.to(d), teacher),
+                      {k: torch.from_numpy(v).to(d) for k, v in b.items()})
+        res[str(d)] = (kept, tree_map(lambda t: t.cpu(), new),
+                       {k: v.item() for k, v in m.items()})
+    assert not any(backend.launches().values())
+    (kc, nc, mc), (kg, ng, mg) = res["cpu"], res[str(dev)]
+    assert len(kc) == len(kg) == len(cfg.pruning.tdm_layers)
+    for a, c in zip(kg, kc):
+        assert torch.equal(a, c)
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(1.0, abs(mc[k])), k
+    for tree_g, tree_c in ((ng.params, nc.params), (ng.scores, nc.scores)):
+        for (path, a), (_, c) in zip(flatten_with_path(tree_g),
+                                     flatten_with_path(tree_c)):
+            tol = (1e-5 if eps >= 1.0 else
+                   (2.0 if path[-1] == "bk" else 0.25) * lr)
+            err = (a - c).abs().max() / max(1.0, c.abs().max())
+            assert err <= tol, path
