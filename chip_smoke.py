@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: the quickest proof that the port builds, serves and trains on the
-card.
+GPU: the quickest proof that the port builds, serves and trains (the ViT
+and the dense LM) on the card.
 
     python3 chip_smoke.py
 
@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    causal GQA attention at full-width Minitron-4B through the kernel the
    wrapper picks: a per-slot prefill of a 512-token bucket, a batch-4
    decode and a decode row spanning all 9 key splits against a 572-slot
-   bf16 cache, two launches bitwise equal), with fixed seeds: error and tolerance per output,
+   bf16 cache, two launches bitwise equal); LM training's causal pair at
+   full-width StableLM-1.6B ([8, 512, 32, 64]) and at GQA 3:1 ([2, 512,
+   24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
+   serve's, lse within 1e-5) and ``flash_prefill_bwd_bf16`` (dq, dk, dv
+   within one bf16 ulp of the plain backward, two launches bitwise equal),
+   with fixed seeds: error and tolerance per output,
    kernel/plain/library times (CUDA events, median of 21 runs of 10 calls
    after warm-up) and each kernel's least possible time on an H100 SXM
    (published HBM rate, fp32 CUDA-core rate, and the fp16/bf16
@@ -85,6 +90,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    operator and CUDA runtime call; the same for one continuous depth-1
    serve of the LM, with the decode and prefill kernels' device time and
    launches, each and together, against its device busy time.
+6a. LM training (``lm_train_path``): ``models/steps.make_train_step`` on
+   full-width StableLM-1.6B (24 layers, D=2048, 32 heads, Dh 64, vocab
+   100352; 1.64 B params from seed 0 drawn on the card, scores from seed
+   7) with ``launch/train``'s ``--prune`` config (block 16, r_b 0.5),
+   batches of 8 x 512 tokens from ``synthetic_lm_batch``, AdamW at lr
+   1e-3, bf16 activations, full remat, 8 steps and one profiled. Gates:
+   (a) the loss falls; (b) step 0 at 2 layers, batch 2, seq 128 on the
+   card (bf16, kernels) against the CPU (fp32, plain): loss within 1e-3
+   relative, each gradient leaf within 5% of its largest element; (c)
+   every step launches ``flash_prefill_bf16`` 48 times (forward and
+   recompute) and ``flash_prefill_bwd_bf16`` 24 times, nothing else, and
+   no plain attention runs; (d) TF32 off. Prints the wall per step,
+   tokens/s, peak memory, the profiled step's device busy and idle share
+   and its device time by part (attention forward and backward, GEMMs,
+   AdamW, the rest).
 6. Training (``train_path``): the paper's Algorithm 1
    (``core/simultaneous``) on full-width DeiT-Small: a student (seed 0,
    its scores from the same generator) distilled from a dense DeiT-Small
@@ -111,7 +131,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    wrapper call's device time as ``call_device_ms`` and the library
    call's as ``library_device_ms``; ``launches``
    summed over the last timed serve of each path, the trained model's
-   serve among them, the LM's continuous
+   serve and the last LM training step among them, the LM's continuous
    depth-1 serve for the causal kernels, whose entries list each of their
    shapes under ``cases`` and head with the first), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -120,6 +140,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1152,8 +1173,16 @@ def lm_path(torch, dev):
 # ---------------------------------------------------------------------------
 # Phase 5: device time by kernel, busy share, host spans (torch.profiler)
 # ---------------------------------------------------------------------------
+# entry points that launch more than one kernel, each named
+# ``<entry point>_<part>_kernel``
+KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 3}  # D, dK/dV, dQ
+
+
 def kernel_symbol(entry_point: str) -> str:
-    """The CUDA kernel an entry point launches (``csrc/*.cu``)."""
+    """The CUDA kernel an entry point launches (``csrc/*.cu``), or the
+    prefix of its kernels' names."""
+    if entry_point in KERNELS_PER_LAUNCH:
+        return f"{entry_point}_"
     return f"{entry_point}_kernel"
 
 
@@ -1292,7 +1321,8 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                       f"{sym} launch in window {attempt + 1}; profiling "
                       f"again", flush=True)
             require(bool(mine), f"profiler saw no {sym} launch")
-            calls = sum(r[1] for r in mine)
+            calls = sum(r[1] for r in mine) / KERNELS_PER_LAUNCH.get(
+                check["name"], 1)
             us = sum(r[2] for r in mine)
             if check["name"].startswith(ONE_KERNEL_PER_CALL):
                 others = [r for r in rows if sym not in r[0]]
@@ -1317,7 +1347,7 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                    f"launches per call)")
             print(f"profile {check['name']}"
                   + (f" ({c['label']})" if "label" in c else "")
-                  + f": device {us / calls:.2f} us/launch ({calls} "
+                  + f": device {us / calls:.2f} us/launch ({calls:g} "
                   f"launches), {c['call_device_ms'] * 1e3:.2f} us/call "
                   f"over all its device work ({sum(r[1] for r in rows) / n:g}"
                   f" device launches per call); wrapper "
@@ -1334,6 +1364,376 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                       walls[f"{path} soft"], f"main path {path} soft",
                       soft=True, precision=precision,
                       granularity=granularity)
+
+
+# LM training's causal kernel pair at StableLM-1.6B's shape (32 heads, MHA,
+# Dh 64, batch 8 x 512 tokens) and at a GQA shape (24 query over 8 KV
+# heads); the first case of the backward is its headline
+LM_TRAIN_CASES = (("StableLM-1.6B", 8, 512, 32, 32, 64),
+                  ("GQA 3:1", 2, 512, 24, 8, 64))
+LSE_TOL = 1e-5  # x max(1, max|plain lse|): fp32 sums in another order
+
+
+def check_causal_training(torch, dev, prefill):
+    """The causal kernels of LM training, through the wrappers
+    ``CausalAttention`` calls, against their plain versions at
+    ``LM_TRAIN_CASES``:
+
+    * the forward writing the log-sum-exp (``flash_prefill_bf16`` with
+      ``lse``; appended to the ``prefill`` check as a case): o within one
+      bf16 ulp of the largest plain element, lse within ``LSE_TOL``, and o
+      bitwise the serve's (the same call with a null lse);
+    * ``flash_prefill_bwd_bf16`` (three kernels per launch: D, dK/dV, dQ)
+      against ``attention_causal_bwd_plain`` on the same o, dO and lse: dq,
+      dk, dv each within one bf16 ulp of its largest plain element, two
+      launches bitwise equal. Its library call is SDPA's forward and
+      backward (``is_causal=True``), timed only.
+
+    Returns the backward's check, one entry per case under ``cases``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
+    g = torch.Generator().manual_seed(9)
+    cases = []
+    for label, B, N, Hq, KV, Dh in LM_TRAIN_CASES:
+        q, do = (torch.randn((B, N, Hq, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, N, KV, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        shapes = (f"q,o,dO[{B},{N},{Hq},{Dh}] k,v[{B},{N},{KV},{Dh}] bf16 "
+                  f"causal")
+        # every (row, head, key) pair of the causal triangle
+        pairs = B * Hq * N * (N + 1) // 2
+        qkv_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+        gqa = KV != Hq
+
+        def fwd(q=q, k=k, v=v):
+            return FA._causal_cuda(q, k, v, None, None, None, False,
+                                   with_lse=True)
+
+        def fwd_plain(q=q, k=k, v=v):
+            return (FA.attention_causal_plain(q, k, v)[0],
+                    FA.attention_causal_lse_plain(q, k))
+
+        before = backend.launches()
+        (o, lse), (o_ref, lse_ref) = fwd(), fwd_plain()
+        o_serve, _ = FA._causal_cuda(q, k, v, None, None, None, False)
+        torch.cuda.synchronize()
+        require(backend.launches()["flash_prefill_bf16"]
+                == before["flash_prefill_bf16"] + 2,
+                f"flash_prefill_bf16 ({label}) did not launch")
+        require(torch.equal(o, o_serve),
+                f"flash_prefill_bf16 ({label}): o with lse is not the "
+                f"serve's o bit for bit")
+        err_lse = (lse - lse_ref).abs().max().item()
+        tol_lse = LSE_TOL * max(1.0, lse_ref.abs().max().item())
+        qh, kh, vh, doh = (t.transpose(1, 2).detach().clone()
+                           for t in (q, k, v, do))
+        if prefill is not None:
+            n_bytes = qkv_bytes + 4 * B * Hq * N
+            bnd, by = bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs)
+
+            def sdpa_fwd(qh=qh, kh=kh, vh=vh, gqa=gqa):
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=gqa)
+
+            case = dict(
+                label=f"train {label}, with lse", fn=fwd, ms=time_ms(fwd),
+                plain_ms=time_ms(fwd_plain), library_fn=sdpa_fwd,
+                library_ms=time_ms(sdpa_fwd), bound_ms=bnd, bound_by=by,
+                errs=[(f"o (train {label})",
+                       (o.float() - o_ref.float()).abs().max().item(),
+                       BF16_ULP * o_ref.float().abs().max().item(),
+                       "one bf16 ulp at max|plain|"),
+                      (f"lse (train {label})", err_lse, tol_lse,
+                       f"{LSE_TOL:g} x max(1, max|plain|)")],
+                shapes=shapes + " (+lse; o bitwise the serve's)")
+            prefill["cases"].append(case)
+            prefill["errs"].extend(case["errs"])
+            prefill["shapes"] += f"; {case['label']}: {case['shapes']}"
+
+        def bwd(q=q, k=k, v=v, o=o, do=do, lse=lse):
+            return FA._causal_bwd_cuda(q, k, v, o, do, lse, None)
+
+        def bwd_plain(q=q, k=k, v=v, o=o, do=do, lse=lse):
+            return FA.attention_causal_bwd_plain(q, k, v, o, do, lse)
+
+        before = backend.launches()["flash_prefill_bwd_bf16"]
+        res, again, ref = bwd(), bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        require(backend.launches()["flash_prefill_bwd_bf16"] == before + 2,
+                f"flash_prefill_bwd_bf16 ({label}) did not launch")
+        require(all(torch.equal(a, b) for a, b in zip(res, again)),
+                f"flash_prefill_bwd_bf16 ({label}): two launches differ")
+        errs = []
+        for name, a, r in zip(("dq", "dk", "dv"), res, ref):
+            require(a.dtype == torch.bfloat16
+                    and bool(torch.isfinite(a.float()).all()),
+                    f"flash_prefill_bwd_bf16 ({label}): {name} {a.dtype} "
+                    f"or not finite")
+            errs.append((f"{name} ({label})",
+                         (a.float() - r.float()).abs().max().item(),
+                         BF16_ULP * r.float().abs().max().item(),
+                         "one bf16 ulp at max|plain|"))
+        # bytes: q, o, dO, k, v (bf16) and lse (fp32) read once, dq, dk, dv
+        # (bf16) written once; operations per causal pair: the five products
+        # Q.K^T, dO.V^T, P^T.dO, dS^T.Q and dS.K (2 Dh each, the bf16
+        # tensor-core rate), ~8 fp32 for the exponential and dS
+        n_bytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * Hq * N
+        bnd, by = bound_ms(n_bytes, 8 * pairs, 10 * Dh * pairs)
+        leaves_h = [t.clone().requires_grad_(True) for t in (qh, kh, vh)]
+
+        def sdpa(leaves_h=leaves_h, doh=doh, gqa=gqa):
+            out = F.scaled_dot_product_attention(*leaves_h, is_causal=True,
+                                                 enable_gqa=gqa)
+            return torch.autograd.grad(out, leaves_h, doh)
+
+        cases.append(dict(
+            label=label, errs=errs, fn=bwd, ms=time_ms(bwd),
+            plain_ms=time_ms(bwd_plain, samples=5, calls=3, warmup=1),
+            library_fn=sdpa, library_ms=time_ms(sdpa), bound_ms=bnd,
+            bound_by=by, shapes=shapes + " backward"))
+    head = cases[0]
+    return dict(
+        name="flash_prefill_bwd_bf16", source="flash_prefill_bwd.cu",
+        errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        library_fn=head["library_fn"], library_ms=head["library_ms"],
+        library_call="F.scaled_dot_product_attention(is_causal=True) "
+                     "forward + backward on bf16 (timing only)",
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cases),
+        cases=cases)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6a: LM training at full width and depth
+# ---------------------------------------------------------------------------
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 512
+LM_TRAIN_STEPS = 8  # step 0 (warm-up), then 7 timed; then 1 profiled
+# AdamW at launch/train's default rate (the reference launcher's): in an lr
+# sweep of 8 steps from seed 0 (tools/lm_train_probe.py) it moved the loss
+# the most of 1e-4, 3e-4 and 1e-3
+LM_TRAIN_LR = 1e-3
+# Step 0 on the card (bf16 activations, the kernels) against the CPU (fp32,
+# plain attention) at full width cut to 2 layers, batch 2, seq 128: bf16
+# rounds every activation to 2^-9 relative, which moves the loss by ~1e-5
+# relative and each gradient leaf by ~1.5% of its largest element (1.43%
+# and 6e-6 measured on an NVIDIA H100 80GB HBM3 at 700 W; 1.6% between
+# bf16 and fp32 on the CPU alone). Bounds: the loss within 1e-3 relative,
+# each leaf within 5% of its largest |CPU| element.
+LM_TRAIN_LOSS_TOL = 1e-3
+LM_TRAIN_GRAD_TOL = 0.05
+
+
+@contextlib.contextmanager
+def count_plain_attention():
+    """Count calls of the plain attention versions (none may run on the
+    card): ``attention_causal_plain`` and ``flash_attention_torch``."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import attention as A
+    calls = [0]
+    inner = (FA.attention_causal_plain, A.flash_attention_torch)
+
+    def counted(fn):
+        def call(*a, **kw):
+            calls[0] += 1
+            return fn(*a, **kw)
+        return call
+    FA.attention_causal_plain, A.flash_attention_torch = map(counted, inner)
+    try:
+        yield calls
+    finally:
+        FA.attention_causal_plain, A.flash_attention_torch = inner
+
+
+def lm_step0_card_vs_cpu(torch, dev, cfg):
+    """Step 0's loss and gradients (``models/steps.make_grad_fn`` with
+    pruning) of ``cfg`` cut to 2 layers, batch 2, seq 128, from
+    ``launch/train.make_state_factory``'s seeds: on the card (``cfg``'s
+    dtype, the kernels) and on the CPU (fp32, plain attention). Returns the
+    card's loss, the CPU's, the CPU's seconds, the card's kernel launches
+    and, per gradient leaf, ``(max|card - CPU| / max|CPU|, max|card -
+    CPU|, max|CPU|, path)``, worst first."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train as LT
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import flatten_with_path, path_str, tree_map
+
+    small = cfg.replace(num_layers=2)
+    st = LT.make_state_factory(small, AdamW(), dev, with_scores=True)()
+    toks = torch.from_numpy(synthetic_lm_batch(
+        small, ShapeConfig("t", 128, 2, "train"), DataConfig(), 0)["tokens"])
+    backend.reset_launches()
+    loss_c, _, g_c = ST.make_grad_fn(small, True)(
+        st["params"], {"tokens": toks.to(dev)}, st["scores"])
+    launches = {k: v for k, v in backend.launches().items() if v}
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    loss_h, _, g_h = ST.make_grad_fn(small.replace(dtype="float32"), True)(
+        tree_map(lambda t: t.to(cpu), st["params"]), {"tokens": toks},
+        tree_map(lambda t: t.to(cpu), st["scores"]))
+    cpu_s = time.perf_counter() - t0
+    rows = []
+    for (path, a), (_, b) in zip(flatten_with_path(g_c),
+                                 flatten_with_path(g_h)):
+        d = (a.cpu().float() - b).abs().max().item()
+        m = b.abs().max().item()
+        rows.append((d / m if m else float("inf"), d, m, path_str(path)))
+    rows.sort(reverse=True)
+    del st, g_c, g_h
+    torch.cuda.empty_cache()
+    return loss_c.item(), loss_h.item(), cpu_s, launches, rows
+
+
+def lm_train_path(torch, dev):
+    """LM training (``models/steps.make_train_step``) of full-width
+    StableLM-1.6B (24 layers, D=2048, 32 heads, Dh 64, vocab 100352;
+    params from seed 0 drawn on the card, scores from seed 7 by
+    ``launch/train.make_state_factory``) with ``launch/train``'s
+    ``--prune`` config, batches of 8 x 512 tokens from
+    ``synthetic_lm_batch`` by step, AdamW at ``LM_TRAIN_LR``. Gates: (a)
+    the loss falls; (b) step 0 on the card against the CPU at 2 layers
+    (``LM_TRAIN_*_TOL``); (c) per step, ``flash_prefill_bf16`` launched 2
+    x 24 times (forward and full-remat recompute) and
+    ``flash_prefill_bwd_bf16`` 24 times, no other kernel entry point and
+    no plain attention; (d) TF32 off. Returns the last step's launch
+    counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import STABLELM_1_6B
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train as LT
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "lm train: fp32 matmuls must not run on TF32")
+    cfg = LT.prune_config(STABLELM_1_6B)
+    L = cfg.num_layers
+
+    # (b) step 0 at 2 layers on the card and on the CPU
+    loss_c, loss_h, cpu_s, _, rows = lm_step0_card_vs_cpu(torch, dev, cfg)
+    err_loss = abs(loss_c - loss_h) / abs(loss_h)
+    print(f"lm train step 0 at 2 layers, batch 2, seq 128, card (bf16, "
+          f"kernels) vs CPU (fp32, plain; {cpu_s:.1f} s): loss "
+          f"{loss_c:.6f} vs {loss_h:.6f} (rel {err_loss:.3g}, "
+          f"tolerance {LM_TRAIN_LOSS_TOL:g}); gradients, worst "
+          f"max|d| / max|CPU| per leaf of {len(rows)}: "
+          + ", ".join(f"{r:.4g} ({p})" for r, _, _, p in rows[:3])
+          + f" (tolerance {LM_TRAIN_GRAD_TOL:g})", flush=True)
+    require(err_loss <= LM_TRAIN_LOSS_TOL,
+            f"lm train step 0: loss card vs CPU rel {err_loss:.3g}")
+    require(rows[0][0] <= LM_TRAIN_GRAD_TOL,
+            f"lm train step 0: gradients card vs CPU, worst {rows[:3]}")
+
+    opt = AdamW(lr=LM_TRAIN_LR, weight_decay=0.01)
+    t0 = time.perf_counter()
+    state = LT.make_state_factory(cfg, opt, dev, with_scores=True)()
+    params, scores, opt_state = state["params"], state["scores"], state["opt"]
+    del state  # a step's old state is freed as the next is made
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    step = ST.make_train_step(cfg, opt, with_pruning=True)
+    shape = ShapeConfig("t", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    host = [synthetic_lm_batch(cfg, shape, DataConfig(), i)["tokens"]
+            for i in range(LM_TRAIN_STEPS + 1)]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"lm train: {cfg.name} at full width and depth ({L} layers, "
+          f"D={cfg.d_model}, {cfg.num_heads} heads, Dh={cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}), {n_params / 1e9:.4f} B params and "
+          f"{sum(t.numel() for t in scores.values()) / 1e6:.3f} M scores "
+          f"(block {cfg.pruning.block_size}, r_b {cfg.pruning.r_b}), fp32 "
+          f"with AdamW state, made in {time.perf_counter() - t0:.2f} s; "
+          f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, bf16 "
+          f"activations, remat {cfg.remat_policy}, lr {LM_TRAIN_LR:g}",
+          flush=True)
+
+    def one(i):
+        toks = torch.from_numpy(host[i]).to(dev)
+        return step(params, opt_state, {"tokens": toks}, scores)
+
+    metrics, walls, counts = [], [], []
+    with count_plain_attention() as plain_calls:
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(LM_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            params, scores, opt_state, m = one(i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(backend.launches())
+            metrics.append({k: v.item() for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, scores, opt_state, m = one(LM_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    require(plain_calls[0] == 0, f"lm train: the plain attention ran "
+                                 f"{plain_calls[0]} times on the card")
+    want = {"flash_prefill_bf16": 2 * L, "flash_prefill_bwd_bf16": L}
+    for i, n in enumerate(counts):
+        got = {k: v for k, v in n.items() if v}
+        require(got == want, f"lm train step {i}: launches {got}, want "
+                             f"{want}")
+    losses = [m["loss"] for m in metrics]
+    ces = [m["ce"] for m in metrics]
+    require(all(math.isfinite(x) for x in losses + ces),
+            f"lm train: a loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"lm train: loss did not fall: {losses}")
+    wall = statistics.median(walls[1:])
+    print(f"lm train: losses {[round(x, 4) for x in losses]} (ce "
+          f"{[round(x, 4) for x in ces]}; the rest is lambda_reg x the "
+          f"scores' sparsity term); launches per step {want}, plain "
+          f"attention calls 0", flush=True)
+    print(f"lm train: wall per step median {wall * 1e3:.2f} ms over "
+          f"{len(walls) - 1} steps after step 0 (min "
+          f"{min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}; step "
+          f"0 {walls[0] * 1e3:.1f} ms; the batch copied in the step): "
+          f"{tokens / wall:.1f} training tokens/s; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    rows = _device_rows(prof)
+    busy_us = sum(r[2] for r in rows)
+    print(f"profile lm train step ({sum(r[1] for r in rows)} device "
+          f"launches): wall {dt * 1e6:.0f} us profiled / {wall * 1e6:.0f} us "
+          f"unprofiled median, device busy {busy_us:.0f} us, idle share "
+          f"{1.0 - busy_us / (dt * 1e6):.3f} profiled / "
+          f"{1.0 - busy_us / (wall * 1e6):.3f} unprofiled", flush=True)
+    groups = {"attention forward (flash_prefill_bf16)":
+              lambda n: kernel_symbol("flash_prefill_bf16") in n,
+              "attention backward (flash_prefill_bwd_bf16)":
+              lambda n: kernel_symbol("flash_prefill_bwd_bf16") in n,
+              "GEMMs (cuBLAS)": lambda n: "nvjet" in n
+              or "gemm" in n.lower() or "xmma" in n,
+              "AdamW (multi_tensor_apply)": lambda n: "multi_tensor" in n,
+              "casts and copies": lambda n: "copy" in n,
+              "reductions (norms, softmax, sums)": lambda n: "reduce" in n
+              or "softmax" in n.lower() or "norm" in n.lower()}
+    split = {k: [0, 0.0] for k in [*groups, "other elementwise"]}
+    for n, k, us in rows:
+        key = next((g for g, f in groups.items() if f(n)),
+                   "other elementwise")
+        split[key][0] += k
+        split[key][1] += us
+    print("profile lm train step by part: " + "; ".join(
+        f"{g} {us / 1e3:.2f} ms ({k} launches, {us / busy_us:.3f})"
+        for g, (k, us) in split.items()), flush=True)
+    for n, k, us in rows[:12]:
+        print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+    del params, scores, opt_state, m, prof
+    torch.cuda.empty_cache()
+    return counts[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -1629,6 +2029,9 @@ REPLACES = {  # the reference's pallas_call each kernel stands in for
         "src/repro/kernels/flash_attention/flash_attention.py:92",
     "flash_prefill.cu":
         "src/repro/kernels/flash_attention/flash_attention.py:92",
+    # the gradient JAX takes of train-mode attention over that kernel
+    "flash_prefill_bwd.cu":
+        "src/repro/kernels/flash_attention/flash_attention.py:92",
     "token_drop.cu": "src/repro/kernels/token_drop/token_drop.py:62",
     "token_package.cu":
         "src/repro/kernels/token_package/token_package.py:68",
@@ -1664,6 +2067,8 @@ def main() -> int:
               check_flash_attention(torch, dev, half=True),
               check_token_drop(torch, dev), check_token_package(torch, dev),
               *check_flash_attention_causal(torch, dev)]
+    checks.append(check_causal_training(torch, dev, next(
+        c for c in checks if c["name"] == "flash_prefill_bf16")))
     require(sorted(c["name"] for c in checks) == sorted(backend.ENTRY_POINTS),
             "a kernel entry point has no check")
     for check in checks:
@@ -1692,6 +2097,7 @@ def main() -> int:
     profile_lm(torch, dev, *lm_model)
     del lm_model
     torch.cuda.empty_cache()
+    path_counts["lm train"] = lm_train_path(torch, dev)
     path_counts["trained fp32"] = train_path(torch, dev)
     for key, n in syncs.items():
         require(not any(n), f"{key}: the engine waited on the card outside "

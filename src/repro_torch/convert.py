@@ -59,6 +59,26 @@ def lm_params_from_jax(np_tree, device: "str | torch.device" = "cpu"
     return out
 
 
+def lm_scores_from_jax(np_scores: Dict,
+                       device: "str | torch.device" = "cpu"
+                       ) -> Dict[str, torch.Tensor]:
+    """A reference dense-LM scores dict, whose layer scores are stacked
+    (``layers/attn/wq`` [L, m, n], ``layers/mlp/wi`` [L, n]), -> this
+    package's: one entry per layer (``layers/{i}/attn/wq``) on ``device``;
+    other paths as they are."""
+    out = {}
+    for path, s in np_scores.items():
+        s = np.asarray(s)
+        head, _, rest = path.partition("/")
+        if head != "layers":
+            out[path] = torch.as_tensor(np.array(s), device=device)
+            continue
+        for i in range(s.shape[0]):
+            out[f"layers/{i}/{rest}"] = torch.as_tensor(np.array(s[i]),
+                                                        device=device)
+    return out
+
+
 def kv_caches_from_jax(cache, device: "str | torch.device" = "cpu"
                        ) -> List[KVCache]:
     """A reference stacked ``KVCache`` (leaves ``[L, B, ...]``) -> one

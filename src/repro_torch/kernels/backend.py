@@ -47,7 +47,8 @@ _SBMM = [P] * 5 + [I] * 5 + [P]
 _SBMM_QUANT = [P] * 6 + [I] * 5 + [P]
 _FLASH = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
 _FLASH_DECODE = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
-_FLASH_PREFILL = [P] * 7 + [I] * 6 + [ctypes.c_float, P]
+_FLASH_PREFILL = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
+_FLASH_PREFILL_BWD = [P] * 11 + [I] * 5 + [ctypes.c_float, P]
 # C entry points and their signatures, by library (csrc/<library>.cu)
 _ENTRY_POINTS = {
     "sbmm": {"sbmm_f32": _SBMM, "sbmm_f16w": _SBMM},
@@ -57,6 +58,7 @@ _ENTRY_POINTS = {
                         "flash_attention_f16": _FLASH},
     "flash_decode": {"flash_decode_bf16": _FLASH_DECODE},
     "flash_prefill": {"flash_prefill_bf16": _FLASH_PREFILL},
+    "flash_prefill_bwd": {"flash_prefill_bwd_bf16": _FLASH_PREFILL_BWD},
     "token_drop": {"token_drop_f32": [P] * 3 + [I] * 5 + [P]},
     "token_package": {"token_package_f32": [P] * 6 + [I] * 6 + [P]},
 }

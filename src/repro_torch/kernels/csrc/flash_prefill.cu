@@ -11,6 +11,11 @@
 // The reference takes Q.K^T of bf16 values in fp32 (exact products) and
 // P.V with fp32 P; the output is rounded to bf16 (nearest even). A row with
 // no valid key (a left-pad row of a bucket-padded prompt) writes 0.
+// Training (`CausalAttention` in kernels/flash_attention/ops.py) also asks
+// for each row's natural log-sum-exp of its scaled scores, fp32 lse [B, Hq,
+// Nq], which the backward (flash_prefill_bwd.cu) recomputes P from; a row
+// with no valid key writes -inf there. With a null lse the kernel stores
+// nothing more and its output is the serve's, bit for bit.
 //
 // Bound on the H100: a per-slot prefill of a 512-token bucket at
 // Minitron-4B (24 query over 8 KV heads, Dh 128) has ~3.0e6 (row, head,
@@ -81,8 +86,8 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
                           const int* __restrict__ q_offset,
                           const int* __restrict__ kv_len,
                           const int* __restrict__ kv_start,
-                          bf16* __restrict__ o, int Nq, int S, int Hq, int KV,
-                          float scale) {
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int Nq, int S, int Hq, int KV, float scale) {
   using L = PrefillSmem<DH>;
   constexpr int kLd = L::kLd;
   constexpr int kChunks = DH / 8;  // 16-byte pieces of a row
@@ -270,13 +275,17 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
     for (int i = 0; i < DH / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + col) =
           __floats2bfloat162_rn(acc[i][2 * x] / den, acc[i][2 * x + 1] / den);
+    // m is in log2 units: lse = m ln 2 + ln l (the four lanes of a row agree)
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<size_t>(b) * Hq + g * per + j % per) * Nq + j / per] =
+          l[x] > 0.f ? m[x] * 0.6931471805599453f + logf(l[x]) : -INFINITY;
   }
 }
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* q_offset,
-           const void* kv_len, const void* kv_start, void* o, int B, int Nq,
-           int S, int Hq, int KV, float scale, cudaStream_t stream) {
+           const void* kv_len, const void* kv_start, void* o, void* lse, int B,
+           int Nq, int S, int Hq, int KV, float scale, cudaStream_t stream) {
   static size_t raised = 0;
   constexpr size_t kBytes = PrefillSmem<DH>::kBytes;
   const cudaError_t err =
@@ -287,21 +296,22 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(q_offset),
       static_cast<const int*>(kv_len), static_cast<const int*>(kv_start),
-      static_cast<bf16*>(o), Nq, S, Hq, KV, scale);
+      static_cast<bf16*>(o), static_cast<float*>(lse), Nq, S, Hq, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o [B, Nq, Hq, Dh] and k, v [B, S, KV, Dh], bf16 contiguous, KV
-// dividing Hq, Dh in {16, 128}; q_offset, kv_len, kv_start [B] int32 or
+// dividing Hq, Dh in {16, 64, 128}; q_offset, kv_len, kv_start [B] int32 or
 // null (0, S and 0): query row i of batch row b sees keys [kv_start[b],
 // min(kv_len[b], q_offset[b] + i + 1)) (kv_len past S acts as S); a row
-// with no such key writes 0.
+// with no such key writes 0. lse [B, Hq, Nq] fp32 or null: each row's
+// natural log-sum-exp of its scaled scores (-inf for a row with no key).
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* q_offset, const void* kv_len,
-                                  const void* kv_start, void* o, int B,
-                                  int Nq, int S, int Hq, int KV, int Dh,
+                                  const void* kv_start, void* o, void* lse,
+                                  int B, int Nq, int S, int Hq, int KV, int Dh,
                                   float scale, void* stream) {
   if (B <= 0 || Nq <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || Hq % KV != 0 || B > 65535 ||
@@ -309,10 +319,13 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 16)
-    return launch<16>(q, k, v, q_offset, kv_len, kv_start, o, B, Nq, S, Hq,
-                      KV, scale, st);
+    return launch<16>(q, k, v, q_offset, kv_len, kv_start, o, lse, B, Nq, S,
+                      Hq, KV, scale, st);
+  if (Dh == 64)
+    return launch<64>(q, k, v, q_offset, kv_len, kv_start, o, lse, B, Nq, S,
+                      Hq, KV, scale, st);
   if (Dh == 128)
-    return launch<128>(q, k, v, q_offset, kv_len, kv_start, o, B, Nq, S, Hq,
-                       KV, scale, st);
+    return launch<128>(q, k, v, q_offset, kv_len, kv_start, o, lse, B, Nq, S,
+                       Hq, KV, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

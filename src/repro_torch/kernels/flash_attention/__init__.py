@@ -1,5 +1,7 @@
-from repro_torch.kernels.flash_attention.ops import (attention_causal_plain,
-                                                     attention_plain,
-                                                     flash_attention)
+from repro_torch.kernels.flash_attention.ops import (
+    CausalAttention, attention_causal_bwd_plain, attention_causal_lse_plain,
+    attention_causal_plain, attention_plain, flash_attention)
 
-__all__ = ["flash_attention", "attention_plain", "attention_causal_plain"]
+__all__ = ["flash_attention", "attention_plain", "attention_causal_plain",
+           "attention_causal_lse_plain", "attention_causal_bwd_plain",
+           "CausalAttention"]

@@ -4,12 +4,13 @@ scores as a by-product) and the LMs' causal grouped-query form (per-row
 probabilities as a by-product).
 
 Kernel K2 of the port: ``kernels/csrc/flash_attention.cu``,
-``flash_decode.cu`` and ``flash_prefill.cu`` replace the reference
+``flash_decode.cu``, ``flash_prefill.cu`` and ``flash_prefill_bwd.cu``
+replace the reference
 package's Pallas ``_flash_kernel`` / ``flash_attention_pallas``
 (``kernels/flash_attention/flash_attention.py``) in the forms the serving
 paths need; on the reference paths these stages are ``flash_attention_jnp``
 and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
-``models/attention.attention_block`` for the LMs). Four entry points:
+``models/attention.attention_block`` for the LMs). Five entry points:
 
 * ``flash_attention_f32`` / ``flash_attention_f16``: non-causal, q, k, v
   of one shape and one type, fp32 sums, output in the operands' type
@@ -21,6 +22,13 @@ and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
   (split over the key window, fp32 on CUDA cores, the row's
   probabilities as a by-product) and ``flash_prefill_bf16`` for more
   (Q.K^T and P.V on the bf16 tensor cores, fp32 accumulation).
+* training: :class:`CausalAttention`, the causal form over a whole
+  sequence as an autograd function, taken when a CUDA input requires
+  grad: ``flash_prefill_bf16`` also writing each row's log-sum-exp, and
+  ``flash_prefill_bwd_bf16`` (``csrc/flash_prefill_bwd.cu``) giving dq,
+  dk, dv, the gradient JAX takes of ``flash_attention_jnp`` in the
+  reference's train mode. :func:`attention_causal_bwd_plain` is its plain
+  version.
 
 What bounds each kernel on the H100 and how the design answers that is
 noted in the CUDA source.
@@ -43,8 +51,12 @@ CAUSAL_KERNELS = {True: ("flash_decode", "flash_decode_bf16"),
 DECODE_SPLIT = 64  # keys per decode block (kSplit in csrc/flash_decode.cu)
 HEAD_DIMS = (16, 64)  # head widths the non-causal kernel is instantiated
 # for: full DeiT-Small (64) and its reduced test config (16)
-CAUSAL_HEAD_DIMS = (16, 128)  # the causal kernels': Minitron-4B (128) and
-# the reduced LM configs (16)
+# head widths each causal kernel is instantiated for: the reduced LM
+# configs (16), StableLM-1.6B (64, trained), Minitron-4B (128, served)
+CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 128),
+                    "flash_prefill_bf16": (16, 64, 128),
+                    "flash_prefill_bwd_bf16": (16, 64)}
+BWD_KERNEL = ("flash_prefill_bwd", "flash_prefill_bwd_bf16")
 # the decode kernel's arrival counters, by (device, stream): zero between
 # launches (the combining block of each launch resets its own)
 _ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -73,6 +85,71 @@ def attention_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    kv_start=kv_start)
              if collect_probs else None)
     return o, probs
+
+
+def attention_causal_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                               kv_start=None) -> torch.Tensor:
+    """The natural log-sum-exp of each causal row's scaled scores, fp32
+    [B, Hq, N], for q [B, N, Hq, Dh] against k [B, N, KV, Dh] (query row i
+    sees keys [kv_start[b], i + 1)): the plain version of the ``lse`` the
+    prefill kernel writes in training. Masked scores are ``NEG_INF``, as in
+    :func:`attention_causal_plain`, so a row without a key gives about
+    ``NEG_INF`` (the kernel writes -inf there)."""
+    s, _ = _causal_scores(q, k, kv_start)
+    B, N, Hq, _ = q.shape
+    return torch.logsumexp(s, dim=-1).reshape(B, Hq, N)
+
+
+def _causal_scores(q, k, kv_start):
+    """fp32 scaled scores [B, KV, per, N, N] of the causal form with
+    ``NEG_INF`` at masked keys, and the mask [B, 1, 1, N, N]."""
+    B, N, Hq, Dh = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, N, KV, Hq // KV, Dh)
+    s = torch.einsum("bqgpd,bkgd->bgpqk", qg, k.float()) * Dh ** -0.5
+    pos = torch.arange(N, device=q.device)
+    mask = (pos[None, :, None] >= pos[None, None, :]).expand(B, N, N)
+    if kv_start is not None:
+        start = torch.as_tensor(kv_start, device=q.device).to(
+            torch.int64).reshape(-1, 1, 1)
+        mask = mask & (pos[None, None, :] >= start)
+    mask = mask[:, None, None]
+    return s.masked_fill(~mask, A.NEG_INF), mask
+
+
+def attention_causal_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               do: torch.Tensor, lse: torch.Tensor,
+                               kv_start=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version of ``flash_prefill_bwd_bf16``: the gradient of the
+    causal form (q, o, do [B, N, Hq, Dh]; k, v [B, N, KV, Dh]; ``lse``
+    [B, Hq, N] from :func:`attention_causal_lse_plain`) by the kernel's
+    formulas, step by step in fp32: D = rowsum(dO o O), P = exp(s - lse),
+    dV = P^T dO, dP = dO V^T, dS = P o (dP - D), dK = scale dS^T Q, dQ =
+    scale dS K, dK and dV summed over each KV head's query heads; dS is 0
+    at masked keys, as autograd of the masked scores gives. A row without a
+    valid key follows the reference (its forward averages V): P = 1/N at
+    every key, so it adds to dV, and dS = 0. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, N, Hq, Dh = q.shape
+    KV = k.shape[2]
+    per = Hq // KV
+    scale = Dh ** -0.5
+    s, mask = _causal_scores(q, k, kv_start)
+    p = torch.exp(s - lse.float().reshape(B, KV, per, N, 1))
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, 1.0 / N)
+    split = lambda t: t.float().reshape(B, N, KV, per, Dh)
+    qf, dof = split(q), split(do)
+    kf, vf = k.float(), v.float()
+    d = (dof * split(o)).sum(dim=-1).permute(0, 2, 3, 1)  # [B, KV, per, N]
+    dv = torch.einsum("bgpqk,bqgpd->bkgd", p, dof)
+    dp = torch.einsum("bqgpd,bkgd->bgpqk", dof, vf)
+    ds = torch.where(mask, p * (dp - d[..., None]), 0.0)
+    dk = torch.einsum("bgpqk,bqgpd->bkgd", ds, qf) * scale
+    dq = torch.einsum("bgpqk,bkgd->bqgpd", ds, kf) * scale
+    return (dq.reshape(B, N, Hq, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -124,17 +201,22 @@ def _arrivals(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool):
+def _check_causal(entry: str, Dh: int, *tensors: torch.Tensor) -> None:
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{entry} takes bf16 operands, got "
+                        f"{[t.dtype for t in tensors]}")
+    if Dh not in CAUSAL_HEAD_DIMS[entry]:
+        raise ValueError(f"{entry} takes head_dim in "
+                         f"{CAUSAL_HEAD_DIMS[entry]}, got {Dh}")
+
+
+def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool,
+                 with_lse: bool = False):
     B, Nq, Hq, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     decode = Nq == 1
     lib, entry = CAUSAL_KERNELS[decode]
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"{entry} takes q, k, v all bf16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if Dh not in CAUSAL_HEAD_DIMS:
-        raise ValueError(f"{entry} takes head_dim in "
-                         f"{CAUSAL_HEAD_DIMS}, got {Dh}")
+    _check_causal(entry, Dh, q, k, v)
     if collect_probs and not decode:
         raise ValueError(f"causal attention writes the probabilities of a "
                          f"decode row only (Nq == 1), got Nq={Nq}")
@@ -158,9 +240,51 @@ def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool):
                        part.data_ptr(), _arrivals(q.device, B * KV).data_ptr(),
                        B, S, Hq, KV, Dh, n_split, Dh ** -0.5)
     else:
-        backend.launch(lib, entry, q.device, *args, B, Nq, S, Hq, KV, Dh,
-                       Dh ** -0.5)
+        lse = (torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+               if with_lse else None)
+        backend.launch(lib, entry, q.device, *args, ptr(lse), B, Nq, S, Hq,
+                       KV, Dh, Dh ** -0.5)
+        if with_lse:
+            return o, lse
     return o, probs
+
+
+class CausalAttention(torch.autograd.Function):
+    """Causal GQA attention over a whole sequence on the card, with its
+    gradient: the forward is ``flash_prefill_bf16`` writing each row's
+    log-sum-exp beside o, the backward ``flash_prefill_bwd_bf16``. q
+    [B, N, Hq, Dh], k, v [B, N, KV, Dh], all bf16 CUDA tensors; query row i
+    of batch row b sees keys [kv_start[b], i + 1) (``kv_start`` an int32
+    [B] tensor or None)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_start):
+        _check_causal(BWD_KERNEL[1], q.shape[3], q, k, v)
+        o, lse = _causal_cuda(q, k, v, None, None, kv_start, False,
+                              with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, kv_start)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_start = ctx.saved_tensors
+        return (*_causal_bwd_cuda(q, k, v, o, do, lse, kv_start), None)
+
+
+def _causal_bwd_cuda(q, k, v, o, do, lse, kv_start):
+    """(dq, dk, dv) by ``flash_prefill_bwd_bf16``: one launch of its entry
+    point (three kernels: D, dK/dV, dQ)."""
+    B, N, Hq, Dh = q.shape
+    KV = k.shape[2]
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((B, Hq, N), dtype=torch.float32, device=q.device)
+    backend.launch(*BWD_KERNEL, q.device, q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                   None if kv_start is None else kv_start.data_ptr(),
+                   dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), B, N, Hq, KV, Dh, Dh ** -0.5)
+    return dq, dk, dv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,7 +306,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``causal=True`` (the LMs): q [B, Nq, Hq, Dh] against k, v
     [B, S, KV, Dh], all bf16 on the card (the decode kernel for
-    ``Nq == 1``, the prefill kernel otherwise); query row i of batch row b
+    ``Nq == 1``, the prefill kernel otherwise; when grad is enabled and an
+    input requires it, :class:`CausalAttention`, which takes the
+    whole-sequence form with ``kv_start`` only and raises on any other);
+    query row i of batch row b
     sees keys in [kv_start[b], min(kv_len[b], q_offset[b] + i + 1))
     (each a scalar or [B]; defaults 0, S and 0). ``collect_scores``
     (decode, Nq == 1) adds the row's probabilities averaged over heads,
@@ -199,6 +326,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"k, v [B, S, KV, Dh] with KV dividing Hq, got "
                              f"{tuple(q.shape)}, {tuple(k.shape)}, "
                              f"{tuple(v.shape)}")
+        if backend.on_card(q, k, v) and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            if q.shape[1] == 1 or collect_scores or k.shape[1] != q.shape[1]:
+                raise ValueError(
+                    "causal attention has a gradient on the card for the "
+                    "whole-sequence form only (Nq == S > 1, no scores), got "
+                    f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                    f"collect_scores={collect_scores}")
+            if q_offset is not None or kv_len is not None:
+                raise ValueError("causal attention with a gradient takes "
+                                 "kv_start only, not q_offset or kv_len")
+            return CausalAttention.apply(
+                q, k, v, _row_bound(kv_start, q.shape[0], q.device,
+                                    "kv_start"))
         if backend.on_card(q, k, v):
             o, probs = _causal_cuda(q, k, v, q_offset, kv_len, kv_start,
                                     collect_scores)

@@ -1,20 +1,27 @@
-"""Training launcher for the ViT: configs, synthetic data, the training
-step, and (with ``--ckpt``) the fault-tolerant loop and checkpointing —
-the port of the reference package's ``launch/train.py`` for the ``vit``
-family.
+"""Training launcher: configs, synthetic data, the training step, and
+(with ``--ckpt``) the fault-tolerant loop and checkpointing — the port of
+the reference package's ``launch/train.py`` for the ``vit`` and ``dense``
+families.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch deit-small \\
-        [--full] [--steps 50] [--batch 8] [--lr 1e-3] [--ckpt DIR] \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deit-small \
+        [--full] [--steps 50] [--batch 8] [--lr 1e-3] [--ckpt DIR] \
         [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        [--full] [--seq 128] [--prune] [--ckpt DIR] [--device cpu]
 
 The reduced config is the default; ``--full`` trains the architecture at
 full width and depth. ``--device`` picks the card (``cuda``, the default)
 or the CPU. Weights are random, drawn from seed 0 with a
-``torch.Generator``; batches are ``data.synthetic_vit_batch`` by step, so
-a run restarted from ``--ckpt`` resumes exactly. The step is
-``models/steps.make_vit_train_step`` (classification, AdamW); the paper's
-Algorithm 1 is ``core/simultaneous``. Other families raise: LM training
-is a later slice (ROADMAP queue A, LM training).
+``torch.Generator`` (the LM's on the device, so full-width weights are
+made there), scores from seed 7 on the CPU; batches are
+``data.synthetic_vit_batch`` / ``synthetic_lm_batch`` by step, so a run
+restarted from ``--ckpt`` resumes exactly (the checkpoint holds params,
+scores and the optimizer's state). The ViT's step is
+``models/steps.make_vit_train_step`` (classification, AdamW; the paper's
+Algorithm 1 is ``core/simultaneous``); the LM's is
+``models/steps.make_train_step`` (next-token CE, AdamW; with ``--prune``
+the paper's block pruning at block 16, r_b 0.5, trained jointly through
+the STE, as the reference's ``--prune``).
 """
 from __future__ import annotations
 
@@ -25,57 +32,103 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.data import DataConfig, synthetic_vit_batch
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import (DataConfig, synthetic_lm_batch,
+                              synthetic_vit_batch)
 from repro_torch.dist.fault import FaultConfig, RestartableLoop
 from repro_torch.kernels.backend import host_to_device, resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import pruning_glue as PG
 from repro_torch.models import steps as ST
 from repro_torch.optim import AdamW
 
 
-def make_state_factory(cfg, opt, device: torch.device, seed: int = 0):
+def make_state_factory(cfg, opt, device: torch.device, seed: int = 0,
+                       with_scores: bool = False):
+    """``make_state() -> {"params", "scores", "opt", "step"}``: params from
+    a ``torch.Generator`` seeded ``seed`` (the ViT's drawn on the CPU, the
+    LM's on ``device``), scores (``with_scores``) from one seeded ``seed +
+    7`` on the CPU, and the optimizer's zero state over both."""
     def make_state():
-        params = M.init_params(cfg, torch.Generator().manual_seed(seed),
-                               device=device)
-        return {"params": params, "scores": None, "opt": opt.init(params),
+        gen = torch.Generator(device if cfg.family == "dense" else "cpu")
+        params = M.init_params(cfg, gen.manual_seed(seed), device=device)
+        scores = (PG.init_scores(cfg, params,
+                                 torch.Generator().manual_seed(seed + 7))
+                  if with_scores else None)
+        tr = {"params": params, "scores": scores} if with_scores else params
+        return {"params": params, "scores": scores, "opt": opt.init(tr),
                 "step": 0}
     return make_state
 
 
-def train(arch: str, steps: int = 50, batch: int = 8, lr: float = 1e-3,
-          ckpt_dir: str | None = None, reduced: bool = True,
-          checkpoint_every: int = 20, log_every: int = 10, seed: int = 0,
+def prune_config(cfg):
+    """``--prune``: the paper's block weight pruning at block 16, r_b 0.5
+    (no token pruning, r_t 1.0), the config's own ``lambda_reg``."""
+    pr = cfg.pruning
+    return cfg.replace(pruning=type(pr)(block_size=16, r_b=0.5, r_t=1.0,
+                                        lambda_reg=pr.lambda_reg))
+
+
+def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
+          lr: float = 1e-3, ckpt_dir: str | None = None, reduced: bool = True,
+          checkpoint_every: int = 20, prune: bool = False,
+          log_every: int = 10, seed: int = 0,
           device: "str | torch.device" = "cuda"):
     cfg = get_config(arch)
-    if cfg.family != "vit":
+    if cfg.family not in ("vit", "dense"):
         raise NotImplementedError(
-            f"training family {cfg.family!r}: this package trains the ViT; "
-            f"LM training is a later slice (ROADMAP queue A, LM training)")
+            f"training family {cfg.family!r}: this package trains the ViT "
+            f"and the dense LMs (the other families: ROADMAP queue A, "
+            f"item 8)")
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)
     opt = AdamW(lr=lr)
     dc = DataConfig(seed=seed)
-    vstep = ST.make_vit_train_step(cfg, opt)
+    lm = cfg.family == "dense"
+    if lm and prune:
+        cfg = prune_config(cfg)
 
-    def step_wrap(state, batch_np):
-        b = {"patches": host_to_device(batch_np["patches"], dev),
-             "labels": host_to_device(batch_np["labels"], dev,
-                                      dtype=batch_np["labels"].dtype)}
-        params, opt_state, metrics = vstep(state["params"], state["opt"], b)
-        return ({"params": params, "scores": None, "opt": opt_state,
-                 "step": state["step"] + 1}, metrics)
+    if lm:
+        shape = ShapeConfig("custom", seq_len=seq, global_batch=batch,
+                            kind="train")
+        lstep = ST.make_train_step(cfg, opt, with_pruning=prune)
 
-    def data_fn(step):
-        return synthetic_vit_batch(cfg, batch, dc, step)
+        def step_wrap(state, batch_np):
+            b = {"tokens": host_to_device(batch_np["tokens"], dev,
+                                          dtype=batch_np["tokens"].dtype)}
+            params, scores, opt_state, metrics = lstep(
+                state["params"], state["opt"], b, state["scores"])
+            return ({"params": params, "scores": scores, "opt": opt_state,
+                     "step": state["step"] + 1}, metrics)
 
-    make_state = make_state_factory(cfg, opt, dev, seed)
+        def data_fn(step):
+            return synthetic_lm_batch(cfg, shape, dc, step,
+                                      local_batch=batch)
+    else:
+        vstep = ST.make_vit_train_step(cfg, opt)
+
+        def step_wrap(state, batch_np):
+            b = {"patches": host_to_device(batch_np["patches"], dev),
+                 "labels": host_to_device(batch_np["labels"], dev,
+                                          dtype=batch_np["labels"].dtype)}
+            params, opt_state, metrics = vstep(state["params"], state["opt"],
+                                               b)
+            return ({"params": params, "scores": None, "opt": opt_state,
+                     "step": state["step"] + 1}, metrics)
+
+        def data_fn(step):
+            return synthetic_vit_batch(cfg, batch, dc, step)
+
+    make_state = make_state_factory(cfg, opt, dev, seed,
+                                    with_scores=lm and prune)
     if ckpt_dir:
         loop = RestartableLoop(
             CheckpointManager(ckpt_dir, keep=2),
             FaultConfig(checkpoint_every=checkpoint_every),
             make_state=make_state, step_fn=step_wrap, data_fn=data_fn,
-            state_to_tree=lambda s: {"params": s["params"], "opt": s["opt"]},
+            state_to_tree=lambda s: {"params": s["params"],
+                                     "scores": s["scores"], "opt": s["opt"]},
             tree_to_state=lambda t, s: {**s, **t})
         return loop.run(steps)
 
@@ -96,15 +149,20 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="sequence length (the LMs)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--prune", action="store_true",
+                    help="the paper's block weight pruning (the LMs)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    out = train(args.arch, args.steps, args.batch, args.lr, args.ckpt,
-                args.reduced, device=args.device)
+    out = train(args.arch, args.steps, args.batch, args.seq, args.lr,
+                args.ckpt, args.reduced, prune=args.prune,
+                device=args.device)
     if out["losses"]:
         print(f"final loss: {out['losses'][-1]:.4f}")
     return out

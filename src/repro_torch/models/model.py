@@ -1,20 +1,27 @@
 """The models: the ViT (the paper's model) and the dense LM family —
-params, patchify, the ViT's dense oracle forward and the LM forward; the
-port of the reference package's ``models/model.py`` for those families.
+params, patchify, the ViT's dense oracle forward, the LM forward and the
+LM's training loss; the port of the reference package's
+``models/model.py`` for those families.
 
 Params are a nested dict with the reference's layout, except that
 ``layers`` is a list of per-layer dicts where the reference stacks them
 on a leading axis (weights ``[in, out]``); ``convert`` turns the
 reference's trees into this layout. :func:`forward_vit` runs plain
 PyTorch only — no kernel — and is the masked-dense oracle the packed path
-is held against and the forward that training differentiates. :func:`forward_lm` runs its attention through the
-``flash_attention`` kernel wrapper (the kernel for CUDA tensors).
+is held against and the forward that training differentiates.
+:func:`forward_lm` runs its attention through the ``flash_attention``
+kernel wrapper (the kernels for CUDA tensors; in training the causal
+kernel pair with its backward) and, in train mode, checkpoints each layer
+by ``cfg.remat_policy`` as the reference's ``_remat`` does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+import functools
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import token_pruning as TP
@@ -179,6 +186,29 @@ def unembed_matrix(params: Dict) -> torch.Tensor:
     return w if w is not None else params["embed"].T
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``dots`` policy: keep the outputs of the products without batch
+    dimensions (the projections, ``aten.mm``), recompute the rest — the
+    counterpart of JAX's ``dots_with_no_batch_dims_saveable``."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT = {"full": {},
+          "dots": {"context_fn": functools.partial(
+              create_selective_checkpoint_contexts, _save_matmuls)}}
+
+
+def _lm_layer(cfg: ModelConfig, x: torch.Tensor, lp: Dict, cache,
+              valid_start) -> Tuple[torch.Tensor, Any]:
+    """One pre-norm layer: attention then SwiGLU, each residual."""
+    eps = cfg.norm_eps
+    h, nc = A.attention_block(L.rms_norm(x, lp["ln1"], eps), lp["attn"], cfg,
+                              cache=cache, valid_start=valid_start)
+    x = x + h
+    return x + L.glu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"]), nc
+
+
 def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                mode: str = "train", caches: Optional[List] = None,
                logits_for: str = "all",
@@ -194,7 +224,10 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     (``cfg.dtype``) and returned in fp32. ``valid_start`` ([B] int32):
     per-row index of the first real token; earlier (left-padded)
     positions are masked out of every attention and of the KV
-    ``attn_mass`` accumulation."""
+    ``attn_mass`` accumulation. In train mode with grad enabled, each layer
+    runs under ``torch.utils.checkpoint`` by ``cfg.remat_policy``: "full"
+    recomputes the layer in the backward, "dots" keeps its projections'
+    outputs and recomputes the rest, "none" keeps everything."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"forward_lm serves the dense family; {cfg.family!r} is a later "
@@ -210,12 +243,19 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         raise ValueError(f"mode {mode!r} needs one KVCache per layer "
                          f"({cfg.num_layers})")
     new_caches = [] if want_cache else None
+    policy = cfg.remat_policy
+    if policy not in ("full", "dots", "none"):
+        raise ValueError(f"remat_policy must be full, dots or none, got "
+                         f"{policy!r}")
+    ckpt = (mode == "train" and policy != "none"
+            and torch.is_grad_enabled())
     for i, lp in enumerate(params["layers"]):
-        h, nc = A.attention_block(
-            L.rms_norm(x, lp["ln1"], eps), lp["attn"], cfg,
-            cache=caches[i] if want_cache else None, valid_start=valid_start)
-        x = x + h
-        x = x + L.glu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"])
+        if ckpt:
+            x = checkpoint(_lm_layer, cfg, x, lp, None, valid_start,
+                           use_reentrant=False, **_REMAT[policy])[0]
+            continue
+        x, nc = _lm_layer(cfg, x, lp, caches[i] if want_cache else None,
+                          valid_start)
         if want_cache:
             new_caches.append(nc)
 
@@ -241,3 +281,59 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(valid, labels, 0).long()
     ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     return -(ll * valid).sum() / valid.sum().clamp(min=1)
+
+
+def _xent_chunk(h: torch.Tensor, w_un: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Σ log p(label) over one chunk's valid positions: unembed in h's
+    dtype, log-softmax in fp32."""
+    logits = (h @ w_un.to(h.dtype)).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = labels != -1
+    safe = torch.where(valid, labels, 0).long()
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (ll * valid).sum()
+
+
+def chunked_lm_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Next-token CE without materializing [B, S, V] logits: the sequence in
+    chunks, unembed + log-softmax + gather per chunk, each chunk under
+    ``torch.utils.checkpoint`` (with grad enabled), so the backward
+    recomputes its logits and the peak is one chunk's [B, chunk, V] fp32.
+    Labels of -1 are masked out; a sequence that ``chunk`` does not divide
+    is padded with such labels (the reference's ``chunked_lm_xent``)."""
+    B, S, D = hidden.shape
+    w_un = unembed_matrix(params)
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.cat([hidden, hidden.new_zeros((B, pad, D))], dim=1)
+        labels = torch.cat([labels, labels.new_full((B, pad), -1)], dim=1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S + pad, chunk):
+        h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_xent_chunk, h, w_un, lab, use_reentrant=False)
+        else:
+            part = _xent_chunk(h, w_un, lab)
+        tot = tot - part
+    cnt = (labels != -1).sum()
+    return tot / cnt.clamp(min=1)
+
+
+def lm_loss(cfg: ModelConfig, params: Dict,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The LM's training loss on ``batch["tokens"]`` [B, S]: next-token CE
+    (labels shifted left, -1 at the last position) by
+    :func:`chunked_lm_xent` over ``forward_lm``'s final-norm hidden states,
+    plus 0.01 x the auxiliary loss (0 for the dense family). Returns
+    ``(total, {"ce", "aux"})``."""
+    tokens = batch["tokens"]
+    out = forward_lm(cfg, params, tokens, mode="train", logits_for="none")
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                       dim=1)
+    loss = chunked_lm_xent(cfg, params, out.hidden, labels,
+                           chunk=cfg.loss_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

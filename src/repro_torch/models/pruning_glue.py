@@ -1,16 +1,20 @@
-"""Glue between the paper's pruning (core/) and the ViT params — the port
-of the reference package's ``models/pruning_glue.py``: identify prunable
-weights in a param tree, create score parameters, and produce masked
-params and hard block masks.
+"""Glue between the paper's pruning (core/) and the model params (the ViT
+and the dense LMs) — the port of the reference package's
+``models/pruning_glue.py``: identify prunable weights in a param tree,
+create score parameters, and produce masked params and hard block masks.
 
 Prunable groups:
   * attention projections  wq/wk/wv/wo (block scores)
   * MLP                    wi (column score vector), wo (row score vector)
   * everything else (embeddings, norms, head) is dense.
 
-Paths are the reference's strings (``layers/{i}/attn/wq``) and the tree
-is walked in the reference's order (dict keys sorted, lists by index), so
-a scores dict converted from the reference package keys the same leaves.
+Paths are strings like ``layers/{i}/attn/wq`` and the tree is walked in
+the reference's order (dict keys sorted, lists by index). The port keeps
+one dict per layer, so every prunable leaf is 2-D and owns its own scores
+(per layer and matrix, as in the paper); the reference stacks the LMs'
+layers (``layers/attn/wq`` [L, ...]), and ``convert.lm_scores_from_jax``
+splits its scores into these paths. The ViT's paths are the reference's
+own.
 """
 from __future__ import annotations
 
@@ -48,8 +52,10 @@ def prunable_kind(path: Path, leaf: torch.Tensor) -> str | None:
 def _check_2d(ps: str, leaf: torch.Tensor) -> None:
     if leaf.ndim != 2:
         raise NotImplementedError(
-            f"{ps}: stacked layer axes belong to the LM families, which "
-            f"this package does not serve yet (ROADMAP queue A, LM path)")
+            f"{ps}: stacked layer axes (shape {tuple(leaf.shape)}) are not "
+            f"taken: the port keeps one 2-D weight per layer and matrix; "
+            f"convert the reference's stacked LM trees with "
+            f"convert.lm_params_from_jax / lm_scores_from_jax")
 
 
 def init_scores(cfg: ModelConfig, params: Dict,

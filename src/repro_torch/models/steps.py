@@ -1,9 +1,9 @@
 """Step functions — the reference package's ``models/steps.py`` for the
-families this package runs: the ViT's training step, and the dense LM's
-serve steps: cache constructors, whole-batch prefill, per-slot prefill (a
-B=1 prefill scattered into one row of the live batched cache) and the
-decode step. LM training is a later slice (ROADMAP queue A, LM
-training).
+families this package runs: the ViT's training step, the dense LM's
+training step (with the paper's block pruning trained jointly, and
+gradient accumulation over microbatches), and the dense LM's serve steps:
+cache constructors, whole-batch prefill, per-slot prefill (a B=1 prefill
+scattered into one row of the live batched cache) and the decode step.
 
 The reference jits these; PyTorch runs them eagerly, so they are plain
 functions. Caches are a list with one ``KVCache`` per layer, and every
@@ -11,15 +11,17 @@ step updates the caches it is given in place and returns them.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
+from repro_torch.models import pruning_glue as PG
 from repro_torch.optim.adamw import AdamW
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import (flatten_with_path, leaves, path_str, tree_map,
+                              unflatten)
 
 # Families whose serve state is pure KV cache — left-padding can be masked
 # exactly via valid_start (the reference's list; this package serves the
@@ -34,8 +36,8 @@ SLOT_PREFILL_FAMILIES = ("dense", "moe")
 def _require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"serve steps for family {cfg.family!r} are a later slice "
-            f"(ROADMAP queue A, item 8); this package serves 'dense'")
+            f"steps for family {cfg.family!r} are a later slice "
+            f"(ROADMAP queue A, item 8); this package runs 'dense'")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -120,6 +122,104 @@ def make_decode_step(cfg: ModelConfig):
                            valid_start=valid_start)
         return torch.argmax(out.logits[:, -1], dim=-1), out.caches
     return decode
+
+
+def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
+    """Returns ``grads(params, batch, scores=None) -> (loss, parts,
+    grads)``: the gradient of the LM's training loss, the half of
+    :func:`make_train_step` before the optimizer. ``grads`` has the
+    trainables' structure: ``{"params", "scores"}`` when ``scores`` are
+    given (the paper's simultaneous pruning: the STE through
+    ``pruning_glue.apply_pruning``, plus ``lambda_reg`` x the sparsity
+    regularizer), else the params alone. With ``cfg.microbatches`` M > 1
+    the batch splits along dim 0 into M pieces and the gradients, the loss
+    and its parts are averaged over them (the reference's scan: g_acc +
+    g / M from zeros)."""
+    _require_dense(cfg)
+    p = cfg.pruning
+    use_prune = (p.weight_pruning_enabled if with_pruning is None
+                 else with_pruning)
+
+    def one(trainables, batch):
+        flat = [t.detach().requires_grad_(True) for t in leaves(trainables)]
+        tr = unflatten(trainables, flat)
+        wrapped = isinstance(tr, dict) and "scores" in tr
+        params = tr["params"] if wrapped else tr
+        scores = tr["scores"] if wrapped else None
+        if use_prune and scores:
+            params = PG.apply_pruning(cfg, params, scores)
+        total, parts = M.lm_loss(cfg, params, batch)
+        if use_prune and scores:
+            total = total + p.lambda_reg * PG.regularizer(scores)
+        grads = torch.autograd.grad(total, flat)
+        return (total.detach(), {k: v.detach() for k, v in parts.items()},
+                unflatten(trainables, list(grads)))
+
+    def grads(params, batch, scores=None):
+        trainables = ({"params": params, "scores": scores} if scores
+                      else params)
+        n = cfg.microbatches
+        if n <= 1:
+            return one(trainables, batch)
+        micro = {k: v.chunk(n) for k, v in batch.items()}
+        if any(len(c) != n or c[0].shape[0] * n != v.shape[0]
+               for c, v in zip(micro.values(), batch.values())):
+            raise ValueError(f"microbatches={n} must divide the batch "
+                             f"{[tuple(v.shape) for v in batch.values()]}")
+        g_acc = tree_map(torch.zeros_like, trainables)
+        loss_acc = torch.zeros((), dtype=torch.float32,
+                               device=leaves(trainables)[0].device)
+        parts_all: Dict[str, list] = {}
+        for m in range(n):
+            loss, parts, g = one(trainables,
+                                 {k: v[m] for k, v in micro.items()})
+            g_acc = tree_map(lambda a, b: a + b / n, g_acc, g)
+            loss_acc = loss_acc + loss / n
+            for k, v in parts.items():
+                parts_all.setdefault(k, []).append(v)
+        return (loss_acc, {k: torch.stack(v).mean()
+                           for k, v in parts_all.items()}, g_acc)
+    return grads
+
+
+def stacked_decay(trainables) -> List[bool]:
+    """AdamW's weight-decay rule (``ndim >= 2``) as the reference applies it
+    to the LM, whose layers are stacked on a leading axis: every leaf of a
+    layer is decayed (norm scales and MLP score vectors too), other leaves
+    by their own ``ndim``. In flatten order."""
+    return [leaf.ndim >= 2 or "layers" in path_str(path).split("/")
+            for path, leaf in flatten_with_path(trainables)]
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
+                    with_pruning: Optional[bool] = None):
+    """Returns ``step(params, opt_state, batch, scores=None) -> (params,
+    scores, opt_state, metrics)``, the reference's signature: the gradient
+    of :func:`make_grad_fn`, then the AdamW update over ``{"params",
+    "scores"}`` (the paper's weights and scores trained jointly) or over
+    the params alone. ``opt_state`` must be ``optimizer.init`` of the same
+    trainables; ``batch["tokens"]`` [B, S] on the params' device;
+    ``metrics`` ``{"loss", "ce", "aux"}`` as 0-d tensors. Weight decay
+    follows the reference's stacked layout (:func:`stacked_decay`). The
+    forward is
+    ``forward_lm`` in train mode: on the card, attention runs the causal
+    kernel pair (``flash_prefill_bf16`` writing the log-sum-exp, and
+    ``flash_prefill_bwd_bf16``) and the layers are checkpointed by
+    ``cfg.remat_policy``."""
+    opt = optimizer or AdamW()
+    grad_fn = make_grad_fn(cfg, with_pruning)
+
+    def step(params, opt_state, batch, scores=None):
+        trainables = ({"params": params, "scores": scores} if scores
+                      else params)
+        loss, parts, grads = grad_fn(params, batch, scores)
+        new_tr, new_opt = opt.update(grads, opt_state, trainables,
+                                     decay=stacked_decay(trainables))
+        metrics = {"loss": loss, **parts}
+        if scores:
+            return new_tr["params"], new_tr["scores"], new_opt, metrics
+        return new_tr, None, new_opt, metrics
+    return step
 
 
 def make_vit_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None):

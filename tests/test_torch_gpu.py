@@ -17,9 +17,10 @@ from repro_torch.core import quant as Q
 from repro_torch.core import token_pruning as TTP
 from repro_torch.core.packing import pack_weight
 from repro_torch.kernels import backend
-from repro_torch.kernels.flash_attention import (attention_causal_plain,
-                                                 attention_plain,
-                                                 flash_attention)
+from repro_torch.kernels.flash_attention import (
+    attention_causal_bwd_plain, attention_causal_lse_plain,
+    attention_causal_plain, attention_plain, flash_attention)
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.core.quant import dequantize_blocks
 from repro_torch.kernels.sbmm import (sbmm, sbmm_plain, sbmm_quant_raw,
                                       sbmm_raw)
@@ -658,7 +659,7 @@ def test_decode_kernel_windows_on_card(dev, Dh):
     assert bool((o[4] == 0).all())
 
 
-@pytest.mark.parametrize("Dh", [16, 128])
+@pytest.mark.parametrize("Dh", [16, 64, 128])
 @pytest.mark.parametrize("Hq,KV", [(6, 2), (8, 2)])
 def test_prefill_kernel_shapes_on_card(dev, Dh, Hq, KV):
     """``flash_prefill_bf16`` at GQA 3:1 and 4:1: 37 positions (row
@@ -833,3 +834,146 @@ def test_simultaneous_step_on_card_matches_cpu(dev, monkeypatch, eps):
                    (2.0 if path[-1] == "bk" else 0.25) * lr)
             err = (a - c).abs().max() / max(1.0, c.abs().max())
             assert err <= tol, path
+
+
+# ---------------------------------------------------------------------------
+# LM training: the causal kernel pair (forward with lse, backward)
+# ---------------------------------------------------------------------------
+def _train_inputs(dev, B, N, Hq, KV, Dh, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, N, Hq, Dh), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((B, N, KV, Dh), generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn((B, N, Hq, Dh), generator=g).to(dev, torch.bfloat16)
+    return q, k, v, do
+
+
+TRAIN_CASES = [  # B, N, Hq, KV, Dh, kv_start
+    (2, 37, 4, 1, 16, None), (2, 37, 4, 1, 16, [0, 9]),
+    (1, 130, 8, 2, 64, [5]), (2, 65, 4, 4, 64, None),
+    (1, 512, 32, 32, 64, None), (2, 200, 6, 2, 64, [0, 70])]
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES,
+                         ids=lambda c: f"B{c[0]}-N{c[1]}-{c[2]}x{c[3]}-"
+                                       f"Dh{c[4]}-{'start' if c[5] else 'all'}")
+def test_prefill_lse_and_serve_output_on_card(dev, case):
+    """``flash_prefill_bf16`` asked for the log-sum-exp writes the same o,
+    bit for bit, as with a null lse (the serve's call); its lse within 1e-5
+    of max(1, max|plain|) of the plain ``logsumexp`` at rows with a key
+    (fp32 sums in another order), -inf at rows without one."""
+    B, N, Hq, KV, Dh, start = case
+    q, k, v, _ = _train_inputs(dev, B, N, Hq, KV, Dh)
+    st = None if start is None else torch.tensor(start, dtype=torch.int32,
+                                                 device=dev)
+    o_serve, _ = FA._causal_cuda(q, k, v, None, None, st, False)
+    o, lse = FA._causal_cuda(q, k, v, None, None, st, False, with_lse=True)
+    assert torch.equal(o, o_serve)
+    assert torch.equal(o_serve, flash_attention(q, k, v, causal=True,
+                                                kv_start=st))
+    ref = attention_causal_lse_plain(q, k, st)
+    real = torch.ones((B, N), dtype=torch.bool, device=dev)
+    if st is not None:
+        real = torch.arange(N, device=dev)[None] >= st[:, None]
+    real = real[:, None, :].expand(B, Hq, N)
+    assert bool(torch.isinf(lse[~real]).all()) and bool(
+        (lse[~real] < 0).all())
+    err = (lse[real] - ref[real]).abs().max().item()
+    assert err <= 1e-5 * max(1.0, ref[real].abs().max().item())
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES,
+                         ids=lambda c: f"B{c[0]}-N{c[1]}-{c[2]}x{c[3]}-"
+                                       f"Dh{c[4]}-{'start' if c[5] else 'all'}")
+def test_prefill_bwd_kernel_matches_plain_on_card(dev, case):
+    """``flash_prefill_bwd_bf16`` through autograd (``flash_attention`` on
+    inputs that require grad takes ``CausalAttention``: one forward and
+    one backward launch) against ``attention_causal_bwd_plain`` on the
+    same o, dO and lse: dq, dk, dv each within one bf16 ulp of its largest
+    plain element (both round fp32 sums taken in another order). Pad rows
+    (no key, where a ``kv_start`` is given) get dO = 0, as a loss that
+    ignores them gives: the kernel's forward writes 0 there and the plain
+    version averages V, so with dO = 0 both add nothing."""
+    B, N, Hq, KV, Dh, start = case
+    q, k, v, do = _train_inputs(dev, B, N, Hq, KV, Dh, seed=1)
+    st = None if start is None else torch.tensor(start, dtype=torch.int32,
+                                                 device=dev)
+    if st is not None:
+        pad = torch.arange(N, device=dev)[None] < st[:, None]
+        do = do.masked_fill(pad[:, :, None, None], 0)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = backend.launches()
+    o = flash_attention(*leaves, causal=True, kv_start=st)
+    got = torch.autograd.grad(o, leaves, do)
+    after = backend.launches()
+    assert after["flash_prefill_bf16"] == before["flash_prefill_bf16"] + 1
+    assert after["flash_prefill_bwd_bf16"] == \
+        before["flash_prefill_bwd_bf16"] + 1
+    _, lse = FA._causal_cuda(q, k, v, None, None, st, False, with_lse=True)
+    ref = attention_causal_bwd_plain(q, k, v, o.detach(), do, lse, st)
+    for name, a, r in zip("qkv", got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        assert bool(torch.isfinite(a.float()).all()), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= BF16_ULP * r.float().abs().max().item(), (name, err)
+    again = torch.autograd.grad(
+        flash_attention(*leaves, causal=True, kv_start=st), leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_causal_attention_with_grad_raises_on_card(dev):
+    """What the backward kernel does not take raises: head width 128, the
+    decode form, q_offset / kv_len, other dtypes."""
+    q, k, v, _ = _train_inputs(dev, 1, 8, 2, 2, 128)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q.requires_grad_(True), k, v, causal=True)
+    q, k, v, _ = _train_inputs(dev, 1, 8, 2, 2, 64)
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="whole-sequence"):
+        flash_attention(q[:, :1], k, v, causal=True)
+    with pytest.raises(ValueError, match="kv_start only"):
+        flash_attention(q, k, v, causal=True, kv_len=torch.full(
+            (1,), 8, dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attention(q.float(), k.float(), v.float(), causal=True)
+
+
+def test_lm_train_step_on_card_launches_and_matches_cpu(dev):
+    """The gradient of the pruned reduced StableLM-1.6B's loss (3 layers,
+    Dh 16, full remat) on the card (bf16 activations, the kernels) against
+    the CPU (bf16 activations, plain attention): the forward kernel twice
+    per layer (the forward and its recompute), the backward once, no other
+    causal kernel; the loss within 1e-2 relative and each gradient leaf
+    within 5e-2 of its largest CPU element (bf16 activations rounded at
+    other places)."""
+    from repro_torch.configs import STABLELM_1_6B
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import steps as ST
+    from repro_torch.tree import flatten_with_path, tree_map
+    cfg = STABLELM_1_6B.reduced()
+    cfg = cfg.replace(pruning=type(cfg.pruning)(block_size=16, r_b=0.5,
+                                                r_t=1.0))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    scores = PG.init_scores(cfg, params, torch.Generator().manual_seed(7))
+    b = synthetic_lm_batch(cfg, ShapeConfig("t", 64, 2, "train"),
+                           DataConfig(), 0)
+    fn = ST.make_grad_fn(cfg, with_pruning=True)
+    res = {}
+    for d in ("cpu", dev):
+        backend.reset_launches()
+        loss, _, g = fn(tree_map(lambda t: t.to(d), params), {
+            "tokens": torch.from_numpy(b["tokens"]).to(d)},
+            tree_map(lambda t: t.to(d), scores))
+        res[str(d)] = (loss.item(), tree_map(lambda t: t.cpu(), g),
+                       backend.launches())
+    (lc, gc, nc), (lg, gg, ng) = res["cpu"], res[str(dev)]
+    assert not any(nc.values())
+    L = cfg.num_layers
+    assert {k: v for k, v in ng.items() if v} == {
+        "flash_prefill_bf16": 2 * L, "flash_prefill_bwd_bf16": L}
+    assert abs(lg - lc) <= 1e-2 * abs(lc)
+    for (path, a), (_, c) in zip(flatten_with_path(gg),
+                                 flatten_with_path(gc)):
+        assert bool(torch.isfinite(a).all()), path
+        assert (a - c).abs().max() <= 5e-2 * c.abs().max(), path

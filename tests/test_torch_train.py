@@ -649,10 +649,14 @@ def test_launch_train_cpu_and_lm_raise(tmp_path, capsys):
                      checkpoint_every=1, device="cpu")
     assert (2, "restored") in again["events"]
     assert len(first["losses"]) == 2 and len(again["losses"]) == 1
-    with pytest.raises(NotImplementedError, match="LM training"):
-        LT.train("minitron-4b", steps=2, device="cpu")
+    lm = LT.train("minitron-4b", steps=2, batch=2, seq=16, device="cpu")
+    assert len(lm["losses"]) == 2
+    assert all(math.isfinite(x) for x in lm["losses"])
+    assert lm["state"]["scores"] is None and int(lm["state"]["opt"].step) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LT.train("deit-small", steps=1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LT.train("minitron-4b", steps=1)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SIM.init_state(T_DEIT.reduced(), torch.Generator())
