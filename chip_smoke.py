@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. Build: compile the hand-written kernels (``kernels/csrc/*.cu``, one
    ``nvcc`` each, concurrently) and print the build seconds; from the
    SASS, the fp32 non-causal attention kernels issue no tensor-core
-   instruction (no TF32) and the fp16 ones issue HMMA.
+   instruction (no TF32), the fp16 ones issue HMMA, and the causal
+   backward's two kernels (dQ, dK/dV) issue HGMMA (wgmma) and no HMMA.
 3. Every kernel entry point against its plain PyTorch version on the
    card, at the main path's shapes (DeiT-Small: M=788 rows for the SBMMs
    over fp32, fp16 and int8 blocks with per-block and per-channel scales;
@@ -80,7 +81,8 @@ Phases, in order; any failure exits non-zero and prints no result:
       no host wait besides the step events. Prints tokens/s, steps, ms
       per step and per decode step, and one decode step timed alone.
 5. Profile (``torch.profiler``): each kernel's device time per launch at
-   the phase-3 shapes, the device time of all its wrapper call's device
+   the phase-3 shapes (the causal backward's also per kernel), the device
+   time of all its wrapper call's device
    work, and its library call's device time per call (an ``sbmm()``,
    ``token_drop()`` or ``token_package()`` call that runs more than its
    one kernel on the card fails the run); for one depth-1 serve of each
@@ -104,7 +106,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    no plain attention runs; (d) TF32 off. Prints the wall per step,
    tokens/s, peak memory, the profiled step's device busy and idle share
    and its device time by part (attention forward and backward, GEMMs,
-   AdamW, the rest).
+   AdamW, the rest), the backward's device ms per step beside
+   ``LM_TRAIN_BWD_REF_MS`` and the 8-step loss beside
+   ``LM_TRAIN_LOSS_REF``.
 6. Training (``train_path``): the paper's Algorithm 1
    (``core/simultaneous``) on full-width DeiT-Small: a student (seed 0,
    its scores from the same generator) distilled from a dense DeiT-Small
@@ -424,12 +428,11 @@ def check_flash_attention(torch, dev, half: bool):
                f"rows bitwise alone and padded by {FLASH_PAD}")
 
 
-def check_tensor_cores(backend):
-    """Which kernels of ``flash_attention.cu`` issue tensor-core
-    instructions, from their SASS: the fp32 tier's none (no TF32 or other
-    split product), the fp16 tier's HMMA. Prints the count per kernel."""
+def _sass_ops(backend, lib):
+    """Tensor-core instruction counts per kernel of library ``lib``, from
+    its SASS."""
     counts, fn = {}, None
-    for line in backend.disassemble("flash_attention").splitlines():
+    for line in backend.disassemble(lib).splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = {}
@@ -437,14 +440,30 @@ def check_tensor_cores(backend):
             for op in ("HMMA", "HGMMA", "IMMA", "DMMA"):
                 if op in line:
                     counts[fn][op] = counts[fn].get(op, 0) + 1
+    return counts
+
+
+def check_tensor_cores(backend):
+    """Which kernels issue tensor-core instructions, from their SASS: the
+    non-causal fp32 tier's none (no TF32 or other split product), its fp16
+    tier's HMMA; the causal backward's two kernels (dQ, dK/dV) at each head
+    width HGMMA (wgmma) and no HMMA. Prints the count per kernel."""
+    from repro_torch.kernels.flash_attention.ops import CAUSAL_HEAD_DIMS
+    bwd_dims = CAUSAL_HEAD_DIMS["flash_prefill_bwd_bf16"]
     tiers = {}
-    for fn, ops in counts.items():
+    for fn, ops in _sass_ops(backend, "flash_attention").items():
         for tier in ("f32", "f16"):
             if f"flash_attention_{tier}_kernel" in fn:
                 dh = fn.split("_kernelILi")[1].split("E")[0]
                 tiers[f"flash_attention_{tier}_kernel<{dh}>"] = ops
-    print("sass: tensor-core instructions per kernel " + json.dumps(tiers),
-          flush=True)
+    bwd = {}
+    for fn, ops in _sass_ops(backend, "flash_prefill_bwd").items():
+        for part in ("dq", "dkdv"):
+            if f"flash_prefill_bwd_bf16_{part}_kernel" in fn:
+                dh = fn.split("_kernelILi")[1].split("E")[0]
+                bwd[f"flash_prefill_bwd_bf16_{part}_kernel<{dh}>"] = ops
+    print("sass: tensor-core instructions per kernel "
+          + json.dumps({**tiers, **bwd}), flush=True)
     require(len(tiers) == 4, f"expected 4 non-causal kernels in the SASS, "
                              f"found {sorted(tiers)}")
     for kern, ops in tiers.items():
@@ -452,6 +471,12 @@ def check_tensor_cores(backend):
             require(not ops, f"{kern} issues tensor-core instructions {ops}")
         else:
             require(ops.get("HMMA", 0) > 0, f"{kern} issues no HMMA")
+    require(len(bwd) == 2 * len(bwd_dims),
+            f"expected the backward's dq and dkdv kernels at Dh {bwd_dims} "
+            f"in the SASS, found {sorted(bwd)}")
+    for kern, ops in bwd.items():
+        require(ops.get("HGMMA", 0) > 0 and not ops.get("HMMA"),
+                f"{kern} must issue HGMMA and no HMMA, issues {ops}")
 
 
 # the causal kernels' cases at full-width Minitron-4B (24 query heads over 8
@@ -468,12 +493,18 @@ LM_CAUSAL_CASES = (
     ("decode 9 splits", 1, 1, [571], [572], [0]),
 )
 LM_DECODE = LM_CAUSAL_CASES[2]  # the serve's decode shape
+# the decode kernel at StableLM-1.6B's heads (32 MHA heads, Dh 64), the
+# serve's batch-4 decode windows
+LM_DECODE_DH64 = ("decode Dh 64", 4, 1, [129, 289, 419, 570],
+                  [130, 290, 420, 571], [32, 56, 0, 12])
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the largest element
 
 
 def check_flash_attention_causal(torch, dev):
     """The two causal kernels, each through the wrapper at the LM path's
-    shapes (``LM_CAUSAL_CASES``; the wrapper picks ``flash_decode_bf16``
+    shapes (``LM_CAUSAL_CASES``, and the decode at StableLM-1.6B's 32
+    heads of Dh 64, ``LM_DECODE_DH64``; the wrapper picks
+    ``flash_decode_bf16``
     for one query row, ``flash_prefill_bf16`` for more) against the plain
     version: the output within one bf16 ulp of the largest plain element
     at rows with a valid key (both round fp32 sums taken in another order
@@ -487,12 +518,17 @@ def check_flash_attention_causal(torch, dev):
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import (attention_causal_plain,
                                                      flash_attention)
-    Hq, KV, Dh = (MINITRON_4B.num_heads, MINITRON_4B.num_kv_heads,
-                  MINITRON_4B.head_dim)
+    from repro_torch.configs import STABLELM_1_6B
+    heads = {c[0]: (MINITRON_4B.num_heads, MINITRON_4B.num_kv_heads,
+                    MINITRON_4B.head_dim) for c in LM_CAUSAL_CASES}
+    heads[LM_DECODE_DH64[0]] = (STABLELM_1_6B.num_heads,
+                                STABLELM_1_6B.num_kv_heads,
+                                STABLELM_1_6B.head_dim)
     S = 572
     g = torch.Generator().manual_seed(8)
     cases = {"flash_prefill_bf16": [], "flash_decode_bf16": []}
-    for label, B, Nq, off, lens, starts in LM_CAUSAL_CASES:
+    for label, B, Nq, off, lens, starts in (*LM_CAUSAL_CASES, LM_DECODE_DH64):
+        Hq, KV, Dh = heads[label]
         q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
         k, v = (torch.randn((B, S, KV, Dh), generator=g).to(
             dev, torch.bfloat16) for _ in range(2))
@@ -1175,7 +1211,7 @@ def lm_path(torch, dev):
 # ---------------------------------------------------------------------------
 # entry points that launch more than one kernel, each named
 # ``<entry point>_<part>_kernel``
-KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 3}  # D, dK/dV, dQ
+KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2}  # dQ (with D), dK/dV
 
 
 def kernel_symbol(entry_point: str) -> str:
@@ -1353,6 +1389,14 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                   f" device launches per call); wrapper "
                   f"{c['ms'] * 1e3:.2f} us/call" + lib,
                   flush=True)
+            if check["name"] in KERNELS_PER_LAUNCH:
+                c["device_us_by_kernel"] = {
+                    r[0][r[0].index(sym):].split("(")[0]: r[2] / calls
+                    for r in mine}
+                print(f"  {check['name']} device us/launch by kernel: "
+                      + json.dumps({k: round(v, 2) for k, v in
+                                    c["device_us_by_kernel"].items()}),
+                      flush=True)
         head = check.get("cases", [check])[0]
         check["device_ms"] = head["device_ms"]
         check["call_device_ms"] = head["call_device_ms"]
@@ -1383,7 +1427,8 @@ def check_causal_training(torch, dev, prefill):
       ``lse``; appended to the ``prefill`` check as a case): o within one
       bf16 ulp of the largest plain element, lse within ``LSE_TOL``, and o
       bitwise the serve's (the same call with a null lse);
-    * ``flash_prefill_bwd_bf16`` (three kernels per launch: D, dK/dV, dQ)
+    * ``flash_prefill_bwd_bf16`` (two kernels per launch: dQ with D, then
+      dK/dV)
       against ``attention_causal_bwd_plain`` on the same o, dO and lse: dq,
       dk, dv each within one bf16 ulp of its largest plain element, two
       launches bitwise equal. Its library call is SDPA's forward and
@@ -1524,6 +1569,17 @@ LM_TRAIN_LR = 1e-3
 # each leaf within 5% of its largest |CPU| element.
 LM_TRAIN_LOSS_TOL = 1e-3
 LM_TRAIN_GRAD_TOL = 0.05
+# The loss after the 8 steps and the backward's device ms per step as the
+# earlier three-kernel mma.sync backward gave them on an NVIDIA H100 80GB
+# HBM3 at 700 W (the loss identical in three runs), printed beside this
+# run's. Not a gate: 8 AdamW steps from random weights amplify last-bit
+# differences, so a backward that rounds its sums in another order lands
+# elsewhere (that backward with its two P.V halves added in the other
+# order ended at 109.6644 and strayed 1.4e-3 relative at step 6,
+# tools/lm_train_probe.py); one-ulp gradients and step 0 against the CPU
+# are the gates.
+LM_TRAIN_LOSS_REF = 109.6294
+LM_TRAIN_BWD_REF_MS = 8.30
 
 
 @contextlib.contextmanager
@@ -1731,6 +1787,13 @@ def lm_train_path(torch, dev):
         for g, (k, us) in split.items()), flush=True)
     for n, k, us in rows[:12]:
         print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+    bwd_k, bwd_us = split["attention backward (flash_prefill_bwd_bf16)"]
+    err_ref = abs(losses[-1] - LM_TRAIN_LOSS_REF) / LM_TRAIN_LOSS_REF
+    print(f"lm train: attention backward {bwd_us / 1e3:.2f} ms on the card "
+          f"per step in {bwd_k} kernels ({LM_TRAIN_BWD_REF_MS:.2f} ms for the "
+          f"three-kernel mma.sync backward); loss after {LM_TRAIN_STEPS} "
+          f"steps {losses[-1]:.4f} against {LM_TRAIN_LOSS_REF} (rel "
+          f"{err_ref:.3g}; printed, not gated)", flush=True)
     del params, scores, opt_state, m, prof
     torch.cuda.empty_cache()
     return counts[-1]

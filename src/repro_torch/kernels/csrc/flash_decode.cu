@@ -366,7 +366,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
 }  // namespace
 
 // q, o [B, 1, Hq, Dh] and k, v [B, S, KV, Dh], bf16 contiguous, KV dividing
-// Hq, Dh in {16, 128}; q_offset, kv_len, kv_start [B] int32 or null (0, S
+// Hq, Dh in {16, 64, 128}; q_offset, kv_len, kv_start [B] int32 or null (0, S
 // and 0): row b sees keys [kv_start[b], min(kv_len[b], q_offset[b] + 1))
 // (kv_len past S acts as S); a row with no such key writes 0. probs
 // [B, Hq, S] fp32 or null: the row's probabilities, 0 at masked keys.
@@ -386,6 +386,9 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 16)
     return launch<16>(q, k, v, q_offset, kv_len, kv_start, o, probs, part,
+                      arrivals, B, S, Hq, KV, scale, st);
+  if (Dh == 64)
+    return launch<64>(q, k, v, q_offset, kv_len, kv_start, o, probs, part,
                       arrivals, B, S, Hq, KV, scale, st);
   if (Dh == 128)
     return launch<128>(q, k, v, q_offset, kv_len, kv_start, o, probs, part,

@@ -1,6 +1,8 @@
 // The gradient of causal GQA attention over a whole sequence (training):
-// dQ, dK and dV of o = softmax(scale Q K^T + mask) V, with Q.K^T, dO.V^T,
-// P^T.dO, dS^T.Q and dS.K on the bf16 tensor cores.
+// dQ, dK and dV of o = softmax(scale Q K^T + mask) V, with the five products
+// Q.K^T, dO.V^T, dS.K, K.Q^T / V.dO^T and P^T.dO / dS^T.Q on Hopper's
+// warpgroup tensor cores (wgmma), their operands staged by the Tensor Memory
+// Accelerator (TMA) under mbarriers.
 //
 // Replaces the gradient that JAX takes of the reference's train-mode
 // attention, `flash_attention_jnp(q, k, v, causal=True, kv_start)`
@@ -17,34 +19,61 @@
 // rounded once.
 //
 // Maths (FlashAttention-2's backward): D = rowsum(dO o O) in fp32; per
-// (row, key) P = exp(scale s - lse), recomputed; dV += P^T dO; dP = dO V^T;
-// dS = P o (dP - D); dK += scale dS^T Q; dQ += scale dS K. A row without a
-// valid key (a pad row, only where kv_start is given) has P = 0 at every
-// key: it adds nothing to dK, dV and gets dQ = 0 (its forward wrote 0).
+// (row, key) P = exp2(s scale log2e - lse log2e), recomputed from exact
+// bf16 products summed in fp32; dV += P^T dO; dP = dO V^T; dS = P o (dP -
+// D); dK += scale dS^T Q; dQ += scale dS K. A masked (row, key) pair has P
+// = 0 exactly; a row without a valid key (a pad row, only where kv_start is
+// given; lse -inf) has P = 0 at every key: it adds nothing to dK, dV and
+// gets dQ = 0 (its forward wrote 0).
 //
 // Bound on the H100, full-width StableLM-1.6B at batch 8, seq 512 (32
 // heads, Dh 64): 3.4e7 causal (row, head, key) pairs, 10 Dh products each
 // (2.1e10 FLOP). q, k, v, o, dO are read and dq, dk, dv written once: 134
 // MB, 40 us at 3.35 TB/s; the products at the bf16 tensor-core rate take
-// 22 us (35 us as this design runs them, P and dS split in two halves, 16
-// Dh per pair): bound by bytes.
+// 22 us (35 us as this design runs them, P and dS split in two bf16 halves,
+// 16 Dh per pair): bound by bytes.
 //
-// Design: three kernels, no atomics. (1) `dot`: D per row, eight lanes per
-// row, coalesced. (2) `dkdv`: a block of four warps owns 64 keys of one KV
-// head; each warp holds its 16 keys' K and V as mma A fragments in
-// registers and walks every query tile that sees them (64 rows of
-// (position, head-in-group), position-major, so the group's query heads
-// are rows like any other and their sum stays in the fp32 accumulators).
-// It works in the transposed frame, keys as rows: S^T = K Q^T and dP^T = V
-// dO^T take Q and dO as the B operand (ldmatrix), P^T and dS^T are the
-// accumulators re-used as A fragments for dV += P^T dO and dK += dS^T Q
-// (dO and Q by ldmatrix.trans), exactly the forward's data flow. (3) `dq`:
-// the forward's blocking (64 rows of one KV head, each key tile staged
-// once for the group), S = Q K^T, dP = dO V^T, dS, then dQ += dS K (K by
-// ldmatrix.trans). Tiles are double-buffered with 16-byte cp.async; fp32 P
-// and dS enter the tensor cores as two bf16 halves (mma16.cuh's
-// split_hi_lo), as P does in the forward. Making it fast (wgmma, TMA, one
-// pass for dQ and dK/dV) is later work.
+// Design: two kernels, one launch each, no atomics, every sum in a fixed
+// order (two launches are bitwise equal). Tiles are 64 positions of one
+// head: a TMA box of the 4-D [B, N, H, Dh] view, so MHA and any GQA ratio
+// tile alike, and TMA's zero fill covers N past the last tile.
+//   (1) `dq` runs first. A work item is 64 query positions of one query
+//   head. The block forms D = rowsum(dO o O) of its rows from the staged dO
+//   and O tiles (four lanes per row), writes lse log2e and D to a [2, B,
+//   Hq, Np] scratch (Np = N rounded up to 64), then walks the key tiles its
+//   rows see: S = Q K^T and dP = dO V^T (wgmma, both operands from shared
+//   memory, K-major), P and dS in registers, dQ += dS K (dS as the register
+//   A operand in hi and lo bf16 halves, K read MN-major through a
+//   transposed descriptor).
+//   (2) `dkdv`: a work item is 64 keys of one KV head (K and V staged
+//   once); it walks every (query tile, query head of the group) that sees
+//   them, keys as rows: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO
+//   and dK += dS^T Q in flight together (P^T and dS^T as register A
+//   operands, hi and lo halves; dO and Q MN-major). The group's query
+//   heads are iterations like any other, so their sum stays in the fp32
+//   accumulators. Per-row lse log2e and D arrive by TMA from the scratch.
+// Both kernels are persistent: as many blocks as the SMs hold at once
+// (three of dq, two of dkdv), each taking every gridDim-th work item of a
+// fixed list, heavy first (the last query tiles see the most keys, the
+// first key tiles the most rows). A block is one warpgroup; its thread 0
+// issues every cp.async.bulk.tensor, each under a full and an empty
+// mbarrier, and there is no block-wide barrier per tile: an item's fixed
+// tiles go into a slot of their own (dkdv: one of two, so the next item's
+// arrive while this one runs), the streamed tiles into a ring of kStages
+// stages, refilled as each is released. The
+// wgmma descriptors read the swizzled layout TMA wrote: 128-byte rows and
+// the 128-byte swizzle at Dh 64, 32-byte ones at Dh 16. The tensor maps are
+// encoded on the host through the driver entry point the runtime returns
+// (cudaGetDriverEntryPoint*), so the library needs no -lcuda.
+// Why no producer warp: the H100 splits an SM's registers over its four
+// sub-partitions, a warp's on one, and ptxas budgets a kernel for the
+// sub-partition with the most warps: 168 registers a thread once a block
+// of five warps runs twice per SM (or one of 10 warps once), under the
+// 204 the dkdv warpgroup takes. Handing the producer's registers over with
+// setmaxnreg did not help: ptxas kept the consumers at the entry budget
+// (spilling), and with a lone producer warp the launch hung on the H100.
+// Blocks of one warpgroup leave 255 at two per SM, 168 at three.
+#include <cuda.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -54,162 +83,264 @@
 namespace {
 
 using causal::bf16;
-using mma16::ldmatrix_x4;
-using mma16::ldmatrix_x4_trans;
-using mma16::mma;
 using mma16::split_hi_lo;
 
-constexpr int kRows = 64;      // query rows per tile
-constexpr int kKeys = 64;      // keys per tile
-constexpr int kThreads = 128;  // four warps of 16 rows (or 16 keys)
+constexpr int kTile = 64;     // query rows or keys per tile
+constexpr int kStages = 3;    // depth of the streamed-operand ring
+constexpr int kThreads = 128;  // one warpgroup; its thread 0 issues TMA
+// Blocks an SM holds: the dkdv kernel takes 204 registers a thread, so
+// two; the dq kernel (141) fits three with one slot for its fixed tiles
+// (three blocks of 75 KB fill shared memory), 68.70 us a launch against
+// 80.75 at two blocks of two slots (H100, [8, 512, 32, 64]).
+constexpr int kDkdvMinBlocks = 2, kDqMinBlocks = 3;
+constexpr int kDkdvSlots = 2, kDqSlots = 1;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// A 64-row tile of Dh bf16 as TMA writes it: rows of kRowBytes, the
+// 128-byte swizzle at Dh 64 (a row is 128 bytes), the 32-byte one at Dh 16;
+// the wgmma descriptor's layout type and 8-row group stride to match.
 template <int DH>
-struct BwdSmem {
-  static constexpr int kLd = DH + 8;  // bf16 row stride: ldmatrix without
-                                      // bank conflicts
-  static constexpr int kTile = 64 * kLd;
-  // six 64-row tiles (dkdv: K, V, two stages of Q, dO; dq: Q, dO, two
-  // stages of K, V), then dkdv's per-row stats: two stages of lse, D and
-  // position (64 each)
-  static constexpr size_t kBytes =
-      sizeof(bf16) * 6 * kTile + sizeof(float) * 2 * 3 * kRows;
+struct TileFmt {
+  static_assert(DH == 16 || DH == 64, "head width 16 or 64");
+  static constexpr int kRowBytes = DH * 2;
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr uint64_t kLayout = DH == 64 ? 1 : 3;  // 128B / 32B
+  static constexpr uint32_t kSbo = 8 * kRowBytes;
+  // byte offset of 16-byte chunk c of row r
+  static __device__ __forceinline__ int chunk(int r, int c) {
+    return r * kRowBytes + ((c ^ (DH == 64 ? r & 7 : (r >> 2) & 1)) << 4);
+  }
 };
 
-// D[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d], fp32; DH / 8 lanes per
-// row, one 16-byte piece of each operand per lane
-template <int DH>
-__global__ void __launch_bounds__(256)
-flash_prefill_bwd_bf16_dot_kernel(const bf16* __restrict__ o,
-                                  const bf16* __restrict__ dout,
-                                  float* __restrict__ dsum, int N, int Hq,
-                                  long long rows) {
-  constexpr int kLanes = DH / 8;
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const long long r = e / kLanes;  // row of [B, N, Hq]
-  const int piece = static_cast<int>(e % kLanes);
-  float s = 0.f;
-  if (r < rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + r * DH + piece * 8);
-    const uint4 c =
-        *reinterpret_cast<const uint4*>(dout + r * DH + piece * 8);
-    const bf16* ap = reinterpret_cast<const bf16*>(&a);
-    const bf16* cp = reinterpret_cast<const bf16*>(&c);
-#pragma unroll
-    for (int x = 0; x < 8; ++x)
-      s = fmaf(__bfloat162float(ap[x]), __bfloat162float(cp[x]), s);
+// Shared memory of a kernel: kSlots slots of kFixed tiles that stay for a
+// work item (dq: Q, dO, O in one; dkdv: K, V in two, so that the next
+// item's arrive while this one runs); a ring of kStages stages of two
+// streamed tiles (dq: K, V; dkdv: Q, dO) and kStages stages of per-row
+// stats (dkdv: lse log2e and D, 64 fp32 each); then the barriers. The base
+// is rounded up to 1024 bytes, the 128-byte swizzle's period.
+template <int DH, int kFixed, int kSlots>
+struct Smem {
+  static constexpr int kTileBytes = TileFmt<DH>::kTileBytes;
+  static constexpr int kStatBytes = 2 * kTile * 4;
+  static constexpr int kRing = kSlots * kFixed * kTileBytes;
+  static constexpr int kStats = kRing + 2 * kStages * kTileBytes;
+  static constexpr int kBars = kStats + kStages * kStatBytes;
+  static constexpr size_t kBytes = 1024 + kBars + 8 * (4 + 2 * kStages);
+  static __device__ __forceinline__ uint32_t fixed(uint32_t base, int f,
+                                                   int x) {
+    return base + (f * kFixed + x) * kTileBytes;
   }
-#pragma unroll
-  for (int w = kLanes / 2; w > 0; w >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, w);
-  if (r < rows && piece == 0) {
-    const int h = static_cast<int>(r % Hq);
-    const long long bi = r / Hq;  // b N + i
-    const long long b = bi / N;
-    const int i = static_cast<int>(bi % N);
-    dsum[(b * Hq + h) * N + i] = s;
+  static __device__ __forceinline__ uint32_t ring(uint32_t base, int s,
+                                                  int x) {
+    return base + kRing + (2 * s + x) * kTileBytes;
   }
+  static __device__ __forceinline__ uint32_t stat(uint32_t base, int s) {
+    return base + kStats + s * kStatBytes;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte pieces of 64 query rows (position, head-in-group) from row j0 on
-// of KV head g, batch row b, into a [64][kLd] tile; rows past n_rows are 0
-template <int DH>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int b,
-                                          int j0, int n_rows, int N, int Hq,
-                                          int g, int per, int t) {
-  constexpr int kChunks = DH / 8, kLd = DH + 8;
-  for (int e = t; e < kRows * kChunks; e += kThreads) {
-    const int r = e / kChunks, ch = e % kChunks, j = j0 + r;
-    const bool ok = j < n_rows;
-    const size_t at =
-        ok ? ((static_cast<size_t>(b) * N + j / per) * Hq + g * per +
-              j % per) * DH + ch * 8
-           : 0;
-    cp_async16(dst + r * kLd + ch * 8, src + at, ok);
-  }
+// ---------------------------------------------------------------------------
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
 
-// 16-byte pieces of 64 keys from key c0 on of KV head g into a [64][kLd]
-// tile; keys outside [lo, hi) are 0
-template <int DH>
-__device__ __forceinline__ void load_keys(bf16* dst, const bf16* src, int b,
-                                          int c0, int lo, int hi, int N,
-                                          int KV, int g, int t) {
-  constexpr int kChunks = DH / 8, kLd = DH + 8;
-  for (int e = t; e < kKeys * kChunks; e += kThreads) {
-    const int r = e / kChunks, ch = e % kChunks, c = c0 + r;
-    const bool ok = c >= lo && c < hi;
-    const size_t at =
-        ok ? ((static_cast<size_t>(b) * N + c) * KV + g) * DH + ch * 8 : 0;
-    cp_async16(dst + r * kLd + ch * 8, src + at, ok);
-  }
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
-// c[16 x 64] += a[16 x DH] b[64 x DH]^T: a as A fragments, b's rows (the
-// product's columns) in a [64][kLd] tile
-template <int DH>
-__device__ __forceinline__ void mma_abt(float (&c)[kKeys / 8][4],
-                                        const uint32_t (&a)[DH / 16][4],
-                                        const bf16* bs, int lane) {
-  constexpr int kLd = DH + 8;
-#pragma unroll
-  for (int kd = 0; kd < DH / 16; ++kd) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t f[4];
-      ldmatrix_x4(f, bs + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
-                         kd * 16 + ((lane >> 3) & 1) * 8);
-      mma<bf16>(c[2 * np], a[kd], f[0], f[1]);
-      mma<bf16>(c[2 * np + 1], a[kd], f[2], f[3]);
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait until the phase of parity `parity` has completed; a wait of more
+// than kStallNs (a lost arrival) traps, so a fault ends the launch with an
+// error instead of hanging the card
+constexpr uint64_t kStallNs = 4000000000ull;
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t since = 0;
+  for (uint32_t n = 1;; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((n & 1023u) == 0) {
+      const uint64_t now = global_ns();
+      if (since == 0) since = now;
+      else if (now - since > kStallNs) __trap();
     }
   }
 }
 
-// acc[16 x DH] += x[16 x 64] b[64 x DH]: x an fp32 accumulator (its 16-column
-// pieces are the A fragments, each split into two bf16 halves), b a
-// [64][kLd] tile read transposed
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma: m64nNk16, bf16 operands, fp32 accumulators
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// registers an in-flight wgmma writes or reads: no use moves across this
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void keep(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// a tile of 64 rows x Dh, rows of kRowBytes as TMA swizzled them, as a wgmma
+// operand: K-major (the product's depth along Dh) for k-step kk, and
+// MN-major (the depth along the rows, the product's columns along Dh)
 template <int DH>
-__device__ __forceinline__ void mma_xb(float (&acc)[DH / 8][4],
-                                       const float (&x)[kKeys / 8][4],
-                                       const bf16* bs, int lane) {
-  constexpr int kLd = DH + 8;
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  using L = TileFmt<DH>;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(L::kSbo >> 4) << 32) | (L::kLayout << 62);
+}
+template <int DH>
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+  return desc<DH>(tile + 32 * kk);
+}
+template <int DH>
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
+  return desc<DH>(tile + 16 * kk * TileFmt<DH>::kRowBytes);
+}
+
+#define WG_ACC8(o)                                                       \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),        \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+
+// d[64 x 64] (+)= a[64 x 16] b[16 x 64], both from shared memory, K-major
+__device__ __forceinline__ void mma_ss64(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x DH] += a[64 x 16] b[16 x DH]: a in registers, b from shared memory
+// MN-major
+template <int DH>
+__device__ __forceinline__ void mma_rs(float (&d)[DH / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (DH == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+        "1;\n}\n"
+        : WG_ACC8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+}
+#undef WG_ACC8
+
+// x[64 x 64] fp32 accumulator -> register A operands of its four k-steps,
+// each value as a hi and a lo bf16 half (mma16.cuh's split_hi_lo)
+__device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&hi)[4][4],
+                                     uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_hi_lo<bf16>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], hi[kk][r],
+                        lo[kk][r]);
+}
+
+// acc[64 x DH] += x[64 x 64] b[64 x DH], x split as hi + lo, b a tile read
+// MN-major
+template <int DH>
+__device__ __forceinline__ void mma_xb(float (&acc)[DH / 2],
+                                       const uint32_t (&hi)[4][4],
+                                       const uint32_t (&lo)[4][4],
+                                       uint32_t tile) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    uint32_t ph[4], pl[4];
-    split_hi_lo<bf16>(x[2 * kk][0], x[2 * kk][1], ph[0], pl[0]);
-    split_hi_lo<bf16>(x[2 * kk][2], x[2 * kk][3], ph[1], pl[1]);
-    split_hi_lo<bf16>(x[2 * kk + 1][0], x[2 * kk + 1][1], ph[2], pl[2]);
-    split_hi_lo<bf16>(x[2 * kk + 1][2], x[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-    for (int dp = 0; dp < DH / 16; ++dp) {
-      uint32_t f[4];
-      ldmatrix_x4_trans(f, bs + (kk * 16 + ((lane >> 3) & 1) * 8 +
-                                 (lane & 7)) * kLd +
-                               dp * 16 + (lane >> 4) * 8);
-      mma<bf16>(acc[2 * dp], ph, f[0], f[1]);
-      mma<bf16>(acc[2 * dp], pl, f[0], f[1]);
-      mma<bf16>(acc[2 * dp + 1], ph, f[2], f[3]);
-      mma<bf16>(acc[2 * dp + 1], pl, f[2], f[3]);
-    }
+    mma_rs<DH>(acc, hi[kk], mn_major<DH>(tile, kk));
+    mma_rs<DH>(acc, lo[kk], mn_major<DH>(tile, kk));
   }
 }
 
-// this warp's 16 rows of a [64][kLd] tile as A fragments over all of DH
+// s[64 x 64] = a[64 x DH] b[64 x DH]^T, both tiles K-major
 template <int DH>
-__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4],
-                                       const bf16* s, int warp, int lane) {
-  constexpr int kLd = DH + 8;
+__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a,
+                                        uint32_t b) {
 #pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks)
-    ldmatrix_x4(a[ks], s + (warp * 16 + (lane & 15)) * kLd + ks * 16 +
-                           (lane >> 4) * 8);
+  for (int kk = 0; kk < DH / 16; ++kk)
+    mma_ss64(s, k_major<DH>(a, kk), k_major<DH>(b, kk), kk > 0);
 }
 
-// store an fp32 accumulator [16 x DH] (rows ra, ra + 8 of this thread) as
-// bf16 rows, times `scale`; `row_a` / `row_b` null where a row is not stored
+// store an fp32 accumulator [64 x DH] (this thread's rows ra, ra + 8) as
+// bf16 rows, times `scale`; a null row is not stored
 template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2],
                                            bf16* row_a, bf16* row_b,
                                            float scale, int lane) {
   const int col = (lane & 3) * 2;
@@ -218,306 +349,580 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
     bf16* row = x == 0 ? row_a : row_b;
     if (row == nullptr) continue;
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(row + i * 8 + col) =
-          __floats2bfloat162_rn(acc[i][2 * x] * scale,
-                                acc[i][2 * x + 1] * scale);
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * x] * scale,
+                                acc[4 * j + 2 * x + 1] * scale);
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_bwd_bf16_dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ dsum,
-    const int* __restrict__ kv_start, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int N, int Hq, int KV, float scale) {
-  using L = BwdSmem<DH>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + L::kTile;
-  bf16* rows = vs + L::kTile;  // stage s: Q at 2 s tiles, dO at 2 s + 1
-  float* stats = reinterpret_cast<float*>(rows + 4 * L::kTile);
-  // stage s: lse at 3 kRows s, D at 3 kRows s + kRows, position (int) at
-  // 3 kRows s + 2 kRows
-
-  // the first key tiles are seen by the most rows: launched first
-  const int g = blockIdx.x, b = blockIdx.y, c0 = blockIdx.z * kKeys;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int per = Hq / KV;
-  const int n_rows = N * per;
-  const int lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
-  // rows at positions >= max(c0, lo) see a key of this tile, if any does
-  const int j0 = max(c0, lo) * per;
-  const int n_tiles =
-      c0 + kKeys > lo && j0 < n_rows ? (n_rows - j0 + kRows - 1) / kRows : 0;
-  const float scale_log2 = scale * kLog2e;
-
-  auto load_tile = [&](int u, int stage) {
-    const int jt = j0 + u * kRows;
-    load_rows<DH>(rows + 2 * stage * L::kTile, q, b, jt, n_rows, N, Hq, g,
-                  per, t);
-    load_rows<DH>(rows + (2 * stage + 1) * L::kTile, dout, b, jt, n_rows, N,
-                  Hq, g, per, t);
-    if (t < kRows) {
-      float* st = stats + 3 * kRows * stage;
-      const int j = jt + t;
-      if (j < n_rows) {
-        const size_t at =
-            (static_cast<size_t>(b) * Hq + g * per + j % per) * N + j / per;
-        cp_async4(st + t, lse + at);
-        cp_async4(st + kRows + t, dsum + at);
-        reinterpret_cast<int*>(st + 2 * kRows)[t] = j / per;
-      } else {  // no such row: nothing seen, nothing added
-        st[t] = 0.f;
-        st[kRows + t] = 0.f;
-        reinterpret_cast<int*>(st + 2 * kRows)[t] = -1;
-      }
+// the barriers: full and empty for each fixed slot (two at most) and each
+// ring stage (full: thread 0's arrival plus TMA's bytes; empty: every
+// thread of the block)
+struct Bars {
+  uint32_t base;
+  __device__ __forceinline__ uint32_t fixed_full(int f) const {
+    return base + 8 * f;
+  }
+  __device__ __forceinline__ uint32_t fixed_empty(int f) const {
+    return base + 16 + 8 * f;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return base + 32 + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + 32 + 8 * kStages + 8 * s;
+  }
+  __device__ __forceinline__ void init() const {
+    for (int f = 0; f < 2; ++f) {
+      bar_init(fixed_full(f), 1);
+      bar_init(fixed_empty(f), kThreads);
     }
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// the 1024-aligned base of dynamic shared memory, as a shared address and
+// as a generic pointer
+struct Base {
+  uint32_t addr;
+  unsigned char* ptr;
+  __device__ __forceinline__ explicit Base(unsigned char* raw) {
+    const uint32_t r = smem_u32(raw);
+    addr = (r + 1023u) & ~1023u;
+    ptr = raw + (addr - r);
+  }
+  __device__ __forceinline__ const unsigned char* at(uint32_t a) const {
+    return ptr + (a - addr);
+  }
+};
+
+// sum over this lane's quarter of row r of two swizzled tiles a and b of
+// the elementwise products, in fp32
+template <int DH>
+__device__ __forceinline__ float row_dot(const unsigned char* a,
+                                         const unsigned char* b, int r,
+                                         int q4) {
+  using F = TileFmt<DH>;
+  float d = 0.f;
+  auto fma2 = [&d](uint32_t x, uint32_t y) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x));
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&y));
+    d = fmaf(u.x, v.x, d);
+    d = fmaf(u.y, v.y, d);
   };
-
-  load_keys<DH>(ks, k, b, c0, 0, N, N, KV, g, t);
-  load_keys<DH>(vs, v, b, c0, 0, N, N, KV, g, t);
-  if (n_tiles > 0) load_tile(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // this warp's 16 keys of K and V as A fragments
-  uint32_t ka[DH / 16][4], va[DH / 16][4];
-  load_a<DH>(ka, ks, warp, lane);
-  load_a<DH>(va, vs, warp, lane);
-  // this thread's two keys (accumulator rows lane / 4 and lane / 4 + 8)
-  const int key_a = c0 + warp * 16 + (lane >> 2), key_b = key_a + 8;
-  float dka[DH / 8][4], dva[DH / 8][4];
+  if constexpr (DH == 64) {  // chunks 2 q4 and 2 q4 + 1
 #pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) dka[i][x] = dva[i][x] = 0.f;
-
-  for (int u = 0; u < n_tiles; ++u) {
-    const int stage = u & 1;
-    if (u + 1 < n_tiles) {
-      load_tile(u + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int c = 0; c < 2; ++c) {
+      const int off = F::chunk(r, 2 * q4 + c);
+      const uint4 x = *reinterpret_cast<const uint4*>(a + off);
+      const uint4 y = *reinterpret_cast<const uint4*>(b + off);
+      fma2(x.x, y.x);
+      fma2(x.y, y.y);
+      fma2(x.z, y.z);
+      fma2(x.w, y.w);
     }
-    __syncthreads();
-    const bf16* qs = rows + 2 * stage * L::kTile;
-    const bf16* dos = qs + L::kTile;
-    const float* st = stats + 3 * kRows * stage;
-    const int* pos = reinterpret_cast<const int*>(st + 2 * kRows);
-
-    // P^T = exp(scale K Q^T - lse): 16 keys x 64 rows per warp, 0 where the
-    // row does not see the key
-    float s[kRows / 8][4];
-#pragma unroll
-    for (int i = 0; i < kRows / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    mma_abt<DH>(s, ka, qs, lane);
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + (lane & 3) * 2 + (i & 1);
-        const int c = i < 2 ? key_a : key_b;
-        const bool seen = c >= lo && c <= pos[col];
-        s[nt][i] = seen ? exp2f(fmaf(s[nt][i], scale_log2, -st[col] * kLog2e))
-                        : 0.f;
-      }
-    }
-    // dV += P^T dO
-    mma_xb<DH>(dva, s, dos, lane);
-    // dP^T = V dO^T, then dS^T = P^T o (dP^T - D)
-    float dp[kRows / 8][4];
-#pragma unroll
-    for (int i = 0; i < kRows / 8; ++i)
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    mma_abt<DH>(dp, va, dos, lane);
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + (lane & 3) * 2 + (i & 1);
-        s[nt][i] = s[nt][i] * (dp[nt][i] - st[kRows + col]);
-      }
-    }
-    // dK += dS^T Q (scaled at the store)
-    mma_xb<DH>(dka, s, qs, lane);
-    __syncthreads();  // this stage is free for the load two tiles on
+  } else {  // half q4 % 2 of chunk q4 / 2
+    const int off = F::chunk(r, q4 >> 1) + (q4 & 1) * 8;
+    const uint2 x = *reinterpret_cast<const uint2*>(a + off);
+    const uint2 y = *reinterpret_cast<const uint2*>(b + off);
+    fma2(x.x, y.x);
+    fma2(x.y, y.y);
   }
-
-  const size_t kv_row = static_cast<size_t>(KV) * DH;
-  const size_t base = (static_cast<size_t>(b) * N * KV + g) * DH;
-  store_rows<DH>(dka, key_a < N ? dk + base + key_a * kv_row : nullptr,
-                 key_b < N ? dk + base + key_b * kv_row : nullptr, scale,
-                 lane);
-  store_rows<DH>(dva, key_a < N ? dv + base + key_a * kv_row : nullptr,
-                 key_b < N ? dv + base + key_b * kv_row : nullptr, 1.f, lane);
+  return d;
 }
 
+// A dq work item: 64 query positions from r0 of query head h, batch row b,
+// the last position tiles first (they see the most keys), the heads and
+// batch rows of one tile together; its key tiles t0 .. t0 + n_kt - 1 hold
+// every key [lo, min(r0 + 64, N)) its rows see.
+struct DqItem {
+  int r0, h, b, g, lo, t0, n_kt;
+  DqItem() = default;
+  __device__ __forceinline__ DqItem(int w, int n_qt, int B, int Hq, int per,
+                                    int N, const int* kv_start) {
+    const int hb = Hq * B, rem = w % hb;
+    r0 = (n_qt - 1 - w / hb) * kTile;
+    h = rem % Hq;
+    b = rem / Hq;
+    g = h / per;
+    lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
+    const int hi = min(r0 + kTile, N);
+    t0 = lo / kTile;
+    n_kt = hi > lo ? (hi - 1) / kTile - t0 + 1 : 0;
+  }
+};
+
+// A dkdv work item: 64 keys from c0 of KV head g, batch row b, the first
+// key tiles first (the most rows see them); it walks the query tiles from
+// q_first on, each for the group's query heads (n_it iterations). Rows at
+// positions >= max(c0, lo) see a key of the tile, if any does.
+struct KvItem {
+  int c0, g, b, lo, q_first, n_it;
+  KvItem() = default;
+  __device__ __forceinline__ KvItem(int w, int n_kt, int B, int KV, int per,
+                                    int N, const int* kv_start) {
+    const int gb = KV * B, rem = w % gb;
+    c0 = (w / gb) * kTile;
+    g = rem % KV;
+    b = rem / KV;
+    lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
+    const int first = max(c0, lo);
+    q_first = first / kTile;
+    n_it = c0 + kTile > lo && first < N ? (n_kt - q_first) * per : 0;
+  }
+};
+
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kDqMinBlocks)
 flash_prefill_bwd_bf16_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ dsum,
-    const int* __restrict__ kv_start, bf16* __restrict__ dq, int N, int Hq,
-    int KV, float scale) {
-  using L = BwdSmem<DH>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + L::kTile;
-  bf16* kvs = dos + L::kTile;  // stage s: K at 2 s tiles, V at 2 s + 1
-
-  // the last row tiles see the most keys: launched first
-  const int g = blockIdx.x, b = blockIdx.y, rt = gridDim.z - 1 - blockIdx.z;
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap to,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+    const int* __restrict__ kv_start, float* __restrict__ stats,
+    bf16* __restrict__ dq, int B, int N, int Hq, int KV, float scale) {
+  using L = Smem<DH, 3, kDqSlots>;
+  extern __shared__ unsigned char smem_raw[];
+  const Base sm(smem_raw);
+  const Bars bars{sm.addr + L::kBars};
+  const int n_qt = (N + kTile - 1) / kTile, Np = n_qt * kTile;
+  const int n_items = n_qt * Hq * B, per = Hq / KV;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int per = Hq / KV;
-  const int n_rows = N * per;
-  const int r0 = rt * kRows;
-  const int lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
-  // keys any row of the block sees: [lo, last position + 1)
-  const int block_hi = (min(r0 + kRows, n_rows) - 1) / per + 1;
-  const int t0 = lo / kKeys;
-  const int t1 = block_hi > lo ? (block_hi + kKeys - 1) / kKeys : t0;
-  const float scale_log2 = scale * kLog2e;
-
-  auto load_kv = [&](int tile, int stage) {
-    bf16* ks = kvs + 2 * stage * L::kTile;
-    load_keys<DH>(ks, k, b, tile * kKeys, lo, block_hi, N, KV, g, t);
-    load_keys<DH>(ks + L::kTile, v, b, tile * kKeys, lo, block_hi, N, KV, g,
-                  t);
-  };
-  load_rows<DH>(qs, q, b, r0, n_rows, N, Hq, g, per, t);
-  load_rows<DH>(dos, dout, b, r0, n_rows, N, Hq, g, per, t);
-  if (t0 < t1) load_kv(t0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (t == 0) bars.init();
   __syncthreads();
 
-  uint32_t qa[DH / 16][4], da[DH / 16][4];
-  load_a<DH>(qa, qs, warp, lane);
-  load_a<DH>(da, dos, warp, lane);
-  // this thread's two rows: position (-1 past the end), lse in log2 units, D
-  int pos[2];
-  float lse2[2], dd[2];
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const int j = r0 + warp * 16 + (lane >> 2) + 8 * x;
-    pos[x] = -1;
-    lse2[x] = dd[x] = 0.f;
-    if (j < n_rows) {
-      const size_t at =
-          (static_cast<size_t>(b) * Hq + g * per + j % per) * N + j / per;
-      pos[x] = j / per;
-      lse2[x] = lse[at] * kLog2e;
-      dd[x] = dsum[at];
+  // Thread 0 also feeds the stages: the fixed tiles of the block's j-th
+  // item into slot j % kSlots once the item kSlots before has released it,
+  // and the ring's loads in order, each once its stage is free (cursor:
+  // item fw, its key tile fi, ring position fpos).
+  auto feed_fixed = [&](int j) {
+    const int w = blockIdx.x + j * gridDim.x;
+    if (w >= n_items) return;
+    const DqItem y(w, n_qt, B, Hq, per, N, kv_start);
+    const int f = j % kDqSlots;
+    bar_wait(bars.fixed_empty(f), ((j / kDqSlots) & 1) ^ 1);
+    bar_expect_tx(bars.fixed_full(f), 3 * L::kTileBytes);
+    tma_4d(L::fixed(sm.addr, f, 0), &tq, bars.fixed_full(f), 0, y.h, y.r0,
+           y.b);
+    tma_4d(L::fixed(sm.addr, f, 1), &tdo, bars.fixed_full(f), 0, y.h, y.r0,
+           y.b);
+    tma_4d(L::fixed(sm.addr, f, 2), &to, bars.fixed_full(f), 0, y.h, y.r0,
+           y.b);
+  };
+  int fw = blockIdx.x, fi = 0, fpos = 0;
+  DqItem fx;
+  if (fw < n_items) fx = DqItem(fw, n_qt, B, Hq, per, N, kv_start);
+  auto feed_ring = [&](int upto) {
+    while (fpos < upto && fw < n_items) {
+      if (fi == fx.n_kt) {
+        fw += gridDim.x;
+        fi = 0;
+        if (fw < n_items) fx = DqItem(fw, n_qt, B, Hq, per, N, kv_start);
+        continue;
+      }
+      const int s = fpos % kStages;
+      bar_wait(bars.empty(s), ((fpos / kStages) & 1) ^ 1);
+      bar_expect_tx(bars.full(s), 2 * L::kTileBytes);
+      const int c0 = (fx.t0 + fi) * kTile;
+      tma_4d(L::ring(sm.addr, s, 0), &tk, bars.full(s), 0, fx.g, c0, fx.b);
+      tma_4d(L::ring(sm.addr, s, 1), &tv, bars.full(s), 0, fx.g, c0, fx.b);
+      ++fi;
+      ++fpos;
     }
+  };
+  if (t == 0) {
+    for (int j = 0; j < kDqSlots; ++j) feed_fixed(j);
+    feed_ring(kStages);
   }
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  __syncwarp();
 
-  for (int kt = t0; kt < t1; ++kt) {
-    const int stage = (kt - t0) & 1;
-    if (kt + 1 < t1) {
-      load_kv(kt + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // this thread's rows ra and ra + 8 of each item's tile; four lanes share
+  // a row
+  const int ra = 16 * warp + (lane >> 2), q4 = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  int it = 0;  // ring position
+  for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+    const DqItem x(w, n_qt, B, Hq, per, N, kv_start);
+    const int f = j % kDqSlots;
+    const uint32_t qs = L::fixed(sm.addr, f, 0);
+    const uint32_t dos = L::fixed(sm.addr, f, 1);
+    int pos[2];
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      pos[y] = x.r0 + ra + 8 * y;
+      lse2[y] = pos[y] < N ? lse[(static_cast<size_t>(x.b) * Hq + x.h) * N +
+                                 pos[y]] * kLog2e
+                           : 0.f;
     }
-    __syncthreads();
-    const bf16* ks = kvs + 2 * stage * L::kTile;
-    const bf16* vs = ks + L::kTile;
-
-    // P = exp(scale Q K^T - lse), 0 at keys the row does not see
-    float s[kKeys / 8][4];
+    bar_wait(bars.fixed_full(f), (j / kDqSlots) & 1);
+    // D = rowsum(dO o O) from the staged tiles (0 past N: TMA's zero fill);
+    // lse log2e and D to the stats for the dkdv pass
 #pragma unroll
-    for (int i = 0; i < kKeys / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    mma_abt<DH>(s, qa, ks, lane);
-    const int c0 = kt * kKeys;
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = c0 + nt * 8 + (lane & 3) * 2 + (i & 1);
-        const int x = i >> 1;
-        s[nt][i] = c >= lo && c <= pos[x]
-                       ? exp2f(fmaf(s[nt][i], scale_log2, -lse2[x]))
-                       : 0.f;
+    for (int y = 0; y < 2; ++y) {
+      float d = row_dot<DH>(sm.at(dos), sm.at(L::fixed(sm.addr, f, 2)),
+                            ra + 8 * y, q4);
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      dd[y] = d;
+      if (q4 == 0) {
+        const size_t at =
+            (static_cast<size_t>(x.b) * Hq + x.h) * Np + pos[y];
+        stats[at] = lse2[y];
+        stats[static_cast<size_t>(B) * Hq * Np + at] = d;
       }
     }
-    // dP = dO V^T, then dS = P o (dP - D)
-    float dp[kKeys / 8][4];
+    float acc[DH / 2];
 #pragma unroll
-    for (int i = 0; i < kKeys / 8; ++i)
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    mma_abt<DH>(dp, da, vs, lane);
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float sc[32], dp[32];
+    uint32_t ah[4][4], al[4][4];
+    for (int i = 0; i < x.n_kt; ++i, ++it) {
+      const int s = it % kStages;
+      const int c0 = (x.t0 + i) * kTile;
+      const uint32_t kt = L::ring(sm.addr, s, 0);
+      // S = Q K^T, dP = dO V^T
+      bar_wait(bars.full(s), (it / kStages) & 1);
+      wg_fence();
+      mma_abt<DH>(sc, qs, kt);
+      wg_commit();
+      mma_abt<DH>(dp, dos, L::ring(sm.addr, s, 1));
+      wg_commit();
+      wg_wait<1>();
+      keep(sc);
+      // P = exp2(s scale log2e - lse log2e), 0 at keys the row does not
+      // see (a tile wholly inside every row's window needs no mask)
+      const bool edge = c0 < x.lo || c0 + kTile - 1 > x.r0;
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt)
+      for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s[nt][i] = s[nt][i] * (dp[nt][i] - dd[i >> 1]);
-    // dQ += dS K (scaled at the store)
-    mma_xb<DH>(acc, s, ks, lane);
-    __syncthreads();  // this stage is free for the load two tiles on
-  }
+        for (int e = 0; e < 4; ++e) {
+          const int y = e >> 1, c = c0 + 8 * jj + 2 * q4 + (e & 1);
+          const float p = exp2f(fmaf(sc[4 * jj + e], scale_log2, -lse2[y]));
+          sc[4 * jj + e] = !edge || (c >= x.lo && c <= pos[y]) ? p : 0.f;
+        }
+      wg_wait<0>();
+      keep(dp);
+      // dS = P o (dP - D), then dQ += dS K (scaled at the store)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = sc[e] * (dp[e] - dd[(e >> 1) & 1]);
+      to_a(sc, ah, al);
+      wg_fence();
+      mma_xb<DH>(acc, ah, al, kt);
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+      keep(ah);
+      keep(al);
+      bar_arrive(bars.empty(s));
+      if (t == 0) feed_ring(it + 1 + kStages);
+      __syncwarp();
+    }
+    bar_arrive(bars.fixed_empty(f));
+    if (t == 0) feed_fixed(j + kDqSlots);
+    __syncwarp();
 
-  bf16* out[2];
+    bf16* out[2];
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const int j = r0 + warp * 16 + (lane >> 2) + 8 * x;
-    out[x] = j < n_rows
-                 ? dq + ((static_cast<size_t>(b) * N + j / per) * Hq +
-                         g * per + j % per) * DH
-                 : nullptr;
+    for (int y = 0; y < 2; ++y)
+      out[y] = pos[y] < N ? dq + ((static_cast<size_t>(x.b) * N + pos[y]) *
+                                      Hq + x.h) * DH
+                          : nullptr;
+    store_rows<DH>(acc, out[0], out[1], scale, lane);
   }
-  store_rows<DH>(acc, out[0], out[1], scale, lane);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, kDkdvMinBlocks)
+flash_prefill_bwd_bf16_dkdv_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tlse,
+    const __grid_constant__ CUtensorMap td, const int* __restrict__ kv_start,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int N, int Hq,
+    int KV, float scale) {
+  using L = Smem<DH, 2, kDkdvSlots>;
+  extern __shared__ unsigned char smem_raw[];
+  const Base sm(smem_raw);
+  const Bars bars{sm.addr + L::kBars};
+  const int n_kt = (N + kTile - 1) / kTile;
+  const int n_items = n_kt * KV * B, per = Hq / KV;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (t == 0) bars.init();
+  __syncthreads();
+
+  // thread 0 feeds the stages, as in the dq kernel (cursor: item fw, its
+  // iteration fi, ring position fpos)
+  auto feed_fixed = [&](int j) {
+    const int w = blockIdx.x + j * gridDim.x;
+    if (w >= n_items) return;
+    const KvItem y(w, n_kt, B, KV, per, N, kv_start);
+    const int f = j % kDkdvSlots;
+    bar_wait(bars.fixed_empty(f), ((j / kDkdvSlots) & 1) ^ 1);
+    bar_expect_tx(bars.fixed_full(f), 2 * L::kTileBytes);
+    tma_4d(L::fixed(sm.addr, f, 0), &tk, bars.fixed_full(f), 0, y.g, y.c0,
+           y.b);
+    tma_4d(L::fixed(sm.addr, f, 1), &tv, bars.fixed_full(f), 0, y.g, y.c0,
+           y.b);
+  };
+  int fw = blockIdx.x, fi = 0, fpos = 0;
+  KvItem fx;
+  if (fw < n_items) fx = KvItem(fw, n_kt, B, KV, per, N, kv_start);
+  auto feed_ring = [&](int upto) {
+    while (fpos < upto && fw < n_items) {
+      if (fi == fx.n_it) {
+        fw += gridDim.x;
+        fi = 0;
+        if (fw < n_items) fx = KvItem(fw, n_kt, B, KV, per, N, kv_start);
+        continue;
+      }
+      const int s = fpos % kStages;
+      bar_wait(bars.empty(s), ((fpos / kStages) & 1) ^ 1);
+      bar_expect_tx(bars.full(s), 2 * L::kTileBytes + L::kStatBytes);
+      const int r0 = (fx.q_first + fi / per) * kTile;
+      const int h = fx.g * per + fi % per;
+      tma_4d(L::ring(sm.addr, s, 0), &tq, bars.full(s), 0, h, r0, fx.b);
+      tma_4d(L::ring(sm.addr, s, 1), &tdo, bars.full(s), 0, h, r0, fx.b);
+      tma_3d(L::stat(sm.addr, s), &tlse, bars.full(s), r0, h, fx.b);
+      tma_3d(L::stat(sm.addr, s) + kTile * 4, &td, bars.full(s), r0, h,
+             fx.b);
+      ++fi;
+      ++fpos;
+    }
+  };
+  if (t == 0) {
+    for (int j = 0; j < kDkdvSlots; ++j) feed_fixed(j);
+    feed_ring(kStages);
+  }
+  __syncwarp();
+
+  const int q4 = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  int it = 0;  // ring position
+  for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+    const KvItem x(w, n_kt, B, KV, per, N, kv_start);
+    const int f = j % kDkdvSlots;
+    const uint32_t kt = L::fixed(sm.addr, f, 0);
+    const uint32_t vt = L::fixed(sm.addr, f, 1);
+    // this thread's keys (accumulator rows ra and ra + 8)
+    const int key_a = x.c0 + 16 * warp + (lane >> 2), key_b = key_a + 8;
+    float dka[DH / 2], dva[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+    bar_wait(bars.fixed_full(f), (j / kDkdvSlots) & 1);
+
+    for (int i = 0; i < x.n_it; ++i, ++it) {
+      const int s = it % kStages;
+      bar_wait(bars.full(s), (it / kStages) & 1);
+      const int r0 = (x.q_first + i / per) * kTile;
+      const uint32_t qt = L::ring(sm.addr, s, 0);
+      const uint32_t dot = L::ring(sm.addr, s, 1);
+      const float* lse2 =
+          reinterpret_cast<const float*>(sm.at(L::stat(sm.addr, s)));
+      const float* dd = lse2 + kTile;
+      // S^T = K Q^T, dP^T = V dO^T
+      float sc[32], dp[32];
+      wg_fence();
+      mma_abt<DH>(sc, kt, qt);
+      wg_commit();
+      mma_abt<DH>(dp, vt, dot);
+      wg_commit();
+      wg_wait<1>();
+      keep(sc);
+      // P^T = exp2(s scale log2e - lse log2e), 0 where the row does not see
+      // the key or lies past N (a tile pair wholly inside needs no mask)
+      const bool edge =
+          x.c0 < x.lo || x.c0 + kTile - 1 > r0 || r0 + kTile > N;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * jj + 2 * q4 + (e & 1), row = r0 + col;
+          const int c = e < 2 ? key_a : key_b;
+          const float p =
+              exp2f(fmaf(sc[4 * jj + e], scale_log2, -lse2[col]));
+          sc[4 * jj + e] =
+              !edge || (c >= x.lo && c <= row && row < N) ? p : 0.f;
+        }
+      // dS^T = P^T o (dP^T - D), into dp
+      wg_wait<0>();
+      keep(dp);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * jj + e] = sc[4 * jj + e] *
+                           (dp[4 * jj + e] - dd[8 * jj + 2 * q4 + (e & 1)]);
+      // dV += P^T dO and dK += dS^T Q (scaled at the store), in flight
+      // together; P^T and dS^T live on only as the products' A operands
+      uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+      to_a(sc, ph, pl);
+      to_a(dp, sh, sl);
+      wg_fence();
+      mma_xb<DH>(dva, ph, pl, dot);
+      mma_xb<DH>(dka, sh, sl, qt);
+      wg_commit();
+      wg_wait<0>();
+      keep(dva);
+      keep(dka);
+      keep(ph);
+      keep(pl);
+      keep(sh);
+      keep(sl);
+      bar_arrive(bars.empty(s));
+      if (t == 0) feed_ring(it + 1 + kStages);
+      __syncwarp();
+    }
+    bar_arrive(bars.fixed_empty(f));
+    if (t == 0) feed_fixed(j + kDkdvSlots);
+    __syncwarp();
+
+    const size_t kv_row = static_cast<size_t>(KV) * DH;
+    const size_t base = (static_cast<size_t>(x.b) * N * KV + x.g) * DH;
+    store_rows<DH>(dka, key_a < N ? dk + base + key_a * kv_row : nullptr,
+                   key_b < N ? dk + base + key_b * kv_row : nullptr, scale,
+                   lane);
+    store_rows<DH>(dva, key_a < N ? dv + base + key_a * kv_row : nullptr,
+                   key_b < N ? dv + base + key_b * kv_row : nullptr, 1.f,
+                   lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps, launch
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [B, N, H, DH] bf16 tensor, boxes of 64 positions x one head (rows past
+// N zero-filled), swizzled for the wgmma descriptors
+template <int DH>
+bool rows_map(CUtensorMap* map, const void* ptr, int B, int N, int H) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(DH) * 2, static_cast<cuuint64_t>(H) * DH * 2,
+      static_cast<cuuint64_t>(N) * H * DH * 2};
+  const cuuint32_t box[4] = {DH, 1, kTile, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                     const_cast<void*>(ptr), dims, strides, box, unit,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     DH == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// one plane of the [2, B, Hq, Np] fp32 stats, boxes of 64 positions
+bool stats_map(CUtensorMap* map, const float* ptr, int B, int Hq, int Np) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Np),
+                              static_cast<cuuint64_t>(Hq),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Np) * 4,
+                                 static_cast<cuuint64_t>(Hq) * Np * 4};
+  const cuuint32_t box[3] = {kTile, 1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                     const_cast<float*>(ptr), dims, strides, box, unit,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once per kernel: raise its shared memory limit and find how many of its
+// blocks an SM holds; returns the persistent grid for n_items work items
+// (that many blocks on every SM, at most one per item), 0 on an error.
+template <typename Kernel>
+int grid_for(Kernel kernel, size_t bytes, int* per_sm, int n_items) {
+  if (*per_sm == 0) {
+    int dev = 0, sms = 0, occ = 0;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes)) != cudaSuccess ||
+        cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads,
+                                                      bytes) != cudaSuccess ||
+        occ == 0)
+      return 0;
+    *per_sm = occ * sms;
+  }
+  return *per_sm < n_items ? *per_sm : n_items;
 }
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, const void* kv_start,
-           void* dsum, void* dq, void* dk, void* dv, int B, int N, int Hq,
+           void* stats, void* dq, void* dk, void* dv, int B, int N, int Hq,
            int KV, float scale, cudaStream_t stream) {
-  static size_t raised_dkdv = 0, raised_dq = 0;
-  constexpr size_t kBytes = BwdSmem<DH>::kBytes;
-  cudaError_t err = allow_smem(flash_prefill_bwd_bf16_dkdv_kernel<DH>,
-                               kBytes, &raised_dkdv);
-  if (err == cudaSuccess)
-    err = allow_smem(flash_prefill_bwd_bf16_dq_kernel<DH>, kBytes,
-                     &raised_dq);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* dob = static_cast<const bf16*>(dout);
-  const float* lsef = static_cast<const float*>(lse);
-  float* dsf = static_cast<float*>(dsum);
+  static int dq_slots = 0, dkdv_slots = 0;  // resident blocks on the card
+  constexpr size_t kDqBytes = Smem<DH, 3, kDqSlots>::kBytes;
+  constexpr size_t kDkdvBytes = Smem<DH, 2, kDkdvSlots>::kBytes;
+  const int n_tiles = (N + kTile - 1) / kTile, Np = n_tiles * kTile;
+  const int dq_grid = grid_for(flash_prefill_bwd_bf16_dq_kernel<DH>,
+                               kDqBytes, &dq_slots, n_tiles * Hq * B);
+  const int dkdv_grid = grid_for(flash_prefill_bwd_bf16_dkdv_kernel<DH>,
+                                 kDkdvBytes, &dkdv_slots, n_tiles * KV * B);
+  if (dq_grid == 0 || dkdv_grid == 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (encode_fn() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  float* st = static_cast<float*>(stats);
+  CUtensorMap tq, tdo, to, tk, tv, tlse, td;
+  if (!rows_map<DH>(&tq, q, B, N, Hq) || !rows_map<DH>(&tdo, dout, B, N, Hq) ||
+      !rows_map<DH>(&to, o, B, N, Hq) || !rows_map<DH>(&tk, k, B, N, KV) ||
+      !rows_map<DH>(&tv, v, B, N, KV) || !stats_map(&tlse, st, B, Hq, Np) ||
+      !stats_map(&td, st + static_cast<size_t>(B) * Hq * Np, B, Hq, Np))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* start = static_cast<const int*>(kv_start);
 
-  const long long rows = static_cast<long long>(B) * N * Hq;
-  const long long threads = rows * (DH / 8);
-  flash_prefill_bwd_bf16_dot_kernel<DH>
-      <<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
-          static_cast<const bf16*>(o), dob, dsf, N, Hq, rows);
-  err = cudaGetLastError();
+  flash_prefill_bwd_bf16_dq_kernel<DH>
+      <<<dq_grid, kThreads, kDqBytes, stream>>>(
+          tq, tdo, to, tk, tv, static_cast<const float*>(lse), start, st,
+          static_cast<bf16*>(dq), B, N, Hq, KV, scale);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_prefill_bwd_bf16_dkdv_kernel<DH>
-      <<<dim3(KV, B, (N + kKeys - 1) / kKeys), kThreads, kBytes, stream>>>(
-          qb, kb, vb, dob, lsef, dsf, start, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), N, Hq, KV, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_prefill_bwd_bf16_dq_kernel<DH>
-      <<<dim3(KV, B, (N * (Hq / KV) + kRows - 1) / kRows), kThreads, kBytes,
-         stream>>>(qb, kb, vb, dob, lsef, dsf, start, static_cast<bf16*>(dq),
-                   N, Hq, KV, scale);
+      <<<dkdv_grid, kThreads, kDkdvBytes, stream>>>(
+          tq, tdo, tk, tv, tlse, td, start, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), B, N, Hq, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -526,9 +931,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // q, o, dout, dq [B, N, Hq, Dh] and k, v, dk, dv [B, N, KV, Dh], bf16
 // contiguous and 16-byte aligned, KV dividing Hq, Dh in {16, 64}; lse [B,
 // Hq, N] fp32 as flash_prefill_bf16 writes it; kv_start [B] int32 or null
-// (0): query row i of batch row b sees keys [kv_start[b], i + 1); dsum [B,
-// Hq, N] fp32 scratch. Three launches on `stream`: D, then dK and dV, then
-// dQ.
+// (0): query row i of batch row b sees keys [kv_start[b], i + 1); dsum
+// [2, B, Hq, Np] fp32 scratch, Np = N rounded up to 64 (the dq kernel
+// writes each row's lse log2e and D there for the dkdv kernel). Two
+// launches on `stream`: dQ (with D), then dK and dV.
 extern "C" int flash_prefill_bwd_bf16(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
@@ -537,8 +943,8 @@ extern "C" int flash_prefill_bwd_bf16(const void* q, const void* k,
                                       int N, int Hq, int KV, int Dh,
                                       float scale, void* stream) {
   if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (KV <= 0 || Hq % KV != 0 || B > 65535 || KV > 65535 ||
-      static_cast<long long>(N) * (Hq / KV) > 65535LL * kRows)
+  if (KV <= 0 || Hq % KV != 0 ||
+      static_cast<long long>((N + kTile - 1) / kTile) * Hq * B > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 16)

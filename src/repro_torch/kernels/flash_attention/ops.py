@@ -52,11 +52,13 @@ DECODE_SPLIT = 64  # keys per decode block (kSplit in csrc/flash_decode.cu)
 HEAD_DIMS = (16, 64)  # head widths the non-causal kernel is instantiated
 # for: full DeiT-Small (64) and its reduced test config (16)
 # head widths each causal kernel is instantiated for: the reduced LM
-# configs (16), StableLM-1.6B (64, trained), Minitron-4B (128, served)
-CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 128),
+# configs (16), StableLM-1.6B (64, trained and served), Minitron-4B (128,
+# served)
+CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 64, 128),
                     "flash_prefill_bf16": (16, 64, 128),
                     "flash_prefill_bwd_bf16": (16, 64)}
 BWD_KERNEL = ("flash_prefill_bwd", "flash_prefill_bwd_bf16")
+BWD_TILE = 64  # positions per tile of the backward (kTile in its source)
 # the decode kernel's arrival counters, by (device, stream): zero between
 # launches (the combining block of each launch resets its own)
 _ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -271,14 +273,25 @@ class CausalAttention(torch.autograd.Function):
         return (*_causal_bwd_cuda(q, k, v, o, do, lse, kv_start), None)
 
 
+def bwd_scratch_shape(B: int, Hq: int, N: int) -> Tuple[int, int, int, int]:
+    """Shape of the fp32 scratch of ``flash_prefill_bwd_bf16``: [2, B, Hq,
+    Np], each row's lse log2e and D = rowsum(dO o O), written by its dQ
+    kernel and read by its dK/dV kernel in boxes of ``BWD_TILE`` positions
+    (TMA). Np is N rounded up to the tile, so every box lies inside and
+    each row of the scratch is a multiple of 16 bytes, as TMA requires."""
+    Np = -(-N // BWD_TILE) * BWD_TILE
+    return 2, B, Hq, Np
+
+
 def _causal_bwd_cuda(q, k, v, o, do, lse, kv_start):
     """(dq, dk, dv) by ``flash_prefill_bwd_bf16``: one launch of its entry
-    point (three kernels: D, dK/dV, dQ)."""
+    point (two kernels: dQ with D, then dK/dV)."""
     B, N, Hq, Dh = q.shape
     KV = k.shape[2]
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty((B, Hq, N), dtype=torch.float32, device=q.device)
+    dsum = torch.empty(bwd_scratch_shape(B, Hq, N), dtype=torch.float32,
+                       device=q.device)
     backend.launch(*BWD_KERNEL, q.device, q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                    None if kv_start is None else kv_start.data_ptr(),

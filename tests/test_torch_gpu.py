@@ -641,7 +641,7 @@ def test_causal_kernel_matches_plain_on_card(dev):
                  [32, 56, 0, 12])
 
 
-@pytest.mark.parametrize("Dh", [16, 128])
+@pytest.mark.parametrize("Dh", [16, 64, 128])
 def test_decode_kernel_windows_on_card(dev, Dh):
     """``flash_decode_bf16`` (64 keys per split) at GQA 3:1 over a
     1000-slot cache, one batch row per kind of window: shorter than one
@@ -851,7 +851,14 @@ def _train_inputs(dev, B, N, Hq, KV, Dh, seed=0):
 TRAIN_CASES = [  # B, N, Hq, KV, Dh, kv_start
     (2, 37, 4, 1, 16, None), (2, 37, 4, 1, 16, [0, 9]),
     (1, 130, 8, 2, 64, [5]), (2, 65, 4, 4, 64, None),
-    (1, 512, 32, 32, 64, None), (2, 200, 6, 2, 64, [0, 70])]
+    (1, 512, 32, 32, 64, None), (2, 200, 6, 2, 64, [0, 70]),
+    # the backward's tiling: N not a multiple of its 64-position tile under
+    # GQA 3:1 (kv_start inside a tile, and one row past a whole tile), a
+    # walk of 16 query tiles, and at Dh 16 work lists of 512 and 1024 items,
+    # more than the blocks the card holds (each walks several items through
+    # both of its fixed slots)
+    (1, 100, 6, 2, 64, [0]), (2, 130, 24, 8, 64, [3, 70]),
+    (1, 1024, 8, 2, 64, [100]), (8, 512, 16, 8, 16, None)]
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES,
@@ -919,6 +926,24 @@ def test_prefill_bwd_kernel_matches_plain_on_card(dev, case):
     again = torch.autograd.grad(
         flash_attention(*leaves, causal=True, kv_start=st), leaves, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_prefill_bwd_kernels_issue_wgmma(dev):
+    """Both kernels of the backward library (dQ, dK/dV) at each head width
+    run their products on wgmma: their SASS holds HGMMA and no HMMA."""
+    counts, fn = {}, None
+    for line in backend.disassemble("flash_prefill_bwd").splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += op in line
+    kernels = {f: c for f, c in counts.items() if "_kernel" in f}
+    assert len(kernels) == 2 * len(
+        FA.CAUSAL_HEAD_DIMS["flash_prefill_bwd_bf16"]), sorted(counts)
+    for f, c in kernels.items():
+        assert c["HGMMA"] > 0 and c["HMMA"] == 0, (f, c)
 
 
 def test_causal_attention_with_grad_raises_on_card(dev):

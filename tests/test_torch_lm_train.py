@@ -214,6 +214,22 @@ def test_attention_causal_lse_plain():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("N", [1, 37, 64, 65, 100, 512, 1000])
+def test_bwd_scratch_shape_covers_every_tile(N):
+    """The backward kernel's scratch (lse log2e and D per row, read by its
+    dK/dV kernel in TMA boxes of 64 positions) holds a whole box for every
+    query tile the kernels walk, rows past N included, and its rows are
+    the multiple of 16 bytes TMA requires of a stride."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    two, B, Hq, Np = FA.bwd_scratch_shape(3, 5, N)
+    assert (two, B, Hq) == (2, 3, 5)
+    assert Np % FA.BWD_TILE == 0 and N <= Np < N + FA.BWD_TILE
+    assert (Np * 4) % 16 == 0
+    starts = range(0, N, FA.BWD_TILE)  # the query tiles of both kernels
+    assert len(starts) == Np // FA.BWD_TILE
+    assert all(r0 + FA.BWD_TILE <= Np for r0 in starts)
+
+
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------

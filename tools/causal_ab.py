@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The serve path's causal attention kernels of one or more checkouts of
-this repository on one NVIDIA GPU, in turns, each in its own process:
+"""The LM's causal attention kernels of one or more checkouts of this
+repository on one NVIDIA GPU, in turns, each in its own process:
 
     python3 tools/causal_ab.py PARENT . . PARENT
 
@@ -8,21 +8,29 @@ where each argument is a directory that holds ``src/repro_torch`` (for
 example a ``git archive`` of the parent commit unpacked under a directory
 ``.gitignore`` lists). Compare two checkouts only within one run.
 
-For each checkout, ``flash_attention(causal=True)`` on the same bf16
-inputs at ``chip_smoke.py``'s LM serve shapes (full-width Minitron-4B: 24
-query over 8 KV heads, Dh 128, a 572-slot cache; a prefill of a 512-token
-bucket with ``kv_start`` 12, a batch-4 decode, and a decode row over 9
-splits), made from a seed on the CPU: the sha256 of each output's bytes
-(o, and the decode rows' head-mean probabilities), so equal hashes across
-checkouts mean bitwise-equal outputs, and the wall ms per call (CUDA
-events around 10 back-to-back calls, median of 21 runs). One JSON line per
-checkout; the card's name and power limit come first.
+For each checkout, on the same bf16 inputs made from a seed on the CPU:
+
+* the serve cases: ``flash_attention(causal=True)`` at ``chip_smoke.py``'s
+  LM serve shapes (full-width Minitron-4B: 24 query over 8 KV heads, Dh
+  128, a 572-slot cache; a prefill of a 512-token bucket with
+  ``kv_start`` 12, a batch-4 decode, and a decode row over 9 splits);
+* the training cases, at ``chip_smoke.LM_TRAIN_CASES`` (StableLM-1.6B
+  [8, 512, 32, 64] and GQA 3:1 [2, 512, 24/8, 64]): the forward with the
+  log-sum-exp (``flash_prefill_bf16``: o, lse) and the backward
+  (``flash_prefill_bwd_bf16``: dq, dk, dv), each with its device µs per
+  call by kernel (``torch.profiler`` over 20 calls).
+
+For each output the sha256 of its bytes (equal hashes across checkouts
+mean bitwise-equal outputs), and the wall ms per call (CUDA events around
+10 back-to-back calls, median of 21 runs). One JSON line per checkout;
+the card's name and power limit come first.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -35,8 +43,67 @@ CASES = (  # label, B, Nq, q_offset, kv_len, kv_start (chip_smoke.py's)
     ("decode 9 splits", 1, 1, [571], [572], [0]))
 
 
+def _sha(t) -> str:
+    import torch
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def _device_us(fn, n: int = 20) -> dict:
+    """Device µs per call of each kernel ``fn`` runs on the card, by kernel
+    name, from ``torch.profiler`` over ``n`` calls after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import _device_rows
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, _, us in _device_rows(prof):
+        m = re.search(r"\w+_kernel(<\d+>)?", name)
+        key = m.group(0) if m else name[:60]
+        out[key] = out.get(key, 0.0) + us / n
+    return out
+
+
+def train_cases(torch, dev, time_ms) -> dict:
+    """The training pair of the checkout on the path at ``LM_TRAIN_CASES``,
+    inputs as ``chip_smoke.check_causal_training`` makes them."""
+    from chip_smoke import LM_TRAIN_CASES
+    from repro_torch.kernels.flash_attention import ops as FA
+    g = torch.Generator().manual_seed(9)
+    res = {}
+    for label, B, N, Hq, KV, Dh in LM_TRAIN_CASES:
+        q, do = (torch.randn((B, N, Hq, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, N, KV, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+
+        def fwd(q=q, k=k, v=v):
+            return FA._causal_cuda(q, k, v, None, None, None, False,
+                                   with_lse=True)
+        o, lse = fwd()
+
+        def bwd(q=q, k=k, v=v, o=o, do=do, lse=lse):
+            return FA._causal_bwd_cuda(q, k, v, o, do, lse, None)
+        grads = bwd()
+        torch.cuda.synchronize()
+        by_kernel = _device_us(bwd)
+        res[f"train {label}"] = dict(
+            fwd_sha256=[_sha(o), _sha(lse)], fwd_ms=time_ms(fwd),
+            fwd_device_us=_device_us(fwd),
+            bwd_sha256=[_sha(t) for t in grads], bwd_ms=time_ms(bwd),
+            bwd_device_us=sum(by_kernel.values()),
+            bwd_device_us_by_kernel=by_kernel)
+    return res
+
+
 def one(tree: str) -> dict:
-    """Hash and time the causal wrapper of the checkout at ``tree``."""
+    """Hash and time the causal wrappers of the checkout at ``tree``."""
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms  # puts ROOT/src on the path
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
@@ -44,7 +111,8 @@ def one(tree: str) -> dict:
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import flash_attention
     dev = backend.resolve_device("cuda")
-    build_s = backend.build(["flash_decode", "flash_prefill"])
+    build_s = backend.build(["flash_decode", "flash_prefill",
+                             "flash_prefill_bwd"])
     Hq, KV, Dh, S = 24, 8, 128, 572
     g = torch.Generator().manual_seed(8)
     res = {"tree": tree, "build_s": build_s}
@@ -62,11 +130,8 @@ def one(tree: str) -> dict:
         out = call()
         out = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
-        res[label] = dict(
-            sha256=[hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
-                                   .numpy().tobytes()).hexdigest()[:16]
-                    for t in out],
-            ms=time_ms(call))
+        res[label] = dict(sha256=[_sha(t) for t in out], ms=time_ms(call))
+    res.update(train_cases(torch, dev, time_ms))
     return res
 
 
