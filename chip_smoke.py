@@ -28,7 +28,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    causal GQA attention at full-width Minitron-4B through the kernel the
    wrapper picks: a per-slot prefill of a 512-token bucket, a batch-4
    decode and a decode row spanning all 9 key splits against a 572-slot
-   bf16 cache, two launches bitwise equal); LM training's causal pair at
+   bf16 cache, and the prefill and batch-4 decode at StableLM-1.6B's 32
+   heads of Dh 64, two launches bitwise equal); LM training's causal pair at
    full-width StableLM-1.6B ([8, 512, 32, 64]) and at GQA 3:1 ([2, 512,
    24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
    serve's, lse within 1e-5) and ``flash_prefill_bwd_bf16`` (dq, dk, dv
@@ -92,6 +93,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    operator and CUDA runtime call; the same for one continuous depth-1
    serve of the LM, with the decode and prefill kernels' device time and
    launches, each and together, against its device busy time.
+5b. Traffic (``traffic_path``): seeded traces replayed on the harness's
+   virtual clock through ``launch/serve_trace.build_driver`` and
+   ``traffic.TrafficHarness``, each replay with the launch counts set to
+   0 just before it and read just after, under sync debug mode.
+   Vision: full-width DeiT-Small with the main path's weights (4 slots,
+   planner "full", fp32); a back-to-back probe replay gives the modeled
+   capacity and mean service time, then a bursty trace of 32 requests
+   (196 / 169 / 49 patches, keep rates default / 0.7 / 0.5, half
+   soft-pruned, a deadline of 2 service times on half) at 4x capacity,
+   replayed at depths 1 and 2 and with ``quality="auto"`` under an
+   admission budget of 4 service times. LM: full-width StableLM-1.6B (24
+   layers, D=2048, 32 heads, Dh 64, vocab 100352; weights from seed 0
+   drawn on the card, served from a bf16 copy; 4 slots, a 572-slot
+   cache) replaying 8 bursty requests (prompts of 96-500 tokens, 32 new
+   tokens, a 400 ms deadline on half, 1 ms per token) at depths 1 and 2
+   and under a 1000 ms budget. Gates: (a) every kernel of the path
+   launched in each replay (the LM's once per layer of every call); (b)
+   every admitted request completed; (c) lifecycles, reports and outputs
+   digests identical at depths 1 and 2; (d) the vision logits against
+   ``forward_vit_packed`` (``ORACLE_TOL``, top-1) and the LM tokens
+   against the teacher-forced oracle; (e) the replay's outputs against a
+   direct ``serve()`` of the same requests (vision within
+   ``ORACLE_TOL``, top-1 equal; LM tokens identical); (f) the lifecycle
+   and report equal to the same replay on the CPU (vision: the same
+   weights; LM: reduced StableLM-1.6B, whose schedule counts tokens
+   only); (g) each budget rejects a request, which then has no output
+   and no slot; (h) no host wait besides the step events. Prints each
+   replay's latency percentiles, time to first dispatch, goodput, miss
+   rate, queue depth, rejections, trace fingerprint, wall and launches,
+   and, from one profiled depth-1 LM replay, the causal kernels' device
+   time per launch beside their Dh-64 serve cases of phase 3 (device
+   time, SDPA's, bound).
 6a. LM training (``lm_train_path``): ``models/steps.make_train_step`` on
    full-width StableLM-1.6B (24 layers, D=2048, 32 heads, Dh 64, vocab
    100352; 1.64 B params from seed 0 drawn on the card, scores from seed
@@ -131,18 +164,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    peak device memory, one profiled step's device busy and idle share,
    and the trained model's block density, head retained ratio and
    analytic compression ratio.
-7. A ``kernels`` JSON line (one entry per C entry point, with the
+7. The script's total wall (``total: ... s``), a ``kernels`` JSON line
+   (one entry per C entry point, with the
    wrapper call's device time as ``call_device_ms`` and the library
    call's as ``library_device_ms``; ``launches``
-   summed over the last timed serve of each path, the trained model's
-   serve and the last LM training step among them, the LM's continuous
-   depth-1 serve for the causal kernels, whose entries list each of their
+   summed over the last timed serve of each path, the depth-1 replay of
+   each trace, the trained model's serve and the last LM training step
+   among them, the LM's continuous depth-1 serve and replay for the
+   causal kernels, whose entries list each of their
    shapes under ``cases`` and head with the first), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -493,17 +529,20 @@ LM_CAUSAL_CASES = (
     ("decode 9 splits", 1, 1, [571], [572], [0]),
 )
 LM_DECODE = LM_CAUSAL_CASES[2]  # the serve's decode shape
-# the decode kernel at StableLM-1.6B's heads (32 MHA heads, Dh 64), the
-# serve's batch-4 decode windows
+# the causal kernels at StableLM-1.6B's heads (32 MHA heads, Dh 64), the
+# serves' shapes: a per-slot prefill of a 512-token bucket holding a
+# 500-token prompt, and the batch-4 decode windows
+LM_PREFILL_DH64 = ("prefill Dh 64", 1, 512, [0], [512], [12])
 LM_DECODE_DH64 = ("decode Dh 64", 4, 1, [129, 289, 419, 570],
                   [130, 290, 420, 571], [32, 56, 0, 12])
+LM_DH64 = (LM_PREFILL_DH64, LM_DECODE_DH64)
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the largest element
 
 
 def check_flash_attention_causal(torch, dev):
     """The two causal kernels, each through the wrapper at the LM path's
-    shapes (``LM_CAUSAL_CASES``, and the decode at StableLM-1.6B's 32
-    heads of Dh 64, ``LM_DECODE_DH64``; the wrapper picks
+    shapes (``LM_CAUSAL_CASES``, and the prefill and decode at
+    StableLM-1.6B's 32 heads of Dh 64, ``LM_DH64``; the wrapper picks
     ``flash_decode_bf16``
     for one query row, ``flash_prefill_bf16`` for more) against the plain
     version: the output within one bf16 ulp of the largest plain element
@@ -521,13 +560,13 @@ def check_flash_attention_causal(torch, dev):
     from repro_torch.configs import STABLELM_1_6B
     heads = {c[0]: (MINITRON_4B.num_heads, MINITRON_4B.num_kv_heads,
                     MINITRON_4B.head_dim) for c in LM_CAUSAL_CASES}
-    heads[LM_DECODE_DH64[0]] = (STABLELM_1_6B.num_heads,
-                                STABLELM_1_6B.num_kv_heads,
-                                STABLELM_1_6B.head_dim)
+    for case in LM_DH64:
+        heads[case[0]] = (STABLELM_1_6B.num_heads,
+                          STABLELM_1_6B.num_kv_heads, STABLELM_1_6B.head_dim)
     S = 572
     g = torch.Generator().manual_seed(8)
     cases = {"flash_prefill_bf16": [], "flash_decode_bf16": []}
-    for label, B, Nq, off, lens, starts in (*LM_CAUSAL_CASES, LM_DECODE_DH64):
+    for label, B, Nq, off, lens, starts in (*LM_CAUSAL_CASES, *LM_DH64):
         Hq, KV, Dh = heads[label]
         q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
         k, v = (torch.randn((B, S, KV, Dh), generator=g).to(
@@ -767,6 +806,29 @@ PIPE_KEYS = ("steps", "pipeline_block_s", "pipeline_dispatch_s",
              "plan_precision_fp16", "plan_precision_int8")
 
 
+def timed_window(torch, backend, fn):
+    """Run ``fn()`` as one measured window on the card: launch counts set
+    to 0 just before and read just after, the host's waits on the card
+    besides the pipelines' step events (blocking copies, ``.item()``)
+    counted by PyTorch's sync debug mode. Returns (``fn``'s result, wall
+    seconds, launch counts, host syncs)."""
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    syncs = sum("synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    return result, dt, backend.launches(), syncs
+
+
 def serve_stream(torch, backend, eng, soft=False):
     """Serve the 16-request stream once on ``eng`` (with ``soft``, every
     other request soft-pruned): launch counts set to 0 just before and
@@ -781,23 +843,11 @@ def serve_stream(torch, backend, eng, soft=False):
     for r in reqs:
         r.soft_prune = soft and r.uid % 2 == 0
     before = eng.stats()
-    torch.cuda.synchronize()
-    backend.reset_launches()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = eng.serve(reqs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    counts = backend.launches()
+    out, dt, counts, syncs = timed_window(torch, backend,
+                                          lambda: eng.serve(reqs))
     after = eng.stats()
     pipe = {k: after[k] - before[k] for k in PIPE_KEYS}
-    pipe["host_syncs"] = sum("synchronizing CUDA operation" in str(w.message)
-                             for w in caught)
+    pipe["host_syncs"] = syncs
     return reqs, out, dt, counts, pipe
 
 
@@ -1038,23 +1088,11 @@ def serve_lm(torch, backend, eng, continuous):
     ``host_syncs``)."""
     reqs = lm_requests(eng.cfg)
     before = eng.stats()
-    torch.cuda.synchronize()
-    backend.reset_launches()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = eng.serve(reqs, continuous=continuous)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    counts = backend.launches()
+    out, dt, counts, syncs = timed_window(
+        torch, backend, lambda: eng.serve(reqs, continuous=continuous))
     after = eng.stats()
     st = {k: after[k] - before[k] for k in LM_KEYS}
-    st["host_syncs"] = sum("synchronizing CUDA operation" in str(w.message)
-                           for w in caught)
+    st["host_syncs"] = syncs
     return reqs, out, dt, counts, st
 
 
@@ -1408,6 +1446,293 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                       walls[f"{path} soft"], f"main path {path} soft",
                       soft=True, precision=precision,
                       granularity=granularity)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: trace replays (``traffic``) through ``launch/serve_trace``
+# ---------------------------------------------------------------------------
+TRAFFIC_SEED = 11
+TRAFFIC_SIZES = (196, 169, 49)  # full, near-full and half-side images
+TRAFFIC_N = 32                  # vision trace length
+TRAFFIC_LOAD = 4.0              # offered load over the modeled capacity
+TRAFFIC_DEADLINE = 2.0          # vision SLO, in mean service times
+TRAFFIC_LIMIT = 4.0             # vision admission budget, the same unit
+# the LM trace's admission budget in modeled ms (1 ms per token): the
+# first four requests' prompts and tokens fill it, so the rest of the
+# burst is refused (4 of 8 at this trace and seed, on any width)
+LM_TRAFFIC_LIMIT_MS = 1000.0
+# the entry points each trace path must launch in every replay
+TRAFFIC_KERNELS = {
+    "vision": ("sbmm_f32", "flash_attention_f32", "token_drop_f32",
+               "token_package_f32"),
+    "lm": ("flash_prefill_bf16", "flash_decode_bf16"),
+}
+REPORT_KEYS = ("latency_p50_ms", "latency_p95_ms", "latency_p99_ms",
+               "ttfd_p50_ms", "goodput_rps", "deadline_miss_rate",
+               "peak_queue_depth", "rejected")
+
+
+def traffic_driver(kind, depth, dev, quality="strict", reduced=False):
+    """``serve_trace.build_driver`` at the phase's settings: 4 slots, seed
+    0 (the main path's DeiT-Small weights and scores; StableLM-1.6B drawn
+    on ``dev``), the LM's 572-slot cache, 1 modeled ms per LM token."""
+    from repro_torch.launch.serve_trace import build_driver
+    arch = "deit-small" if kind == "vision" else "stablelm-1.6b"
+    return build_driver(kind, arch, 4, 0, depth, quality, 0.4, 1.0,
+                        reduced=reduced, max_len=LM_MAX_LEN, device=dev)
+
+
+def lm_driver_like(drv, depth):
+    """A fresh LM driver (its own scheduler, cache and pipeline) at
+    pipeline depth ``depth`` serving ``drv``'s weights: the engine's bf16
+    copy, shared and not drawn again."""
+    from repro_torch.serving import ServeEngine
+    from repro_torch.traffic import LMDriver
+    eng = drv.engine
+    ec = dataclasses.replace(eng.ec, pipeline_depth=depth)
+    return LMDriver(ServeEngine(eng.cfg, eng.params, ec, device=eng.device),
+                    per_token_ms=drv.per_token_ms)
+
+
+def replay(torch, backend, driver, trace, limit=None):
+    """Replay ``trace`` through ``driver`` on the card: launch counts set to
+    0 just before and read just after, the host's waits on the card
+    besides the step events counted by PyTorch's sync debug mode. Returns
+    (harness, report, wall seconds, launch counts, host syncs)."""
+    from repro_torch.traffic import TrafficHarness
+    harness = TrafficHarness(driver, admission_limit_ms=limit)
+    rep, dt, counts, syncs = timed_window(torch, backend,
+                                          lambda: harness.run(trace))
+    return harness, rep, dt, counts, syncs
+
+
+def check_replay(kind, label, trace, harness, rep, dt, counts, syncs):
+    """Gates (a) and (b) of one replay, then its printed line: every
+    kernel of the path launched, every admitted request completed (finite
+    logits of the model's classes, or every token)."""
+    import numpy as np
+    n = len(trace.requests)
+    for name in TRAFFIC_KERNELS[kind]:
+        require(counts[name] > 0, f"traffic {label}: kernel {name} never "
+                                  f"launched during the replay")
+    served = set(range(n)) - {r.uid for r in harness.records.values()
+                              if r.rejected}
+    require(rep["completed"] + rep["rejected"] == n
+            and set(harness.outputs) == served,
+            f"traffic {label}: {rep['completed']} completed and "
+            f"{rep['rejected']} rejected of {n}")
+    for uid, out in harness.outputs.items():
+        if kind == "vision":
+            ok = out.shape == (harness.driver.engine.cfg.num_classes,) \
+                and bool(np.isfinite(out).all())
+        else:
+            ok = len(out) == trace.requests[uid].max_new_tokens
+        require(ok, f"traffic {label}: uid {uid} has no full output")
+    print(f"traffic {label}: "
+          + ", ".join(f"{k}={rep[k]:.6g}" for k in REPORT_KEYS)
+          + f"; fingerprint {trace.fingerprint()}; wall {dt:.4f} s; "
+          f"launches { {k: v for k, v in counts.items() if v} }; host "
+          f"syncs besides the step events {syncs}", flush=True)
+
+
+def check_rejections(label, harness):
+    """Gate (g): the budget refused at least one request, and a refused
+    uid has no output and never took a slot."""
+    rejected = {d.uid for d in harness.controller.decisions
+                if d.action == "reject"}
+    admitted = {u for kind, u in harness.driver.scheduler.events
+                if kind == "admit"}
+    require(bool(rejected), f"traffic {label}: the admission budget "
+                            f"rejected nothing")
+    require(not rejected & (set(harness.outputs) | admitted),
+            f"traffic {label}: a rejected uid has an output or a slot")
+    print(f"traffic {label}: admission {harness.controller.stats()}",
+          flush=True)
+
+
+def same_replays(label, a, b, rep_a, rep_b, digests=True):
+    """Gate (c) / (f): equal lifecycles ``a`` and ``b``, reports equal
+    apart from the outputs digest (and, with ``digests``, equal digests
+    too)."""
+    require(a == b, f"traffic {label}: lifecycles differ")
+    strip = [{k: v for k, v in r.items() if k != "outputs_digest"}
+             for r in (rep_a, rep_b)]
+    require(strip[0] == strip[1], f"traffic {label}: reports differ")
+    if digests:
+        require(rep_a["outputs_digest"] == rep_b["outputs_digest"],
+                f"traffic {label}: outputs digests differ")
+    print(f"traffic {label}: lifecycles and reports identical"
+          + (" (outputs digests too)" if digests else ""), flush=True)
+
+
+def traffic_vision(torch, dev):
+    """Full-width DeiT-Small replaying a bursty trace at 4x its modeled
+    capacity. Returns (launch counts of the depth-1 replay, {replay: host
+    syncs})."""
+    import numpy as np
+    from repro_torch.kernels import backend
+    from repro_torch.traffic import TraceSpec, make_trace
+    # saturation capacity on the virtual clock: a back-to-back replay
+    probe = TraceSpec(n=16, rate_rps=1e6, process="poisson",
+                      sizes=TRAFFIC_SIZES, r_ts=(None,), deadlines_ms=(None,))
+    h, rep, _, _, _ = replay(torch, backend, traffic_driver("vision", 1, dev),
+                             make_trace(probe, seed=TRAFFIC_SEED + 101))
+    capacity, service_ms = rep["throughput_rps"], rep["virtual_ms"] / probe.n
+    spec = TraceSpec(kind="vision", process="bursty", n=TRAFFIC_N,
+                     rate_rps=TRAFFIC_LOAD * capacity, sizes=TRAFFIC_SIZES,
+                     r_ts=(None, 0.7, 0.5), soft_prob=0.5,
+                     deadlines_ms=(TRAFFIC_DEADLINE * service_ms, None))
+    trace = make_trace(spec, seed=TRAFFIC_SEED)
+    print(f"traffic vision: modeled capacity {capacity:.6g} requests/s, mean "
+          f"service {service_ms:.6g} ms (probe: 16 back-to-back requests); "
+          f"trace {TRAFFIC_N} bursty requests at {spec.rate_rps:.6g}/s, "
+          f"deadline {spec.deadlines_ms[0]:.6g} ms on half", flush=True)
+    runs, syncs = {}, {}
+    for label, depth, quality, limit in (
+            ("depth 1", 1, "strict", None), ("depth 2", 2, "strict", None),
+            ("admission", 1, "auto", TRAFFIC_LIMIT * service_ms)):
+        drv = traffic_driver("vision", depth, dev, quality=quality)
+        h, rep, dt, counts, n_syncs = replay(torch, backend, drv, trace,
+                                             limit)
+        check_replay("vision", f"vision {label}", trace, h, rep, dt, counts,
+                     n_syncs)
+        if limit is not None:
+            check_rejections(f"vision {label}", h)
+        if label == "depth 1":
+            drv1 = drv
+        runs[label] = (h.lifecycle(), rep, h.outputs, counts)
+        syncs[f"traffic vision {label}"] = [n_syncs]
+    (life1, rep1, out1, counts1), (life2, rep2, _, _) = (runs["depth 1"],
+                                                         runs["depth 2"])
+    require(rep1["rejected"] == 0, "traffic vision: a rejection without a "
+                                   "budget")
+    same_replays("vision depth 1 vs 2", life1, life2, rep1, rep2)
+    reqs = [drv1.materialize(tr) for tr in trace.requests]
+    check_against_oracle(torch, drv1.engine.cfg, drv1.engine, reqs, out1,
+                         "fp32", "traffic vision depth 1")
+    direct = traffic_driver("vision", 1, dev)
+    out = direct.engine.serve([direct.materialize(tr)
+                               for tr in trace.requests])
+    tol, worst = ORACLE_TOL["fp32"], 0.0
+    for uid, ref in out.items():
+        got = out1[uid]
+        err = float(np.abs(got - ref).max()) / max(1.0, float(
+            np.abs(ref).max()))
+        worst = max(worst, err)
+        require(err <= tol and int(np.argmax(got)) == int(np.argmax(ref)),
+                f"traffic vision: uid {uid}: replay vs direct serve "
+                f"max|d|/max(1,max|ref|)={err:.3g} (tolerance {tol}) or "
+                f"top-1 differs")
+    print(f"traffic vision: replay vs direct serve() of the same requests: "
+          f"top-1 {len(out)}/{len(out)} equal, max|d|/max(1,max|ref|) = "
+          f"{worst:.3g} (tolerance {tol})", flush=True)
+    cpu_h, cpu_rep, cpu_dt, _, _ = replay(torch, backend, traffic_driver(
+        "vision", 1, "cpu"), trace)
+    same_replays(f"vision card vs CPU (full width; CPU replay wall "
+                 f"{cpu_dt:.2f} s)", life1, cpu_h.lifecycle(), rep1, cpu_rep,
+                 digests=False)
+    return counts1, syncs
+
+
+def traffic_lm(torch, dev, checks):
+    """Full-width StableLM-1.6B replaying a bursty trace of 8 requests.
+    Returns (launch counts of the depth-1 replay, {replay: host syncs})."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import backend
+    from repro_torch.traffic import TraceSpec, make_trace
+    spec = TraceSpec(kind="lm", process="bursty", n=8, rate_rps=150.0,
+                     prompt_sizes=LM_PROMPTS, max_new_tokens=LM_MAX_NEW,
+                     deadlines_ms=(400.0, None))
+    trace = make_trace(spec, seed=TRAFFIC_SEED)
+    # the weights are drawn once, by the first replay's driver; every later
+    # engine serves them from its own scheduler, cache and pipeline
+    drv1 = traffic_driver("lm", 1, dev)
+    runs, syncs = {}, {}
+    for label, depth, limit in (("depth 1", 1, None), ("depth 2", 2, None),
+                                ("admission", 1, LM_TRAFFIC_LIMIT_MS)):
+        drv = drv1 if label == "depth 1" else lm_driver_like(drv1, depth)
+        h, rep, dt, counts, n_syncs = replay(torch, backend, drv, trace,
+                                             limit)
+        check_replay("lm", f"lm {label}", trace, h, rep, dt, counts, n_syncs)
+        st, layers = drv.engine.stats(), drv.engine.cfg.num_layers
+        calls = st["runner_prefill_calls"] + st["runner_prefill_slot_calls"]
+        require(counts["flash_prefill_bf16"] == layers * calls
+                and counts["flash_decode_bf16"]
+                == layers * st["runner_decode_calls"],
+                f"traffic lm {label}: causal launches {counts} are not one "
+                f"per layer of every prefill ({calls}) and decode "
+                f"({st['runner_decode_calls']}) call")
+        if limit is not None:
+            check_rejections(f"lm {label}", h)
+        runs[label] = (h.lifecycle(), rep, h.outputs, counts)
+        syncs[f"traffic lm {label}"] = [n_syncs]
+    (life1, rep1, out1, counts1), (life2, rep2, out2, _) = (runs["depth 1"],
+                                                            runs["depth 2"])
+    require(rep1["rejected"] == 0, "traffic lm: a rejection without a budget")
+    require(out1 == out2, "traffic lm: depth 1 and 2 tokens differ")
+    same_replays("lm depth 1 vs 2", life1, life2, rep1, rep2)
+    eng = drv1.engine
+    reqs = [drv1.materialize(tr) for tr in trace.requests]
+    for r in reqs:
+        r.generated = list(out1[r.uid])
+    check_lm_oracle(torch, eng.cfg, eng.params, reqs, dev,
+                    "traffic lm depth 1")
+    direct = lm_driver_like(drv1, 1)
+    out = direct.engine.serve([direct.materialize(tr)
+                               for tr in trace.requests], continuous=True)
+    require(out == out1, "traffic lm: replay and direct serve() "
+                         "tokens differ")
+    print("traffic lm: replay and direct serve() of the same requests: "
+          "tokens identical (8/8)", flush=True)
+    cpu_h, cpu_rep, cpu_dt, _, _ = replay(torch, backend, traffic_driver(
+        "lm", 1, "cpu", reduced=True), trace)
+    same_replays(f"lm card (full width) vs CPU (reduced; CPU replay wall "
+                 f"{cpu_dt:.2f} s)", life1, cpu_h.lifecycle(), rep1, cpu_rep,
+                 digests=False)
+    # the causal kernels' device time per launch over one profiled depth-1
+    # replay (a fresh engine), beside their Dh-64 serve cases of phase 3
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for attempt in range(3):  # a window may lack its device records
+        with profile(activities=acts) as prof:
+            replay(torch, backend, lm_driver_like(drv1, 1), trace)
+        rows = _device_rows(prof)
+        if all(any(kernel_symbol(k) in r[0] for r in rows)
+               for k in TRAFFIC_KERNELS["lm"]):
+            break
+        print(f"profile traffic lm: window {attempt + 1} lacks a causal "
+              f"kernel's records; profiling again", flush=True)
+    busy_us = sum(r[2] for r in rows)
+    print(f"profile traffic lm depth 1: device busy {busy_us / 1e3:.3f} ms",
+          flush=True)
+    for c in checks:
+        if c["name"] not in TRAFFIC_KERNELS["lm"]:
+            continue
+        mine = [r for r in rows if kernel_symbol(c["name"]) in r[0]]
+        n, us = sum(r[1] for r in mine), sum(r[2] for r in mine)
+        case = next(k for k in c["cases"] if "Dh 64" in k["label"])
+        require(n > 0, f"profile traffic lm: no {c['name']} launch seen")
+        print(f"  {c['name']} at Dh 64: {n} launches profiled ("
+              f"{counts1[c['name']]} in the unprofiled replay), "
+              f"{us / n:.2f} us per launch on the card over the replay; at "
+              f"its Dh 64 serve "
+              f"case ({case['shapes']}): device "
+              f"{case['device_ms'] * 1e3:.2f} us per launch, SDPA "
+              f"{case['library_device_ms'] * 1e3:.2f} us per call, bound "
+              f"{case['bound_ms'] * 1e3:.2f} us ({case['bound_by']})",
+              flush=True)
+    return counts1, syncs
+
+
+def traffic_path(torch, dev, checks):
+    """Phase 5b. Returns ({path: launch counts of its depth-1 replay},
+    {replay: host syncs})."""
+    t0 = time.perf_counter()
+    vision_counts, syncs = traffic_vision(torch, dev)
+    lm_counts, lm_syncs = traffic_lm(torch, dev, checks)
+    syncs.update(lm_syncs)
+    torch.cuda.empty_cache()
+    print(f"traffic: phase wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"traffic vision": vision_counts, "traffic lm": lm_counts}, syncs
 
 
 # LM training's causal kernel pair at StableLM-1.6B's shape (32 heads, MHA,
@@ -2102,6 +2427,7 @@ REPLACES = {  # the reference's pallas_call each kernel stands in for
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2160,6 +2486,9 @@ def main() -> int:
     profile_lm(torch, dev, *lm_model)
     del lm_model
     torch.cuda.empty_cache()
+    traffic_counts, traffic_syncs = traffic_path(torch, dev, checks)
+    path_counts.update(traffic_counts)
+    syncs.update(traffic_syncs)
     path_counts["lm train"] = lm_train_path(torch, dev)
     path_counts["trained fp32"] = train_path(torch, dev)
     for key, n in syncs.items():
@@ -2168,6 +2497,7 @@ def main() -> int:
 
     launches = {name: sum(c[name] for c in path_counts.values())
                 for name in backend.ENTRY_POINTS}
+    print(f"total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": c["name"], "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{c['source']}",

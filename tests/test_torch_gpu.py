@@ -748,6 +748,52 @@ def test_lm_engine_on_card_matches_oracle(dev, continuous):
             assert _teacher_forced_gaps(cfg, params, r, dev).max() <= 0.05
 
 
+@pytest.mark.parametrize("kind", ["vision", "lm"])
+def test_trace_replay_on_card_same_at_both_depths(dev, kind):
+    """A short bursty trace replayed on the card through
+    ``serve_trace.build_driver`` and ``TrafficHarness`` at the reduced
+    configs (DeiT-Small with half the requests soft-pruned; StableLM-1.6B
+    at bf16): every request served, the path's kernels launched, no host
+    wait besides the step events, lifecycles, reports and outputs digests
+    identical at pipeline depths 1 and 2, and the lifecycle equal to the
+    same replay on the CPU (plans are host decisions)."""
+    from repro_torch.launch.serve_trace import build_driver
+    from repro_torch.traffic import TraceSpec, TrafficHarness, make_trace
+    if kind == "vision":
+        spec = TraceSpec(n=8, rate_rps=60000.0, process="bursty",
+                         sizes=(16, 9, 4), r_ts=(None, 0.7),
+                         deadlines_ms=(0.05, None), soft_prob=0.5)
+        kernels = ("sbmm_f32", "flash_attention_f32", "token_drop_f32",
+                   "token_package_f32")
+    else:
+        spec = TraceSpec(n=6, rate_rps=150.0, process="bursty", kind="lm",
+                         prompt_sizes=(8, 16, 40), max_new_tokens=6,
+                         deadlines_ms=(80.0, None))
+        kernels = ("flash_prefill_bf16", "flash_decode_bf16")
+    trace = make_trace(spec, seed=9)
+    runs = []
+    for depth, device in ((1, dev), (2, dev), (1, "cpu")):
+        h = TrafficHarness(build_driver(kind, "", 2, 0, depth, "strict",
+                                        0.4, 1.0, max_len=128,
+                                        device=device))
+        backend.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rep = h.run(trace)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert rep["completed"] == len(trace.requests)
+        if device != "cpu":
+            n = backend.launches()
+            assert all(n[k] > 0 for k in kernels), n
+        runs.append((h.lifecycle(), rep))
+    assert runs[0] == runs[1]
+    assert runs[2][0] == runs[0][0]
+    strip = [{k: v for k, v in rep.items() if k != "outputs_digest"}
+             for _, rep in (runs[0], runs[2])]
+    assert strip[0] == strip[1]
+
+
 # ---------------------------------------------------------------------------
 # Training (Algorithm 1): plain PyTorch on the card, no kernel
 # ---------------------------------------------------------------------------
