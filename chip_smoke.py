@@ -11,9 +11,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``nvidia-smi``).
 2. Build: compile the hand-written kernels (``kernels/csrc/*.cu``, one
    ``nvcc`` each, concurrently) and print the build seconds; from the
-   SASS, the fp32 non-causal attention kernels issue no tensor-core
-   instruction (no TF32), the fp16 ones issue HMMA, and the causal
-   backward's two kernels (dQ, dK/dV) issue HGMMA (wgmma) and no HMMA.
+   SASS, the fp32 non-causal attention kernels and their backward's issue
+   no tensor-core instruction (no TF32), the fp16 ones issue HMMA, and the
+   causal backward's two kernels (dQ, dK/dV) issue HGMMA (wgmma) and no
+   HMMA.
 3. Every kernel entry point against its plain PyTorch version on the
    card, at the main path's shapes (DeiT-Small: M=788 rows for the SBMMs
    over fp32, fp16 and int8 blocks with per-block and per-channel scales;
@@ -38,7 +39,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel/plain/library times (CUDA events, median of 21 runs of 10 calls
    after warm-up) and each kernel's least possible time on an H100 SXM
    (published HBM rate, fp32 CUDA-core rate, and the fp16/bf16
-   tensor-core rate for the products of two 16-bit values). Each SBMM
+   tensor-core rate for the products of two 16-bit values). Algorithm 1's
+   pair at full-width DeiT-Small, batch 64, at each span's N (197, 140,
+   100, 72; 6 heads, Dh 64) and at the reduced config ([8, 17, 4, 16]):
+   ``flash_attention_f32`` writing the log-sum-exp (o and probs bitwise
+   the serve's, lse within 1e-5) and ``flash_attention_bwd_f32`` with and
+   without the CLS probabilities' gradient (dq, dk, dv within 1e-5 x
+   max(1, max|plain|), two launches bitwise equal); the TDM's pair at
+   layers 2, 6 and 9 (z [64, 197 / 140 / 100, 384], k = 138 / 98 / 70)
+   and the reduced config: ``token_drop_f32`` writing the kept indices
+   (output bitwise the serve's, indices the plain version's) and
+   ``token_drop_bwd_f32`` (dz bitwise at CLS and kept rows, dropped rows
+   and dscores within 1e-6 x max(1, max|plain|), dscores 0 at CLS and
+   kept rows, two launches bitwise equal). Each SBMM
    entry point also recomputes every row of its 788-row call alone (M = 1)
    and must match it bitwise, and prints the host's cost of issuing one
    ``sbmm()`` call and one library call; the host's cost of reading the
@@ -64,7 +77,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``ORACLE_TOL``), top-1 equal; at fp16 it also prints how far the
    oracle alone moves for a one-ulp change of its fp32 input; at fp32 the
    two depths agree and the packed forward agrees with the plain
-   masked-dense reference (no kernel) with token pruning off.
+   masked-dense reference (no kernel: ``forward_vit`` on CPU copies) with
+   token pruning off.
    c. The dense LM: full-width Minitron-4B (32 layers, D=3072, 24 query
       over 8 KV heads, vocab 256000; random weights from seed 0 drawn on
       the card, served from a bf16 copy) answering 8 requests (prompts of
@@ -148,29 +162,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    teacher (seed 1), batches of 64 from ``synthetic_vit_batch`` by step,
    AdamW (lr ``TRAIN_LR``, weight decay 0.01), ``total_steps`` 20, 11
    steps, fp32 with TF32 asserted off. The forward is ``forward_vit``
-   (plain PyTorch, cuBLAS), differentiated by autograd: no kernel wrapper
-   may launch. Gates: (a) the last loss below the first; (b) each step's
+   differentiated by autograd, its attention and TDM on the kernels in
+   both directions (``NonCausalAttention``, ``TokenDrop``), its matmuls
+   cuBLAS. Gates: (a) the last loss below the first; (b) each step's
    r_b the cubic schedule's, non-increasing; (c) the scores moved; (d)
-   step 0 on the card against the same step on the CPU: kept token
-   indices at every TDM first, then the loss parts, then params and
+   step 0 on the card against the same step on the CPU (plain versions):
+   the same tokens kept at every TDM first, by identity (the smallest
+   score gap at the k-th kept token is printed, and the rows where
+   near-tied kept tokens came out in another top-k order, with their
+   smallest adjacent score gap), then the loss parts, then params and
    scores after the update (``TRAIN_*_TOL``; again at AdamW lr = eps =
-   1, where the update is about the clipped gradient); (e) the trained
-   scores' hard masks packed and the model served (16 requests, fp32,
-   ``VisionEngine``): ``sbmm_f32``, ``flash_attention_f32`` and
+   1, where the update is about the clipped gradient); (e) every step
+   launches exactly ``flash_attention_f32`` 24 times (student 12 with
+   lse, teacher 12), ``flash_attention_bwd_f32`` 12, ``token_drop_f32``
+   3 and ``token_drop_bwd_f32`` 3, nothing else, and no plain version of
+   attention or the TDM (forward or backward) runs on the card; (f) the
+   trained scores' hard masks packed and the model served (16 requests,
+   fp32, ``VisionEngine``): ``sbmm_f32``, ``flash_attention_f32`` and
    ``token_drop_f32`` launched, logits against the offline oracle within
    1e-4 and the packed forward against ``forward_vit`` on the masked
-   params (no TDM) within 1e-4. Prints the wall per step (median of 10
-   after step 0, the batch on the card beforehand), training images/s,
-   peak device memory, one profiled step's device busy and idle share,
-   and the trained model's block density, head retained ratio and
+   params (no TDM, on CPU copies: the kernel-free oracle) within 1e-4.
+   Prints the wall per step (median of 10 after step 0, the batch on the
+   card beforehand), training images/s, peak device memory, one profiled
+   step's device busy and idle share and the four kernels' device time
+   in it, and the trained model's block density, head retained ratio and
    analytic compression ratio.
 7. The script's total wall (``total: ... s``), a ``kernels`` JSON line
    (one entry per C entry point, with the
    wrapper call's device time as ``call_device_ms`` and the library
    call's as ``library_device_ms``; ``launches``
    summed over the last timed serve of each path, the depth-1 replay of
-   each trace, the trained model's serve and the last LM training step
-   among them, the LM's continuous depth-1 serve and replay for the
+   each trace, the trained model's serve and the last LM and ViT training
+   steps among them, the LM's continuous depth-1 serve and replay for the
    causal kernels, whose entries list each of their
    shapes under ``cases`` and head with the first), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -481,9 +504,10 @@ def _sass_ops(backend, lib):
 
 def check_tensor_cores(backend):
     """Which kernels issue tensor-core instructions, from their SASS: the
-    non-causal fp32 tier's none (no TF32 or other split product), its fp16
-    tier's HMMA; the causal backward's two kernels (dQ, dK/dV) at each head
-    width HGMMA (wgmma) and no HMMA. Prints the count per kernel."""
+    non-causal fp32 tier's none (no TF32 or other split product), nor its
+    backward's two kernels; its fp16 tier's HMMA; the causal backward's two
+    kernels (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA.
+    Prints the count per kernel."""
     from repro_torch.kernels.flash_attention.ops import CAUSAL_HEAD_DIMS
     bwd_dims = CAUSAL_HEAD_DIMS["flash_prefill_bwd_bf16"]
     tiers = {}
@@ -507,6 +531,19 @@ def check_tensor_cores(backend):
             require(not ops, f"{kern} issues tensor-core instructions {ops}")
         else:
             require(ops.get("HMMA", 0) > 0, f"{kern} issues no HMMA")
+    vit_bwd = {}
+    for fn, ops in _sass_ops(backend, "flash_attention_bwd").items():
+        for part in ("dq", "dkdv"):
+            if f"flash_attention_bwd_f32_{part}_kernel" in fn:
+                dh = fn.split("_kernelILi")[1].split("E")[0]
+                vit_bwd[f"flash_attention_bwd_f32_{part}_kernel<{dh}>"] = ops
+    print("sass: tensor-core instructions of the fp32 attention backward "
+          + json.dumps(vit_bwd), flush=True)
+    require(len(vit_bwd) == 4, f"expected the fp32 backward's dq and dkdv "
+                               f"kernels at Dh 16 and 64 in the SASS, found "
+                               f"{sorted(vit_bwd)}")
+    for kern, ops in vit_bwd.items():
+        require(not ops, f"{kern} issues tensor-core instructions {ops}")
     require(len(bwd) == 2 * len(bwd_dims),
             f"expected the backward's dq and dkdv kernels at Dh {bwd_dims} "
             f"in the SASS, found {sorted(bwd)}")
@@ -999,15 +1036,15 @@ def main_path(torch, dev):
         dtype=torch.float32).to(dev)
     y = PR.forward_vit_packed(cfg, eng.segments.params, eng.segments.packed,
                               x, use_tdm=False, device=dev).logits
-    y_ref = PR.masked_dense_reference(cfg, params, scores, x,
-                                      use_tdm=False).logits
+    y_ref = masked_dense_on_cpu(cfg, params, scores, x)
+    y = y.cpu()
     err = (y - y_ref).abs().max().item()
     scale = max(1.0, y_ref.abs().max().item())
     require(err <= 1e-4 * scale, f"packed vs masked-dense: max|d|={err:.3g}")
     require(bool((y.argmax(-1) == y_ref.argmax(-1)).all()),
             "packed vs masked-dense: top-1 differs")
-    print(f"packed (kernels) vs masked-dense (plain), no TDM: max|d| = "
-          f"{err:.3g} (tolerance 1e-4 x {scale:.3g})", flush=True)
+    print(f"packed (kernels) vs masked-dense (plain, on the CPU), no TDM: "
+          f"max|d| = {err:.3g} (tolerance 1e-4 x {scale:.3g})", flush=True)
 
     # (b) the fp16 and int8 tiers, every other request soft-pruned
     for path, precision, granularity in TIERS:
@@ -1249,7 +1286,9 @@ def lm_path(torch, dev):
 # ---------------------------------------------------------------------------
 # entry points that launch more than one kernel, each named
 # ``<entry point>_<part>_kernel``
-KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2}  # dQ (with D), dK/dV
+# entry points that run two kernels per launch: dQ (with D), then dK/dV
+KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2,
+                      "flash_attention_bwd_f32": 2}
 
 
 def kernel_symbol(entry_point: str) -> str:
@@ -1876,6 +1915,285 @@ def check_causal_training(torch, dev, prefill):
         cases=cases)
 
 
+# Algorithm 1's attention and TDM shapes at full-width DeiT-Small, batch 64
+# (``TRAIN_BATCH``): (label, B, N, H, Dh) per span of layers between TDMs,
+# then the reduced config's; the first case of each kernel is its headline
+VIT_ATTN_CASES = (("layers 0-2", 64, 197, 6, 64),
+                  ("layers 3-6", 64, 140, 6, 64),
+                  ("layers 7-9", 64, 100, 6, 64),
+                  ("layers 10-11", 64, 72, 6, 64),
+                  ("reduced", 8, 17, 4, 16))
+# (label, B, N, D, k) per TDM: layers 2, 6 and 9, then the reduced config's
+VIT_TDM_CASES = (("layer 2", 64, 197, 384, 138),
+                 ("layer 6", 64, 140, 384, 98),
+                 ("layer 9", 64, 100, 384, 70),
+                 ("reduced", 8, 17, 64, 12))
+# fp32 sums in another order: the attention backward's outputs within 1e-5
+# of max(1, max|plain|), the token-drop backward's dropped rows and
+# dscores within 1e-6 of it (CLS and kept rows bitwise)
+VIT_BWD_TOL = 1e-5
+TDM_BWD_TOL = 1e-6
+
+
+def _as_cases(check):
+    """The check's own measurement as its first case (``serve``), so that
+    training cases can follow it under ``cases``."""
+    if "cases" not in check:
+        check["cases"] = [{**check, "label": "serve"}]
+    return check["cases"]
+
+
+def check_vit_attention_training(torch, dev, fwd_check):
+    """The non-causal attention of Algorithm 1's training, through the
+    functions ``NonCausalAttention`` calls, against the plain versions at
+    ``VIT_ATTN_CASES``:
+
+    * ``flash_attention_f32`` writing the log-sum-exp (a case of
+      ``fwd_check`` per shape): o and the CLS probabilities bitwise the
+      serve's (the same call with a null lse), lse within ``LSE_TOL``;
+    * ``flash_attention_bwd_f32`` (two kernels per launch: dQ with D, then
+      dK/dV) against ``attention_bwd_plain`` on the same o, dO and lse,
+      with the CLS probabilities' gradient (dscores / H at every head) and
+      without: dq, dk, dv within ``VIT_BWD_TOL`` x max(1, max|plain|), two
+      launches bitwise equal. Its library call is SDPA's fp32 forward and
+      backward, timed only.
+
+    Returns the backward's check, one entry per case under ``cases``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
+    g = torch.Generator().manual_seed(12)
+    fwd_cases = _as_cases(fwd_check)
+    cases = []
+    for label, B, N, H, Dh in VIT_ATTN_CASES:
+        q, k, v, do = (torch.randn((B, N, H, Dh), generator=g).to(dev)
+                       for _ in range(4))
+        dsc = torch.randn((B, N), generator=g).to(dev)
+        dprobs = (dsc[:, None, :] / H).expand(B, H, N)
+        shapes = f"q,k,v,o,dO[{B},{N},{H},{Dh}] fp32 non-causal"
+        pairs = B * H * N * N
+
+        def fwd(q=q, k=k, v=v):
+            return FA._attention_cuda(q, k, v, None, True, with_lse=True)
+
+        def fwd_plain(q=q, k=k, v=v):
+            o, probs = FA.attention_plain(q, k, v)
+            return o, probs, FA.attention_lse_plain(q, k)
+
+        before = backend.launches()["flash_attention_f32"]
+        o, probs, lse = fwd()
+        o_serve, probs_serve, _ = FA._attention_cuda(q, k, v, None, True)
+        o_ref, probs_ref, lse_ref = fwd_plain()
+        torch.cuda.synchronize()
+        require(backend.launches()["flash_attention_f32"] == before + 2,
+                f"flash_attention_f32 ({label}, lse) did not launch")
+        require(torch.equal(o, o_serve) and torch.equal(probs, probs_serve),
+                f"flash_attention_f32 ({label}): o or probs with lse are not "
+                f"the serve's bit for bit")
+        require(bool(torch.isfinite(lse).all()),
+                f"flash_attention_f32 ({label}): lse not finite")
+        n_bytes = 4 * (4 * q.numel() + 2 * B * H * N)
+        bnd, by = bound_ms(n_bytes, 4 * Dh * pairs)
+        qh, kh, vh, doh = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, do))
+
+        def sdpa_fwd(qh=qh, kh=kh, vh=vh):
+            return F.scaled_dot_product_attention(qh, kh, vh)
+
+        fwd_cases.append(dict(
+            label=f"train {label}, with lse", fn=fwd, ms=time_ms(fwd),
+            plain_ms=time_ms(fwd_plain, samples=5, calls=3, warmup=1),
+            library_fn=sdpa_fwd, library_ms=time_ms(sdpa_fwd), bound_ms=bnd,
+            bound_by=by,
+            errs=[(f"o (train {label})",
+                   (o - o_ref).abs().max().item(),
+                   1e-4 * o_ref.abs().max().item(), "1e-4 x max|plain|"),
+                  (f"lse (train {label})", (lse - lse_ref).abs().max().item(),
+                   LSE_TOL * max(1.0, lse_ref.abs().max().item()),
+                   f"{LSE_TOL:g} x max(1, max|plain|)")],
+            shapes=shapes + " (+lse, +probs; o, probs bitwise the serve's)"))
+        fwd_check["errs"].extend(fwd_cases[-1]["errs"])
+
+        def bwd(q=q, k=k, v=v, o=o, do=do, lse=lse, dprobs=dprobs):
+            return FA._attention_bwd_cuda(q, k, v, o, do, lse, dprobs)
+
+        def bwd_plain(q=q, k=k, v=v, o=o, do=do, lse=lse, dprobs=dprobs):
+            return FA.attention_bwd_plain(q, k, v, o, do, lse, dprobs)
+
+        before = backend.launches()["flash_attention_bwd_f32"]
+        res, again, ref = bwd(), bwd(), bwd_plain()
+        res0 = FA._attention_bwd_cuda(q, k, v, o, do, lse, None)
+        ref0 = FA.attention_bwd_plain(q, k, v, o, do, lse, None)
+        torch.cuda.synchronize()
+        require(backend.launches()["flash_attention_bwd_f32"] == before + 3,
+                f"flash_attention_bwd_f32 ({label}) did not launch")
+        require(all(torch.equal(a, b) for a, b in zip(res, again)),
+                f"flash_attention_bwd_f32 ({label}): two launches differ")
+        errs = []
+        for tag, got, want in (("", res, ref), (", no dprobs", res0, ref0)):
+            for name, a, r in zip(("dq", "dk", "dv"), got, want):
+                require(a.dtype == torch.float32
+                        and bool(torch.isfinite(a).all()),
+                        f"flash_attention_bwd_f32 ({label}): {name} "
+                        f"{a.dtype} or not finite")
+                errs.append((f"{name} ({label}{tag})",
+                             (a - r).abs().max().item(),
+                             VIT_BWD_TOL * max(1.0, r.abs().max().item()),
+                             f"{VIT_BWD_TOL:g} x max(1, max|plain|)"))
+        # bytes: q, k, v, o, dO, lse, dprobs read once, dq, dk, dv written
+        # once; operations per (row, key, head): the five products Q.K^T,
+        # dO.V^T, P^T.dO, dS^T.Q and dS.K (2 Dh each), all fp32
+        n_bytes = 4 * (8 * q.numel() + 2 * B * H * N)
+        bnd, by = bound_ms(n_bytes, 10 * Dh * pairs)
+        leaves_h = [t.clone().requires_grad_(True) for t in (qh, kh, vh)]
+
+        def sdpa(leaves_h=leaves_h, doh=doh):
+            out = F.scaled_dot_product_attention(*leaves_h)
+            return torch.autograd.grad(out, leaves_h, doh)
+
+        cases.append(dict(
+            label=label, errs=errs, fn=bwd, ms=time_ms(bwd),
+            plain_ms=time_ms(bwd_plain, samples=5, calls=3, warmup=1),
+            library_fn=sdpa, library_ms=time_ms(sdpa), bound_ms=bnd,
+            bound_by=by, shapes=shapes + " backward, with the CLS "
+                                         "probabilities' gradient"))
+    head = cases[0]
+    return dict(
+        name="flash_attention_bwd_f32", source="flash_attention_bwd.cu",
+        errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        library_fn=head["library_fn"], library_ms=head["library_ms"],
+        library_call="F.scaled_dot_product_attention forward + backward on "
+                     "fp32 (timing only; no CLS-probability gradient)",
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cases),
+        cases=cases)
+
+
+def check_token_drop_training(torch, dev, fwd_check):
+    """The hard TDM of Algorithm 1's training, through the functions
+    ``TokenDrop`` calls, against the plain versions at ``VIT_TDM_CASES``
+    on CLS-probability-like scores (each row sums to 1) and, at the
+    headline, on tie-heavy scores (three positive levels):
+
+    * ``token_drop_f32`` writing the kept indices (a case of
+      ``fwd_check`` per shape): the output bitwise the serve's, the
+      indices the plain version's;
+    * ``token_drop_bwd_f32`` against ``token_drop_bwd_plain``: dz bitwise
+      at CLS and the kept rows, dropped rows and dscores within
+      ``TDM_BWD_TOL`` x max(1, max|plain|), dscores exactly 0 at CLS and
+      the kept rows, two launches bitwise equal. No library call computes
+      it.
+
+    Returns the backward's check, one entry per case under ``cases``."""
+    from repro_torch.core import token_pruning as TP
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.token_drop import ops as TD
+    g = torch.Generator().manual_seed(13)
+    fwd_cases = _as_cases(fwd_check)
+    cases = []
+    for ci, (label, B, N, D, k) in enumerate(VIT_TDM_CASES):
+        z = torch.randn((B, N, D), generator=g).to(dev)
+        dy = torch.randn((B, k + 2, D), generator=g).to(dev)
+        errs = []
+        for ties in ((False, True) if ci == 0 else (False,)):
+            # training's scores are softmax probabilities, never 0: the
+            # tie-heavy ones take three positive levels
+            s = (torch.randint(1, 4, (B, N), generator=g).float().to(dev) / 8
+                 if ties else _tdm_scores(torch, dev, g, B, N, (N,) * B))
+            tag = f"{label}, tie-heavy" if ties else label
+            before = backend.launches()
+            out, idx = TD._token_drop_cuda(z, s, k, True)
+            serve = TD.token_drop(z, s, k)
+            out_ref, idx_ref = TP.tdm(z, s, None, has_cls=True, k=k)
+            torch.cuda.synchronize()
+            require(backend.launches()["token_drop_f32"]
+                    == before["token_drop_f32"] + 2,
+                    f"token_drop_f32 ({tag}, indices) did not launch")
+            require(torch.equal(out, serve),
+                    f"token_drop_f32 ({tag}): the output with indices is not "
+                    f"the serve's bit for bit")
+            require(torch.equal(idx.long(), idx_ref),
+                    f"token_drop_f32 ({tag}): kept indices differ from the "
+                    f"plain version's")
+            res = TD._token_drop_bwd_cuda(z, s, idx, out, dy)
+            again = TD._token_drop_bwd_cuda(z, s, idx, out, dy)
+            ref = TD.token_drop_bwd_plain(z, s, idx, out, dy)
+            torch.cuda.synchronize()
+            require(backend.launches()["token_drop_bwd_f32"]
+                    == before["token_drop_bwd_f32"] + 2,
+                    f"token_drop_bwd_f32 ({tag}) did not launch")
+            require(all(torch.equal(a, b) for a, b in zip(res, again)),
+                    f"token_drop_bwd_f32 ({tag}): two launches differ")
+            (dz, ds), (dz_ref, ds_ref) = res, ref
+            rows = torch.arange(B, device=dev)[:, None]
+            kept = torch.cat([torch.zeros_like(idx[:, :1]), 1 + idx],
+                             dim=1).long()
+            require(torch.equal(dz[rows, kept], dz_ref[rows, kept]),
+                    f"token_drop_bwd_f32 ({tag}): dz at CLS or a kept row "
+                    f"is not dy's row bit for bit")
+            require(bool((ds[rows, kept] == 0).all()),
+                    f"token_drop_bwd_f32 ({tag}): dscores not 0 at CLS or a "
+                    f"kept row")
+            for name, a, r in (("dz", dz, dz_ref), ("dscores", ds, ds_ref)):
+                require(bool(torch.isfinite(a).all()),
+                        f"token_drop_bwd_f32 ({tag}): {name} not finite")
+                errs.append((f"{name} ({tag})", (a - r).abs().max().item(),
+                             TDM_BWD_TOL * max(1.0, r.abs().max().item()),
+                             f"{TDM_BWD_TOL:g} x max(1, max|plain|); CLS and "
+                             f"kept rows bitwise"))
+            if not ties:
+                def fwd(z=z, s=s, k=k):
+                    return TD._token_drop_cuda(z, s, k, True)
+
+                def fwd_plain(z=z, s=s, k=k):
+                    return TP.tdm(z, s, None, has_cls=True, k=k)
+
+                fbnd, fby = bound_ms(4 * (z.numel() + s.numel()
+                                          + B * (k + 2) * D + B * k),
+                                     2 * B * (N - 1) * D)
+                fwd_cases.append(dict(
+                    label=f"train {label}, with indices", fn=fwd,
+                    ms=time_ms(fwd), plain_ms=time_ms(fwd_plain),
+                    library_fn=None, library_ms=None, bound_ms=fbnd,
+                    bound_by=fby,
+                    errs=[(f"fused row (train {label})",
+                           (out[:, k + 1] - out_ref[:, k + 1]).abs().max()
+                           .item(), 1e-5, "kept rows bitwise")],
+                    shapes=f"z[{B},{N},{D}] k={k} (+kept indices; output "
+                           f"bitwise the serve's)"))
+                fwd_check["errs"].extend(fwd_cases[-1]["errs"])
+                args = (z, s, idx, out, dy)
+        n_drop = B * (N - 1 - k)
+        # bytes: the dropped rows of z, dy, the fused rows of y, the scores
+        # and the indices read once; dz and dscores written once
+        n_bytes = 4 * (n_drop * D + dy.numel() + B * D + B * N + B * k
+                       + z.numel() + B * N)
+        bnd, by = bound_ms(n_bytes, 3 * n_drop * D)
+
+        def bwd(args=args):
+            return TD._token_drop_bwd_cuda(*args)
+
+        def bwd_plain(args=args):
+            return TD.token_drop_bwd_plain(*args)
+
+        cases.append(dict(
+            label=label, errs=errs, fn=bwd, ms=time_ms(bwd),
+            plain_ms=time_ms(bwd_plain), library_fn=None, library_ms=None,
+            bound_ms=bnd, bound_by=by,
+            shapes=f"z[{B},{N},{D}] k={k} backward"
+                   + (", random and tie-heavy scores" if ci == 0 else "")))
+    head = cases[0]
+    return dict(
+        name="token_drop_bwd_f32", source="token_drop.cu",
+        errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
+        ms=head["ms"], plain_ms=head["plain_ms"], library_fn=None,
+        library_ms=None, library_call=None, bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"],
+        shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cases),
+        cases=cases)
+
+
 # ---------------------------------------------------------------------------
 # Phase 6a: LM training at full width and depth
 # ---------------------------------------------------------------------------
@@ -1908,24 +2226,25 @@ LM_TRAIN_BWD_REF_MS = 8.30
 
 
 @contextlib.contextmanager
-def count_plain_attention():
-    """Count calls of the plain attention versions (none may run on the
-    card): ``attention_causal_plain`` and ``flash_attention_torch``."""
-    from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.models import attention as A
-    calls = [0]
-    inner = (FA.attention_causal_plain, A.flash_attention_torch)
+def count_plain(*names):
+    """Count calls of the plain versions named by (module, attribute)
+    pairs while the block runs (none may run on the card): yields the
+    counts by attribute name."""
+    calls = {name: 0 for _, name in names}
+    inner = [getattr(mod, name) for mod, name in names]
 
-    def counted(fn):
+    def counted(name, fn):
         def call(*a, **kw):
-            calls[0] += 1
+            calls[name] += 1
             return fn(*a, **kw)
         return call
-    FA.attention_causal_plain, A.flash_attention_torch = map(counted, inner)
+    for (mod, name), fn in zip(names, inner):
+        setattr(mod, name, counted(name, fn))
     try:
         yield calls
     finally:
-        FA.attention_causal_plain, A.flash_attention_torch = inner
+        for (mod, name), fn in zip(names, inner):
+            setattr(mod, name, fn)
 
 
 def lm_step0_card_vs_cpu(torch, dev, cfg):
@@ -1988,7 +2307,9 @@ def lm_train_path(torch, dev):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import DataConfig, synthetic_lm_batch
     from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.launch import train as LT
+    from repro_torch.models import attention as A
     from repro_torch.models import steps as ST
     from repro_torch.optim import AdamW
     from repro_torch.tree import leaves
@@ -2042,7 +2363,8 @@ def lm_train_path(torch, dev):
         return step(params, opt_state, {"tokens": toks}, scores)
 
     metrics, walls, counts = [], [], []
-    with count_plain_attention() as plain_calls:
+    with count_plain((FA, "attention_causal_plain"),
+                     (A, "flash_attention_torch")) as plain_calls:
         torch.cuda.reset_peak_memory_stats(dev)
         for i in range(LM_TRAIN_STEPS):
             torch.cuda.synchronize()
@@ -2061,8 +2383,8 @@ def lm_train_path(torch, dev):
             params, scores, opt_state, m = one(LM_TRAIN_STEPS)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-    require(plain_calls[0] == 0, f"lm train: the plain attention ran "
-                                 f"{plain_calls[0]} times on the card")
+    require(not any(plain_calls.values()),
+            f"lm train: the plain attention ran on the card: {plain_calls}")
     want = {"flash_prefill_bf16": 2 * L, "flash_prefill_bwd_bf16": L}
     for i, n in enumerate(counts):
         got = {k: v for k, v in n.items() if v}
@@ -2150,28 +2472,112 @@ TRAIN_NOISE_TOL = 2.0
 TRAIN_LINEAR_TOL = 1e-5
 
 
-@contextlib.contextmanager
-def record_kept(k_margins=None):
-    """Record the kept token indices of every TDM ``forward_vit`` runs (and,
-    into ``k_margins``, each TDM's smallest score gap at its k-th kept
-    token: how near a tie the selection came)."""
-    from repro_torch.core import token_pruning as TP
-    kept = []
-    inner = TP.tdm
+# A TDM's scores are the CLS row's attention probabilities, averaged over
+# the heads: the card's and the CPU's of one token may differ by at most
+# this (5.774e-08 measured on an NVIDIA H100 80GB HBM3 at 700 W,
+# tools/train_probe.py --parts tdm).
+TDM_SCORE_TOL = 1e-6
 
-    def tdm(z, scores, r_t, *a, **kw):
-        out = inner(z, scores, r_t, *a, **kw)
-        kept.append(out[1].cpu().numpy())
-        if k_margins is not None:
-            k = out[1].shape[1]
-            s = scores[:, 1:].detach().sort(dim=1, descending=True).values
-            k_margins.append(float((s[:, k - 1] - s[:, k]).min()))
+
+@contextlib.contextmanager
+def record_kept():
+    """Record, for every TDM that ``forward_vit`` runs, ``(kept, scores)``
+    as host arrays: the kept body indices [B, k] in top-k order and the
+    scores [B, N]. On the card they are read from ``token_drop_f32``'s
+    index output (asked for even where the caller does not keep it; the
+    output rows are the same bit for bit), on the CPU from ``TP.tdm``."""
+    from repro_torch.core import token_pruning as TP
+    from repro_torch.kernels.token_drop import ops as TD
+    seen = []
+    inner_card, inner_plain = TD._token_drop_cuda, TP.tdm
+
+    def record(scores, idx):
+        seen.append((idx.long().cpu().numpy(),
+                     scores.detach().cpu().numpy()))
+
+    def on_card(z, scores, k, with_idx):
+        out, idx = inner_card(z, scores, k, True)
+        record(scores, idx)
+        return out, idx if with_idx else None
+
+    def plain(z, scores, *a, **kw):
+        out = inner_plain(z, scores, *a, **kw)
+        record(scores, out[1])
         return out
-    TP.tdm = tdm
+    TD._token_drop_cuda, TP.tdm = on_card, plain
     try:
-        yield kept
+        yield seen
     finally:
-        TP.tdm = inner
+        TD._token_drop_cuda, TP.tdm = inner_card, inner_plain
+
+
+def kept_tokens(kept, n_tokens):
+    """The tokens at each TDM, by identity: per TDM, ``(ids_in, chosen)``,
+    the [B, N_t] ids of the sequence it takes and the [B, k] ids it kept
+    in top-k order, where ids 0 .. n_tokens - 1 are the input's tokens
+    (CLS, then the patches) and -(t + 1) is the fused token TDM t appends.
+    A TDM keeps body positions (``kept``, [B, k] per TDM); a position after
+    an earlier TDM holds the token its kept slot came from."""
+    import numpy as np
+    B = kept[0].shape[0]
+    ids = np.tile(np.arange(n_tokens), (B, 1))
+    out = []
+    for t, idx in enumerate(kept):
+        chosen = np.take_along_axis(ids[:, 1:], idx, axis=1)
+        out.append((ids, chosen))
+        ids = np.concatenate([ids[:, :1], chosen,
+                              np.full((B, 1), -(t + 1))], axis=1)
+    return out
+
+
+def compare_kept(layers, n_tokens, seen_card, seen_cpu):
+    """Gate (d)'s first part, per TDM (``record_kept``'s records): the
+    card's and the CPU's scores of each token (by identity,
+    ``kept_tokens``) within ``TDM_SCORE_TOL``, their largest difference d;
+    then the kept tokens in top-k order, position by position. Where the
+    two differ, the token each put there must be kept by the other too,
+    and the two tokens' scores must lie within 2d of each other on the
+    card and on the CPU: the most by which an order can flip between
+    two sets of scores d apart. Such a pair only permutes rows (attention,
+    the per-token layers and the fused sum ignore the order); the loss,
+    parameter and score gates that follow hold the step itself. Returns,
+    per TDM layer, d and the pairs that took each other's places, each
+    once, as (row, card's token, CPU's token, their score gap on the card,
+    on the CPU)."""
+    import numpy as np
+    card = kept_tokens([k for k, _ in seen_card], n_tokens)
+    cpu = kept_tokens([k for k, _ in seen_cpu], n_tokens)
+    out = {}
+    for layer, (ids_a, ka), (ids_b, kb), (_, sa), (_, sb) in zip(
+            layers, card, cpu, seen_card, seen_cpu):
+        oa, ob = np.argsort(ids_a, axis=1), np.argsort(ids_b, axis=1)
+        require(np.array_equal(np.take_along_axis(ids_a, oa, 1),
+                               np.take_along_axis(ids_b, ob, 1)),
+                f"train step 0, TDM at layer {layer}: the card and the CPU "
+                f"take different tokens")
+        d = float(np.abs(np.take_along_axis(sa, oa, 1)[:, 1:]
+                         - np.take_along_axis(sb, ob, 1)[:, 1:]).max())
+        require(d <= TDM_SCORE_TOL,
+                f"train step 0, TDM at layer {layer}: card and CPU scores "
+                f"differ by {d:.3g} (tolerance {TDM_SCORE_TOL})")
+        pairs = []
+        for row, j in zip(*np.nonzero(ka != kb)):
+            x, y = int(ka[row, j]), int(kb[row, j])
+            pos_a = {t: c for c, t in enumerate(ids_a[row])}
+            pos_b = {t: c for c, t in enumerate(ids_b[row])}
+            gap_a = abs(float(sa[row, pos_a[x]] - sa[row, pos_a[y]]))
+            gap_b = abs(float(sb[row, pos_b[x]] - sb[row, pos_b[y]]))
+            require(x in kb[row] and y in ka[row]
+                    and max(gap_a, gap_b) <= 2 * d,
+                    f"train step 0, TDM at layer {layer}, row {row}, kept "
+                    f"position {j}: the card keeps token {x}, the CPU "
+                    f"token {y} (kept by both: {x in kb[row]}, "
+                    f"{y in ka[row]}), score gap {gap_a:.3g} on the card, "
+                    f"{gap_b:.3g} on the CPU, against 2d = {2 * d:.3g}")
+            if (int(row), y, x, gap_a, gap_b) not in pairs:
+                pairs.append((int(row), x, y, gap_a, gap_b))
+        out[layer] = (d, pairs)
+    return out
 
 
 def _step_errors(torch, card_tree, cpu_tree, lr):
@@ -2197,11 +2603,15 @@ def train_path(torch, dev):
     ``TRAIN_LR``, ``total_steps`` 20, ``TRAIN_STEPS`` steps. Gates: (a) the
     last step's loss below the first; (b) each step's r_b the cubic
     schedule's, non-increasing; (c) the scores moved; (d) step 0 on the
-    card against the same step on the CPU (kept indices at every TDM
+    card against the same step on the CPU (kept tokens at every TDM
     first, then the loss parts, params and scores); (e) the trained scores'
     hard masks packed and served by ``VisionEngine`` on the kernels,
-    against the oracles. No kernel wrapper runs during training. Returns
-    the trained serve's launch counts."""
+    against the oracles, the kernel-free one on CPU copies; (f) every step
+    on the card launches exactly ``vit_step_launches(cfg)`` (the student's
+    attention forward and backward and TDM forward and backward at every
+    layer and TDM, the teacher's attention forward) and no plain version of
+    them runs on the card. Returns the trained serve's launch counts and
+    the last timed step's."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import DEIT_SMALL
@@ -2210,8 +2620,12 @@ def train_path(torch, dev):
     from repro_torch.core import packed_runner as PR
     from repro_torch.core import schedule as S
     from repro_torch.core import simultaneous as SIM
+    from repro_torch.core import token_pruning as TP
     from repro_torch.data import DataConfig, synthetic_vit_batch
     from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.token_drop import ops as TD
+    from repro_torch.models import attention as A
     from repro_torch.models import model as M
     from repro_torch.models import pruning_glue as PG
     from repro_torch.optim import AdamW
@@ -2222,6 +2636,7 @@ def train_path(torch, dev):
             "training: fp32 matmuls must not run on TF32")
     cfg = DEIT_SMALL
     p = cfg.pruning
+    held_before = torch.cuda.memory_allocated(dev)
     opt = AdamW(lr=TRAIN_LR, weight_decay=0.01)
     state, _ = SIM.init_state(cfg, torch.Generator().manual_seed(0), opt,
                               device=dev)
@@ -2247,22 +2662,31 @@ def train_path(torch, dev):
     cpu = torch.device("cpu")
     state_cpu = tree_map(lambda t: t.to(cpu), state)
     teacher_cpu = tree_map(lambda t: t.to(cpu), teacher)
+    want = vit_step_launches(backend, cfg)
+    # the plain versions of the path's kernels and what they are made of
+    plain_names = ((FA, "attention_plain"), (FA, "attention_bwd_plain"),
+                   (A, "flash_attention_torch"), (A, "attention_probs_row"),
+                   (TP, "tdm"), (TD, "token_drop_plain"),
+                   (TD, "token_drop_bwd_plain"))
     backend.reset_launches()
-    margins = []
-    with record_kept(margins) as kept_card:
+    with record_kept() as seen_card, count_plain(*plain_names) as plain:
         state1, m0 = step(state, teacher, on(dev, host[0]))
+    require(backend.launches() == want,
+            f"train step 0: launches {backend.launches()}, want {want}")
     t0 = time.perf_counter()
-    with record_kept() as kept_cpu:
+    with record_kept() as seen_cpu:
         state1_cpu, m0_cpu = step(state_cpu, teacher_cpu, on(cpu, host[0]))
     cpu_s = time.perf_counter() - t0
-    require(len(kept_card) == len(kept_cpu) == len(p.tdm_layers),
-            f"train step 0: {len(kept_card)} TDMs on the card, "
-            f"{len(kept_cpu)} on the CPU")
-    for layer, a, b in zip(p.tdm_layers, kept_card, kept_cpu):
-        rows = np.nonzero((a != b).any(axis=1))[0]
-        require(rows.size == 0, f"train step 0, TDM at layer {layer}: kept "
-                                f"indices differ card vs CPU in rows "
-                                f"{rows.tolist()}")
+    require(len(seen_card) == len(seen_cpu) == len(p.tdm_layers),
+            f"train step 0: {len(seen_card)} TDMs on the card, "
+            f"{len(seen_cpu)} on the CPU")
+    n_tokens = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    kept_cmp = compare_kept(p.tdm_layers, n_tokens, seen_card, seen_cpu)
+    margins = []
+    for kept, sc in seen_card:
+        srt = -np.sort(-sc[:, 1:], axis=1)
+        k = kept.shape[1]
+        margins.append(float((srt[:, k - 1] - srt[:, k]).min()))
     worst_loss = 0.0
     for k in ("loss", "ce", "distill", "reg", "r_b"):
         a, b = m0[k].item(), m0_cpu[k].item()
@@ -2272,7 +2696,8 @@ def train_path(torch, dev):
                                        f"CPU {b!r}")
     lin = SIM.make_simultaneous_step(
         cfg, cfg, AdamW(lr=1.0, eps=1.0, weight_decay=0.01), TRAIN_TOTAL)
-    lin_card = lin(state, teacher, on(dev, host[0]))[0]
+    with count_plain(*plain_names) as plain_lin:
+        lin_card = lin(state, teacher, on(dev, host[0]))[0]
     lin_cpu = lin(state_cpu, teacher_cpu, on(cpu, host[0]))[0]
     errs, errs_lin = {}, {}
     for what in ("params", "scores"):
@@ -2289,9 +2714,16 @@ def train_path(torch, dev):
                 f"train step 0 at lr = eps = 1: {what} after the update, "
                 f"card vs CPU, worst {errs_lin[what]:.3g}")
     print(f"train step 0 card vs CPU ({cpu_s:.1f} s on the CPU): kept "
-          f"indices equal at TDM layers {p.tdm_layers} (smallest score gap "
+          f"tokens equal at TDM layers {p.tdm_layers} (smallest score gap "
           f"at the k-th kept token per TDM on the card: "
-          f"{[f'{g:.3g}' for g in margins]}); loss parts max|d|/max(1,|ref|)"
+          f"{[f'{g:.3g}' for g in margins]}); per TDM layer, the largest "
+          f"card-vs-CPU score difference d by token and the kept tokens "
+          f"that took each other's places in top-k order as (row, card's "
+          f"token, CPU's token, their score gap on the card, on the CPU): "
+          + str({k: (f"{d:.4g}", [(r, x, y, f"{ga:.4g}", f"{gb:.4g}")
+                                  for r, x, y, ga, gb in v])
+                 for k, (d, v) in kept_cmp.items()})
+          + f"; loss parts max|d|/max(1,|ref|)"
           f" = {worst_loss:.3g} (tolerance {TRAIN_LOSS_TOL}); after the "
           f"update, worst |d|/max(1,|ref|) in units of lr: params "
           f"{errs['params']['other'][0]:.3g} ({errs['params']['other'][1]}),"
@@ -2307,18 +2739,29 @@ def train_path(torch, dev):
     scores0 = state.scores
     state, metrics, walls = state1, [m0], []
     torch.cuda.synchronize()
+    held_steps = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(1, TRAIN_STEPS):
-        batch = on(dev, host[i])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, teacher, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        metrics.append(m)
+    with count_plain(*plain_names) as plain_steps:
+        for i in range(1, TRAIN_STEPS):
+            batch = on(dev, host[i])
+            torch.cuda.synchronize()
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            state, m = step(state, teacher, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            metrics.append(m)
+            step_counts = backend.launches()
+            require(step_counts == want,
+                    f"train step {i}: launches {step_counts}, want {want}")
     peak = torch.cuda.max_memory_allocated(dev)
-    require(not any(backend.launches().values()),
-            f"training launched a kernel wrapper: {backend.launches()}")
+    plain_calls = {name: plain[name] + plain_lin[name] + plain_steps[name]
+                   for name in plain}
+    require(not any(plain_calls.values()),
+            f"training ran plain versions on the card: {plain_calls}")
+    print(f"train: every step on the card launched "
+          f"{ {k: v for k, v in want.items() if v} } and nothing else; "
+          f"plain calls on the card {plain_calls}", flush=True)
     losses = [m["loss"].item() for m in metrics]
     rbs = [m["r_b"].item() for m in metrics]
     sched = [S.cubic_keep_rate(i, TRAIN_TOTAL, p.r_b, 2, 2).item()
@@ -2338,7 +2781,12 @@ def train_path(torch, dev):
           f"{len(walls)} steps (min {min(walls) * 1e3:.2f}, max "
           f"{max(walls) * 1e3:.2f}; batch on the card before each step): "
           f"{TRAIN_BATCH / wall:.1f} training images/s; peak device memory "
-          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+          f"{peak / 2 ** 30:.2f} GiB, of which {held_steps / 2 ** 30:.2f} GiB "
+          f"allocated before the timed steps ({held_before / 2 ** 30:.2f} "
+          f"GiB held by earlier phases, the rest this phase's state: the "
+          f"student with its AdamW moments, and the teacher), so "
+          f"{(peak - held_steps) / 2 ** 30:.2f} GiB for a "
+          f"step's own tensors", flush=True)
 
     # device busy and idle share of one step (its result discarded)
     batch = on(dev, host[-1])
@@ -2356,6 +2804,12 @@ def train_path(torch, dev):
           f"median, device busy {busy_us:.0f} us, idle share "
           f"{1.0 - busy_us / (dt * 1e6):.3f} profiled / "
           f"{1.0 - busy_us / (wall * 1e6):.3f} unprofiled", flush=True)
+    for name in ("flash_attention_f32", "flash_attention_bwd_f32",
+                 "token_drop_f32", "token_drop_bwd_f32"):
+        mine = [r for r in rows if kernel_symbol(name) in r[0]]
+        print(f"  {name}: {sum(r[1] for r in mine)} kernels, "
+              f"{sum(r[2] for r in mine):.1f} us on the card per step",
+              flush=True)
     for n, k, us in rows[:10]:
         print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
 
@@ -2394,18 +2848,44 @@ def train_path(torch, dev):
         dtype=torch.float32).to(dev)
     y = PR.forward_vit_packed(cfg, eng.segments.params, eng.segments.packed,
                               x, use_tdm=False, device=dev).logits
-    y_ref = PR.masked_dense_reference(cfg, state.params, state.scores, x,
-                                      use_tdm=False).logits
+    y_ref = masked_dense_on_cpu(cfg, state.params, state.scores, x)
+    y = y.cpu()
     err = (y - y_ref).abs().max().item()
     scale = max(1.0, y_ref.abs().max().item())
     require(err <= 1e-4 * scale,
             f"trained: packed vs masked-dense: max|d|={err:.3g}")
     require(bool((y.argmax(-1) == y_ref.argmax(-1)).all()),
             "trained: packed vs masked-dense: top-1 differs")
-    print(f"trained: packed (kernels) vs masked-dense forward_vit (plain), "
-          f"no TDM: max|d| = {err:.3g} (tolerance 1e-4 x {scale:.3g})",
-          flush=True)
-    return counts
+    print(f"trained: packed (kernels) vs masked-dense forward_vit (plain, "
+          f"on the CPU), no TDM: max|d| = {err:.3g} (tolerance 1e-4 x "
+          f"{scale:.3g})", flush=True)
+    return counts, step_counts
+
+
+def vit_step_launches(backend, cfg):
+    """The launches of one Algorithm-1 step on the card, by entry point:
+    the student's attention forward (with lse) and backward at each of the
+    L layers, its TDM forward (with indices) and backward at each TDM
+    layer, and the teacher's attention forward (no TDM, no gradient)."""
+    L, T = cfg.num_layers, len(cfg.pruning.tdm_layers)
+    want = {name: 0 for name in backend.ENTRY_POINTS}
+    want.update(flash_attention_f32=2 * L, flash_attention_bwd_f32=L,
+                token_drop_f32=T, token_drop_bwd_f32=T)
+    return want
+
+
+def masked_dense_on_cpu(cfg, params, scores, x):
+    """The kernel-free oracle's logits: ``masked_dense_reference`` on CPU
+    copies of the params, scores and input, where ``forward_vit`` runs the
+    plain versions (on the card it would run the very kernels it checks)."""
+    import torch
+    from repro_torch.core import packed_runner as PR
+    from repro_torch.tree import tree_map
+    cpu = torch.device("cpu")
+    to_cpu = lambda t: t.to(cpu)
+    return PR.masked_dense_reference(cfg, tree_map(to_cpu, params),
+                                     tree_map(to_cpu, scores), x.to(cpu),
+                                     use_tdm=False).logits
 
 
 REPLACES = {  # the reference's pallas_call each kernel stands in for
@@ -2419,6 +2899,11 @@ REPLACES = {  # the reference's pallas_call each kernel stands in for
         "src/repro/kernels/flash_attention/flash_attention.py:92",
     # the gradient JAX takes of train-mode attention over that kernel
     "flash_prefill_bwd.cu":
+        "src/repro/kernels/flash_attention/flash_attention.py:92",
+    # the gradient JAX takes of the ViT's non-causal attention and its TDM
+    # scores in Algorithm 1 (the backward of token_drop.cu, the gradient of
+    # the TDM, shares its source and row)
+    "flash_attention_bwd.cu":
         "src/repro/kernels/flash_attention/flash_attention.py:92",
     "token_drop.cu": "src/repro/kernels/token_drop/token_drop.py:62",
     "token_package.cu":
@@ -2456,8 +2941,13 @@ def main() -> int:
               check_flash_attention(torch, dev, half=True),
               check_token_drop(torch, dev), check_token_package(torch, dev),
               *check_flash_attention_causal(torch, dev)]
-    checks.append(check_causal_training(torch, dev, next(
-        c for c in checks if c["name"] == "flash_prefill_bf16")))
+    by_name = {c["name"]: c for c in checks}
+    checks.append(check_causal_training(torch, dev,
+                                        by_name["flash_prefill_bf16"]))
+    checks.append(check_vit_attention_training(
+        torch, dev, by_name["flash_attention_f32"]))
+    checks.append(check_token_drop_training(torch, dev,
+                                            by_name["token_drop_f32"]))
     require(sorted(c["name"] for c in checks) == sorted(backend.ENTRY_POINTS),
             "a kernel entry point has no check")
     for check in checks:
@@ -2483,6 +2973,12 @@ def main() -> int:
     path_counts.update(lm_counts)
     syncs.update({f"lm {k}": v for k, v in lm_syncs.items()})
     profile_run(torch, dev, checks, *model)
+    # the checks' closures hold their inputs on the card; nothing runs them
+    # again
+    for check in checks:
+        for c in (check, *check.get("cases", ())):
+            c.pop("fn", None)
+            c.pop("library_fn", None)
     profile_lm(torch, dev, *lm_model)
     del lm_model
     torch.cuda.empty_cache()
@@ -2490,7 +2986,8 @@ def main() -> int:
     path_counts.update(traffic_counts)
     syncs.update(traffic_syncs)
     path_counts["lm train"] = lm_train_path(torch, dev)
-    path_counts["trained fp32"] = train_path(torch, dev)
+    path_counts["trained fp32"], path_counts["vit train"] = train_path(
+        torch, dev)
     for key, n in syncs.items():
         require(not any(n), f"{key}: the engine waited on the card outside "
                             f"its step events: {n}")

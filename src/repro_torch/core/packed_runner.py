@@ -389,8 +389,11 @@ def forward_vit_packed(cfg: ModelConfig, params: Dict,
 def masked_dense_reference(cfg: ModelConfig, params: Dict, scores: Dict,
                            patches: torch.Tensor,
                            use_tdm: bool | None = None) -> M.Output:
-    """Oracle: same model with masked-dense weights, plain PyTorch only
-    (no kernel), fp32 activations."""
+    """Oracle: same model with masked-dense weights, fp32 activations.
+    ``forward_vit`` runs the plain versions of the kernels on CPU tensors
+    and the kernels on CUDA tensors, so the oracle is kernel-free on the
+    CPU: a caller holding the card's kernels against it passes CPU
+    copies."""
     masked = PG.apply_pruning(cfg, params, scores)
     return M.forward_vit(cfg, masked, patches, use_tdm=use_tdm)
 

@@ -11,11 +11,13 @@ and recovers accuracy by knowledge distillation from an unpruned teacher:
 
   L_net = λ_distill · T²·KL(p_t(T) || p_s(T)) + λ_task · (CE + λ‖σ(S)‖)
 
-The forward is :func:`~repro_torch.models.model.forward_vit`, plain
-PyTorch (cuBLAS matmuls on the card), differentiated by autograd; no
-kernel wrapper runs on this path. Gradients come from
-``torch.autograd.grad`` over the params and scores, then the AdamW
-update, all on the state's device.
+The forward is :func:`~repro_torch.models.model.forward_vit`,
+differentiated by autograd: on the card its attention and TDM run on the
+kernels in both directions (``flash_attention_f32`` with
+``flash_attention_bwd_f32``, ``token_drop_f32`` with
+``token_drop_bwd_f32``) and its matmuls on cuBLAS; on the CPU they are the
+plain versions. Gradients come from ``torch.autograd.grad`` over the
+params and scores, then the AdamW update, all on the state's device.
 """
 from __future__ import annotations
 

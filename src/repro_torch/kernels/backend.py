@@ -45,7 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I = ctypes.c_void_p, ctypes.c_int
 _SBMM = [P] * 5 + [I] * 5 + [P]
 _SBMM_QUANT = [P] * 6 + [I] * 5 + [P]
-_FLASH = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P]
+_FLASH = [P] * 7 + [I] * 4 + [ctypes.c_float, P]
+_FLASH_BWD = [P] * 11 + [I] * 4 + [ctypes.c_float, P]
 _FLASH_DECODE = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
 _FLASH_PREFILL = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
 _FLASH_PREFILL_BWD = [P] * 11 + [I] * 5 + [ctypes.c_float, P]
@@ -56,10 +57,12 @@ _ENTRY_POINTS = {
                    "sbmm_i8_channel": _SBMM_QUANT},
     "flash_attention": {"flash_attention_f32": _FLASH,
                         "flash_attention_f16": _FLASH},
+    "flash_attention_bwd": {"flash_attention_bwd_f32": _FLASH_BWD},
     "flash_decode": {"flash_decode_bf16": _FLASH_DECODE},
     "flash_prefill": {"flash_prefill_bf16": _FLASH_PREFILL},
     "flash_prefill_bwd": {"flash_prefill_bwd_bf16": _FLASH_PREFILL_BWD},
-    "token_drop": {"token_drop_f32": [P] * 3 + [I] * 5 + [P]},
+    "token_drop": {"token_drop_f32": [P] * 4 + [I] * 5 + [P],
+                   "token_drop_bwd_f32": [P] * 7 + [I] * 5 + [P]},
     "token_package": {"token_package_f32": [P] * 6 + [I] * 6 + [P]},
 }
 KERNELS = tuple(_ENTRY_POINTS)  # one library each
@@ -113,6 +116,13 @@ def host_to_device(arr, device: torch.device,
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (kernels that read their
+    operands 16 bytes at a time): copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

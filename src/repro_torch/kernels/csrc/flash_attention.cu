@@ -16,7 +16,11 @@
 //     P.V on the tensor cores with fp32 accumulation.
 // Statistics and sums are fp32 in both; o is rounded to its type on the
 // store (`flash_attention_jnp` returns q.dtype), the probabilities are
-// fp32.
+// fp32. Training (the ViT's Algorithm 1, fp32 only) also asks for each
+// row's natural log-sum-exp, lse [B, H, N] fp32, which the backward
+// (flash_attention_bwd.cu) reads to rebuild P; the combine writes it from
+// the row's final m and l. The pointer is nullable, and the serve passes
+// null: o and probs do not depend on it.
 //
 // Rows without a key (ROADMAP C1): a row with kv_len[b] <= 0 has no valid
 // key. The reference masks with the finite NEG_INF, so every key scores
@@ -96,6 +100,7 @@ constexpr int kWarps = 4;  // the chunks of [0, L) dealt round robin
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCLd = 8;  // the combine's row padding, floats
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kThreads == kTQ * 8, "the combine gives 8 threads to a row");
 
 // The keys batch row b attends to: [0, L), scored q.k, or (a row without
@@ -459,11 +464,14 @@ __device__ __forceinline__ void store2(__half* p, float a, float b) {
 
 // Combine the warps' partials in warp order: row r = t / 8 of the tile,
 // Dh / 8 columns from (t % 8) Dh / 8 on. Row 0's final (m, l) goes to
-// row0. A warp without a chunk has m = -inf and adds exactly 0.
+// row0, and each row's natural log-sum-exp to lse_bh (the (b, h) row of
+// lse) where it is not null. A warp without a chunk has m = -inf and adds
+// exactly 0.
 template <int DH, typename T>
 __device__ __forceinline__ void combine_store(const float* comb, T* ob,
                                               size_t ldt, int n0, int N,
-                                              int t, float* row0) {
+                                              int t, float* row0,
+                                              float* lse_bh) {
   constexpr int ld = DH + kCLd;
   constexpr int kW = kTQ * ld + 2 * kTQ;
   constexpr int kOut = DH / 8;
@@ -484,6 +492,9 @@ __device__ __forceinline__ void combine_store(const float* comb, T* ob,
     row0[1] = l;
   }
   if (n0 + r >= N) return;
+  // M is in base 2 of the scaled scores: lse = ln 2 (M + log2 l)
+  if (lse_bh != nullptr && (t & 7) == 0)
+    lse_bh[n0 + r] = (M + log2f(l)) * kLn2;
   T* orow = ob + (n0 + r) * ldt + c0;
 #pragma unroll
   for (int c = 0; c < kOut; c += 2) {
@@ -507,8 +518,8 @@ __device__ __forceinline__ void attention_tile(
     const typename Core::T* __restrict__ q,
     const typename Core::T* __restrict__ k,
     const typename Core::T* __restrict__ v, const int* __restrict__ kv_len,
-    typename Core::T* __restrict__ o, float* __restrict__ probs, int N, int H,
-    float scale) {
+    typename Core::T* __restrict__ o, float* __restrict__ probs,
+    float* __restrict__ lse, int N, int H, float scale) {
   using T = typename Core::T;
   using S = Smem<Core, DH>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -563,7 +574,10 @@ __device__ __forceinline__ void attention_tile(
   core.store(comb + warp * S::kCombWarp, lane);
   __syncthreads();
   combine_store<DH>(comb, o + base, ldt, qt * kTQ, N, t,
-                    park != nullptr ? row0 : nullptr);
+                    park != nullptr ? row0 : nullptr,
+                    lse != nullptr
+                        ? lse + (static_cast<size_t>(b) * H + h) * N
+                        : nullptr);
   if (park != nullptr) {  // the block of query tile 0
     __syncthreads();  // row 0's m and l, and every parked score
     const float m0 = row0[0], l0 = row0[1];
@@ -579,8 +593,10 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ v,
                            const int* __restrict__ kv_len,
                            float* __restrict__ o, float* __restrict__ probs,
+                           float* __restrict__ lse,
                            int N, int H, float scale) {
-  attention_tile<FmaCore<DH>, DH>(q, k, v, kv_len, o, probs, N, H, scale);
+  attention_tile<FmaCore<DH>, DH>(q, k, v, kv_len, o, probs, lse, N, H,
+                                 scale);
 }
 
 template <int DH>
@@ -590,18 +606,21 @@ flash_attention_f16_kernel(const __half* __restrict__ q,
                            const __half* __restrict__ v,
                            const int* __restrict__ kv_len,
                            __half* __restrict__ o, float* __restrict__ probs,
+                           float* __restrict__ lse,
                            int N, int H, float scale) {
-  attention_tile<MmaCore<DH>, DH>(q, k, v, kv_len, o, probs, N, H, scale);
+  attention_tile<MmaCore<DH>, DH>(q, k, v, kv_len, o, probs, lse, N, H,
+                                 scale);
 }
 
 template <typename T>
 using FlashKernel = void (*)(const T*, const T*, const T*, const int*, T*,
-                             float*, int, int, float);
+                             float*, float*, int, int, float);
 
 template <class Core, int DH>
 int launch_dh(FlashKernel<typename Core::T> kernel, const void* q,
               const void* k, const void* v, const void* kv_len, void* o,
-              void* probs, int B, int N, int H, float scale, void* stream) {
+              void* probs, void* lse, int B, int N, int H, float scale,
+              void* stream) {
   using T = typename Core::T;
   static size_t raised = 0;
   constexpr size_t kBytes = Smem<Core, DH>::kBytes;
@@ -611,23 +630,24 @@ int launch_dh(FlashKernel<typename Core::T> kernel, const void* q,
   kernel<<<grid, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(o), static_cast<float*>(probs), N, H, scale);
+      static_cast<T*>(o), static_cast<float*>(probs),
+      static_cast<float*>(lse), N, H, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <template <int> class Core, typename T>
 int launch(FlashKernel<T> k16, FlashKernel<T> k64, const void* q,
            const void* k, const void* v, const void* kv_len, void* o,
-           void* probs, int B, int N, int H, int Dh, float scale,
+           void* probs, void* lse, int B, int N, int H, int Dh, float scale,
            void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (Dh == 16)
-    return launch_dh<Core<16>, 16>(k16, q, k, v, kv_len, o, probs, B, N, H,
-                                   scale, stream);
+    return launch_dh<Core<16>, 16>(k16, q, k, v, kv_len, o, probs, lse, B,
+                                   N, H, scale, stream);
   if (Dh == 64)
-    return launch_dh<Core<64>, 64>(k64, q, k, v, kv_len, o, probs, B, N, H,
-                                   scale, stream);
+    return launch_dh<Core<64>, 64>(k64, q, k, v, kv_len, o, probs, lse, B,
+                                   N, H, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -638,24 +658,27 @@ int launch(FlashKernel<T> k16, FlashKernel<T> k64, const void* q,
 // kv_len[b] are masked, kv_len[b] > N acts as N, and a row with kv_len[b]
 // <= 0 attends to all N keys uniformly (the mean of V, probabilities 1/N:
 // the reference's fully masked row); probs [B, H, N] fp32 or null (then no
-// CLS-row probabilities).
+// CLS-row probabilities); lse [B, H, N] fp32 or null (then no log-sum-exp;
+// the serve passes null).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    const void* kv_len, void* o, void* probs,
-                                   int B, int N, int H, int Dh, float scale,
-                                   void* stream) {
+                                   void* lse, int B, int N, int H, int Dh,
+                                   float scale, void* stream) {
   return launch<FmaCore, float>(flash_attention_f32_kernel<16>,
                                 flash_attention_f32_kernel<64>, q, k, v,
-                                kv_len, o, probs, B, N, H, Dh, scale, stream);
+                                kv_len, o, probs, lse, B, N, H, Dh, scale,
+                                stream);
 }
 
 // As flash_attention_f32 with q, k, v and o fp16 (o rounded to nearest);
-// probs stay fp32.
+// probs and lse stay fp32 (the wrapper passes a null lse: the fp16 tier
+// has no gradient).
 extern "C" int flash_attention_f16(const void* q, const void* k, const void* v,
                                    const void* kv_len, void* o, void* probs,
-                                   int B, int N, int H, int Dh, float scale,
-                                   void* stream) {
+                                   void* lse, int B, int N, int H, int Dh,
+                                   float scale, void* stream) {
   return launch<MmaCore, __half>(flash_attention_f16_kernel<16>,
                                  flash_attention_f16_kernel<64>, q, k, v,
-                                 kv_len, o, probs, B, N, H, Dh, scale,
+                                 kv_len, o, probs, lse, B, N, H, Dh, scale,
                                  stream);
 }

@@ -7,8 +7,11 @@
 // exactly 0). With kPackage, the carried package mass [B] and its body
 // index [B] (int32 or int64; default the last body row), both nullable.
 // Output out [B, k + 2, D]: the CLS row, the k kept body rows in top-k
-// order, and the fused row. Hard TDM: the fused row is sum_n w[n] z[1 + n]
-// with w[n] = s[n] / (sum of the dropped scores + 1e-9), 0 at kept rows.
+// order, and the fused row; and, where kept_idx is not null (the hard
+// TDM's training form), the kept body indices [B, k] int32 in top-k
+// order, written by the blocks of column slice 0. Hard TDM: the fused row
+// is sum_n w[n] z[1 + n] with w[n] = s[n] / (sum of the dropped scores +
+// 1e-9), 0 at kept rows.
 // Soft TDM: w holds the RAW dropped scores and the package's carried mass
 // at its row (the package is pinned out of the selection at -inf); the
 // package row is (sum_n w[n] z[1 + n]) / (sum_n w[n] + 1e-9) and
@@ -131,7 +134,8 @@ __device__ __forceinline__ void tdm(const float* __restrict__ z,
                                     const float* __restrict__ scores,
                                     int s_stride, Package pkg,
                                     float* __restrict__ out,
-                                    float* __restrict__ new_mass, int N,
+                                    float* __restrict__ new_mass,
+                                    int* __restrict__ kept_idx, int N,
                                     int D, int k) {
   __shared__ __align__(16) float sel[kMaxBody];  // selection scores
   __shared__ int rank[kMaxBody];
@@ -178,8 +182,12 @@ __device__ __forceinline__ void tdm(const float* __restrict__ z,
     rank[i] = rank_of(sel, i, i & ~31, nb4);
   __syncthreads();
 
-  // 4. weights and their sum: each thread its strided slots in order, then
-  // a butterfly over the warp, then the warps in order
+  // 4. the kept indices where asked for; the weights and their sum: each
+  // thread its strided slots in order, then a butterfly over the warp, then
+  // the warps in order
+  if (kept_idx != nullptr && blockIdx.x == 0)
+    for (int i = tid; i < nb; i += kThreads)
+      if (rank[i] < k) kept_idx[static_cast<size_t>(b) * k + rank[i]] = i;
   float m = 0.f;
   for (int j = tid; j < kMaxBody; j += kThreads) {
     float wj = 0.f;

@@ -22,7 +22,7 @@ token_package_f32_kernel(const float* __restrict__ z,
                          const float* __restrict__ scores, int s_stride,
                          Package pkg, float* __restrict__ out,
                          float* __restrict__ new_mass, int N, int D, int k) {
-  tdm<true>(z, scores, s_stride, pkg, out, new_mass, N, D, k);
+  tdm<true>(z, scores, s_stride, pkg, out, new_mass, nullptr, N, D, k);
 }
 
 }  // namespace

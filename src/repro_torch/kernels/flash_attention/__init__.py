@@ -1,7 +1,10 @@
 from repro_torch.kernels.flash_attention.ops import (
-    CausalAttention, attention_causal_bwd_plain, attention_causal_lse_plain,
-    attention_causal_plain, attention_plain, flash_attention)
+    CausalAttention, NonCausalAttention, attention_bwd_plain,
+    attention_causal_bwd_plain, attention_causal_lse_plain,
+    attention_causal_plain, attention_lse_plain, attention_plain,
+    flash_attention)
 
-__all__ = ["flash_attention", "attention_plain", "attention_causal_plain",
+__all__ = ["flash_attention", "attention_plain", "attention_lse_plain",
+           "attention_bwd_plain", "attention_causal_plain",
            "attention_causal_lse_plain", "attention_causal_bwd_plain",
-           "CausalAttention"]
+           "CausalAttention", "NonCausalAttention"]

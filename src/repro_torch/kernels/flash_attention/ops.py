@@ -28,7 +28,12 @@ and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
   ``flash_prefill_bwd_bf16`` (``csrc/flash_prefill_bwd.cu``) giving dq,
   dk, dv, the gradient JAX takes of ``flash_attention_jnp`` in the
   reference's train mode. :func:`attention_causal_bwd_plain` is its plain
-  version.
+  version. :class:`NonCausalAttention` is the same for the ViT's
+  non-causal fp32 form (Algorithm 1's training): ``flash_attention_f32``
+  also writing the log-sum-exp, and ``flash_attention_bwd_f32``
+  (``csrc/flash_attention_bwd.cu``), whose dq, dk, dv include the
+  gradient of the CLS row's probabilities (the TDM scores).
+  :func:`attention_bwd_plain` is its plain version.
 
 What bounds each kernel on the H100 and how the design answers that is
 noted in the CUDA source.
@@ -58,6 +63,7 @@ CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 64, 128),
                     "flash_prefill_bf16": (16, 64, 128),
                     "flash_prefill_bwd_bf16": (16, 64)}
 BWD_KERNEL = ("flash_prefill_bwd", "flash_prefill_bwd_bf16")
+NONCAUSAL_BWD_KERNEL = ("flash_attention_bwd", "flash_attention_bwd_f32")
 BWD_TILE = 64  # positions per tile of the backward (kTile in its source)
 # the decode kernel's arrival counters, by (device, stream): zero between
 # launches (the combining block of each launch resets its own)
@@ -72,6 +78,46 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probabilities."""
     o = A.flash_attention_torch(q, k, v, kv_len=kv_len)
     return o, A.attention_probs_row(q[:, 0], k, kv_len=kv_len)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The natural log-sum-exp of each non-causal row's scaled scores, fp32
+    [B, H, N], every key valid: the plain version of the ``lse`` the
+    non-causal fp32 kernel writes in training."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * \
+        q.shape[3] ** -0.5
+    return torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        dprobs: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_attention_bwd_f32``: the gradient of the
+    non-causal form with every key valid (q, k, v, o, do [B, N, H, Dh];
+    ``lse`` [B, H, N] from :func:`attention_lse_plain`) and, where
+    ``dprobs`` [B, H, N] is given, of the CLS row's per-head probabilities
+    (``attention_plain``'s second output), by the kernel's formulas step by
+    step in fp32: P = exp(s - lse), D = rowsum(dO o O), dP = dO V^T; row 0
+    of P is the CLS probabilities, so dP_0j += dprobs_j and D_0 += sum_j
+    P_0j dprobs_j; dS = P o (dP - D), dV = P^T dO, dK = scale dS^T Q, dQ =
+    scale dS K. Returns fp32 (dq, dk, dv)."""
+    B, N, H, Dh = q.shape
+    scale = Dh ** -0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    d = (dof * of).sum(dim=-1).permute(0, 2, 1)  # [B, H, N]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    if dprobs is not None:
+        dpr = dprobs.float()
+        dp[:, :, 0] = dp[:, :, 0] + dpr
+        d[:, :, 0] = d[:, :, 0] + (p[:, :, 0] * dpr).sum(dim=-1)
+    ds = p * (dp - d[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq, dk, dv
 
 
 def attention_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -154,28 +200,72 @@ def attention_causal_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the non-causal kernel stages
-    its operands 16 bytes at a time): copied only where it is not."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _attention_cuda(q, k, v, kv_len, collect_scores: bool):
+def _attention_cuda(q, k, v, kv_len, collect_scores: bool,
+                    with_lse: bool = False):
+    """``(o, probs, lse)`` by the non-causal kernel: ``probs`` None unless
+    ``collect_scores``, ``lse`` (each row's log-sum-exp [B, H, N] fp32,
+    for training) None unless ``with_lse``."""
     B, N, H, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {Dh}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = (backend.aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
-    probs = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-             if collect_scores else None)
+    empty = lambda: torch.empty((B, H, N), dtype=torch.float32,
+                                device=q.device)
+    probs = empty() if collect_scores else None
+    lse = empty() if with_lse else None
+    ptr = lambda t: None if t is None else t.data_ptr()
     backend.launch(NAME, ENTRY_POINTS[q.dtype], q.device, q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(),
-                   None if kv_len is None else kv_len.data_ptr(),
-                   o.data_ptr(), None if probs is None else probs.data_ptr(),
-                   B, N, H, Dh, Dh ** -0.5)
-    return o, probs
+                   k.data_ptr(), v.data_ptr(), ptr(kv_len), o.data_ptr(),
+                   ptr(probs), ptr(lse), B, N, H, Dh, Dh ** -0.5)
+    return o, probs, lse
+
+
+class NonCausalAttention(torch.autograd.Function):
+    """The ViT's non-causal attention on the card with its gradient: the
+    forward is ``flash_attention_f32`` writing each row's log-sum-exp
+    beside o (and, with ``collect_scores``, the CLS row's per-head
+    probabilities), the backward ``flash_attention_bwd_f32``, which also
+    takes the probabilities' gradient. q, k, v [B, N, H, Dh] fp32 CUDA
+    tensors, every key valid. Returns ``o``, or ``(o, probs [B, H, N])``
+    with ``collect_scores``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, collect_scores):
+        q, k, v = (backend.aligned(t) for t in (q, k, v))
+        o, probs, lse = _attention_cuda(q, k, v, None, collect_scores,
+                                        with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.set_materialize_grads(False)
+        return (o, probs) if collect_scores else o
+
+    @staticmethod
+    def backward(ctx, do, dprobs=None):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        return (*_attention_bwd_cuda(q, k, v, o, do, lse, dprobs), None)
+
+
+def _attention_bwd_cuda(q, k, v, o, do, lse, dprobs):
+    """(dq, dk, dv) by ``flash_attention_bwd_f32``: one launch of its entry
+    point (two kernels: dQ with D, then dK/dV). ``dprobs`` (or None) is
+    made contiguous: the head mean's gradient arrives as a broadcast view
+    of dscores / H."""
+    B, N, H, Dh = q.shape
+    do = backend.aligned(do)
+    if dprobs is not None:
+        dprobs = dprobs.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    backend.launch(*NONCAUSAL_BWD_KERNEL, q.device, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(),
+                   None if dprobs is None else dprobs.data_ptr(),
+                   dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), B, N, H, Dh, Dh ** -0.5)
+    return dq, dk, dv
 
 
 def _row_bound(x, B: int, device, name: str) -> Optional[torch.Tensor]:
@@ -288,7 +378,8 @@ def _causal_bwd_cuda(q, k, v, o, do, lse, kv_start):
     point (two kernels: dQ with D, then dK/dV)."""
     B, N, Hq, Dh = q.shape
     KV = k.shape[2]
-    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do.to(q.dtype)))
+    q, k, v, o, do = (backend.aligned(t)
+                      for t in (q, k, v, o, do.to(q.dtype)))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty(bwd_scratch_shape(B, Hq, N), dtype=torch.float32,
                        device=q.device)
@@ -315,7 +406,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     has no valid key and, as in the reference (which masks with a finite
     ``NEG_INF``), attends to all N keys alike: the mean of V, probabilities
     1/N. ``collect_scores`` adds the CLS row's probabilities averaged over
-    heads.
+    heads. When grad is enabled and a CUDA input requires it,
+    :class:`NonCausalAttention` runs (the gradient of o and of the scores
+    by the backward kernel); it takes fp32 without ``kv_len`` only and
+    raises on any other form.
 
     ``causal=True`` (the LMs): q [B, Nq, Hq, Dh] against k, v
     [B, S, KV, Dh], all bf16 on the card (the decode kernel for
@@ -375,9 +469,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"flash_attention kernel takes q, k, v all fp32 "
                             f"or all fp16, got {q.dtype}, {k.dtype}, "
                             f"{v.dtype}")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            # training has no padded rows, and the fp16 tier no gradient
+            if kv_len is not None:
+                raise ValueError("non-causal attention has a gradient on "
+                                 "the card without kv_len only")
+            if q.dtype != torch.float32:
+                raise TypeError(f"non-causal attention has a gradient on "
+                                f"the card for fp32 operands only, got "
+                                f"{q.dtype}")
+            res = NonCausalAttention.apply(q, k, v, collect_scores)
+            if not collect_scores:
+                return res
+            return res[0], res[1].mean(dim=1)
         if kv_len is not None:
             kv_len = _row_bound(kv_len, B, q.device, "kv_len")
-        o, probs = _attention_cuda(q, k, v, kv_len, collect_scores)
+        o, probs, _ = _attention_cuda(q, k, v, kv_len, collect_scores)
     if not collect_scores:
         return o
     return o, probs.mean(dim=1)

@@ -14,8 +14,16 @@ the fused row. Nothing runs before it but views; what it does not take
 (more than :data:`MAX_TOKENS` tokens, D not a multiple of 4, a z that is
 not contiguous and 16-byte aligned) raises, and nothing is copied to make
 it fit.
+
+Training (Algorithm 1): when grad is enabled and a CUDA input requires
+it, :class:`TokenDrop` runs: ``token_drop_f32`` also writing the kept
+indices, and ``token_drop_bwd_f32`` giving the gradients of z and of the
+scores, the gradient JAX takes of ``token_pruning.tdm``.
+:func:`token_drop_bwd_plain` is its plain version.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -32,6 +40,38 @@ def token_drop_plain(z: torch.Tensor, scores: torch.Tensor,
                      k: int) -> torch.Tensor:
     """Plain version of the kernel: the TDM's einsum (``TP.tdm``)."""
     return TP.tdm(z, scores, None, has_cls=True, k=k)[0]
+
+
+def token_drop_bwd_plain(z: torch.Tensor, scores: torch.Tensor,
+                         kept_idx: torch.Tensor, y: torch.Tensor,
+                         dy: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``token_drop_bwd_f32``: the gradient of the hard
+    TDM with CLS (``TP.tdm``) by the kernel's formulas, given the forward's
+    kept indices [B, k] and output ``y`` [B, k + 2, D] and the output's
+    gradient ``dy``. With S the dropped scores' sum + 1e-9, w = s / S at
+    the dropped rows, dy_f and y_f the fused rows: dz is dy's row at CLS
+    and at each kept row, w dy_f at a dropped row; dscores is (<dy_f, z_n>
+    - <dy_f, y_f>) / S at a dropped row (<dy_f, y_f> = sum_m w_m <dy_f,
+    z_m>) and exactly 0 at CLS and at the kept rows. Returns (dz [B, N,
+    D], dscores [B, N])."""
+    B, N, D = z.shape
+    k = kept_idx.shape[1]
+    idx = kept_idx.long()
+    s_body = scores[:, 1:].float()
+    keep = torch.zeros(s_body.shape, dtype=torch.bool, device=z.device)
+    keep.scatter_(1, idx, True)
+    drop = torch.where(keep, 0.0, s_body)
+    denom = drop.sum(dim=1, keepdim=True) + 1e-9
+    w = drop / denom
+    dyf = dy[:, k + 1].float()
+    g = torch.einsum("bd,bnd->bn", dyf, z[:, 1:].float())
+    c = (dyf * y[:, k + 1].float()).sum(dim=-1, keepdim=True)
+    ds_body = torch.where(keep, 0.0, (g - c) / denom)
+    dz_body = w[..., None] * dyf[:, None, :]
+    dz_body.scatter_(1, idx[..., None].expand(B, k, D), dy[:, 1:k + 1])
+    return (torch.cat([dy[:, :1], dz_body], dim=1),
+            torch.cat([torch.zeros_like(ds_body[:, :1]), ds_body], dim=1))
 
 
 def card_operands(name: str, z: torch.Tensor, scores: torch.Tensor) -> int:
@@ -57,19 +97,72 @@ def card_operands(name: str, z: torch.Tensor, scores: torch.Tensor) -> int:
     return scores.stride(0)
 
 
-def token_drop(z: torch.Tensor, scores: torch.Tensor, k: int) -> torch.Tensor:
+def _token_drop_cuda(z, scores, k: int, with_idx: bool):
+    """``(out, kept_idx)`` by ``token_drop_f32``, ``kept_idx`` [B, k] int32
+    with ``with_idx``, else None."""
+    B, N, D = z.shape
+    s_stride = card_operands(NAME, z, scores)
+    out = torch.empty((B, k + 2, D), dtype=torch.float32, device=z.device)
+    idx = (torch.empty((B, k), dtype=torch.int32, device=z.device)
+           if with_idx else None)
+    backend.launch(NAME, "token_drop_f32", z.device, z.data_ptr(),
+                   scores.data_ptr(), out.data_ptr(),
+                   None if idx is None else idx.data_ptr(), B, N, D, k,
+                   s_stride)
+    return out, idx
+
+
+def _token_drop_bwd_cuda(z, scores, kept_idx, y, dy):
+    """(dz, dscores) by ``token_drop_bwd_f32``: one launch."""
+    B, N, D = z.shape
+    k = kept_idx.shape[1]
+    s_stride = card_operands("token_drop_bwd", z, scores)
+    dy = backend.aligned(dy)
+    dz = torch.empty_like(z)
+    dscores = torch.empty((B, N), dtype=torch.float32, device=z.device)
+    backend.launch(NAME, "token_drop_bwd_f32", z.device, z.data_ptr(),
+                   scores.data_ptr(), kept_idx.data_ptr(), y.data_ptr(),
+                   dy.data_ptr(), dz.data_ptr(), dscores.data_ptr(), B, N, D,
+                   k, s_stride)
+    return dz, dscores
+
+
+class TokenDrop(torch.autograd.Function):
+    """The hard TDM on the card with its gradient: the forward is
+    ``token_drop_f32`` writing the kept indices beside its output, the
+    backward ``token_drop_bwd_f32`` (the gradients of z and of the
+    scores). Returns ``(z_out, kept_idx)``, ``kept_idx`` [B, k] int32 and
+    not differentiable."""
+
+    @staticmethod
+    def forward(ctx, z, scores, k):
+        out, idx = _token_drop_cuda(z, scores, k, with_idx=True)
+        ctx.save_for_backward(z, scores, idx, out)
+        ctx.mark_non_differentiable(idx)
+        ctx.set_materialize_grads(False)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, dout, _didx):
+        z, scores, idx, out = ctx.saved_tensors
+        return (*_token_drop_bwd_cuda(z, scores, idx, out, dout), None)
+
+
+def token_drop(z: torch.Tensor, scores: torch.Tensor,
+               k: int) -> torch.Tensor:
     """Hard TDM with CLS at row 0. z: [B, N, D] fp32; scores: [B, N]
     (token-padded rows must score exactly 0); ``k`` kept body tokens.
     Returns [B, k + 2, D]: CLS, the kept rows in top-k order, the fused
     row. The kernel runs for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors; when grad is enabled and a CUDA input requires it,
+    :class:`TokenDrop` (the kernel, writing the kept indices its backward
+    reads, and the backward)."""
     B, N, D = z.shape
     if not 1 <= k <= N - 1:
         raise ValueError(f"k={k} outside [1, {N - 1}]")
     if not backend.on_card(z, scores):
         return token_drop_plain(z, scores, k)
-    s_stride = card_operands(NAME, z, scores)
-    out = torch.empty((B, k + 2, D), dtype=torch.float32, device=z.device)
-    backend.launch(NAME, "token_drop_f32", z.device, z.data_ptr(),
-                   scores.data_ptr(), out.data_ptr(), B, N, D, k, s_stride)
-    return out
+    if torch.is_grad_enabled() and (z.requires_grad
+                                    or scores.requires_grad):
+        return TokenDrop.apply(z, scores, k)[0]
+    return _token_drop_cuda(z, scores, k, with_idx=False)[0]

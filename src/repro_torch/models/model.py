@@ -6,10 +6,13 @@ LM's training loss; the port of the reference package's
 Params are a nested dict with the reference's layout, except that
 ``layers`` is a list of per-layer dicts where the reference stacks them
 on a leading axis (weights ``[in, out]``); ``convert`` turns the
-reference's trees into this layout. :func:`forward_vit` runs plain
-PyTorch only — no kernel — and is the masked-dense oracle the packed path
-is held against and the forward that training differentiates.
-:func:`forward_lm` runs its attention through the ``flash_attention``
+reference's trees into this layout. :func:`forward_vit` is the forward
+that training differentiates and the masked-dense oracle the packed path is
+held against: its attention and TDM go through the ``flash_attention`` and
+``token_drop`` kernel wrappers, so on CUDA tensors they are the kernels
+(in training with their backward kernels) and on CPU tensors the plain
+versions, which autograd differentiates; as an oracle it runs on the
+CPU. :func:`forward_lm` runs its attention through the ``flash_attention``
 kernel wrapper (the kernels for CUDA tensors; in training the causal
 kernel pair with its backward) and, in train mode, checkpoints each layer
 by ``cfg.remat_policy`` as the reference's ``_remat`` does.
@@ -26,6 +29,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import token_pruning as TP
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.token_drop import ops as TD
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
@@ -148,7 +153,9 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 def forward_vit(cfg: ModelConfig, params: Dict, patches: torch.Tensor,
                 use_tdm: Optional[bool] = None) -> Output:
     """patches: [B, N, P²·3], fp32 throughout. Applies the TDM at
-    ``cfg.pruning.tdm_layers`` when token pruning is enabled."""
+    ``cfg.pruning.tdm_layers`` when token pruning is enabled. Attention and
+    the TDM run through the kernel wrappers, which pick by device alone
+    (module docstring)."""
     p = cfg.pruning
     if use_tdm is None:
         use_tdm = p.token_pruning_enabled
@@ -166,11 +173,13 @@ def forward_vit(cfg: ModelConfig, params: Dict, patches: torch.Tensor,
         q = L.linear(h, ap["wq"], ap.get("bq")).reshape(B, n, H, Dh)
         k = L.linear(h, ap["wk"], ap.get("bk")).reshape(B, n, H, Dh)
         v = L.linear(h, ap["wv"], ap.get("bv")).reshape(B, n, H, Dh)
-        o = A.flash_attention_torch(q, k, v).reshape(B, n, H * Dh)
-        x = x + L.linear(o, ap["wo"], ap.get("bo"))
         if has_tdm:
-            scores = A.attention_probs_row(q[:, 0], k).mean(dim=1)
-            x, _ = TP.tdm(x, scores, p.r_t, has_cls=True)
+            o, scores = FA.flash_attention(q, k, v, collect_scores=True)
+        else:
+            o = FA.flash_attention(q, k, v)
+        x = x + L.linear(o.reshape(B, n, H * Dh), ap["wo"], ap.get("bo"))
+        if has_tdm:
+            x = TD.token_drop(x, scores, TP.num_kept_tokens(n, p.r_t) - 2)
         h = L.layer_norm(x, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
         x = x + L.gelu_mlp(h, lp["mlp"])
 

@@ -226,8 +226,9 @@ def make_vit_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None):
     """ViT classification training (no distillation; ``core/simultaneous``
     has the paper's Algorithm 1). Returns ``step(params, opt_state, batch)
     -> (params, opt_state, {"loss"})`` over tensors on one device; the
-    forward is :func:`~repro_torch.models.model.forward_vit`, plain
-    PyTorch, differentiated by autograd."""
+    forward is :func:`~repro_torch.models.model.forward_vit`,
+    differentiated by autograd (on the card its attention and TDM run on
+    the kernels and their backward kernels)."""
     opt = optimizer or AdamW(lr=1e-3)
 
     def step(params, opt_state, batch):

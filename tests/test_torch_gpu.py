@@ -25,6 +25,7 @@ from repro_torch.core.quant import dequantize_blocks
 from repro_torch.kernels.sbmm import (sbmm, sbmm_plain, sbmm_quant_raw,
                                       sbmm_raw)
 from repro_torch.kernels.token_drop import token_drop, token_drop_plain
+from repro_torch.kernels.token_drop import ops as TD
 from repro_torch.kernels.token_drop.ops import MAX_TOKENS
 from repro_torch.kernels.token_package import (token_package,
                                                token_package_plain)
@@ -827,6 +828,112 @@ def test_ste_gradient_on_card_matches_cpu(dev, kind):
     assert ((gsg - gsc).abs().max() / max(1.0, gsc.abs().max())) <= 1e-5
 
 
+def _count_plain_vit(monkeypatch):
+    """Count calls of the plain versions of the ViT training path's
+    kernels and of what they are made of, by name."""
+    from repro_torch.models import attention as A
+    names = ((FA, "attention_plain"), (FA, "attention_bwd_plain"),
+             (A, "flash_attention_torch"), (A, "attention_probs_row"),
+             (TTP, "tdm"), (TD, "token_drop_plain"),
+             (TD, "token_drop_bwd_plain"))
+    calls = {name: 0 for _, name in names}
+    for mod, name in names:
+        def call(*a, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, call)
+    return calls
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 70, 6, 64),
+                                   (2, 197, 6, 64)])
+@pytest.mark.parametrize("with_scores", [False, True])
+def test_noncausal_attention_bwd_on_card(dev, shape, with_scores):
+    """The training pair of the non-causal fp32 kernel against the plain
+    versions: the forward writing lse (o and probs bitwise the serve's,
+    lse within 1e-5) and ``flash_attention_bwd_f32`` (dq, dk, dv within
+    1e-5 x max(1, max|plain|), two launches bitwise equal), with and
+    without the CLS probabilities' gradient; then ``flash_attention`` with
+    grad on the card against autograd of the plain version on the CPU."""
+    B, N, H, Dh = shape
+    g = torch.Generator().manual_seed(21)
+    q, k, v, do = (torch.randn(shape, generator=g) for _ in range(4))
+    dsc = torch.randn((B, N), generator=g)
+    qc, kc, vc, doc = (t.to(dev) for t in (q, k, v, do))
+    o, probs, lse = FA._attention_cuda(qc, kc, vc, None, True,
+                                       with_lse=True)
+    o_s, probs_s, _ = FA._attention_cuda(qc, kc, vc, None, True)
+    assert torch.equal(o, o_s) and torch.equal(probs, probs_s)
+    lse_ref = FA.attention_lse_plain(qc, kc)
+    assert (lse - lse_ref).abs().max() <= 1e-5 * max(1.0,
+                                                     lse_ref.abs().max())
+    dprobs = (dsc.to(dev)[:, None, :] / H).expand(B, H, N) \
+        if with_scores else None
+    before = backend.launches()["flash_attention_bwd_f32"]
+    res = FA._attention_bwd_cuda(qc, kc, vc, o, doc, lse, dprobs)
+    again = FA._attention_bwd_cuda(qc, kc, vc, o, doc, lse, dprobs)
+    ref = FA.attention_bwd_plain(qc, kc, vc, o, doc, lse, dprobs)
+    torch.cuda.synchronize()
+    assert backend.launches()["flash_attention_bwd_f32"] == before + 2
+    for a, b, r in zip(res, again, ref):
+        assert torch.equal(a, b)
+        assert (a - r).abs().max() <= 1e-5 * max(1.0, r.abs().max())
+    got = []
+    for d in ("cpu", dev):
+        t = [x.to(d).requires_grad_(True) for x in (q, k, v)]
+        oo, sc = flash_attention(*t, collect_scores=True)
+        loss = (oo * do.to(d)).sum()
+        if with_scores:
+            loss = loss + (sc * dsc.to(d)).sum()
+        got.append([x.cpu() for x in torch.autograd.grad(loss, t)])
+    for a, c in zip(got[1], got[0]):
+        assert (a - c).abs().max() <= 1e-5 * max(1.0, c.abs().max())
+
+
+@pytest.mark.parametrize("case", [(3, 17, 64, 12), (4, 197, 384, 138),
+                                  (2, 100, 384, 70)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_token_drop_bwd_on_card(dev, case, ties):
+    """The TDM's training pair against the plain versions: the forward's
+    kept indices the plain version's and its output bitwise the serve's;
+    ``token_drop_bwd_f32``'s dz bitwise at CLS and the kept rows, dropped
+    rows and dscores within 1e-6 x max(1, max|plain|), dscores 0 at CLS
+    and the kept rows, two launches bitwise equal; then ``token_drop``
+    with grad on the card against autograd of ``TP.tdm`` on the CPU."""
+    B, N, D, k = case
+    g = torch.Generator().manual_seed(22)
+    z = torch.randn((B, N, D), generator=g)
+    s = (torch.randint(0, 3, (B, N), generator=g).float() / 8 if ties
+         else torch.rand((B, N), generator=g))
+    dy = torch.randn((B, k + 2, D), generator=g)
+    zc, sc, dyc = z.to(dev), s.to(dev), dy.to(dev)
+    out, idx = TD._token_drop_cuda(zc, sc, k, True)
+    assert torch.equal(out, token_drop(zc, sc, k))
+    assert torch.equal(idx.long(),
+                       TTP.tdm(zc, sc, None, has_cls=True, k=k)[1])
+    res = TD._token_drop_bwd_cuda(zc, sc, idx, out, dyc)
+    again = TD._token_drop_bwd_cuda(zc, sc, idx, out, dyc)
+    dz_ref, ds_ref = TD.token_drop_bwd_plain(zc, sc, idx, out, dyc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(res, again))
+    dz, ds = res
+    rows = torch.arange(B, device=dev)[:, None]
+    kept = torch.cat([torch.zeros_like(idx[:, :1]), 1 + idx], 1).long()
+    assert torch.equal(dz[rows, kept], dz_ref[rows, kept])
+    assert bool((ds[rows, kept] == 0).all())
+    for a, r in ((dz, dz_ref), (ds, ds_ref)):
+        assert (a - r).abs().max() <= 1e-6 * max(1.0, r.abs().max())
+    got = []
+    for d in ("cpu", dev):
+        tz, ts = (x.to(d).requires_grad_(True) for x in (z, s))
+        o = token_drop(tz, ts, k)
+        got.append((o.detach().cpu(), [x.cpu() for x in torch.autograd.grad(
+            (o * dy.to(d)).sum(), (tz, ts))]))
+    assert torch.equal(got[1][0], out.cpu())
+    for a, c in zip(got[1][1], got[0][1]):
+        assert (a - c).abs().max() <= 1e-6 * max(1.0, c.abs().max())
+
+
 @pytest.mark.parametrize("eps", [1e-8, 1.0])
 def test_simultaneous_step_on_card_matches_cpu(dev, monkeypatch, eps):
     """One Algorithm-1 step of the reduced DeiT-Small from step 5 (the
@@ -836,7 +943,10 @@ def test_simultaneous_step_on_card_matches_cpu(dev, monkeypatch, eps):
     update relative to max(1, |ref|): within 0.25·lr at the paper's eps
     and lr 2e-3 (2·lr for the key biases, whose exact gradient is 0),
     within 1e-5 at lr = eps = 1 (``tests/test_torch_train.py`` gives the
-    reasons). No kernel wrapper launches."""
+    reasons). On the card the step launches the attention forward at every
+    layer of student and teacher, its backward at every student layer and
+    the TDM forward and backward at every TDM, nothing else, and no plain
+    version of attention or the TDM runs there."""
     from repro_torch.core import simultaneous as SIM
     from repro_torch.data import DataConfig, synthetic_vit_batch
     from repro_torch.optim import AdamW
@@ -850,23 +960,39 @@ def test_simultaneous_step_on_card_matches_cpu(dev, monkeypatch, eps):
     teacher = M.init_params(cfg, torch.Generator().manual_seed(9), "cpu")
     step = SIM.make_simultaneous_step(cfg, cfg, opt, 20)
     b = synthetic_vit_batch(cfg, 8, DataConfig(seed=0), 0)
-    inner = TTP.tdm
     res = {}
-    backend.reset_launches()
+    kept = []
+
+    def card_drop(*a, _inner=TD._token_drop_cuda, **kw):
+        o = _inner(*a, **kw)
+        kept.append(o[1].long().cpu())
+        return o
+
+    def plain_drop(*a, _inner=TTP.tdm, **kw):
+        o = _inner(*a, **kw)
+        kept.append(o[1].long().cpu())
+        return o
+    # the kept indices: the kernel's index output on the card (training
+    # asks for it), TP.tdm's on the CPU
+    monkeypatch.setattr(TD, "_token_drop_cuda", card_drop)
+    monkeypatch.setattr(TTP, "tdm", plain_drop)
+    plain = _count_plain_vit(monkeypatch)
     for d in ("cpu", dev):
         kept = []
-
-        def tdm(*a, **kw):
-            o = inner(*a, **kw)
-            kept.append(o[1].cpu())
-            return o
-        monkeypatch.setattr(TTP, "tdm", tdm)
+        backend.reset_launches()
+        for name in plain:
+            plain[name] = 0
         new, m = step(tree_map(lambda t: t.to(d), state),
                       tree_map(lambda t: t.to(d), teacher),
                       {k: torch.from_numpy(v).to(d) for k, v in b.items()})
         res[str(d)] = (kept, tree_map(lambda t: t.cpu(), new),
                        {k: v.item() for k, v in m.items()})
-    assert not any(backend.launches().values())
+    L, T = cfg.num_layers, len(cfg.pruning.tdm_layers)
+    want = {name: 0 for name in backend.ENTRY_POINTS}
+    want.update(flash_attention_f32=2 * L, flash_attention_bwd_f32=L,
+                token_drop_f32=T, token_drop_bwd_f32=T)
+    assert backend.launches() == want
+    assert not any(plain.values()), plain
     (kc, nc, mc), (kg, ng, mg) = res["cpu"], res[str(dev)]
     assert len(kc) == len(kg) == len(cfg.pruning.tdm_layers)
     for a, c in zip(kg, kc):

@@ -22,9 +22,7 @@ name. The card's name and power limit come first.
 """
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,24 +90,6 @@ def one(tree: str) -> dict:
     return res
 
 
-def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(one(argv[1])), flush=True)
-        return 0
-    if not argv:
-        print(__doc__, file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    for tree in argv:
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--one", tree]).returncode
-        if rc:
-            return rc
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    from ab_runner import run
+    sys.exit(run(sys.argv[1:], one, os.path.abspath(__file__), __doc__))
