@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. Build: compile the hand-written kernels (``kernels/csrc/*.cu``, one
    ``nvcc`` each, concurrently) and print the build seconds; from the
    SASS, the fp32 non-causal attention kernels and their backward's issue
-   no tensor-core instruction (no TF32), the fp16 ones issue HMMA, and the
+   no tensor-core instruction (no TF32; the backward no atomic either),
+   the fp16 ones issue HMMA, and the
    causal backward's two kernels (dQ, dK/dV) issue HGMMA (wgmma) and no
    HMMA.
 3. Every kernel entry point against its plain PyTorch version on the
@@ -41,7 +42,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (published HBM rate, fp32 CUDA-core rate, and the fp16/bf16
    tensor-core rate for the products of two 16-bit values). Algorithm 1's
    pair at full-width DeiT-Small, batch 64, at each span's N (197, 140,
-   100, 72; 6 heads, Dh 64) and at the reduced config ([8, 17, 4, 16]):
+   100, 72; 6 heads, Dh 64), at N = 33 and at the reduced config ([8, 17,
+   4, 16]):
    ``flash_attention_f32`` writing the log-sum-exp (o and probs bitwise
    the serve's, lse within 1e-5) and ``flash_attention_bwd_f32`` with and
    without the CLS probabilities' gradient (dq, dk, dv within 1e-5 x
@@ -487,27 +489,36 @@ def check_flash_attention(torch, dev, half: bool):
                f"rows bitwise alone and padded by {FLASH_PAD}")
 
 
-def _sass_ops(backend, lib):
-    """Tensor-core instruction counts per kernel of library ``lib``, from
-    its SASS."""
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA", "DMMA")
+# global, shared and generic atomics and reductions
+ATOMIC_OPS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDAS")
+
+
+def _sass_ops(backend, lib, ops=TENSOR_CORE_OPS):
+    """Counts of the instructions ``ops`` (by opcode, modifiers dropped) per
+    kernel of library ``lib``, from its SASS."""
     counts, fn = {}, None
     for line in backend.disassemble(lib).splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = {}
-        elif fn is not None:
-            for op in ("HMMA", "HGMMA", "IMMA", "DMMA"):
-                if op in line:
-                    counts[fn][op] = counts[fn].get(op, 0) + 1
+        elif fn is not None and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            while words and (words[0] == "{" or words[0].startswith("@")):
+                words = words[1:]  # a dual-issue brace, a predicate
+            op = words[0].split(".")[0] if words else ""
+            if op in ops:
+                counts[fn][op] = counts[fn].get(op, 0) + 1
     return counts
 
 
 def check_tensor_cores(backend):
     """Which kernels issue tensor-core instructions, from their SASS: the
     non-causal fp32 tier's none (no TF32 or other split product), nor its
-    backward's two kernels; its fp16 tier's HMMA; the causal backward's two
-    kernels (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA.
-    Prints the count per kernel."""
+    backward's two kernels, which issue no atomic either (their sums run
+    in a fixed order); its fp16 tier's HMMA; the causal backward's two kernels
+    (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA. Prints the
+    count per kernel."""
     from repro_torch.kernels.flash_attention.ops import CAUSAL_HEAD_DIMS
     bwd_dims = CAUSAL_HEAD_DIMS["flash_prefill_bwd_bf16"]
     tiers = {}
@@ -532,18 +543,23 @@ def check_tensor_cores(backend):
         else:
             require(ops.get("HMMA", 0) > 0, f"{kern} issues no HMMA")
     vit_bwd = {}
-    for fn, ops in _sass_ops(backend, "flash_attention_bwd").items():
-        for part in ("dq", "dkdv"):
-            if f"flash_attention_bwd_f32_{part}_kernel" in fn:
-                dh = fn.split("_kernelILi")[1].split("E")[0]
-                vit_bwd[f"flash_attention_bwd_f32_{part}_kernel<{dh}>"] = ops
-    print("sass: tensor-core instructions of the fp32 attention backward "
-          + json.dumps(vit_bwd), flush=True)
-    require(len(vit_bwd) == 4, f"expected the fp32 backward's dq and dkdv "
-                               f"kernels at Dh 16 and 64 in the SASS, found "
-                               f"{sorted(vit_bwd)}")
+    for fn, ops in _sass_ops(backend, "flash_attention_bwd",
+                             TENSOR_CORE_OPS + ATOMIC_OPS).items():
+        if "flash_attention_bwd_f32_kernel" in fn:
+            dh = fn.split("_kernelILi")[1].split("E")[0]
+            vit_bwd[f"flash_attention_bwd_f32_kernel<{dh}>"] = ops
+        elif "flash_attention_bwd_f32_dq_sum_kernel" in fn:
+            vit_bwd["flash_attention_bwd_f32_dq_sum_kernel"] = ops
+    print("sass: tensor-core and atomic instructions of the fp32 attention "
+          "backward " + json.dumps(vit_bwd), flush=True)
+    require(sorted(vit_bwd) == ["flash_attention_bwd_f32_dq_sum_kernel",
+                                "flash_attention_bwd_f32_kernel<16>",
+                                "flash_attention_bwd_f32_kernel<64>"],
+            f"expected the fp32 backward's main kernel at Dh 16 and 64 and "
+            f"its dQ sum in the SASS, found {sorted(vit_bwd)}")
     for kern, ops in vit_bwd.items():
-        require(not ops, f"{kern} issues tensor-core instructions {ops}")
+        require(not ops, f"{kern} issues tensor-core or atomic instructions "
+                         f"{ops}")
     require(len(bwd) == 2 * len(bwd_dims),
             f"expected the backward's dq and dkdv kernels at Dh {bwd_dims} "
             f"in the SASS, found {sorted(bwd)}")
@@ -1284,9 +1300,9 @@ def lm_path(torch, dev):
 # ---------------------------------------------------------------------------
 # Phase 5: device time by kernel, busy share, host spans (torch.profiler)
 # ---------------------------------------------------------------------------
-# entry points that launch more than one kernel, each named
-# ``<entry point>_<part>_kernel``
-# entry points that run two kernels per launch: dQ (with D), then dK/dV
+# entry points that run two kernels per launch, each named
+# ``<entry point>_<part>_kernel``: the causal backward's dQ (with D), then
+# dK/dV; the non-causal backward's main pass, then its dQ sum
 KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2,
                       "flash_attention_bwd_f32": 2}
 
@@ -1917,11 +1933,13 @@ def check_causal_training(torch, dev, prefill):
 
 # Algorithm 1's attention and TDM shapes at full-width DeiT-Small, batch 64
 # (``TRAIN_BATCH``): (label, B, N, H, Dh) per span of layers between TDMs,
-# then the reduced config's; the first case of each kernel is its headline
+# then N = 33 (one row past the backward's 32-row query tiles) and the
+# reduced config's; the first case of each kernel is its headline
 VIT_ATTN_CASES = (("layers 0-2", 64, 197, 6, 64),
                   ("layers 3-6", 64, 140, 6, 64),
                   ("layers 7-9", 64, 100, 6, 64),
                   ("layers 10-11", 64, 72, 6, 64),
+                  ("N = 33", 64, 33, 6, 64),
                   ("reduced", 8, 17, 4, 16))
 # (label, B, N, D, k) per TDM: layers 2, 6 and 9, then the reduced config's
 VIT_TDM_CASES = (("layer 2", 64, 197, 384, 138),
@@ -1951,12 +1969,14 @@ def check_vit_attention_training(torch, dev, fwd_check):
     * ``flash_attention_f32`` writing the log-sum-exp (a case of
       ``fwd_check`` per shape): o and the CLS probabilities bitwise the
       serve's (the same call with a null lse), lse within ``LSE_TOL``;
-    * ``flash_attention_bwd_f32`` (two kernels per launch: dQ with D, then
-      dK/dV) against ``attention_bwd_plain`` on the same o, dO and lse,
-      with the CLS probabilities' gradient (dscores / H at every head) and
-      without: dq, dk, dv within ``VIT_BWD_TOL`` x max(1, max|plain|), two
-      launches bitwise equal. Its library call is SDPA's fp32 forward and
-      backward, timed only.
+    * ``flash_attention_bwd_f32`` (two kernels per launch: the main pass
+      and the sum of its per-key-tile dQ partials) against
+      ``attention_bwd_plain`` on the same o, dO and lse, with the CLS
+      probabilities' gradient (dscores / H at every head, the broadcast
+      view the training step passes) and without: dq, dk, dv within
+      ``VIT_BWD_TOL`` x max(1, max|plain|), two launches bitwise equal.
+      Its library call is SDPA's fp32 forward and backward, timed only.
+      Prints each case's time over its bound and over SDPA's.
 
     Returns the backward's check, one entry per case under ``cases``."""
     import torch.nn.functional as F
@@ -2051,10 +2071,15 @@ def check_vit_attention_training(torch, dev, fwd_check):
             out = F.scaled_dot_product_attention(*leaves_h)
             return torch.autograd.grad(out, leaves_h, doh)
 
+        ms, lib_ms = time_ms(bwd), time_ms(sdpa)
+        print(f"vit attention backward ({label}, [{B}, {N}, {H}, {Dh}]): "
+              f"{ms * 1e3:.2f} us a call, {ms / bnd:.2f}x its bound "
+              f"({bnd * 1e3:.2f} us, {by}), {ms / lib_ms:.3f}x SDPA's fp32 "
+              f"forward + backward ({lib_ms * 1e3:.2f} us)", flush=True)
         cases.append(dict(
-            label=label, errs=errs, fn=bwd, ms=time_ms(bwd),
+            label=label, errs=errs, fn=bwd, ms=ms,
             plain_ms=time_ms(bwd_plain, samples=5, calls=3, warmup=1),
-            library_fn=sdpa, library_ms=time_ms(sdpa), bound_ms=bnd,
+            library_fn=sdpa, library_ms=lib_ms, bound_ms=bnd,
             bound_by=by, shapes=shapes + " backward, with the CLS "
                                          "probabilities' gradient"))
     head = cases[0]

@@ -46,7 +46,8 @@ P, I = ctypes.c_void_p, ctypes.c_int
 _SBMM = [P] * 5 + [I] * 5 + [P]
 _SBMM_QUANT = [P] * 6 + [I] * 5 + [P]
 _FLASH = [P] * 7 + [I] * 4 + [ctypes.c_float, P]
-_FLASH_BWD = [P] * 11 + [I] * 4 + [ctypes.c_float, P]
+_FLASH_BWD = [P] * 11 + [I] * 4 + [ctypes.c_longlong] * 2 + \
+    [ctypes.c_float, P]
 _FLASH_DECODE = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
 _FLASH_PREFILL = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
 _FLASH_PREFILL_BWD = [P] * 11 + [I] * 5 + [ctypes.c_float, P]

@@ -1,6 +1,6 @@
 // The gradient of the non-causal fp32 attention on Hopper: the ViT's
 // training (Algorithm 1), with the gradient of the CLS row's attention
-// probabilities (the TDM's scores) folded into the same passes.
+// probabilities (the TDM's scores) folded into the same pass.
 //
 // Replaces the gradient JAX takes, in the reference's Algorithm 1
 // (src/repro/core/simultaneous.py) and ViT step (models/steps.py), of the
@@ -12,46 +12,56 @@
 //
 // Inputs: q, k, v, o, dO [B, N, H, Dh] fp32 (Dh 16 or 64, every key
 // valid: training has no padded rows), lse [B, H, N] (the forward's
-// natural log-sum-exp) and dprobs [B, H, N] or null, the gradient of the
-// CLS row's per-head probabilities (the wrapper passes the head mean's
-// gradient made contiguous: dscores / H at every head). Outputs dq, dk,
-// dv [B, N, H, Dh] fp32. With s = scale q.k:
+// natural log-sum-exp) and dprobs or null, the gradient of the CLS row's
+// per-head probabilities, element (b, h, j) at b sb + h sh + j (the head
+// mean's gradient is a broadcast view, sh = 0). Outputs dq, dk, dv [B, N,
+// H, Dh] fp32. With s = scale q.k:
 //   P = exp(s - lse), D = rowsum(dO o O), dP = dO V^T, dS = P o (dP - D),
 //   dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
 // The CLS probabilities are row 0 of P (the same scores, the same scale),
 // so their gradient enters the same dS: for row 0 only, dP_0j += dprobs_j
-// and D_0 += sum_j P_0j dprobs_j (the softmax's Jacobian). No separate
-// launch computes it.
+// and D_0 += sum_j P_0j dprobs_j (the softmax's Jacobian).
 //
 // Bound on the H100 at the training shapes (DeiT-Small, batch 64, 6 heads,
 // Dh 64, N = 197 at layers 0-2, 140, 100 and 72 after each TDM): five
 // products of 2 N^2 Dh operations per (b, h), all fp32 on the CUDA cores
 // (no TF32: the fp32 tier keeps full fp32 products); at N = 197 that is
 // 9.5e9 operations a call, 0.142 ms at 67 TFLOP/s, against 0.046 ms for
-// its 155 MB (five inputs read and three outputs written once, 19.4 MB
-// each): bound by operations.
+// its 155 MB: bound by operations. What feeds the FP32 lanes is shared
+// memory: an SM moves 128 bytes a clock into registers (a warp's 16-byte
+// load takes four clocks, broadcast or not) against 128 FFMA, so a thread
+// must do 4 FFMA for each float it reads to keep the lanes busy. 8 x 8
+// register tiles do (dV and dK here), 8 x 4 do 2.7 (S and dP), 4 x 4 do 2
+// (dQ). 8 x 8 tiles in S, dP or dQ need a trade of partial sums between
+// warps, which cost what the larger tiles saved when measured; at 216
+// registers a thread, two blocks share an SM.
 //
-// Design: a simple one, two kernels per launch as in flash_prefill_bwd.cu
-// (dQ with D, then dK/dV), blocks of four warps on the CUDA cores with the
-// lane layout of flash_attention.cu's fp32 core, every sum in a fixed
-// order and no atomics, so two launches are bitwise equal.
-//   dQ kernel: one block per (16-row query tile, head, batch row). D of
-// the tile's rows is read from o and dO while Q and dO are staged; in the
-// block holding row 0, the 128 threads also take sum_j P_0j dprobs_j over
-// all keys (one Q.K row, N Dh operations) before the loop. The keys are
-// cut into chunks of 16 dealt round robin to the warps; per chunk a warp
-// takes S = Q K^T and dP = dO V^T (each lane 4 rows x 2 keys), forms dS in
-// registers, parks it where the chunk's V was, and adds dS K into its
-// partial dQ (each lane 4 rows x Dh / 8 columns). Chunks are staged by
-// 16-byte cp.async, two stages per warp. The warps' partials are summed in
-// warp order; the kernel writes dQ and each row's D (with row 0's
-// probability term) to the scratch dsum [B, H, N].
-//   dK/dV kernel: one block per (16-key tile, head, batch row), K and V
-// held, the query rows in chunks of 16 dealt to the warps; per chunk S^T =
-// K Q^T and dP^T = V dO^T, P^T from lse, dS^T from dsum (and, at query
-// row 0, dprobs), both parked in the warp's buffers, then dV += P^T dO and
-// dK += dS^T Q. Partials summed in warp order; dK scaled on the store.
-// Rows and keys past N are staged as zeros and masked to P = 0.
+// Design: two kernels per launch, each product done once.
+//   The main kernel: one block of four warps per (64-key tile, head, batch
+// row). It holds the tile's K and V in shared memory and dK, dV in
+// registers, and walks the query rows in tiles of 32, Q, dO and O staged
+// one tile ahead by 16-byte cp.async. Per query tile:
+//   S = Q K^T (warps 0, 1) and dP = dO V^T (warps 2, 3), each warp 32 keys
+//   on 8 x 4 register tiles (a ragged last tile only on the rows it has);
+//   warps 0, 1 form P from lse and park it;
+//   dV += P^T dO (warps 0, 1), and warps 2, 3 take D from the staged dO
+//   and O, form dS and park dS and dS^T, then dK += dS^T Q; 8 x 8 tiles,
+//   each warp 32 of the tile's keys;
+//   the tile's partial dQ = dS K_tile, 4 x 4 tiles over the tile's keys,
+//   stored to a scratch [T, B, N, H, Dh] at the key tile's index.
+// Row 0's term sum_j P_0j dprobs_j needs every key: each block sums it
+// over all keys, in the same threads and order, so every block holds the
+// same bits.
+//   The sum kernel: dQ = scale x the T partials of each element, added in
+// key-tile order.
+// The partials go through device memory rather than a thread-block
+// cluster's shared memory: summing each query tile across a cluster took a
+// cluster barrier a tile, and the blocks then ran in lockstep with the
+// slowest (a 5-key last tile at N = 197 held its SM as long as a full
+// one); measured, that cost more than the sum kernel does.
+// No atomics, every sum in a fixed order: two launches are bitwise equal.
+// Rows and keys past N are staged as zeros and masked to P = 0; warps
+// whose keys all lie past N skip their products.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -61,38 +71,43 @@
 
 namespace {
 
-constexpr int kT = 16;  // rows of a tile and of a chunk
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCLd = 8;  // the combine's row padding, floats
+constexpr int kKT = 64;  // keys of a key tile
+constexpr int kQT = 32;  // rows of a query tile
+constexpr int kThreads = 128;
+constexpr int kXLd = kKT + 8;  // rows of the parked P and dS (conflict-free
+                               // scalar stores of 4 rows x 8 keys)
+constexpr int kTLd = kQT + 4;  // rows of the parked dS^T
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kThreads == kT * 8, "D and the combine give 8 threads a row");
 
 template <int DH>
 struct Tile {
-  // staged rows, padded so that the float4 reads of 8 rows by the 8 lanes
-  // of a row group fall in distinct banks
+  // staged rows, padded so that the float4 reads of 4 or 8 rows fall in
+  // distinct banks
   static constexpr int kLd = DH + 4;
-  static constexpr int kRow = kT * kLd;  // floats of a staged 16-row tile
-  static constexpr int kPLd = DH >= 32 ? kT + 8 : kT + 4;  // P / dS rows
-  static constexpr int kVW = DH >= 32 ? 4 : 2;  // output read width
-  static constexpr int kVN = DH / 8 / kVW;  // reads per row
-  static constexpr int kCols = DH / 8;  // output columns of a lane
-  static constexpr int kComb = kT * (DH + kCLd);  // a warp's partial
-  static_assert(kPLd <= kLd, "dS fits in a staged tile");
+  // dK / dV: kG keys x 4 kCh columns a thread (columns 4 g + 4 kG c of
+  // column group g); dQ: kR rows x 4 columns a thread
+  static constexpr int kG = DH >= 64 ? 8 : 4;
+  static constexpr int kCh = DH / (4 * kG);
+  static constexpr int kR = kQT * DH / (4 * kThreads);
+  static constexpr int kT = kKT * kTLd > kQT * kLd ? kKT * kTLd : kQT * kLd;
+  // K, V; two stages of (Q, dO); P, dS; two of O, then dS^T
+  static constexpr int kFloats =
+      2 * kKT * kLd + 4 * kQT * kLd + 2 * kQT * kXLd + 2 * kT;
+  static_assert(kG * kCh * 4 == DH, "the d groups cover Dh");
+  static_assert(kR >= 1, "dQ splits over the threads");
 };
 
-// Copy rows r0 .. r0 + 15 of one head of a [*, H, DH] fp32 operand (token
-// stride ldt) into shared rows kLd apart by 16-byte cp.async, rows at or
-// past `end` zero-filled; kN threads, this one t.
-template <int DH, int kN>
-__device__ __forceinline__ void stage16(float* dst, const float* src,
-                                        size_t ldt, int r0, int end, int t) {
-  constexpr int kCopies = kT * DH / 4;
+// Copy rows r0 .. r0 + ROWS - 1 of one head of a [*, H, DH] fp32 operand
+// (token stride ldt) into shared rows kLd apart by 16-byte cp.async, rows
+// at or past `end` zero-filled; thread t of the block.
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      size_t ldt, int r0, int end, int t) {
+  constexpr int kCopies = ROWS * DH / 4;
+  static_assert(kCopies % kThreads == 0, "a tile stages evenly");
 #pragma unroll
-  for (int i = 0; i < (kCopies + kN - 1) / kN; ++i) {
-    const int e = t + i * kN;
-    if (kCopies % kN != 0 && e >= kCopies) break;
+  for (int i = 0; i < kCopies / kThreads; ++i) {
+    const int e = t + i * kThreads;
     const int r = e / (DH / 4), ch = e % (DH / 4), n = r0 + r;
     const bool ok = n < end;
     cp_async16(dst + r * Tile<DH>::kLd + ch * 4,
@@ -100,427 +115,383 @@ __device__ __forceinline__ void stage16(float* dst, const float* src,
   }
 }
 
-// s[i][j] += sum_d a[rg + 4 i][d] b[kl + 8 j][d] over staged tiles, d in
-// order: the lane's 4 rows of `a` against its 2 rows of `b`.
-template <int DH>
-__device__ __forceinline__ void dot16(const float* a, const float* b, int rg,
-                                      int kl, float (&s)[4][2]) {
-  constexpr int ld = Tile<DH>::kLd;
+// W consecutive floats of shared memory, W / 4 float4s (W 4 or 8) or one.
+template <int W>
+__device__ __forceinline__ void load_w(const float* p, float (&x)[W]) {
+  if constexpr (W == 1) {
+    x[0] = *p;
+  } else {
+    static_assert(W % 4 == 0, "whole float4s");
 #pragma unroll
+    for (int w = 0; w < W; w += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + w);
+      x[w] = v.x;
+      x[w + 1] = v.y;
+      x[w + 2] = v.z;
+      x[w + 3] = v.w;
+    }
+  }
+}
+
+// acc[r][4 c + e] += sum_j a[j][r] m[j][4 G c + e] for j in [0, n) in
+// order: R floats of row j of a (rows lda apart), CH float4s of row j of m
+// (rows ldm apart, G float4s apart).
+template <int R, int G, int CH>
+__device__ __forceinline__ void outer(const float* a, int lda,
+                                      const float* m, int ldm, int n,
+                                      float (&acc)[R][4 * CH]) {
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    float x[R];
+    load_w<R>(a + j * lda, x);
+    float4 y[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      y[c] = *reinterpret_cast<const float4*>(m + j * ldm + 4 * G * c);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        acc[r][4 * c] = fmaf(x[r], y[c].x, acc[r][4 * c]);
+        acc[r][4 * c + 1] = fmaf(x[r], y[c].y, acc[r][4 * c + 1]);
+        acc[r][4 * c + 2] = fmaf(x[r], y[c].z, acc[r][4 * c + 2]);
+        acc[r][4 * c + 3] = fmaf(x[r], y[c].w, acc[r][4 * c + 3]);
+      }
+    }
+  }
+}
+
+// acc[i][j] += sum_d a[r_i][d] b[8 j][d] over d < DH in order, for rows
+// r_i = 4 i of a (i < I) and rows 8 j of b (j < 4), rows kLd apart: a
+// lane's 8 x 4 tile of S or dP (I < 8 on a ragged last tile).
+template <int DH, int I>
+__device__ __forceinline__ void dot_tile(const float* am, const float* bm,
+                                         float (&acc)[8][4]) {
+  constexpr int kLd = Tile<DH>::kLd;
+#pragma unroll 2
   for (int d = 0; d < DH; d += 4) {
-    float4 av[4], bv[2];
+    float4 a[I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (rg + 4 * i) * ld + d);
+    for (int i = 0; i < I; ++i)
+      a[i] = *reinterpret_cast<const float4*>(am + 4 * i * kLd + d);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (kl + 8 * j) * ld + d);
+    for (int j = 0; j < 4; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(bm + 8 * j * kLd + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
+      for (int i = 0; i < I; ++i) {
+        acc[i][j] = fmaf(a[i].x, bv.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, bv.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, bv.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, bv.w, acc[i][j]);
       }
     }
   }
 }
 
-// acc[i][c] += sum_j p[rg + 4 i][j] m[j][col c], j in order: p a parked
-// 16 x 16 tile (rows kPLd apart), m a staged tile; the lane's columns are
-// kVW kl + 8 kVW h + e for c = kVW h + e.
+// Grid (T, H, B): key tile blockIdx.x of head blockIdx.y of batch row
+// blockIdx.z. The design is in the head comment.
 template <int DH>
-__device__ __forceinline__ void accum16(const float* p, const float* m,
-                                        int rg, int kl,
-                                        float (&acc)[4][Tile<DH>::kCols]) {
-  using TL = Tile<DH>;
-#pragma unroll
-  for (int c4 = 0; c4 < kT; c4 += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p + (rg + 4 * i) * TL::kPLd +
-                                               c4);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* mrow = m + (c4 + kk) * TL::kLd + TL::kVW * kl;
-      float mv[TL::kCols];
-#pragma unroll
-      for (int h = 0; h < TL::kVN; ++h) {
-        if constexpr (TL::kVW == 4) {
-          const float4 x = *reinterpret_cast<const float4*>(mrow + 32 * h);
-          mv[4 * h] = x.x;
-          mv[4 * h + 1] = x.y;
-          mv[4 * h + 2] = x.z;
-          mv[4 * h + 3] = x.w;
-        } else {
-          const float2 x = *reinterpret_cast<const float2*>(mrow + 16 * h);
-          mv[2 * h] = x.x;
-          mv[2 * h + 1] = x.y;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pe = kk == 0 ? pv[i].x
-                         : kk == 1 ? pv[i].y
-                         : kk == 2 ? pv[i].z
-                                   : pv[i].w;
-#pragma unroll
-        for (int c = 0; c < TL::kCols; ++c)
-          acc[i][c] = fmaf(pe, mv[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-// A lane's partial into its warp's combine region (rows DH + kCLd apart).
-template <int DH>
-__device__ __forceinline__ void store_partial(
-    float* cw, int rg, int kl, const float (&acc)[4][Tile<DH>::kCols]) {
-  using TL = Tile<DH>;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = cw + (rg + 4 * i) * (DH + kCLd) + TL::kVW * kl;
-#pragma unroll
-    for (int h = 0; h < TL::kVN; ++h) {
-      if constexpr (TL::kVW == 4)
-        *reinterpret_cast<float4*>(row + 32 * h) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
-      else
-        *reinterpret_cast<float2*>(row + 16 * h) =
-            make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
-    }
-  }
-}
-
-// The warps' partials summed in warp order, times `mult`, into row n0 + r
-// (r = t / 8, columns (t % 8) Dh / 8 on) of a [B, N, H, DH] output whose
-// (b, h) head starts at `out`; rows past N are not stored.
-template <int DH>
-__device__ __forceinline__ void combine_store(const float* comb, int stride,
-                                              float* out, size_t ldt, int n0,
-                                              int N, int t, float mult) {
-  constexpr int kOut = DH / 8;
-  const int r = t >> 3, c0 = (t & 7) * kOut;
-  if (n0 + r >= N) return;
-  float* orow = out + static_cast<size_t>(n0 + r) * ldt + c0;
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) {
-    float x = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      x += comb[w * stride + r * (DH + kCLd) + c0 + c];
-    orow[c] = x * mult;
-  }
-}
-
-template <int DH>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 + 4 * kWarps) * Tile<DH>::kRow;
-}
-
-template <int DH>
-constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) * ((2 + 4 * kWarps) * Tile<DH>::kRow +
-                          kWarps * 2 * kT * Tile<DH>::kPLd);
-}
-
-// dQ and D: query tile blockIdx.x of head blockIdx.y of batch row
-// blockIdx.z (the design is in the head comment). Shared memory: Q, dO,
-// then each warp's two stages of (K, V); after the loop the warps' combine
-// regions take the stages' place.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_f32_dq_kernel(
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_bwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ o,
     const float* __restrict__ dO, const float* __restrict__ lse,
-    const float* __restrict__ dprobs, float* __restrict__ dsum,
-    float* __restrict__ dq, int N, int H, float scale) {
+    const float* __restrict__ dprobs, long long dp_sb, long long dp_sh,
+    float* __restrict__ dq_part, float* __restrict__ dk,
+    float* __restrict__ dv, int N, int H, float scale) {
   using TL = Tile<DH>;
+  constexpr int kLd = TL::kLd, kG = TL::kG, kCh = TL::kCh, kR = TL::kR;
   extern __shared__ __align__(16) float smem[];
-  __shared__ float dd_s[kT];
-  __shared__ float red[kWarps];
+  __shared__ float red[kThreads / 32];
+  __shared__ float dd_s[kQT];  // D of the tile's rows
+  __shared__ float dpk_s[kKT];  // dprobs at the tile's keys
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int rg = lane >> 3, kl = lane & 7;
+  // pair 0 (warps 0, 1): S, P, dV; pair 1 (warps 2, 3): dP, D, dS, dK;
+  // half: the warp's 32 keys of the tile
+  const int pair = warp >> 1, half = warp & 1, p = t & 63;
   const size_t ldt = static_cast<size_t>(H) * DH;
   const size_t base = static_cast<size_t>(b) * N * ldt +
                       static_cast<size_t>(h) * DH;
   const size_t bh = (static_cast<size_t>(b) * H + h) * N;
-  const int n0 = qt * kT;
   const float scale_log2 = scale * kLog2e;
-  float* qs = smem;
-  float* dos = smem + TL::kRow;
-  float* mine = smem + (2 + 4 * warp) * TL::kRow;
-  auto kst = [&](int st) { return mine + 2 * st * TL::kRow; };
-  auto vst = [&](int st) { return mine + (2 * st + 1) * TL::kRow; };
-  const int n_chunks = (N + kT - 1) / kT;
-  const int n_mine = warp < n_chunks ? (n_chunks - 1 - warp) / kWarps + 1 : 0;
-  auto load = [&](int i, int st) {  // this warp's i-th chunk into stage st
-    const int c0 = (warp + i * kWarps) * kT;
-    stage16<DH, 32>(kst(st), k + base, ldt, c0, N, lane);
-    stage16<DH, 32>(vst(st), v + base, ldt, c0, N, lane);
+  const int key0 = blockIdx.x * kKT, nk = min(kKT, N - key0);
+  float* ks = smem;
+  float* vs = ks + kKT * kLd;
+  float* stg = vs + kKT * kLd;  // stage s: Q, dO at stg + 2 s kQT kLd
+  float* xp = stg + 4 * kQT * kLd;  // P [row][key]
+  float* xds = xp + kQT * kXLd;  // dS [row][key]
+  float* trs = xds + kQT * kXLd;  // stage s: O at trs + s kT, then dS^T
+  const int nqt = (N + kQT - 1) / kQT;
+  const float* dpr =
+      dprobs == nullptr ? nullptr : dprobs + b * dp_sb + h * dp_sh;
+  float* part = dq_part + static_cast<size_t>(blockIdx.x) *
+                              gridDim.z * N * ldt;  // this key tile's dQ
+
+  auto load_tile = [&](int tile, int s) {
+    float* dst = stg + 2 * s * kQT * kLd;
+    stage<DH, kQT>(dst, q + base, ldt, tile * kQT, N, t);
+    stage<DH, kQT>(dst + kQT * kLd, dO + base, ldt, tile * kQT, N, t);
+    stage<DH, kQT>(trs + s * TL::kT, o + base, ldt, tile * kQT, N, t);
+  };
+  // phase A: rows qg + 4 i (i < 8), keys kc + 8 j (j < 4)
+  const int qg = lane >> 3, kc = 32 * half + (lane & 7);
+  float lse2[8];  // pair 0: log2-domain lse of the tile's rows qg + 4 i
+  auto load_lse = [&](int q0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int n = q0 + qg + 4 * i;
+      lse2[i] = pair == 0 && n < N ? lse[bh + n] * kLog2e : 0.f;
+    }
   };
 
-  stage16<DH, kThreads>(qs, q + base, ldt, n0, N, t);
-  stage16<DH, kThreads>(dos, dO + base, ldt, n0, N, t);
-  if (n_mine > 0) load(0, 0);
+  stage<DH, kKT>(ks, k + base, ldt, key0, N, t);
+  stage<DH, kKT>(vs, v + base, ldt, key0, N, t);
+  load_tile(0, 0);
   cp_async_commit();
-  {  // D of row t / 8: its 8 threads' column eighths, then a butterfly
-    const int r = t >> 3, c0 = (t & 7) * (DH / 8);
-    float d = 0.f;
-    if (n0 + r < N) {
-      const size_t off = base + static_cast<size_t>(n0 + r) * ldt + c0;
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c) d = fmaf(dO[off + c], o[off + c], d);
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
-    d += __shfl_xor_sync(0xffffffffu, d, 4);
-    if ((t & 7) == 0) dd_s[r] = d;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
+  load_lse(0);
+  if (t < kKT) dpk_s[t] = dpr != nullptr && t < nk ? dpr[key0 + t] : 0.f;
 
-  if (qt == 0 && dprobs != nullptr) {
-    // row 0's probability term: D_0 += sum_j P_0j dprobs_j over all keys
-    const float lse2 = lse[bh] * kLog2e;
+  // row 0's term c0 = sum_j P_0j dprobs_j over all keys, the same threads
+  // and order in every block
+  float c0 = 0.f;
+  if (dpr != nullptr) {
+    const float lse0 = lse[bh] * kLog2e;
+    const float4* q0v = reinterpret_cast<const float4*>(q + base);
     float acc = 0.f;
     for (int j = t; j < N; j += kThreads) {
-      const float* krow = k + base + static_cast<size_t>(j) * ldt;
+      const float4* kr = reinterpret_cast<const float4*>(
+          k + base + static_cast<size_t>(j) * ldt);
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < DH; d += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + d);
-        const float4 kv = __ldg(reinterpret_cast<const float4*>(krow + d));
-        s = fmaf(qv.x, kv.x, s);
-        s = fmaf(qv.y, kv.y, s);
-        s = fmaf(qv.z, kv.z, s);
-        s = fmaf(qv.w, kv.w, s);
+      for (int d = 0; d < DH / 4; ++d) {
+        const float4 a = __ldg(q0v + d), c = __ldg(kr + d);
+        s = fmaf(a.x, c.x, s);
+        s = fmaf(a.y, c.y, s);
+        s = fmaf(a.z, c.z, s);
+        s = fmaf(a.w, c.w, s);
       }
-      acc = fmaf(exp2f(s * scale_log2 - lse2), dprobs[bh + j], acc);
+      acc = fmaf(exp2f(s * scale_log2 - lse0), dpr[j], acc);
     }
 #pragma unroll
     for (int mask = 16; mask > 0; mask /= 2)
       acc += __shfl_xor_sync(0xffffffffu, acc, mask);
     if (lane == 0) red[warp] = acc;
     __syncthreads();
-    if (t == 0) {
-      float x = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) x += red[w];
-      dd_s[0] += x;
-    }
-    __syncthreads();
+    for (int w = 0; w < kThreads / 32; ++w) c0 += red[w];
   }
 
-  // the lane's rows rg + 4 i: log2-domain lse and D (0 past N)
-  float lse2[4], dd[4];
+  // dV / dK: keys kb + kk (kk < kG), column group gb; dQ: rows qr + r
+  // (r < kR), columns 4 gq ..
+  const int kb = p / kG * kG, gb = p % kG;
+  const int qr = t / (DH / 4) * kR, gq = t % (DH / 4);
+  const bool keys_live = 32 * half < nk;
+  float accb[kG][4 * kCh];  // dV (pair 0) or dK (pair 1)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + rg + 4 * i;
-    lse2[i] = n < N ? lse[bh + n] * kLog2e : 0.f;
-    dd[i] = dd_s[rg + 4 * i];
-  }
-  const bool row0 = qt == 0 && rg == 0 && dprobs != nullptr;
-
-  float acc[4][TL::kCols];
+  for (int kk = 0; kk < kG; ++kk)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < TL::kCols; ++c) acc[i][c] = 0.f;
-  for (int it = 0; it < n_mine; ++it) {
-    if (it + 1 < n_mine) {
-      load(it + 1, (it + 1) & 1);
+    for (int c = 0; c < 4 * kCh; ++c) accb[kk][c] = 0.f;
+  for (int tile = 0; tile < nqt; ++tile) {
+    const int q0 = tile * kQT, nq = min(kQT, N - q0);
+    cp_async_wait<0>();
+    __syncthreads();  // the tile has landed; the last tile's readers are done
+    if (tile + 1 < nqt) {
+      load_tile(tile + 1, (tile + 1) & 1);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncwarp();  // chunk it has landed for every lane
-    float* ks = kst(it & 1);
-    float* vs = vst(it & 1);
-    const int c0 = (warp + it * kWarps) * kT;
-    float s[4][2], dp[4][2];
+    const float* qs = stg + 2 * (tile & 1) * kQT * kLd;
+    const float* dos = qs + kQT * kLd;
+    float* tr = trs + (tile & 1) * TL::kT;  // O, then dS^T
+
+    // phase A: S (pair 0) or dP (pair 1) on rows qg + 4 i (i < 8) and
+    // keys kc + 8 j (j < 4) of the warp's 32, Dh in order
+    float acc[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-    dot16<DH>(qs, ks, rg, kl, s);
-    dot16<DH>(dos, vs, rg, kl, dp);
-    __syncwarp();  // every lane has read V: dS takes its place
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if (keys_live) {  // rows past the last tile's nq are left at 0
+      const float* am = (pair == 0 ? qs : dos) + qg * kLd;
+      const float* bm = (pair == 0 ? ks : vs) + kc * kLd;
+      if (nq > 16)
+        dot_tile<DH, 8>(am, bm, acc);
+      else if (nq > 8)
+        dot_tile<DH, 4>(am, bm, acc);
+      else if (nq > 4)
+        dot_tile<DH, 2>(am, bm, acc);
+      else
+        dot_tile<DH, 1>(am, bm, acc);
+    }
+    if (pair == 0) {  // P from lse, 0 past N
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = c0 + kl + 8 * j;
-        const float p = c < N ? exp2f(s[i][j] * scale_log2 - lse2[i]) : 0.f;
-        float g = dp[i][j];
-        if (row0 && i == 0 && c < N) g += dprobs[bh + c];
-        vs[(rg + 4 * i) * TL::kPLd + kl + 8 * j] = p * (g - dd[i]);
+      for (int i = 0; i < 8; ++i) {
+        const int row = qg + 4 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = kc + 8 * j;
+          xp[row * kXLd + key] = q0 + row < N && key < nk
+                                     ? exp2f(acc[i][j] * scale_log2 - lse2[i])
+                                     : 0.f;
+        }
       }
     }
-    __syncwarp();
-    accum16<DH>(vs, ks, rg, kl, acc);  // dQ += dS K
-    __syncwarp();  // the stage is free for the chunk two on
-  }
+    __syncthreads();  // P is in
+    if (tile + 1 < nqt) load_lse(q0 + kQT);
 
-  __syncthreads();  // every warp is done with its stages
-  float* comb = smem + 2 * TL::kRow;
-  store_partial<DH>(comb + warp * 4 * TL::kRow, rg, kl, acc);
-  __syncthreads();
-  combine_store<DH>(comb, 4 * TL::kRow, dq + base, ldt, n0, N, t, scale);
-  if (t < kT && n0 + t < N) dsum[bh + n0 + t] = dd_s[t];
-}
-
-// dK and dV: key tile blockIdx.x of head blockIdx.y of batch row
-// blockIdx.z. Shared memory: K, V, each warp's two stages of (Q, dO), then
-// each warp's P^T and dS^T buffers; after the loop the warps' combine
-// regions (dV, then dK) take the stages' place.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_f32_dkdv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dO,
-    const float* __restrict__ lse, const float* __restrict__ dprobs,
-    const float* __restrict__ dsum, float* __restrict__ dk,
-    float* __restrict__ dv, int N, int H, float scale) {
-  using TL = Tile<DH>;
-  extern __shared__ __align__(16) float smem[];
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int rg = lane >> 3, kl = lane & 7;
-  const size_t ldt = static_cast<size_t>(H) * DH;
-  const size_t base = static_cast<size_t>(b) * N * ldt +
-                      static_cast<size_t>(h) * DH;
-  const size_t bh = (static_cast<size_t>(b) * H + h) * N;
-  const int n0 = kt * kT;
-  const float scale_log2 = scale * kLog2e;
-  float* ks = smem;
-  float* vs = smem + TL::kRow;
-  float* mine = smem + (2 + 4 * warp) * TL::kRow;
-  float* pbuf = smem + (2 + 4 * kWarps) * TL::kRow + warp * 2 * kT * TL::kPLd;
-  float* sbuf = pbuf + kT * TL::kPLd;
-  auto qst = [&](int st) { return mine + 2 * st * TL::kRow; };
-  auto dost = [&](int st) { return mine + (2 * st + 1) * TL::kRow; };
-  const int n_chunks = (N + kT - 1) / kT;
-  const int n_mine = warp < n_chunks ? (n_chunks - 1 - warp) / kWarps + 1 : 0;
-  auto load = [&](int i, int st) {  // this warp's i-th query chunk
-    const int c0 = (warp + i * kWarps) * kT;
-    stage16<DH, 32>(qst(st), q + base, ldt, c0, N, lane);
-    stage16<DH, 32>(dost(st), dO + base, ldt, c0, N, lane);
-  };
-
-  stage16<DH, kThreads>(ks, k + base, ldt, n0, N, t);
-  stage16<DH, kThreads>(vs, v + base, ldt, n0, N, t);
-  if (n_mine > 0) load(0, 0);
-  cp_async_commit();
-  // the lane's keys rg + 4 i: their CLS-probability gradient
-  float dpr[4];
+    // phase B: dV += P^T dO (pair 0); D, dS, then dK += dS^T Q (pair 1);
+    // each warp over its 32 keys
+    if (pair == 1) {
+      {  // D of row p / 2: two threads' column halves
+        const int r = p >> 1, c = (p & 1) * (DH / 2);
+        float d = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = n0 + rg + 4 * i;
-    dpr[i] = dprobs != nullptr && key < N ? dprobs[bh + key] : 0.f;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  float acc_v[4][TL::kCols], acc_k[4][TL::kCols];
+        for (int e = 0; e < DH / 2; e += 4) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(dos + r * kLd + c + e);
+          const float4 y =
+              *reinterpret_cast<const float4*>(tr + r * kLd + c + e);
+          d = fmaf(x.x, y.x, d);
+          d = fmaf(x.y, y.y, d);
+          d = fmaf(x.z, y.z, d);
+          d = fmaf(x.w, y.w, d);
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        if ((p & 1) == 0) dd_s[r] = d;
+      }
+      asm volatile("bar.sync 1, 64;\n" ::: "memory");  // D is in
+      // every load before any store: a shared store would order the loads
+      // after it
+      float pv[8][4], dd[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) {
+        const int row = qg + 4 * i;
+        dd[i] = dd_s[row];
 #pragma unroll
-    for (int c = 0; c < TL::kCols; ++c) acc_v[i][c] = acc_k[i][c] = 0.f;
-  for (int it = 0; it < n_mine; ++it) {
-    if (it + 1 < n_mine) {
-      load(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+        for (int j = 0; j < 4; ++j) pv[i][j] = xp[row * kXLd + kc + 8 * j];
+      }
+      if (q0 == 0 && qg == 0 && dpr != nullptr) {  // row 0: the CLS term
+        dd[0] += c0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[0][j] += dpk_s[kc + 8 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = qg + 4 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = kc + 8 * j;
+          const float ds = pv[i][j] * (acc[i][j] - dd[i]);
+          xds[row * kXLd + key] = ds;
+          tr[key * kTLd + row] = ds;
+        }
+      }
+      asm volatile("bar.sync 1, 64;\n" ::: "memory");  // dS is in
     }
-    __syncwarp();  // chunk it has landed for every lane
-    const float* qs = qst(it & 1);
-    const float* dos = dost(it & 1);
-    const int c0 = (warp + it * kWarps) * kT;
-    float s[4][2], dp[4][2];
+    if (keys_live)
+      outer<kG, kG, kCh>((pair == 0 ? xp : xds) + kb, kXLd,
+                         (pair == 0 ? dos : qs) + 4 * gb, kLd, nq, accb);
+    __syncthreads();  // dS^T is in
+
+    // phase C: the tile's partial dQ = dS K_tile, keys in order, stored to
+    // this key tile's scratch
+    if (qr < nq) {
+      float accq[kR][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-    dot16<DH>(ks, qs, rg, kl, s);    // S^T: keys x query rows
-    dot16<DH>(vs, dos, rg, kl, dp);  // dP^T
+      for (int r = 0; r < kR; ++r)
+        accq[r][0] = accq[r][1] = accq[r][2] = accq[r][3] = 0.f;
+      outer<kR, 1, 1>(tr + qr, kTLd, ks + 4 * gq, kLd, max(nk, 0), accq);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = c0 + kl + 8 * j;  // the query row
-      const bool ok = n < N;
-      const float lse2 = ok ? lse[bh + n] * kLog2e : 0.f;
-      const float d = ok ? dsum[bh + n] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ok ? exp2f(s[i][j] * scale_log2 - lse2) : 0.f;
-        const float g = n == 0 ? dp[i][j] + dpr[i] : dp[i][j];
-        pbuf[(rg + 4 * i) * TL::kPLd + kl + 8 * j] = p;
-        sbuf[(rg + 4 * i) * TL::kPLd + kl + 8 * j] = p * (g - d);
+      for (int r = 0; r < kR; ++r) {
+        if (q0 + qr + r >= N) break;
+        *reinterpret_cast<float4*>(
+            part + base + static_cast<size_t>(q0 + qr + r) * ldt + 4 * gq) =
+            make_float4(accq[r][0], accq[r][1], accq[r][2], accq[r][3]);
       }
     }
-    __syncwarp();
-    accum16<DH>(pbuf, dos, rg, kl, acc_v);  // dV += P^T dO
-    accum16<DH>(sbuf, qs, rg, kl, acc_k);   // dK += dS^T Q
-    __syncwarp();  // the stage and the buffers are free
   }
 
-  __syncthreads();  // every warp is done with its stages
-  float* comb = smem + 2 * TL::kRow;
-  store_partial<DH>(comb + warp * 4 * TL::kRow, rg, kl, acc_v);
-  store_partial<DH>(comb + warp * 4 * TL::kRow + TL::kComb, rg, kl, acc_k);
-  __syncthreads();
-  combine_store<DH>(comb, 4 * TL::kRow, dv + base, ldt, n0, N, t, 1.f);
-  combine_store<DH>(comb + TL::kComb, 4 * TL::kRow, dk + base, ldt, n0, N, t,
-                    scale);
+  // dV and dK of the tile's keys
+  float* out = pair == 0 ? dv : dk;
+  const float mult = pair == 0 ? 1.f : scale;
+#pragma unroll
+  for (int kk = 0; kk < kG; ++kk) {
+    const int key = key0 + kb + kk;
+    if (key >= N) break;
+#pragma unroll
+    for (int c = 0; c < kCh; ++c)
+      *reinterpret_cast<float4*>(out + base + static_cast<size_t>(key) * ldt +
+                                 4 * gb + 4 * kG * c) =
+          make_float4(accb[kk][4 * c] * mult, accb[kk][4 * c + 1] * mult,
+                      accb[kk][4 * c + 2] * mult, accb[kk][4 * c + 3] * mult);
+  }
 }
 
-static_assert(2 * Tile<64>::kComb <= 4 * Tile<64>::kRow &&
-                  2 * Tile<16>::kComb <= 4 * Tile<16>::kRow,
-              "a warp's combine regions fit in its stages");
+// dq = scale x the sum over the T key tiles of their partials, in tile
+// order: n4 float4s, the tiles n4 float4s apart. It walks the float4s from
+// the last: the main kernel's last blocks (the last batch rows) wrote
+// theirs last, so those are the ones still in L2.
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_f32_dq_sum_kernel(const float4* __restrict__ part,
+                                      float4* __restrict__ dq, size_t n4,
+                                      int T, float scale) {
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < n4; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t i = n4 - 1 - e;
+    float4 s = part[i];
+    for (int r = 1; r < T; ++r) {
+      const float4 x = part[r * n4 + i];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    dq[i] = make_float4(s.x * scale, s.y * scale, s.z * scale, s.w * scale);
+  }
+}
 
 template <int DH>
 int launch_dh(const float* q, const float* k, const float* v, const float* o,
               const float* dO, const float* lse, const float* dprobs,
-              float* dsum, float* dq, float* dk, float* dv, int B, int N,
-              int H, float scale, cudaStream_t stream) {
-  static size_t raised_dq = 0, raised_dkdv = 0;
-  constexpr size_t kDq = dq_smem_bytes<DH>(), kDkdv = dkdv_smem_bytes<DH>();
-  cudaError_t err = allow_smem(flash_attention_bwd_f32_dq_kernel<DH>, kDq,
-                               &raised_dq);
-  if (err == cudaSuccess)
-    err = allow_smem(flash_attention_bwd_f32_dkdv_kernel<DH>, kDkdv,
-                     &raised_dkdv);
+              long long dp_sb, long long dp_sh, float* dq_part, float* dq,
+              float* dk, float* dv, int B, int N, int H, float scale,
+              cudaStream_t stream) {
+  static size_t raised = 0;
+  constexpr size_t kBytes = sizeof(float) * Tile<DH>::kFloats;
+  cudaError_t err =
+      allow_smem(flash_attention_bwd_f32_kernel<DH>, kBytes, &raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kT - 1) / kT, H, B);
-  flash_attention_bwd_f32_dq_kernel<DH><<<grid, kThreads, kDq, stream>>>(
-      q, k, v, o, dO, lse, dprobs, dsum, dq, N, H, scale);
+  const int T = (N + kKT - 1) / kKT;
+  flash_attention_bwd_f32_kernel<DH><<<dim3(T, H, B), kThreads, kBytes,
+                                       stream>>>(
+      q, k, v, o, dO, lse, dprobs, dp_sb, dp_sh, dq_part, dk, dv, N, H,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_f32_dkdv_kernel<DH><<<grid, kThreads, kDkdv, stream>>>(
-      q, k, v, dO, lse, dprobs, dsum, dk, dv, N, H, scale);
+  const size_t n4 = static_cast<size_t>(B) * N * H * DH / 4;
+  const size_t blocks = n4 / 256 + 1 < 132 * 16 ? n4 / 256 + 1 : 132 * 16;
+  flash_attention_bwd_f32_dq_sum_kernel<<<static_cast<unsigned>(blocks), 256,
+                                          0, stream>>>(
+      reinterpret_cast<const float4*>(dq_part),
+      reinterpret_cast<float4*>(dq), n4, T, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, o, dO, dq, dk, dv [B, N, H, Dh] fp32 contiguous, each 16-byte
-// aligned, Dh in {16, 64}, every key valid; lse [B, H, N] fp32, the
-// forward's natural log-sum-exp per row; dprobs [B, H, N] fp32 or null,
-// the gradient of the CLS row's per-head probabilities; dsum [B, H, N]
-// fp32 scratch (each row's D, written by the dQ kernel, read by the dK/dV
-// kernel). Two kernels on `stream`; nothing is synchronized.
+// aligned, Dh in {16, 64}, every key valid; lse [B, H, N] fp32 contiguous,
+// the forward's natural log-sum-exp per row; dprobs fp32 or null, the
+// gradient of the CLS row's per-head probabilities, (b, h, j) at dprobs +
+// b dp_sb + h dp_sh + j (strides in elements, any sign or 0); dq_part fp32
+// scratch of ceil(N / 64) x B N H Dh, 16-byte aligned (each key tile's
+// partial dQ). Two kernels on `stream`; nothing is synchronized.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dO, const void* lse, const void* dprobs, void* dsum, void* dq,
-    void* dk, void* dv, int B, int N, int H, int Dh, float scale,
-    void* stream) {
+    const void* dO, const void* lse, const void* dprobs, void* dq_part,
+    void* dq, void* dk, void* dv, int B, int N, int H, int Dh,
+    long long dp_sb, long long dp_sh, float scale, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -528,9 +499,11 @@ extern "C" int flash_attention_bwd_f32(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 16)
     return launch_dh<16>(f(q), f(k), f(v), f(o), f(dO), f(lse), f(dprobs),
-                         w(dsum), w(dq), w(dk), w(dv), B, N, H, scale, st);
+                         dp_sb, dp_sh, w(dq_part), w(dq), w(dk), w(dv), B, N,
+                         H, scale, st);
   if (Dh == 64)
     return launch_dh<64>(f(q), f(k), f(v), f(o), f(dO), f(lse), f(dprobs),
-                         w(dsum), w(dq), w(dk), w(dv), B, N, H, scale, st);
+                         dp_sb, dp_sh, w(dq_part), w(dq), w(dk), w(dv), B, N,
+                         H, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -64,6 +64,7 @@ CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 64, 128),
                     "flash_prefill_bwd_bf16": (16, 64)}
 BWD_KERNEL = ("flash_prefill_bwd", "flash_prefill_bwd_bf16")
 NONCAUSAL_BWD_KERNEL = ("flash_attention_bwd", "flash_attention_bwd_f32")
+NONCAUSAL_BWD_KEYS = 64  # keys per block of its main kernel (kKT)
 BWD_TILE = 64  # positions per tile of the backward (kTile in its source)
 # the decode kernel's arrival counters, by (device, stream): zero between
 # launches (the combining block of each launch resets its own)
@@ -250,21 +251,28 @@ class NonCausalAttention(torch.autograd.Function):
 
 def _attention_bwd_cuda(q, k, v, o, do, lse, dprobs):
     """(dq, dk, dv) by ``flash_attention_bwd_f32``: one launch of its entry
-    point (two kernels: dQ with D, then dK/dV). ``dprobs`` (or None) is
-    made contiguous: the head mean's gradient arrives as a broadcast view
-    of dscores / H."""
+    point, two kernels (the main pass, then the sum of each key tile's
+    partial dQ, kept in a scratch of ``ceil(N / NONCAUSAL_BWD_KEYS)``
+    times dq's size). ``dprobs`` [B, H, N] (or None) is read in place
+    through its batch and head strides: the head mean's gradient arrives
+    as a broadcast view of dscores / H (stride 0 over heads). Only a view
+    without unit stride along N is copied."""
     B, N, H, Dh = q.shape
     do = backend.aligned(do)
+    strides = (0, 0)
     if dprobs is not None:
-        dprobs = dprobs.contiguous()
+        if N > 1 and dprobs.stride(2) != 1:
+            dprobs = dprobs.contiguous()
+        strides = (dprobs.stride(0), dprobs.stride(1))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    dq_part = torch.empty((-(-N // NONCAUSAL_BWD_KEYS), B, N, H, Dh),
+                          dtype=torch.float32, device=q.device)
     backend.launch(*NONCAUSAL_BWD_KERNEL, q.device, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                    lse.data_ptr(),
                    None if dprobs is None else dprobs.data_ptr(),
-                   dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                   dv.data_ptr(), B, N, H, Dh, Dh ** -0.5)
+                   dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), B, N, H, Dh, *strides, Dh ** -0.5)
     return dq, dk, dv
 
 

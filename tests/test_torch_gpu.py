@@ -846,15 +846,24 @@ def _count_plain_vit(monkeypatch):
 
 
 @pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 70, 6, 64),
-                                   (2, 197, 6, 64)])
-@pytest.mark.parametrize("with_scores", [False, True])
-def test_noncausal_attention_bwd_on_card(dev, shape, with_scores):
+                                   (2, 197, 6, 64), (2, 1, 3, 64),
+                                   (2, 33, 3, 64), (3, 72, 6, 64),
+                                   (2, 100, 6, 64), (2, 140, 6, 64),
+                                   (2, 197, 4, 16), (2, 300, 3, 64),
+                                   (1, 600, 2, 64)])
+@pytest.mark.parametrize("dprobs_form", ["none", "broadcast", "slice"])
+def test_noncausal_attention_bwd_on_card(dev, shape, dprobs_form):
     """The training pair of the non-causal fp32 kernel against the plain
     versions: the forward writing lse (o and probs bitwise the serve's,
-    lse within 1e-5) and ``flash_attention_bwd_f32`` (dq, dk, dv within
-    1e-5 x max(1, max|plain|), two launches bitwise equal), with and
-    without the CLS probabilities' gradient; then ``flash_attention`` with
-    grad on the card against autograd of the plain version on the CPU."""
+    lse within 1e-5) and ``flash_attention_bwd_f32`` (one launch a call;
+    dq, dk, dv within 1e-5 x max(1, max|plain|), two launches bitwise
+    equal), without the CLS probabilities' gradient and with it as the
+    training step passes it (a broadcast view of dscores / H, stride 0
+    over heads) and as a slice of a larger tensor (strides other than
+    [H N, N, 1]); N from 1 to 600 (one key tile, one row and one key past
+    a tile, several tiles in a cluster of up to 5 blocks at 300, two rounds
+    of key tiles a block at 600); then ``flash_attention`` with grad on the
+    card against autograd of the plain version on the CPU."""
     B, N, H, Dh = shape
     g = torch.Generator().manual_seed(21)
     q, k, v, do = (torch.randn(shape, generator=g) for _ in range(4))
@@ -867,8 +876,14 @@ def test_noncausal_attention_bwd_on_card(dev, shape, with_scores):
     lse_ref = FA.attention_lse_plain(qc, kc)
     assert (lse - lse_ref).abs().max() <= 1e-5 * max(1.0,
                                                      lse_ref.abs().max())
-    dprobs = (dsc.to(dev)[:, None, :] / H).expand(B, H, N) \
-        if with_scores else None
+    dprobs = None
+    if dprobs_form == "broadcast":
+        dprobs = (dsc.to(dev)[:, None, :] / H).expand(B, H, N)
+        assert dprobs.stride(1) == 0
+    elif dprobs_form == "slice":
+        big = torch.randn((B + 1, H + 2, N + 3), generator=g).to(dev)
+        dprobs = big[1:, 1:H + 1, 2:N + 2]
+        assert not dprobs.is_contiguous()
     before = backend.launches()["flash_attention_bwd_f32"]
     res = FA._attention_bwd_cuda(qc, kc, vc, o, doc, lse, dprobs)
     again = FA._attention_bwd_cuda(qc, kc, vc, o, doc, lse, dprobs)
@@ -878,6 +893,9 @@ def test_noncausal_attention_bwd_on_card(dev, shape, with_scores):
     for a, b, r in zip(res, again, ref):
         assert torch.equal(a, b)
         assert (a - r).abs().max() <= 1e-5 * max(1.0, r.abs().max())
+    if dprobs_form == "slice":
+        return  # the autograd route below passes the broadcast form
+    with_scores = dprobs_form == "broadcast"
     got = []
     for d in ("cpu", dev):
         t = [x.to(d).requires_grad_(True) for x in (q, k, v)]

@@ -58,8 +58,11 @@ def _rel(a, ref) -> float:
 # ---------------------------------------------------------------------------
 # attention: the plain backward against the reference
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (2, 197, 6, 64)],
-                         ids=["reduced", "deit-small"])
+@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (2, 197, 6, 64),
+                                   (2, 140, 6, 64), (2, 100, 6, 64),
+                                   (2, 72, 6, 64)],
+                         ids=["reduced", "deit-small", "deit-small-n140",
+                              "deit-small-n100", "deit-small-n72"])
 @pytest.mark.parametrize("with_scores", [False, True],
                          ids=["o", "o+scores"])
 def test_attention_bwd_plain_matches_reference(shape, with_scores):
@@ -97,6 +100,26 @@ def test_attention_bwd_plain_matches_reference(shape, with_scores):
         assert a.dtype == torch.float32 and a.shape == shape
         assert _rel(a.numpy(), np.asarray(c)) <= ATTN_TOL, name
         assert _rel(a.numpy(), b.numpy()) <= ATTN_TOL, name
+
+
+def test_attention_bwd_plain_takes_broadcast_dprobs():
+    """The head mean's gradient reaches the backward as a broadcast view of
+    dscores / H (stride 0 over heads), which the kernel reads in place: the
+    plain backward gives bitwise the same result for that view as for its
+    contiguous copy."""
+    B, N, H, Dh = 2, 33, 3, 16
+    rng = np.random.default_rng(9)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, N, H, Dh)).astype(np.float32)) for _ in range(4))
+    dsc = torch.from_numpy(rng.standard_normal((B, N)).astype(np.float32))
+    o, _ = attention_plain(q, k, v)
+    lse = attention_lse_plain(q, k)
+    view = (dsc / H)[:, None, :].expand(B, H, N)
+    assert view.stride(1) == 0
+    got = attention_bwd_plain(q, k, v, o, do, lse, view)
+    want = attention_bwd_plain(q, k, v, o, do, lse, view.contiguous())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_attention_lse_plain():
@@ -188,8 +211,6 @@ def card_routing(monkeypatch):
 
     def attention_bwd(q, k, v, o, do, lse, dprobs):
         calls["flash_attention_bwd_f32"] += 1
-        if dprobs is not None:
-            dprobs = dprobs.contiguous()
         return attention_bwd_plain(q, k, v, o, do, lse, dprobs)
 
     def drop(z, scores, k, with_idx):
