@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, serves and trains (the ViT
-and the dense LM) on the card.
+and the dense LM) and serves the MoE LMs on the card.
 
     python3 chip_smoke.py
 
@@ -31,7 +31,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    wrapper picks: a per-slot prefill of a 512-token bucket, a batch-4
    decode and a decode row spanning all 9 key splits against a 572-slot
    bf16 cache, and the prefill and batch-4 decode at StableLM-1.6B's 32
-   heads of Dh 64, two launches bitwise equal); LM training's causal pair at
+   heads of Dh 64 and at Granite-MoE-3B-A800M's 24 over 8 heads of Dh 64,
+   two launches bitwise equal); LM training's causal pair at
    full-width StableLM-1.6B ([8, 512, 32, 64]) and at GQA 3:1 ([2, 512,
    24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
    serve's, lse within 1e-5) and ``flash_prefill_bwd_bf16`` (dq, dk, dv
@@ -97,6 +98,28 @@ Phases, in order; any failure exits non-zero and prints no result:
       0.05 of its position's largest (continuous depth 1 and static);
       no host wait besides the step events. Prints tokens/s, steps, ms
       per step and per decode step, and one decode step timed alone.
+   d. The MoE LMs (``moe_path``, after the profile of c): full-width
+      Granite-MoE-3B-A800M (32 layers, D=1536, 24 query over 8 KV heads of
+      Dh 64, 40 experts top-8, d_ff 512, vocab 49155; weights from seed 0
+      drawn on the card in fp32, the bf16 copy made and the fp32 draw
+      dropped, the peak printed) through the same 8 requests, engine and
+      serves as c. Checks as c, and: the call-for-call oracle (each
+      request alone through its own prefill call at the engine's bucket,
+      so capacity and drops are the engine's, then teacher-forced decode
+      calls of all the requests together, B = 8 <= C = 8: no drop)
+      within 0.05 on continuous depth 1 (static waves prefill slot by
+      slot through the same calls: held by it when their tokens are the
+      same, else checked alike); a no-drop variant (capacity factor E /
+      K) served once continuous at depth 1 and in static waves under the
+      teacher-forced oracle of c; no plain attention on the card. Prints
+      the real (token, expert) pairs dropped per prefill call and its aux
+      loss, one continuous serve profiled on the card's side (busy, idle
+      share, launches) and one decode step alone (wall, device launches,
+      device time against the weights' bytes over the HBM rate and by
+      part: causal kernels, expert GEMMs, the rest of the MoE FFN, the
+      rest). Then Qwen2-MoE-A2.7B at full width and 4 of its 24 layers
+      (its shared expert and Dh 128), continuous at depth 1, under the
+      call-for-call oracle.
 5. Profile (``torch.profiler``): each kernel's device time per launch at
    the phase-3 shapes (the causal backward's also per kernel), the device
    time of all its wrapper call's device
@@ -195,8 +218,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    call's as ``library_device_ms``; ``launches``
    summed over the last timed serve of each path, the depth-1 replay of
    each trace, the trained model's serve and the last LM and ViT training
-   steps among them, the LM's continuous depth-1 serve and replay for the
-   causal kernels, whose entries list each of their
+   steps among them, the LM's and the MoE LMs' continuous depth-1 serves
+   and the LM replay for the causal kernels, whose entries list each of
+   their
    shapes under ``cases`` and head with the first), then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -589,13 +613,20 @@ LM_PREFILL_DH64 = ("prefill Dh 64", 1, 512, [0], [512], [12])
 LM_DECODE_DH64 = ("decode Dh 64", 4, 1, [129, 289, 419, 570],
                   [130, 290, 420, 571], [32, 56, 0, 12])
 LM_DH64 = (LM_PREFILL_DH64, LM_DECODE_DH64)
+# the same two at Granite-MoE-3B-A800M's heads (24 query over 8 KV heads,
+# GQA 3:1, head dim 64), the MoE serves' shapes
+LM_GQA3 = (("prefill GQA 3:1, head dim 64", 1, 512, [0], [512], [12]),
+           ("decode GQA 3:1, head dim 64", 4, 1, [129, 289, 419, 570],
+            [130, 290, 420, 571], [32, 56, 0, 12]))
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the largest element
 
 
 def check_flash_attention_causal(torch, dev):
     """The two causal kernels, each through the wrapper at the LM path's
     shapes (``LM_CAUSAL_CASES``, and the prefill and decode at
-    StableLM-1.6B's 32 heads of Dh 64, ``LM_DH64``; the wrapper picks
+    StableLM-1.6B's 32 heads of Dh 64, ``LM_DH64``, and at
+    Granite-MoE-3B-A800M's 24 over 8 heads of Dh 64, ``LM_GQA3``; the
+    wrapper picks
     ``flash_decode_bf16``
     for one query row, ``flash_prefill_bf16`` for more) against the plain
     version: the output within one bf16 ulp of the largest plain element
@@ -610,16 +641,19 @@ def check_flash_attention_causal(torch, dev):
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import (attention_causal_plain,
                                                      flash_attention)
-    from repro_torch.configs import STABLELM_1_6B
-    heads = {c[0]: (MINITRON_4B.num_heads, MINITRON_4B.num_kv_heads,
-                    MINITRON_4B.head_dim) for c in LM_CAUSAL_CASES}
-    for case in LM_DH64:
-        heads[case[0]] = (STABLELM_1_6B.num_heads,
-                          STABLELM_1_6B.num_kv_heads, STABLELM_1_6B.head_dim)
+    from repro_torch.configs import GRANITE_MOE_3B_A800M, STABLELM_1_6B
+    heads = {}
+    for model, group in ((MINITRON_4B, LM_CAUSAL_CASES),
+                         (STABLELM_1_6B, LM_DH64),
+                         (GRANITE_MOE_3B_A800M, LM_GQA3)):
+        for case in group:
+            heads[case[0]] = (model.num_heads, model.num_kv_heads,
+                              model.head_dim)
     S = 572
     g = torch.Generator().manual_seed(8)
     cases = {"flash_prefill_bf16": [], "flash_decode_bf16": []}
-    for label, B, Nq, off, lens, starts in (*LM_CAUSAL_CASES, *LM_DH64):
+    for label, B, Nq, off, lens, starts in (*LM_CAUSAL_CASES, *LM_DH64,
+                                            *LM_GQA3):
         Hq, KV, Dh = heads[label]
         q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
         k, v = (torch.randn((B, S, KV, Dh), generator=g).to(
@@ -1149,6 +1183,15 @@ def serve_lm(torch, backend, eng, continuous):
     return reqs, out, dt, counts, st
 
 
+def token_gaps(torch, logits, generated, dev):
+    """For logits [n, V] at the positions of ``generated`` (n tokens): the
+    largest gap between a position's largest logit and its token's, and
+    how many tokens are the exact argmax."""
+    gen = torch.tensor(generated, device=dev)
+    gap = logits.max(dim=1).values - logits.gather(1, gen[:, None])[:, 0]
+    return gap.max().item(), int((gap == 0).sum().item())
+
+
 def check_lm_oracle(torch, cfg, params, reqs, dev, label):
     """The teacher-forced oracle: for each request, ``forward_lm`` over the
     prompt plus the engine's tokens (no cache, B=1, ``logits_for="all"``);
@@ -1159,13 +1202,11 @@ def check_lm_oracle(torch, cfg, params, reqs, dev, label):
     worst, exact, n = 0.0, 0, 0
     for r in reqs:
         seq = np.concatenate([r.prompt, r.generated[:-1]]).astype(np.int64)
-        logits = M.forward_lm(cfg, params, torch.from_numpy(seq)[None].to(
-            dev), logits_for="all").logits[0, len(r.prompt) - 1:]
-        gen = torch.tensor(r.generated, device=dev)
-        gap = logits.max(dim=1).values - logits.gather(1, gen[:, None])[:, 0]
-        worst = max(worst, gap.max().item())
-        exact += int((gap == 0).sum().item())
-        n += len(r.generated)
+        with torch.no_grad():
+            logits = M.forward_lm(cfg, params, torch.from_numpy(seq)[None].to(
+                dev), logits_for="all").logits[0, len(r.prompt) - 1:]
+        w, e = token_gaps(torch, logits, r.generated, dev)
+        worst, exact, n = max(worst, w), exact + e, n + len(r.generated)
     require(worst <= LM_ORACLE_TOL,
             f"{label}: an engine token's oracle logit lies {worst:.4g} below "
             f"its position's largest (tolerance {LM_ORACLE_TOL})")
@@ -1182,16 +1223,104 @@ def lm_engine(cfg, params, dev, tracer=None, **kw):
         device=dev)
 
 
+def run_lm_serves(torch, dev, cfg, params, tag, serves=LM_SERVES,
+                  repeats=LM_REPEATS, warm=True):
+    """Every serve of ``serves`` on its own engine over ``params``: each
+    warmed up once (with ``warm``), then ``repeats`` timed serves in turns
+    (so the paths share the host's load alike). Gates: every request gets
+    ``LM_MAX_NEW`` tokens; the decode kernel launches once per layer of
+    every decode call and the prefill kernel once per layer of every
+    prefill call, both of which run; a pruned serve prunes; depths 1 and
+    2 give the same tokens. Prints each serve's numbers under ``tag``.
+    Returns ({serve: (requests, outputs, launch counts, stats, warm-up
+    spans) of its last timed serve}, {serve: median wall}, {serve: host
+    syncs per serve})."""
+    from repro_torch.kernels import backend
+    from repro_torch.obs import Tracer
+    engines, tracers, syncs, walls, last = {}, {}, {}, {}, {}
+    for label, continuous, kw in serves:
+        tracers[label] = Tracer()
+        engines[label] = lm_engine(cfg, params, dev, tracer=tracers[label],
+                                   **kw)
+        syncs[label] = ([serve_lm(torch, backend, engines[label],
+                                  continuous)[4]["host_syncs"]]
+                        if warm else [])
+        walls[label] = []
+    for _ in range(repeats):
+        for label, continuous, kw in serves:
+            n_warm = len(tracers[label].span_log)
+            reqs, out, dt, counts, st = serve_lm(torch, backend,
+                                                 engines[label], continuous)
+            walls[label].append(dt)
+            syncs[label].append(st["host_syncs"])
+            require(sorted(out) == list(range(len(reqs)))
+                    and all(len(t) == LM_MAX_NEW for t in out.values()),
+                    f"{tag} {label}: not every request got {LM_MAX_NEW} "
+                    f"tokens")
+            calls = (st["runner_prefill_calls"]
+                     + st["runner_prefill_slot_calls"])
+            require(calls > 0 and st["runner_decode_calls"] > 0,
+                    f"{tag} {label}: prefill or decode never ran: {st}")
+            n_dec = counts["flash_decode_bf16"]
+            n_pre = counts["flash_prefill_bf16"]
+            require(n_dec == cfg.num_layers * st["runner_decode_calls"]
+                    and n_pre == cfg.num_layers * calls,
+                    f"{tag} {label}: flash_decode_bf16 / flash_prefill_bf16 "
+                    f"launched {n_dec} / {n_pre} times, not once per layer "
+                    f"of every decode / prefill call "
+                    f"({cfg.num_layers * st['runner_decode_calls']} / "
+                    f"{cfg.num_layers * calls})")
+            if kw.get("kv_prune_keep", 1.0) < 1.0:
+                require(st["prune_events"] >= 1,
+                        f"{tag} {label}: no KV prune fired")
+            last[label] = (reqs, out, counts, st, n_warm)
+    walls_by = {}
+    for label, continuous, _ in serves:
+        reqs, out, counts, st, n_warm = last[label]
+        wall = statistics.median(walls[label])
+        calls = st["runner_prefill_calls"] + st["runner_prefill_slot_calls"]
+        steps = (st["pipeline_steps"] if continuous
+                 else calls + st["runner_decode_calls"])
+        dec = [sp for sp in tracers[label].span_log[n_warm:]
+               if sp["attrs"].get("label") == "lm-decode"]
+        dec_ms = (sum(sp["dur_ms"] for sp in dec) / st["runner_decode_calls"]
+                  if dec else float("nan"))
+        n_tok = sum(len(t) for t in out.values())
+        print(f"{tag} {label}: {len(out)} requests x {LM_MAX_NEW} tokens, "
+              f"{steps} steps ({calls} prefill calls, "
+              f"{st['runner_decode_calls']} decode steps); wall over "
+              f"{len(walls[label])} serves "
+              f"{[round(w, 4) for w in walls[label]]} median {wall:.4f} s: "
+              f"{n_tok / wall:.2f} tokens/s, "
+              f"{wall / steps * 1e3:.3f} ms/step; decode step dispatch + "
+              f"completion {dec_ms:.3f} ms (pipeline spans; a step latency "
+              f"at depth 1 only), block on step events "
+              f"{st['pipeline_block_s'] * 1e3:.2f} ms in all; prune events "
+              f"{st['prune_events']}; kernel launches decode / prefill "
+              f"{counts['flash_decode_bf16']} / "
+              f"{counts['flash_prefill_bf16']}; host syncs besides "
+              f"the step events per serve"
+              f"{' (warm-up first)' if warm else ''}={syncs[label]}",
+              flush=True)
+        walls_by[label] = wall
+    labels = [label for label, _, _ in serves]
+    if "continuous depth 2" in labels:
+        require(last["continuous depth 1"][1] == last["continuous depth 2"][1],
+                f"{tag}: depth 1 and depth 2 gave different tokens")
+        print(f"{tag}: depth 1 and depth 2 tokens identical "
+              f"({len(last['continuous depth 1'][1])} requests)", flush=True)
+    return last, walls_by, syncs
+
+
 def lm_path(torch, dev):
     """Full-width Minitron-4B (random weights from seed 0, drawn on the
     card; the serving copy holds its matrices in bf16) serving 8 requests
-    on each of ``LM_SERVES``. Returns ({"lm": launch counts of the last
-    timed depth-1 serve}, {serve: host syncs per serve}, (cfg, params,
-    {serve: median wall})."""
+    on each of ``LM_SERVES`` (``run_lm_serves``), then the teacher-forced
+    oracle. Returns ({"lm": launch counts of the last timed depth-1
+    serve}, {serve: host syncs per serve}, (cfg, params, {serve: median
+    wall})."""
     from repro_torch.configs import MINITRON_4B
-    from repro_torch.kernels import backend
     from repro_torch.models import model as M
-    from repro_torch.obs import Tracer
     from repro_torch.serving.runner import serving_params
     from repro_torch.tree import leaves
     cfg = MINITRON_4B
@@ -1207,81 +1336,21 @@ def lm_path(torch, dev):
           f"{time.perf_counter() - t0:.2f} s; "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated",
           flush=True)
-    # every engine warmed up first, then the timed serves in turns, so the
-    # paths share the host's load alike
-    engines, tracers, syncs, walls, last = {}, {}, {}, {}, {}
-    for label, continuous, kw in LM_SERVES:
-        tracers[label] = Tracer()
-        engines[label] = lm_engine(cfg, params, dev, tracer=tracers[label],
-                                   **kw)
-        syncs[label] = [serve_lm(torch, backend, engines[label],
-                                 continuous)[4]["host_syncs"]]
-        walls[label] = []
-    for _ in range(LM_REPEATS):
-        for label, continuous, kw in LM_SERVES:
-            n_warm = len(tracers[label].span_log)
-            reqs, out, dt, counts, st = serve_lm(torch, backend,
-                                                 engines[label], continuous)
-            walls[label].append(dt)
-            syncs[label].append(st["host_syncs"])
-            require(sorted(out) == list(range(len(reqs)))
-                    and all(len(t) == LM_MAX_NEW for t in out.values()),
-                    f"lm {label}: not every request got {LM_MAX_NEW} tokens")
-            calls = (st["runner_prefill_calls"]
-                     + st["runner_prefill_slot_calls"])
-            require(calls > 0 and st["runner_decode_calls"] > 0,
-                    f"lm {label}: prefill or decode never ran: {st}")
-            n_dec = counts["flash_decode_bf16"]
-            n_pre = counts["flash_prefill_bf16"]
-            require(n_dec == cfg.num_layers * st["runner_decode_calls"]
-                    and n_pre == cfg.num_layers * calls,
-                    f"lm {label}: flash_decode_bf16 / flash_prefill_bf16 "
-                    f"launched {n_dec} / {n_pre} times, not once per layer "
-                    f"of every decode / prefill call "
-                    f"({cfg.num_layers * st['runner_decode_calls']} / "
-                    f"{cfg.num_layers * calls})")
-            if kw.get("kv_prune_keep", 1.0) < 1.0:
-                require(st["prune_events"] >= 1,
-                        f"lm {label}: no KV prune fired")
-            last[label] = (reqs, out, counts, st, n_warm)
-    walls_by, tokens = {}, {}
-    for label, continuous, _ in LM_SERVES:
-        reqs, out, counts, st, n_warm = last[label]
-        wall = statistics.median(walls[label])
-        calls = st["runner_prefill_calls"] + st["runner_prefill_slot_calls"]
-        steps = (st["pipeline_steps"] if continuous
-                 else calls + st["runner_decode_calls"])
-        dec = [sp for sp in tracers[label].span_log[n_warm:]
-               if sp["attrs"].get("label") == "lm-decode"]
-        dec_ms = (sum(sp["dur_ms"] for sp in dec) / st["runner_decode_calls"]
-                  if dec else float("nan"))
-        n_tok = sum(len(t) for t in out.values())
-        print(f"lm {label}: {len(out)} requests x {LM_MAX_NEW} tokens, "
-              f"{steps} steps ({calls} prefill calls, "
-              f"{st['runner_decode_calls']} decode steps); wall over "
-              f"{len(walls[label])} serves "
-              f"{[round(w, 4) for w in walls[label]]} median {wall:.4f} s: "
-              f"{n_tok / wall:.2f} tokens/s, "
-              f"{wall / steps * 1e3:.3f} ms/step; decode step dispatch + "
-              f"completion {dec_ms:.3f} ms (pipeline spans; a step latency "
-              f"at depth 1 only), block on step events "
-              f"{st['pipeline_block_s'] * 1e3:.2f} ms in all; prune events "
-              f"{st['prune_events']}; kernel launches decode / prefill "
-              f"{counts['flash_decode_bf16']} / "
-              f"{counts['flash_prefill_bf16']}; host syncs besides "
-              f"the step events per serve (warm-up first)={syncs[label]}",
-              flush=True)
-        walls_by[label] = wall
-        tokens[label] = (reqs, out)
-    require(tokens["continuous depth 1"][1] == tokens["continuous depth 2"][1],
-            "lm: depth 1 and depth 2 gave different tokens")
-    print("lm: depth 1 and depth 2 tokens identical (8/8 requests)",
-          flush=True)
+    last, walls_by, syncs = run_lm_serves(torch, dev, cfg, params, "lm")
     for label in ("continuous depth 1", "static waves"):
-        check_lm_oracle(torch, cfg, params, tokens[label][0], dev,
+        check_lm_oracle(torch, cfg, params, last[label][0], dev,
                         f"lm {label}")
-    # one batch-4 decode step on the card, timed alone: every live slot at
-    # the decode check's lengths
+    step = decode_step_alone(torch, dev, cfg, params)
+    step_ms = time_ms(step, samples=5, calls=5, warmup=2)
+    print(f"lm: one decode step alone (B=4, 572-slot cache, windows of "
+          f"{LM_DECODE[4]} keys): {step_ms:.3f} ms", flush=True)
+    return ({"lm": last["continuous depth 1"][2]}, syncs,
+            (cfg, params, walls_by))
+
+
+def decode_step_alone(torch, dev, cfg, params):
+    """One batch-4 decode step of the engine's runner, as a closure: every
+    live slot of a 572-slot cache at the decode check's lengths."""
     from repro_torch.models import steps as ST
     eng = lm_engine(cfg, params, dev)
     caches = ST.init_caches(cfg, LM_MAX_BATCH, LM_MAX_LEN, device=dev)
@@ -1289,12 +1358,298 @@ def lm_path(torch, dev):
     caches = [c._replace(length=lens.clone()) for c in caches]
     starts = torch.tensor(LM_DECODE[5], dtype=torch.int32, device=dev)
     toks = torch.zeros((LM_MAX_BATCH,), dtype=torch.int64, device=dev)
-    step_ms = time_ms(lambda: eng.runner.decode(toks, caches, starts),
-                      samples=5, calls=5, warmup=2)
-    print(f"lm: one decode step alone (B=4, 572-slot cache, windows of "
-          f"{LM_DECODE[4]} keys): {step_ms:.3f} ms", flush=True)
-    return ({"lm": last["continuous depth 1"][2]}, syncs,
-            (cfg, params, walls_by))
+    return lambda: eng.runner.decode(toks, caches, starts)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d, MoE: full-width Granite-MoE-3B-A800M through ServeEngine
+# ---------------------------------------------------------------------------
+MOE_QWEN_LAYERS = 4  # of Qwen2-MoE-A2.7B's 24: its fp32 draw and bf16 copy
+#                      at full depth (53.3 + 26.7 GiB) do not fit 80 GB
+
+
+def check_moe_call_oracle(torch, cfg, params, reqs, dev, label):
+    """The call-for-call oracle of a continuous MoE serve. Each request goes
+    alone through its per-slot prefill's own call (``forward_lm`` prefill
+    at B=1 into a blank 572-slot cache, at the engine's bucket and
+    ``valid_start``: ``make_prefill_slot`` runs this call, so its capacity
+    and drops are the engine's), its cache row then written into a
+    batch of all the requests, which is teacher-forced through decode
+    calls fed the engine's tokens (C = 8 >= B for B <= 8, as at the
+    engine's B=4: a decode drops nothing, so each row is computed as
+    alone). Each engine token's logit within ``LM_ORACLE_TOL`` of its
+    position's largest. The teacher-forced oracle of ``check_lm_oracle``
+    runs one call over all tokens, whose capacity and drops differ: its
+    gap would be routing, not error. Also counts, per prefill call, the
+    real (token, expert) pairs the capacity dropped, summed over layers,
+    beside the real pairs routed (``moe.route`` wrapped for the call), and
+    the call's load-balancing loss per layer (1 when every expert gets its
+    share, up to E when all tokens pick the same k experts). Returns
+    (dropped, routed, aux per layer) per prefill call."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import steps as ST
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.cache_manager import KVCacheManager
+    ec = EngineConfig(max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN)
+    require(len(reqs) <= 8 and len({len(r.generated) for r in reqs}) == 1,
+            f"{label}: the oracle decodes all requests together (at most "
+            f"8, each with as many tokens)")
+    route, drops = MOE.route, []
+    batch = ST.init_caches(cfg, len(reqs), LM_MAX_LEN, device=dev)
+    starts, logits = [], []
+    with torch.no_grad():
+        for slot, r in enumerate(reqs):
+            P = len(r.prompt)
+            lb, start = KVCacheManager(cfg, ec, device=dev).admit(
+                0, P, r.max_new_tokens)
+            row = torch.zeros((1, lb), dtype=torch.int32, device=dev)
+            row[0, lb - P:] = torch.from_numpy(r.prompt).to(dev)
+            real = (torch.arange(lb, device=dev) >= start)[:, None]
+            counts = []
+
+            def counted(xf, p, c, capacity_factor=None):
+                rt = route(xf, p, c, capacity_factor)
+                counts.append(torch.stack([(~rt.kept & real).sum(),
+                                           real.sum() * rt.kept.shape[1]]))
+                return rt
+            MOE.route = counted
+            try:
+                out = M.forward_lm(
+                    cfg, params, row, mode="prefill",
+                    caches=ST.init_caches(cfg, 1, LM_MAX_LEN, device=dev),
+                    logits_for="last", valid_start=torch.tensor(
+                        [start], dtype=torch.int32, device=dev))
+            finally:
+                MOE.route = route
+            drops.append(torch.cat([torch.stack(counts).sum(0).float(),
+                                    (out.aux_loss / cfg.num_layers)[None]]))
+            logits.append([out.logits[0, -1]])
+            starts.append(start)
+            for dst, src in zip(batch, out.caches):
+                for d, one in zip(dst, src):
+                    d[slot] = one[0]
+        vs = torch.tensor(starts, dtype=torch.int32, device=dev)
+        for i in range(len(reqs[0].generated) - 1):
+            toks = torch.tensor([[r.generated[i]] for r in reqs],
+                                dtype=torch.int32, device=dev)
+            out = M.forward_lm(cfg, params, toks, mode="decode",
+                               caches=batch, valid_start=vs)
+            batch = out.caches
+            for slot in range(len(reqs)):
+                logits[slot].append(out.logits[slot, -1])
+    worst, exact, n = 0.0, 0, 0
+    for r, lg in zip(reqs, logits):
+        w, e = token_gaps(torch, torch.stack(lg), r.generated, dev)
+        worst, exact, n = max(worst, w), exact + e, n + len(r.generated)
+    require(worst <= LM_ORACLE_TOL,
+            f"{label}: an engine token's call-for-call oracle logit lies "
+            f"{worst:.4g} below its position's largest (tolerance "
+            f"{LM_ORACLE_TOL})")
+    print(f"{label}: call-for-call oracle: {exact}/{n} tokens the exact "
+          f"argmax ({exact / n:.3f}), largest gap {worst:.4g} (tolerance "
+          f"{LM_ORACLE_TOL})", flush=True)
+    return [d.tolist() for d in drops]
+
+
+def moe_params(torch, dev, cfg, tag):
+    """``cfg``'s weights from seed 0 drawn on the card in fp32, then the
+    bf16 serving copy; the fp32 draw is dropped once the copy exists.
+    Prints the params, the copy's size and the peak while both lived."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.runner import serving_params
+    from repro_torch.tree import leaves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = serving_params(cfg, M.init_params(
+        cfg, torch.Generator(dev).manual_seed(0), device=dev))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"{tag}: {cfg.name} ({cfg.num_layers} layers, D={cfg.d_model}, "
+          f"{cfg.num_heads} query / {cfg.num_kv_heads} KV heads, "
+          f"Dh={cfg.head_dim}, {cfg.moe_num_experts} experts top-"
+          f"{cfg.moe_top_k}, d_ff {cfg.d_ff}, shared d_ff "
+          f"{cfg.moe_shared_d_ff or cfg.d_ff * cfg.moe_num_shared}, vocab "
+          f"{cfg.vocab_size}), {n_params} params ({n_params / 1e9:.3f} B), "
+          f"bf16 serving copy {n_bytes / 2 ** 30:.2f} GiB made in "
+          f"{time.perf_counter() - t0:.2f} s; peak while the fp32 draw "
+          f"lived {(torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30:.2f}"
+          f" GiB above the {base / 2 ** 30:.2f} GiB earlier phases hold; "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated "
+          f"now", flush=True)
+    return params
+
+
+def profile_moe(torch, dev, cfg, params, wall):
+    """One continuous depth-1 MoE serve profiled on the card's side only
+    (kernel records: host operators would triple a trace of ~300,000
+    launches, whose parsing alone then takes minutes): ``report_profile``
+    and the causal kernels' share of device busy. Then one batch-4 decode
+    step alone (``decode_step_alone``): its wall (CUDA events), and, from
+    5 steps profiled with host operators and a ``record_function`` range
+    around each ``moe_ffn``, its device launches, its device time against
+    the least the card could take (the bytes of every weight the step
+    reads, all but the embedding table, of which it reads 4 rows, over
+    the HBM rate) and its device time by part: the causal kernels, the
+    expert GEMMs (every ``aten::bmm`` is ``moe_ffn``'s), the rest of
+    ``moe_ffn`` (router, top-k, ranks, dispatch, SwiGLU, combine) and
+    everything else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import backend
+    from repro_torch.models import moe as MOE
+    from repro_torch.obs import Tracer
+    from repro_torch.tree import leaves
+    tracer = Tracer()
+    eng = lm_engine(cfg, params, dev, tracer=tracer)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, dt, _, st = serve_lm(torch, backend, eng, True)
+    rows, busy_us = report_profile(
+        prof, dt, wall, tracer, 0, "moe continuous",
+        f"depth 1, 8 requests x {LM_MAX_NEW} tokens, "
+        f"{st['pipeline_steps']} steps")
+    causal = ("flash_decode_bf16", "flash_prefill_bf16")
+    attn_us = sum(us for n, _, us in rows
+                  if any(kernel_symbol(c) in n for c in causal))
+    print(f"profile moe continuous: causal attention {attn_us / 1e3:.3f} ms "
+          f"of {busy_us / 1e3:.3f} ms device busy ({attn_us / busy_us:.3f}); "
+          f"{sum(r[1] for r in rows) / st['pipeline_steps']:.1f} device "
+          f"launches per step over {st['runner_decode_calls']} decode and "
+          f"{st['runner_prefill_slot_calls']} prefill calls", flush=True)
+
+    step = decode_step_alone(torch, dev, cfg, params)
+    step_ms = time_ms(step, samples=5, calls=5, warmup=2)
+    ffn, n = MOE.moe_ffn, 5
+
+    def ranged(*a, **kw):
+        with record_function("moe_ffn"):
+            return ffn(*a, **kw)
+    MOE.moe_ffn = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        MOE.moe_ffn = ffn
+    rows = _device_rows(prof)
+    busy_us = sum(r[2] for r in rows) / n
+    attn_us = sum(us for name, _, us in rows
+                  if any(kernel_symbol(c) in name for c in causal)) / n
+    # host entries' device time: that of the kernels they launched
+    total = {e.key: e.device_time_total / n for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU}
+    ffn_us, gemm_us = total.get("moe_ffn", 0.0), total.get("aten::bmm", 0.0)
+    parts = {"causal attention kernels": attn_us,
+             "expert GEMMs (aten::bmm)": gemm_us,
+             "router, top-k, dispatch, SwiGLU and combine": ffn_us - gemm_us,
+             "the rest": busy_us - attn_us - ffn_us}
+    w_bytes = sum(t.numel() * t.element_size() for k, v in params.items()
+                  if k != "embed" for t in leaves(v))
+    floor_ms = w_bytes / PEAK_HBM_BYTES * 1e3
+    print(f"moe: one decode step alone (B=4, 572-slot cache): wall "
+          f"{step_ms:.3f} ms, {sum(r[1] for r in rows) / n:g} device "
+          f"launches, device {busy_us / 1e3:.3f} ms against the "
+          f"{floor_ms:.3f} ms floor ({w_bytes / 1e9:.3f} GB of weights over "
+          f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s; {busy_us / 1e3 / floor_ms:.2f}"
+          f"x); by part: " + ", ".join(
+              f"{k} {v / 1e3:.3f} ms ({v / busy_us:.3f})"
+              for k, v in parts.items()), flush=True)
+
+
+def moe_path(torch, dev):
+    """Phase 4d. Full-width Granite-MoE-3B-A800M (``moe_params``) serving
+    the 8 requests on each of ``LM_SERVES`` (``run_lm_serves``); the
+    call-for-call oracle on continuous depth 1 (and on static waves'
+    tokens where they differ from those), with the real pairs
+    dropped per prefill call; a no-drop variant (capacity factor E / K, so
+    C >= T in every call) served once continuous at depth 1 and in static
+    waves under the teacher-forced oracle; ``profile_moe``. Then Qwen2-MoE-A2.7B at full width
+    and ``MOE_QWEN_LAYERS`` layers, continuous at depth 1, under the
+    call-for-call oracle. No plain attention may run. Returns ({path:
+    launch counts of its last timed depth-1 serve}, {serve: host syncs
+    per serve})."""
+    from repro_torch.configs import GRANITE_MOE_3B_A800M, QWEN2_MOE_A2_7B
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import attention as A
+    t0 = time.perf_counter()
+    counts, syncs = {}, {}
+    cfg = GRANITE_MOE_3B_A800M
+    with count_plain((FA, "attention_causal_plain"),
+                     (A, "flash_attention_torch")) as plain:
+        params = moe_params(torch, dev, cfg, "moe")
+        last, walls, s = run_lm_serves(torch, dev, cfg, params, "moe")
+        counts["moe"] = last["continuous depth 1"][2]
+        syncs.update({f"moe {k}": v for k, v in s.items()})
+        print(f"moe: serves done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        drops = check_moe_call_oracle(torch, cfg, params,
+                                      last["continuous depth 1"][0], dev,
+                                      "moe continuous depth 1")
+        print("moe: real (token, expert) pairs dropped / routed per prefill "
+              f"call, over {cfg.num_layers} layers (prompts "
+              f"{[len(r.prompt) for r in last['continuous depth 1'][0]]}; "
+              "the call's aux loss per layer after each): "
+              + ", ".join(f"{int(d)}/{int(n)} ({a:.3f})"
+                          for d, n, a in drops), flush=True)
+        # static waves prefill slot by slot too (``per_slot_prefill``): the
+        # same prefill calls, so the same drops; the same tokens then meet
+        # the same oracle
+        if last["static waves"][1] == last["continuous depth 1"][1]:
+            print("moe static waves: tokens identical to continuous depth "
+                  "1's (the same prefill calls and drops): the same "
+                  "call-for-call oracle holds", flush=True)
+        else:
+            check_moe_call_oracle(torch, cfg, params,
+                                  last["static waves"][0], dev,
+                                  "moe static waves")
+        print(f"moe: call-for-call oracle done at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        nd = cfg.replace(moe_capacity_factor=cfg.moe_num_experts
+                         / cfg.moe_top_k)
+        nd_serves = tuple(x for x in LM_SERVES
+                          if x[0] in ("continuous depth 1", "static waves"))
+        last_nd, _, s = run_lm_serves(torch, dev, nd, params,
+                                         "moe no-drop", nd_serves,
+                                         repeats=1, warm=False)
+        syncs.update({f"moe no-drop {k}": v for k, v in s.items()})
+        for label, _, _ in nd_serves:
+            check_lm_oracle(torch, nd, params, last_nd[label][0], dev,
+                            f"moe no-drop {label}")
+        print(f"moe: no-drop variant done at {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+        profile_moe(torch, dev, cfg, params, walls["continuous depth 1"])
+        print(f"moe: profile done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del params
+        torch.cuda.empty_cache()
+        qcfg = QWEN2_MOE_A2_7B.replace(num_layers=MOE_QWEN_LAYERS)
+        print(f"moe qwen: {QWEN2_MOE_A2_7B.name} at full width, "
+              f"{MOE_QWEN_LAYERS} of {QWEN2_MOE_A2_7B.num_layers} layers",
+              flush=True)
+        params = moe_params(torch, dev, qcfg, "moe qwen")
+        last, _, s = run_lm_serves(torch, dev, qcfg, params, "moe qwen",
+                                      LM_SERVES[:1])
+        counts["moe qwen"] = last["continuous depth 1"][2]
+        syncs.update({f"moe qwen {k}": v for k, v in s.items()})
+        drops = check_moe_call_oracle(torch, qcfg, params,
+                                      last["continuous depth 1"][0], dev,
+                                      "moe qwen continuous depth 1")
+        print("moe qwen: real (token, expert) pairs dropped / routed per "
+              f"prefill call, over {qcfg.num_layers} layers (aux loss per "
+              "layer after each): "
+              + ", ".join(f"{int(d)}/{int(n)} ({a:.3f})"
+                          for d, n, a in drops), flush=True)
+        del params
+        torch.cuda.empty_cache()
+    require(not any(plain.values()),
+            f"moe: a plain attention ran on the card: {plain}")
+    print(f"moe: phase wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return counts, syncs
 
 
 # ---------------------------------------------------------------------------
@@ -1318,11 +1673,17 @@ def kernel_symbol(entry_point: str) -> str:
 def _device_rows(prof):
     """(name, calls, device us) per profiler entry that ran on the card
     (kernels, copies). The CPU-side operators that launched them carry the
-    same device time and are left out, so nothing is counted twice."""
+    same device time and are left out, so nothing is counted twice; so are
+    the device-side spans of ``record_function`` ranges (an entry that
+    shares its name with a host entry), which cover their kernels and the
+    gaps between them."""
     from torch.autograd import DeviceType
+    avg = prof.key_averages()
+    host = {e.key for e in avg if e.device_type == DeviceType.CPU}
     rows = [(e.key, e.count, float(e.self_device_time_total))
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            for e in avg
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and e.key not in host]
     return sorted(rows, key=lambda r: -r[2])
 
 
@@ -3007,6 +3368,9 @@ def main() -> int:
     profile_lm(torch, dev, *lm_model)
     del lm_model
     torch.cuda.empty_cache()
+    moe_counts, moe_syncs = moe_path(torch, dev)
+    path_counts.update(moe_counts)
+    syncs.update(moe_syncs)
     traffic_counts, traffic_syncs = traffic_path(torch, dev, checks)
     path_counts.update(traffic_counts)
     syncs.update(traffic_syncs)

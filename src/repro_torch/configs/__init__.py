@@ -4,12 +4,13 @@ from __future__ import annotations
 from typing import Dict
 
 from .base import ModelConfig, PruningConfig
-from .archs import (COMMAND_R_PLUS_104B, DEIT_SMALL, MINITRON_4B, QWEN3_14B,
-                    STABLELM_1_6B)
+from .archs import (COMMAND_R_PLUS_104B, DEIT_SMALL, GRANITE_MOE_3B_A800M,
+                    MINITRON_4B, QWEN2_MOE_A2_7B, QWEN3_14B, STABLELM_1_6B)
 
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (DEIT_SMALL, COMMAND_R_PLUS_104B, QWEN3_14B,
-                        MINITRON_4B, STABLELM_1_6B)}
+                        MINITRON_4B, STABLELM_1_6B, QWEN2_MOE_A2_7B,
+                        GRANITE_MOE_3B_A800M)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -22,4 +23,4 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = ["ModelConfig", "PruningConfig", "get_config", "DEIT_SMALL",
            "COMMAND_R_PLUS_104B", "QWEN3_14B", "MINITRON_4B",
-           "STABLELM_1_6B"]
+           "STABLELM_1_6B", "QWEN2_MOE_A2_7B", "GRANITE_MOE_3B_A800M"]

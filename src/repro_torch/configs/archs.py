@@ -1,5 +1,6 @@
-"""The architectures this package serves: the paper's own DeiT-Small and
-the four dense LMs (public-literature configs, sources inline). Each
+"""The architectures this package serves: the paper's own DeiT-Small,
+the four dense LMs and the two MoE LMs (public-literature configs, sources
+inline). Each
 configuration is identical to the reference package's."""
 from __future__ import annotations
 
@@ -93,6 +94,45 @@ STABLELM_1_6B = ModelConfig(
     num_kv_heads=32,
     d_ff=5632,
     vocab_size=100352,
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),
+)
+
+# --------------------------------------------------------------------------
+# MoE family
+# --------------------------------------------------------------------------
+# [hf:Qwen/Qwen1.5-MoE-A2.7B; hf] — 4 shared + 60 routed top-4, d_ff per expert
+QWEN2_MOE_A2_7B = ModelConfig(
+    name="qwen2-moe-a2.7b",
+    family="moe",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=1408,
+    vocab_size=151936,
+    moe_num_experts=60,
+    moe_top_k=4,
+    moe_num_shared=4,
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),
+)
+
+# [hf:ibm-granite/granite-3.0-1b-a400m-base; hf] — 40 experts top-8
+GRANITE_MOE_3B_A800M = ModelConfig(
+    name="granite-moe-3b-a800m",
+    family="moe",
+    num_layers=32,
+    d_model=1536,
+    num_heads=24,
+    num_kv_heads=8,
+    d_ff=512,
+    vocab_size=49155,
+    moe_num_experts=40,
+    moe_top_k=8,
+    moe_num_shared=0,
     use_bias=False,
     pruning=_NO_PRUNE,
     skip_shapes=("long_500k",),

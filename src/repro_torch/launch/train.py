@@ -78,8 +78,8 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
     if cfg.family not in ("vit", "dense"):
         raise NotImplementedError(
             f"training family {cfg.family!r}: this package trains the ViT "
-            f"and the dense LMs (the other families: ROADMAP queue A, "
-            f"item 8)")
+            f"and the dense LMs (the MoE training slice and the other "
+            f"families: ROADMAP queue A, item 8)")
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)

@@ -144,6 +144,24 @@ def _write_cache_rows(buf: torch.Tensor, new: torch.Tensor,
     return buf.scatter_(1, idx, new.to(buf.dtype))
 
 
+def _fill_keyless_rows(out: torch.Tensor, v: torch.Tensor,
+                       first_slot: torch.Tensor,
+                       valid_start: torch.Tensor) -> torch.Tensor:
+    """``out`` [B, N, H, Dh] with each row that has no key (its slot
+    ``first_slot[b] + i`` before ``valid_start[b]``: left padding) set to
+    the mean of ``v`` [B, S, KV, Dh] over all S slots: what the
+    reference's finite ``NEG_INF`` mask gives such a row (a uniform
+    softmax), and what the plain version computes, where the causal kernels
+    write 0. Pad rows reach no token of a dense LM, but in an MoE layer
+    they route and take expert capacity, so they must hold the reference's
+    values."""
+    B, N, H, _ = out.shape
+    rows = first_slot[:, None] + torch.arange(N, device=out.device)
+    keyless = (rows < valid_start[:, None])[:, :, None, None]
+    mean = v.float().mean(dim=1).repeat_interleave(H // v.shape[2], dim=1)
+    return torch.where(keyless, mean[:, None].to(out.dtype), out)
+
+
 def attention_block(x: torch.Tensor, p, cfg, *,
                     cache: Optional[KVCache] = None,
                     valid_start: Optional[torch.Tensor] = None,
@@ -163,6 +181,8 @@ def attention_block(x: torch.Tensor, p, cfg, *,
       per-slot prefill and left-padded batch prefill rope identically.
     * decode (N == 1): the row's head-mean attention probabilities, the
       kernel's by-product, accumulate into ``attn_mass``.
+    * rows without a key (left padding) hold the mean of V, as in the
+      reference (:func:`_fill_keyless_rows`).
     """
     B, N, D = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -200,9 +220,14 @@ def attention_block(x: torch.Tensor, p, cfg, *,
             mass = mass + scores
         else:
             out = res
+            if valid_start is not None:
+                out = _fill_keyless_rows(out, v_all, slot_off, valid_start)
         new_cache = KVCache(k_all, v_all, new_len.to(torch.int32), mass)
     else:
         out = FA.flash_attention(q, k, v, causal=True, kv_start=valid_start)
+        if valid_start is not None and N > 1:
+            out = _fill_keyless_rows(out, v, torch.zeros_like(valid_start),
+                                     valid_start)
 
     out = out.reshape(B, N, H * Dh)
     return linear(out, p["wo"], p.get("bo")), new_cache

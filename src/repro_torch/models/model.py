@@ -1,6 +1,6 @@
-"""The models: the ViT (the paper's model) and the dense LM family —
-params, patchify, the ViT's dense oracle forward, the LM forward and the
-LM's training loss; the port of the reference package's
+"""The models: the ViT (the paper's model), the dense LM family and the
+MoE LM family — params, patchify, the ViT's dense oracle forward, the LM
+forward and the LM's training loss; the port of the reference package's
 ``models/model.py`` for those families.
 
 Params are a nested dict with the reference's layout, except that
@@ -15,7 +15,9 @@ versions, which autograd differentiates; as an oracle it runs on the
 CPU. :func:`forward_lm` runs its attention through the ``flash_attention``
 kernel wrapper (the kernels for CUDA tensors; in training the causal
 kernel pair with its backward) and, in train mode, checkpoints each layer
-by ``cfg.remat_policy`` as the reference's ``_remat`` does.
+by ``cfg.remat_policy`` as the reference's ``_remat`` does. The MoE
+family runs the same attention layers with ``models/moe.moe_ffn`` in place
+of the SwiGLU MLP; it serves, and does not train yet.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.token_drop import ops as TD
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.tree import tree_map
 
 
@@ -40,6 +43,7 @@ class Output(NamedTuple):
     logits: Optional[torch.Tensor]
     caches: Any = None    # LM prefill/decode: one KVCache per layer
     hidden: Optional[torch.Tensor] = None  # LM: the final-norm hidden states
+    aux_loss: Any = 0.0   # LM: the MoE load-balancing loss summed over layers
 
 
 def _attn_params(g: torch.Generator, cfg: ModelConfig,
@@ -82,20 +86,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     generator) — tests convert the reference's params instead.
 
     The ViT's are fp32, drawn on the CPU so a seed gives the same weights
-    on every device. The dense LM's are in ``cfg.param_dtype`` and drawn
-    on the generator's device: a generator on the card makes full-width
-    weights there without a pass through host memory."""
+    on every device. The dense and MoE LMs' are in ``cfg.param_dtype``
+    and drawn on the generator's device: a generator on the card makes
+    full-width weights there without a pass through host memory."""
     if cfg.fuse_qkv:
         raise NotImplementedError(
             "fuse_qkv (a training perf lever of the reference's "
             "launch/perf.py) is not ported; the port keeps wq, wk, wv apart")
-    if cfg.family == "dense":
-        return _init_dense(cfg, generator, resolve_device(device))
+    if cfg.family in ("dense", "moe"):
+        return _init_lm(cfg, generator, resolve_device(device))
     if cfg.family != "vit":
         raise NotImplementedError(
-            f"family {cfg.family!r}: this package serves the ViT and the "
-            f"dense LMs (MoE, SSM, hybrid, VLM and audio: ROADMAP queue A, "
-            f"item 8)")
+            f"family {cfg.family!r}: this package serves the ViT, the "
+            f"dense LMs and the MoE LMs (SSM, hybrid, VLM and audio: "
+            f"ROADMAP queue A, item 8)")
     dev = resolve_device(device)
     g = generator
     D = cfg.d_model
@@ -118,10 +122,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return to_device(params, dev)
 
 
-def _init_dense(cfg: ModelConfig, g: torch.Generator,
-                dev: torch.device) -> Dict:
-    """embed → [RMSNorm, attention, RMSNorm, SwiGLU] × L → RMSNorm →
-    unembed (``model.py:94-113`` of the reference, layers as a list)."""
+def _init_lm(cfg: ModelConfig, g: torch.Generator,
+             dev: torch.device) -> Dict:
+    """embed → [RMSNorm, attention, RMSNorm, SwiGLU or MoE FFN] × L →
+    RMSNorm → unembed (``model.py:94-124`` of the reference, layers as a
+    list)."""
     dtype = getattr(torch, cfg.param_dtype)
     D = cfg.d_model
     ones = lambda: torch.ones(D, dtype=dtype, device=g.device)
@@ -131,10 +136,16 @@ def _init_dense(cfg: ModelConfig, g: torch.Generator,
     }
     if not cfg.tie_embeddings:
         p["unembed"] = L.dense_init(g, D, cfg.vocab_size, dtype)
-    p["layers"] = [{"ln1": ones(), "ln2": ones(),
-                    "attn": _attn_params(g, cfg, dtype),
-                    "mlp": _mlp_params(g, cfg, glu=True, dtype=dtype)}
-                   for _ in range(cfg.num_layers)]
+
+    def layer():
+        lp = {"ln1": ones(), "ln2": ones(),
+              "attn": _attn_params(g, cfg, dtype)}
+        if cfg.family == "moe":
+            lp["moe"] = MOE.init_moe_params(g, cfg, dtype)
+        else:
+            lp["mlp"] = _mlp_params(g, cfg, glu=True, dtype=dtype)
+        return lp
+    p["layers"] = [layer() for _ in range(cfg.num_layers)]
     return to_device(p, dev)
 
 
@@ -218,11 +229,25 @@ def _lm_layer(cfg: ModelConfig, x: torch.Tensor, lp: Dict, cache,
     return x + L.glu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"]), nc
 
 
+def _moe_layer(cfg: ModelConfig, x: torch.Tensor, lp: Dict, cache,
+               valid_start) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """One pre-norm MoE layer: attention then the MoE FFN, each residual
+    (the reference's ``_moe_layer_fwd``). Left-pad tokens are masked out
+    of attention only: they route and take expert capacity as the
+    reference's do."""
+    eps = cfg.norm_eps
+    h, nc = A.attention_block(L.rms_norm(x, lp["ln1"], eps), lp["attn"], cfg,
+                              cache=cache, valid_start=valid_start)
+    x = x + h
+    y, aux = MOE.moe_ffn(L.rms_norm(x, lp["ln2"], eps), lp["moe"], cfg)
+    return x + y, nc, aux
+
+
 def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                mode: str = "train", caches: Optional[List] = None,
                logits_for: str = "all",
                valid_start: Optional[torch.Tensor] = None) -> Output:
-    """Dense-LM forward: ``tokens`` [B, N] int.
+    """Dense- or MoE-LM forward: ``tokens`` [B, N] int.
 
     ``mode``: "train" (full sequence, no cache), "prefill" (full sequence
     into ``caches``) or "decode" (one token per row against ``caches``);
@@ -236,14 +261,23 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     ``attn_mass`` accumulation. In train mode with grad enabled, each layer
     runs under ``torch.utils.checkpoint`` by ``cfg.remat_policy``: "full"
     recomputes the layer in the backward, "dots" keeps its projections'
-    outputs and recomputes the rest, "none" keeps everything."""
-    if cfg.family != "dense":
+    outputs and recomputes the rest, "none" keeps everything.
+    ``Output.aux_loss`` is the MoE load-balancing loss summed over layers
+    (0.0 for the dense family). The MoE family runs every mode but train
+    mode with grad enabled: its training is a later slice."""
+    moe = cfg.family == "moe"
+    if cfg.family != "dense" and not moe:
         raise NotImplementedError(
-            f"forward_lm serves the dense family; {cfg.family!r} is a later "
-            f"slice (ROADMAP queue A, item 8)")
+            f"forward_lm runs the dense and MoE families; {cfg.family!r} is "
+            f"a later slice (ROADMAP queue A, item 8)")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
+    if moe and mode == "train" and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "training the MoE family (gradients through moe_ffn, the aux "
+            "loss in lm_loss) is the MoE training slice of ROADMAP queue A, "
+            "item 8; run its train-mode forward under torch.no_grad()")
     adt = getattr(torch, cfg.dtype)
     eps = cfg.norm_eps
     x = params["embed"][tokens].to(adt)
@@ -258,25 +292,30 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                          f"{policy!r}")
     ckpt = (mode == "train" and policy != "none"
             and torch.is_grad_enabled())
+    aux_total = 0.0
     for i, lp in enumerate(params["layers"]):
         if ckpt:
             x = checkpoint(_lm_layer, cfg, x, lp, None, valid_start,
                            use_reentrant=False, **_REMAT[policy])[0]
             continue
-        x, nc = _lm_layer(cfg, x, lp, caches[i] if want_cache else None,
-                          valid_start)
+        cache = caches[i] if want_cache else None
+        if moe:
+            x, nc, aux = _moe_layer(cfg, x, lp, cache, valid_start)
+            aux_total = aux_total + aux
+        else:
+            x, nc = _lm_layer(cfg, x, lp, cache, valid_start)
         if want_cache:
             new_caches.append(nc)
 
     x = L.rms_norm(x, params["ln_f"], eps)
     if logits_for == "none":
-        return Output(None, new_caches, hidden=x)
+        return Output(None, new_caches, hidden=x, aux_loss=aux_total)
     w_un = unembed_matrix(params).to(adt)
     if logits_for == "last":
         logits = (x[:, -1] @ w_un)[:, None]
     else:
         logits = x @ w_un
-    return Output(logits.float(), new_caches, hidden=x)
+    return Output(logits.float(), new_caches, hidden=x, aux_loss=aux_total)
 
 
 # ===========================================================================
@@ -336,7 +375,7 @@ def lm_loss(cfg: ModelConfig, params: Dict,
     """The LM's training loss on ``batch["tokens"]`` [B, S]: next-token CE
     (labels shifted left, -1 at the last position) by
     :func:`chunked_lm_xent` over ``forward_lm``'s final-norm hidden states,
-    plus 0.01 x the auxiliary loss (0 for the dense family). Returns
+    plus 0.01 x ``Output.aux_loss`` (0 for the dense family). Returns
     ``(total, {"ce", "aux"})``."""
     tokens = batch["tokens"]
     out = forward_lm(cfg, params, tokens, mode="train", logits_for="none")
@@ -344,5 +383,6 @@ def lm_loss(cfg: ModelConfig, params: Dict,
                        dim=1)
     loss = chunked_lm_xent(cfg, params, out.hidden, labels,
                            chunk=cfg.loss_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    aux = torch.as_tensor(out.aux_loss, dtype=torch.float32,
+                          device=loss.device)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}

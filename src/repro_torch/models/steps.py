@@ -1,9 +1,10 @@
 """Step functions — the reference package's ``models/steps.py`` for the
 families this package runs: the ViT's training step, the dense LM's
 training step (with the paper's block pruning trained jointly, and
-gradient accumulation over microbatches), and the dense LM's serve steps:
-cache constructors, whole-batch prefill, per-slot prefill (a B=1 prefill
-scattered into one row of the live batched cache) and the decode step.
+gradient accumulation over microbatches), and the dense and MoE LMs' serve
+steps: cache constructors, whole-batch prefill, per-slot prefill (a B=1
+prefill scattered into one row of the live batched cache) and the decode
+step.
 
 The reference jits these; PyTorch runs them eagerly, so they are plain
 functions. Caches are a list with one ``KVCache`` per layer, and every
@@ -25,26 +26,42 @@ from repro_torch.tree import (flatten_with_path, leaves, path_str, tree_map,
 
 # Families whose serve state is pure KV cache — left-padding can be masked
 # exactly via valid_start (the reference's list; this package serves the
-# dense family).
+# dense and MoE families).
 MASKABLE_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 # Families whose serve state is purely per-layer KV caches — a single slot
 # can be prefilled in isolation and scattered into the live batch.
 SLOT_PREFILL_FAMILIES = ("dense", "moe")
 
+# Families this package serves; it trains only "dense" of them.
+SERVE_FAMILIES = ("dense", "moe")
+
+
+def _require_served(cfg: ModelConfig) -> None:
+    if cfg.family not in SERVE_FAMILIES:
+        raise NotImplementedError(
+            f"serve steps for family {cfg.family!r} are a later slice "
+            f"(ROADMAP queue A, item 8); this package serves "
+            f"{SERVE_FAMILIES}")
+
 
 def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "training the MoE family is the MoE training slice of ROADMAP "
+            "queue A, item 8 (expert banks in pruning_glue, the aux loss's "
+            "gradient, launch/train); this package serves it")
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"steps for family {cfg.family!r} are a later slice "
-            f"(ROADMAP queue A, item 8); this package runs 'dense'")
+            f"training steps for family {cfg.family!r} are a later slice "
+            f"(ROADMAP queue A, item 8); this package trains 'dense'")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> List[A.KVCache]:
     """Zeroed serve caches for ``cfg``: one ``KVCache`` per layer, on
     ``device`` (the card unless the CPU is asked for)."""
-    _require_dense(cfg)
+    _require_served(cfg)
     return [A.init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
                             dtype, device) for _ in range(cfg.num_layers)]
 
@@ -53,7 +70,7 @@ def make_prefill(cfg: ModelConfig):
     """``prefill(params, batch, caches) -> (next_token [B], caches)``;
     ``batch`` may carry "valid_start" ([B] int32): first real token per
     row — left-padded prompt positions are masked out of attention."""
-    _require_dense(cfg)
+    _require_served(cfg)
 
     def prefill(params, batch, caches):
         out = M.forward_lm(cfg, params, batch["tokens"], mode="prefill",
@@ -101,7 +118,6 @@ def make_prefill_slot(cfg: ModelConfig):
             f"per-slot prefill unsupported for family '{cfg.family}' "
             f"(supported: {SLOT_PREFILL_FAMILIES}); serve this family "
             "through the whole-batch prefill path")
-    _require_dense(cfg)
 
     def prefill_slot(params, batch, caches, slot: int):
         row = _blank_row_caches(caches)
@@ -115,7 +131,7 @@ def make_prefill_slot(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     """One token in, one token out, caches updated in place."""
-    _require_dense(cfg)
+    _require_served(cfg)
 
     def decode(params, token, caches, valid_start=None):
         out = M.forward_lm(cfg, params, token, mode="decode", caches=caches,

@@ -1192,3 +1192,137 @@ def test_lm_train_step_on_card_launches_and_matches_cpu(dev):
                                  flatten_with_path(gc)):
         assert bool(torch.isfinite(a).all()), path
         assert (a - c).abs().max() <= 5e-2 * c.abs().max(), path
+
+
+# ---------------------------------------------------------------------------
+# the MoE LMs
+# ---------------------------------------------------------------------------
+def test_causal_kernels_at_moe_serve_shapes_on_card(dev):
+    """Both causal kernels at full-width Granite-MoE-3B-A800M's heads (24
+    query over 8 KV heads, GQA 3:1, Dh 64): a per-slot prefill of a
+    512-token bucket holding a 500-token prompt, and a batch-4 decode,
+    against a 572-slot cache."""
+    o = _causal_case(dev, 1, 512, 24, 8, 64, 572, [0], [512], [12])
+    assert bool((o[0, :12] == 0).all())
+    lens = [130, 290, 420, 571]
+    _causal_case(dev, 4, 1, 24, 8, 64, 572, [n - 1 for n in lens], lens,
+                 [32, 56, 0, 12])
+
+
+# y on the card within this many bf16 ulps of max|CPU y| where both route a
+# token alike: both products round fp32 sums taken in another order to
+# bf16, and one flipped rounding of g or u moves the output of the wo
+# product and the 8-way combine
+MOE_CARD_ULPS = 4
+
+
+@pytest.mark.parametrize("T", [512, 4])
+def test_moe_ffn_on_card_matches_cpu(dev, T):
+    """One MoE layer at Granite-MoE-3B-A800M's widths (D=1536, 40 experts
+    top-8, d_ff 512; bf16 weights from a seed) on T tokens (a per-slot
+    prefill's 512, a batch-4 decode's 4), card against CPU. The router is
+    a bf16 product, so the two may pick other experts at a near tie: every
+    token whose expert set differs must owe it to experts whose CPU
+    probabilities lie within 2 d of the token's k-th largest, d the
+    largest card-vs-CPU probability difference. Tokens routed alike (same
+    experts, same kept pairs) agree within ``MOE_CARD_ULPS`` bf16 ulps;
+    the aux within 1e-3. Two card calls agree bitwise."""
+    from repro_torch.configs import GRANITE_MOE_3B_A800M
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cfg = GRANITE_MOE_3B_A800M
+    g = torch.Generator().manual_seed(0)
+    p = {k: v.to(torch.bfloat16)
+         for k, v in MOE.init_moe_params(g, cfg).items()}
+    x = torch.randn((1, T, cfg.d_model), generator=g).to(torch.bfloat16)
+    pc = {k: v.to(dev) for k, v in p.items()}
+    y, aux = MOE.moe_ffn(x.to(dev), pc, cfg)
+    again, _ = MOE.moe_ffn(x.to(dev), pc, cfg)
+    assert torch.equal(y, again)
+    y_cpu, aux_cpu = MOE.moe_ffn(x, p, cfg)
+    assert abs(aux.item() - aux_cpu.item()) <= 1e-3
+    xf = x.reshape(T, -1)
+    probs = {d: torch.softmax(L.linear(xf.to(d), pp["router"]).float(), -1)
+             .cpu() for d, pp in (("cpu", p), (dev, pc))}
+    d = (probs[dev] - probs["cpu"]).abs().max().item()
+    r_card = MOE.route(xf.to(dev), pc, cfg)
+    r_cpu = MOE.route(xf, p, cfg)
+    e_card, e_cpu = (torch.sort(r.expert.cpu(), dim=1).values
+                     for r in (r_card, r_cpu))
+    kth = torch.sort(probs["cpu"], dim=1, descending=True).values[
+        :, cfg.moe_top_k - 1]
+    for t in torch.nonzero((e_card != e_cpu).any(dim=1))[:, 0].tolist():
+        differ = set(e_card[t].tolist()) ^ set(e_cpu[t].tolist())
+        for e in differ:
+            assert abs(probs["cpu"][t, e] - kth[t]) <= 2 * d, (t, e, d)
+    kept_card, kept_cpu = (r.kept.cpu().gather(1, torch.sort(
+        r.expert.cpu(), dim=1).indices) for r in (r_card, r_cpu))
+    alike = (e_card == e_cpu).all(dim=1) & (kept_card == kept_cpu).all(dim=1)
+    if bool((e_card == e_cpu).all()):  # no flip: the capacity keeps alike
+        assert bool(alike.all())
+    err = (y.cpu().float() - y_cpu.float()).reshape(T, -1)[alike].abs().max()
+    tol = MOE_CARD_ULPS * BF16_ULP * y_cpu.float().abs().max()
+    print(f"moe_ffn T={T}: card vs CPU probabilities within d={d:.3g}; "
+          f"{int((e_card != e_cpu).any(dim=1).sum())} tokens routed "
+          f"otherwise, {int((~alike).sum())} not compared; y error "
+          f"{err:.3g} <= {tol:.3g}; aux {aux.item():.6f} vs "
+          f"{aux_cpu.item():.6f}")
+    assert err <= tol
+
+
+def test_moe_serve_on_card_same_at_both_depths(dev):
+    """Reduced Granite-MoE-3B-A800M (bf16, GQA 4:1, Dh 16) at capacity
+    factor 1.25, so that left-padded prompts drop real pairs, served on
+    the card continuously at pipeline depths 1 and 2 under sync debug
+    mode "error" (no wait besides the step events): identical tokens,
+    every request its tokens, the causal kernels once per layer of every
+    call, and each token within 0.05 of the call-for-call oracle's
+    largest logit (its prefill call alone, then decode calls at B=1)."""
+    from repro_torch.configs import GRANITE_MOE_3B_A800M
+    from repro_torch.models import steps as ST
+    from repro_torch.serving.cache_manager import KVCacheManager
+    cfg = GRANITE_MOE_3B_A800M.reduced().replace(moe_capacity_factor=1.25)
+    params = serving_params(cfg, M.init_params(
+        cfg, torch.Generator(dev).manual_seed(0), device=dev))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (33, 9, 40, 17)]
+    outs = []
+    for depth in (1, 2):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_batch=3, max_len=96, pipeline_depth=depth), device=dev)
+        reqs = [Request(uid=i, prompt=pr, max_new_tokens=8)
+                for i, pr in enumerate(prompts)]
+        backend.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(eng.serve(reqs, continuous=True))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        st, n = eng.stats(), backend.launches()
+        assert all(len(t) == 8 for t in outs[-1].values())
+        assert n["flash_decode_bf16"] == \
+            cfg.num_layers * st["runner_decode_calls"]
+        assert n["flash_prefill_bf16"] == \
+            cfg.num_layers * st["runner_prefill_slot_calls"]
+    assert outs[0] == outs[1]
+    with torch.no_grad():
+        for r in reqs:
+            P = len(r.prompt)
+            lb, _ = KVCacheManager(cfg, eng.ec, device=dev).admit(0, P, 8)
+            row = torch.zeros((1, lb), dtype=torch.int32, device=dev)
+            row[0, lb - P:] = torch.from_numpy(r.prompt).to(dev)
+            vs = torch.tensor([lb - P], dtype=torch.int32, device=dev)
+            out = M.forward_lm(cfg, params, row, mode="prefill",
+                               caches=ST.init_caches(cfg, 1, 96, device=dev),
+                               logits_for="last", valid_start=vs)
+            logits = [out.logits[0, -1]]
+            for t in r.generated[:-1]:
+                out = M.forward_lm(cfg, params, torch.tensor(
+                    [[t]], dtype=torch.int32, device=dev), mode="decode",
+                    caches=out.caches, valid_start=vs)
+                logits.append(out.logits[0, -1])
+            rows = torch.stack(logits)
+            chosen = rows.gather(1, torch.tensor(r.generated,
+                                                 device=dev)[:, None])[:, 0]
+            assert (rows.max(dim=1).values - chosen).max().item() <= 0.05
