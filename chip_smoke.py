@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: the quickest proof that the port builds, serves and trains (the ViT
-and the dense LM) and serves the MoE LMs on the card.
+GPU: the quickest proof that the port builds, serves and trains (the ViT,
+the dense LM and the MoE LM) on the card.
 
     python3 chip_smoke.py
 
@@ -103,7 +103,8 @@ Phases, in order; any failure exits non-zero and prints no result:
       Dh 64, 40 experts top-8, d_ff 512, vocab 49155; weights from seed 0
       drawn on the card in fp32, the bf16 copy made and the fp32 draw
       dropped, the peak printed) through the same 8 requests, engine and
-      serves as c. Checks as c, and: the call-for-call oracle (each
+      serves as c, each timed over one serve (``MOE_REPEATS``). Checks as
+      c, and: the call-for-call oracle (each
       request alone through its own prefill call at the engine's bucket,
       so capacity and drops are the engine's, then teacher-forced decode
       calls of all the requests together, B = 8 <= C = 8: no drop)
@@ -175,12 +176,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    relative, each gradient leaf within 5% of its largest element; (c)
    every step launches ``flash_prefill_bf16`` 48 times (forward and
    recompute) and ``flash_prefill_bwd_bf16`` 24 times, nothing else, and
-   no plain attention runs; (d) TF32 off. Prints the wall per step,
-   tokens/s, peak memory, the profiled step's device busy and idle share
-   and its device time by part (attention forward and backward, GEMMs,
-   AdamW, the rest), the backward's device ms per step beside
-   ``LM_TRAIN_BWD_REF_MS`` and the 8-step loss beside
-   ``LM_TRAIN_LOSS_REF``.
+   no plain attention runs; (d) TF32 off. AdamW updates in place. Prints
+   the wall per step, tokens/s, peak memory, the profiled step's device
+   busy and idle share and its device time by part (attention forward
+   and backward, GEMMs, AdamW, the rest), the backward's device ms per
+   step beside ``LM_TRAIN_BWD_REF_MS`` and the 8-step loss beside
+   ``LM_TRAIN_LOSS_REF`` and the functional update's
+   ``LM_TRAIN_LOSS_FUNCTIONAL``.
+6b. MoE training (``moe_train_path``, after 6a's state is freed): the
+   same ``make_train_step`` (AdamW in place, as 6a's) on full-width
+   Granite-MoE-3B-A800M (32 layers, D=1536, 24 query over 8 KV heads of
+   Dh 64, 40 experts top-8, d_ff 512, vocab 49155; 3.37 B params from
+   seed 0 drawn on the card, scores from seed 7) with ``--prune`` (block
+   16, r_b 0.5, the banks' columns and rows per expert), batches of 8 x
+   512 tokens (capacity 1,024 pairs an expert), AdamW at lr 1e-3, bf16
+   activations, full remat, 8 steps and one profiled. Gates: (a) the loss
+   falls; (b) step 0 at 2 layers, batch 2 x 128, card against CPU, both
+   bf16: loss within 1e-3 relative, every token routed otherwise within
+   the near-tie rule (its differing experts within 2 d of its k-th
+   largest CPU probability; the count printed per layer); with the
+   card's routing replayed on the CPU, each gradient leaf within 5% of
+   its largest (the free run's errors printed); (c) two
+   step-0 gradient computations at 8 x 512 bitwise equal; (d) every step
+   launches ``flash_prefill_bf16`` 64 times and ``flash_prefill_bwd_bf16``
+   32, nothing else, and no plain attention runs; (e) TF32 off. Prints
+   the wall per step, tokens/s, peak memory, the aux and the share of
+   pairs dropped at step 0 and at the last step, the profiled step's
+   busy and idle share, its device time by kernel group and by host
+   range (expert GEMMs forward and backward, the rest of ``moe_ffn``,
+   masks).
 6. Training (``train_path``): the paper's Algorithm 1
    (``core/simultaneous``) on full-width DeiT-Small: a student (seed 0,
    its scores from the same generator) distilled from a dense DeiT-Small
@@ -1364,6 +1388,10 @@ def decode_step_alone(torch, dev, cfg, params):
 # ---------------------------------------------------------------------------
 # Phase 4d, MoE: full-width Granite-MoE-3B-A800M through ServeEngine
 # ---------------------------------------------------------------------------
+# timed serves of each Granite-MoE path after its warm-up: one, not
+# ``LM_REPEATS``, to keep the script's total near 700 s once MoE training
+# runs (its phase adds ~60 s)
+MOE_REPEATS = 1
 MOE_QWEN_LAYERS = 4  # of Qwen2-MoE-A2.7B's 24: its fp32 draw and bf16 copy
 #                      at full depth (53.3 + 26.7 GiB) do not fit 80 GB
 
@@ -1582,7 +1610,8 @@ def moe_path(torch, dev):
     with count_plain((FA, "attention_causal_plain"),
                      (A, "flash_attention_torch")) as plain:
         params = moe_params(torch, dev, cfg, "moe")
-        last, walls, s = run_lm_serves(torch, dev, cfg, params, "moe")
+        last, walls, s = run_lm_serves(torch, dev, cfg, params, "moe",
+                                       repeats=MOE_REPEATS)
         counts["moe"] = last["continuous depth 1"][2]
         syncs.update({f"moe {k}": v for k, v in s.items()})
         print(f"moe: serves done at {time.perf_counter() - t0:.1f} s",
@@ -2152,10 +2181,12 @@ def traffic_path(torch, dev, checks):
 
 
 # LM training's causal kernel pair at StableLM-1.6B's shape (32 heads, MHA,
-# Dh 64, batch 8 x 512 tokens) and at a GQA shape (24 query over 8 KV
-# heads); the first case of the backward is its headline
+# Dh 64, batch 8 x 512 tokens), at a GQA shape (24 query over 8 KV heads)
+# and at Granite-MoE-3B-A800M's training step (that GQA shape at 8 x 512);
+# the first case of the backward is its headline
 LM_TRAIN_CASES = (("StableLM-1.6B", 8, 512, 32, 32, 64),
-                  ("GQA 3:1", 2, 512, 24, 8, 64))
+                  ("GQA 3:1", 2, 512, 24, 8, 64),
+                  ("Granite-MoE-3B-A800M", 8, 512, 24, 8, 64))
 LSE_TOL = 1e-5  # x max(1, max|plain lse|): fp32 sums in another order
 
 
@@ -2609,6 +2640,13 @@ LM_TRAIN_GRAD_TOL = 0.05
 # are the gates.
 LM_TRAIN_LOSS_REF = 109.6294
 LM_TRAIN_BWD_REF_MS = 8.30
+# The same 8 steps' loss and the phase's peak device memory with the
+# functional AdamW update (``AdamW.update``) on an NVIDIA H100 80GB HBM3 at
+# 700 W (the loss identical in two runs); the in-place update
+# (``AdamW.update_``) does the same arithmetic, so the loss must not move,
+# and the peak falls by the moments and temporaries it no longer makes
+LM_TRAIN_LOSS_FUNCTIONAL = 109.4796
+LM_TRAIN_PEAK_FUNCTIONAL_GIB = 58.82
 
 
 @contextlib.contextmanager
@@ -2631,6 +2669,34 @@ def count_plain(*names):
     finally:
         for (mod, name), fn in zip(names, inner):
             setattr(mod, name, fn)
+
+
+def train_parts(rows, busy_us, label):
+    """Print one profiled LM training step's device time by kernel group
+    (each kernel in the first group its name matches) and its largest
+    kernels; returns {group: [launches, device us]}."""
+    groups = {"attention forward (flash_prefill_bf16)":
+              lambda n: kernel_symbol("flash_prefill_bf16") in n,
+              "attention backward (flash_prefill_bwd_bf16)":
+              lambda n: kernel_symbol("flash_prefill_bwd_bf16") in n,
+              "GEMMs (cuBLAS)": lambda n: "nvjet" in n
+              or "gemm" in n.lower() or "xmma" in n,
+              "AdamW (multi_tensor_apply)": lambda n: "multi_tensor" in n,
+              "casts and copies": lambda n: "copy" in n,
+              "reductions (norms, softmax, sums)": lambda n: "reduce" in n
+              or "softmax" in n.lower() or "norm" in n.lower()}
+    split = {k: [0, 0.0] for k in [*groups, "other elementwise"]}
+    for n, k, us in rows:
+        key = next((g for g, f in groups.items() if f(n)),
+                   "other elementwise")
+        split[key][0] += k
+        split[key][1] += us
+    print(f"profile {label} step by part: " + "; ".join(
+        f"{g} {us / 1e3:.2f} ms ({k} launches, {us / busy_us:.3f})"
+        for g, (k, us) in split.items()), flush=True)
+    for n, k, us in rows[:12]:
+        print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+    return split
 
 
 def lm_step0_card_vs_cpu(torch, dev, cfg):
@@ -2791,7 +2857,8 @@ def lm_train_path(torch, dev):
           f"{min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}; step "
           f"0 {walls[0] * 1e3:.1f} ms; the batch copied in the step): "
           f"{tokens / wall:.1f} training tokens/s; peak device memory "
-          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+          f"{peak / 2 ** 30:.2f} GiB (the functional update's "
+          f"{LM_TRAIN_PEAK_FUNCTIONAL_GIB} GiB)", flush=True)
     rows = _device_rows(prof)
     busy_us = sum(r[2] for r in rows)
     print(f"profile lm train step ({sum(r[1] for r in rows)} device "
@@ -2799,34 +2866,372 @@ def lm_train_path(torch, dev):
           f"unprofiled median, device busy {busy_us:.0f} us, idle share "
           f"{1.0 - busy_us / (dt * 1e6):.3f} profiled / "
           f"{1.0 - busy_us / (wall * 1e6):.3f} unprofiled", flush=True)
-    groups = {"attention forward (flash_prefill_bf16)":
-              lambda n: kernel_symbol("flash_prefill_bf16") in n,
-              "attention backward (flash_prefill_bwd_bf16)":
-              lambda n: kernel_symbol("flash_prefill_bwd_bf16") in n,
-              "GEMMs (cuBLAS)": lambda n: "nvjet" in n
-              or "gemm" in n.lower() or "xmma" in n,
-              "AdamW (multi_tensor_apply)": lambda n: "multi_tensor" in n,
-              "casts and copies": lambda n: "copy" in n,
-              "reductions (norms, softmax, sums)": lambda n: "reduce" in n
-              or "softmax" in n.lower() or "norm" in n.lower()}
-    split = {k: [0, 0.0] for k in [*groups, "other elementwise"]}
-    for n, k, us in rows:
-        key = next((g for g, f in groups.items() if f(n)),
-                   "other elementwise")
-        split[key][0] += k
-        split[key][1] += us
-    print("profile lm train step by part: " + "; ".join(
-        f"{g} {us / 1e3:.2f} ms ({k} launches, {us / busy_us:.3f})"
-        for g, (k, us) in split.items()), flush=True)
-    for n, k, us in rows[:12]:
-        print(f"  device {us:9.1f} us  {k:5d} calls  {n[:90]}", flush=True)
+    split = train_parts(rows, busy_us, "lm train")
     bwd_k, bwd_us = split["attention backward (flash_prefill_bwd_bf16)"]
     err_ref = abs(losses[-1] - LM_TRAIN_LOSS_REF) / LM_TRAIN_LOSS_REF
     print(f"lm train: attention backward {bwd_us / 1e3:.2f} ms on the card "
           f"per step in {bwd_k} kernels ({LM_TRAIN_BWD_REF_MS:.2f} ms for the "
           f"three-kernel mma.sync backward); loss after {LM_TRAIN_STEPS} "
           f"steps {losses[-1]:.4f} against {LM_TRAIN_LOSS_REF} (rel "
-          f"{err_ref:.3g}; printed, not gated)", flush=True)
+          f"{err_ref:.3g}; printed, not gated) and the functional AdamW "
+          f"update's {LM_TRAIN_LOSS_FUNCTIONAL} (equal: "
+          f"{round(losses[-1], 4) == LM_TRAIN_LOSS_FUNCTIONAL})", flush=True)
+    del params, scores, opt_state, m, prof
+    torch.cuda.empty_cache()
+    return counts[-1]
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: MoE training of full-width Granite-MoE-3B-A800M
+# ---------------------------------------------------------------------------
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 512
+MOE_TRAIN_STEPS = 8  # step 0 (warm-up), then 7 timed; then 1 profiled
+# Step 0 at 2 layers, batch 2 x 128, card against CPU, both with bf16
+# activations, is held to the LM's bounds (``LM_TRAIN_*_TOL``) with the
+# card's routing replayed on the CPU (``moe.route(expert=...)``). Left free,
+# the CPU routes a few tokens a layer otherwise: the router is a bf16
+# product rounded in another order on each side, so near ties flip (held
+# by ``moe_route_flips``' rule), and a flipped token's other output moves
+# the gradient of every later leaf by that token's rows. On an NVIDIA H100
+# 80GB HBM3 at 700 W, 3 and 11 of 256 tokens flipped in layers 0 and 1 and
+# the free CPU run's worst leaves were 12.1% (a layer-1 bank's scores) and
+# 10.6% (the unembedding, whose label columns sum over one or two tokens)
+# of their largest elements; those figures are printed, not gated.
+
+
+@contextlib.contextmanager
+def record_routes(torch, with_probs=False, replay=None):
+    """Record every ``moe.route`` call while the block runs: yields a list
+    of ``(expert, kept, probs or None)`` per call, on the route's device
+    (read back only after the block). With ``replay`` (such a list from
+    another run) call i takes that run's experts of its call i."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    seen, route = [], MOE.route
+
+    def recorded(xf, p, cfg, capacity_factor=None):
+        expert = (None if replay is None
+                  else replay[len(seen)][0].to(xf.device))
+        r = route(xf, p, cfg, capacity_factor, expert)
+        probs = None
+        if with_probs:
+            with torch.no_grad():
+                probs = torch.softmax(L.linear(xf, p["router"]).float(),
+                                      dim=-1)
+        seen.append((r.expert, r.kept, probs))
+        return r
+    MOE.route = recorded
+    try:
+        yield seen
+    finally:
+        MOE.route = route
+
+
+def moe_route_flips(torch, card, cpu, top_k):
+    """Per MoE layer, the tokens the card routes otherwise than the CPU,
+    held to the MoE serve's near-tie rule: every expert in one side's set
+    and not the other's lies within 2 d of the token's k-th largest CPU
+    probability, d the layer's largest card-vs-CPU probability difference.
+    Returns one dict per layer: ``routed`` (tokens with another expert
+    set), ``kept`` (tokens routed alike whose kept pairs differ: the
+    capacity shifted by a token routed otherwise earlier), ``d``,
+    ``worst`` (the largest gap over 2 d; the rule holds at <= 1) and
+    ``flips`` ((token, experts that differ, gap) for each)."""
+    out = []
+    for (e_c, k_c, p_c), (e_h, k_h, p_h) in zip(card, cpu):
+        e_c, k_c, p_c = e_c.cpu(), k_c.cpu(), p_c.cpu()
+        d = (p_c - p_h).abs().max().item()
+        (s_c, o_c), (s_h, o_h) = (torch.sort(e, dim=1) for e in (e_c, e_h))
+        kth = torch.sort(p_h, dim=1, descending=True).values[:, top_k - 1]
+        routed = (s_c != s_h).any(dim=1)
+        flips, worst = [], 0.0
+        for t in torch.nonzero(routed)[:, 0].tolist():
+            differ = sorted(set(s_c[t].tolist()) ^ set(s_h[t].tolist()))
+            gap = max(abs(p_h[t, e] - kth[t]).item() for e in differ)
+            worst = max(worst, gap / (2 * d) if d else math.inf)
+            flips.append((t, differ, gap))
+        kept = (~routed & (k_c.gather(1, o_c) != k_h.gather(1, o_h)).any(1))
+        out.append(dict(routed=int(routed.sum()), kept=int(kept.sum()), d=d,
+                        worst=worst, flips=flips))
+    return out
+
+
+def moe_step0_card_vs_cpu(torch, dev, cfg):
+    """Step 0's loss and gradients (``make_grad_fn`` with pruning) of
+    ``cfg`` cut to 2 layers, batch 2, seq 128, from
+    ``launch/train.make_state_factory``'s seeds, on the card (the kernels)
+    and twice on the CPU (plain attention), all with bf16 activations:
+    routing freely, and replaying the card's routing. Returns the card's
+    loss, the replayed and the free CPU losses, the CPU's seconds, the
+    card's launches, ``moe_route_flips`` of the free run and, for each CPU
+    run, per gradient leaf ``(max|card - CPU| / max|CPU|, max|card -
+    CPU|, max|CPU|, path)``, worst first."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train as LT
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import flatten_with_path, path_str, tree_map
+
+    small = cfg.replace(num_layers=2)
+    st = LT.make_state_factory(small, AdamW(), dev, with_scores=True)()
+    toks = torch.from_numpy(synthetic_lm_batch(
+        small, ShapeConfig("t", 128, 2, "train"), DataConfig(), 0)["tokens"])
+    fn = ST.make_grad_fn(small, True)
+    backend.reset_launches()
+    with record_routes(torch, with_probs=True) as seen_c:
+        loss_c, _, g_c = fn(st["params"], {"tokens": toks.to(dev)},
+                            st["scores"])
+    launches = {k: v for k, v in backend.launches().items() if v}
+    cpu = torch.device("cpu")
+    params, scores = (tree_map(lambda t: t.to(cpu), st[k])
+                      for k in ("params", "scores"))
+    t0 = time.perf_counter()
+    with record_routes(torch, replay=seen_c):
+        loss_r, _, g_r = fn(params, {"tokens": toks}, scores)
+    with record_routes(torch, with_probs=True) as seen_h:
+        loss_h, _, g_h = fn(params, {"tokens": toks}, scores)
+    cpu_s = time.perf_counter() - t0
+    # the forward's calls, one a layer (the recompute's follow)
+    flips = moe_route_flips(torch, seen_c[:2], seen_h[:2], cfg.moe_top_k)
+    out = []
+    for g in (g_r, g_h):
+        rows = []
+        for (path, a), (_, b) in zip(flatten_with_path(g_c),
+                                     flatten_with_path(g)):
+            d = (a.cpu().float() - b.float()).abs().max().item()
+            m = b.float().abs().max().item()
+            rows.append((d / m if m else float("inf"), d, m, path_str(path)))
+        out.append(sorted(rows, reverse=True))
+    del st, g_c, g_r, g_h, seen_c
+    torch.cuda.empty_cache()
+    return (loss_c.item(), loss_r.item(), loss_h.item(), cpu_s, launches,
+            flips, *out)
+
+
+def moe_train_path(torch, dev):
+    """Phase 6b. MoE training (``models/steps.make_train_step``, the dense
+    LM's step, AdamW in place) of full-width Granite-MoE-3B-A800M (32
+    layers, D=1536, 24 query over 8 KV heads of Dh 64, 40 experts top-8,
+    d_ff 512, vocab 49155; params from seed 0 drawn on the card, scores
+    from seed 7, by ``launch/train.make_state_factory``) with
+    ``launch/train``'s ``--prune`` config (block 16, r_b 0.5; per expert
+    in the banks), batches of ``MOE_TRAIN_BATCH`` x ``MOE_TRAIN_SEQ``
+    from ``synthetic_lm_batch`` by step, AdamW at ``LM_TRAIN_LR``. Gates:
+    (a) the loss falls; (b) step 0 at 2 layers, batch 2 x 128, card
+    against CPU (both bf16): every token the CPU routes otherwise, left
+    free, within the near-tie rule; with the card's routing replayed on
+    the CPU, the loss within ``LM_TRAIN_LOSS_TOL`` relative and each
+    gradient leaf within ``LM_TRAIN_GRAD_TOL`` of its largest (the free
+    run's printed); (c) two step-0 gradient computations at full
+    size bitwise equal; (d) per step, ``flash_prefill_bf16`` 2 x 32 and
+    ``flash_prefill_bwd_bf16`` 32 launches, no other entry point, no
+    plain attention; (e) TF32 off. Returns the last step's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import GRANITE_MOE_3B_A800M
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train as LT
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import pruning_glue as PG
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "moe train: fp32 matmuls must not run on TF32")
+    cfg = LT.prune_config(GRANITE_MOE_3B_A800M)
+    L, K = cfg.num_layers, cfg.moe_top_k
+
+    # (b) step 0 at 2 layers on the card and on the CPU, both bf16
+    loss_c, loss_r, loss_h, cpu_s, _, flips, rows, free = \
+        moe_step0_card_vs_cpu(torch, dev, cfg)
+    err_loss = abs(loss_c - loss_r) / abs(loss_r)
+    print(f"moe train step 0 at 2 layers, batch 2, seq 128, card (kernels) "
+          f"vs CPU (plain; {cpu_s:.1f} s for two runs), both bf16: tokens "
+          f"routed otherwise by the free CPU run per layer "
+          f"{[f['routed'] for f in flips]}, routed alike but kept otherwise "
+          f"{[f['kept'] for f in flips]} (of 256; probabilities within d = "
+          f"{[round(f['d'], 9) for f in flips]}, largest gap over 2 d "
+          f"{[round(f['worst'], 3) for f in flips]}, the rule <= 1); "
+          f"flips (token, experts, gap) "
+          f"{[f['flips'][:6] for f in flips]}", flush=True)
+    require(all(f["worst"] <= 1.0 for f in flips),
+            f"moe train step 0: a token routed otherwise outside the "
+            f"near-tie rule: {flips}")
+    print(f"moe train step 0, the card's routing replayed on the CPU: loss "
+          f"{loss_c:.6f} vs {loss_r:.6f} (rel {err_loss:.3g}, tolerance "
+          f"{LM_TRAIN_LOSS_TOL:g}); gradients, worst max|d| / max|CPU| per "
+          f"leaf of {len(rows)}: " + ", ".join(
+              f"{r:.4g} ({p})" for r, _, _, p in rows[:4])
+          + f" (tolerance {LM_TRAIN_GRAD_TOL:g}); routing freely (not "
+          f"gated): loss {loss_h:.6f} (rel "
+          f"{abs(loss_c - loss_h) / abs(loss_h):.3g}), worst leaves "
+          + ", ".join(f"{r:.4g} ({p})" for r, _, _, p in free[:4]),
+          flush=True)
+    require(err_loss <= LM_TRAIN_LOSS_TOL,
+            f"moe train step 0: loss card vs CPU rel {err_loss:.3g}")
+    require(rows[0][0] <= LM_TRAIN_GRAD_TOL,
+            f"moe train step 0: gradients card vs CPU, worst {rows[:3]}")
+
+    opt = AdamW(lr=LM_TRAIN_LR, weight_decay=0.01)
+    t0 = time.perf_counter()
+    state = LT.make_state_factory(cfg, opt, dev, with_scores=True)()
+    params, scores, opt_state = state["params"], state["scores"], state["opt"]
+    del state
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    shape = ShapeConfig("t", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, "train")
+    host = [synthetic_lm_batch(cfg, shape, DataConfig(), i)["tokens"]
+            for i in range(MOE_TRAIN_STEPS + 1)]
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    C = MOE.moe_capacity(tokens, cfg.moe_num_experts, K,
+                         cfg.moe_capacity_factor)
+    print(f"moe train: {cfg.name} at full width and depth ({L} layers, "
+          f"D={cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV "
+          f"heads, Dh={cfg.head_dim}, {cfg.moe_num_experts} experts top-{K}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {n_params} params and "
+          f"{sum(t.numel() for t in scores.values())} scores (block "
+          f"{cfg.pruning.block_size}, r_b {cfg.pruning.r_b}; the banks' per "
+          f"expert), fp32 with AdamW state, made in "
+          f"{time.perf_counter() - t0:.2f} s; batch {MOE_TRAIN_BATCH} x "
+          f"{MOE_TRAIN_SEQ} tokens, capacity {C} pairs an expert, bf16 "
+          f"activations, remat {cfg.remat_policy}, lr {LM_TRAIN_LR:g}; "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+
+    # (c) two step-0 gradient computations, bitwise
+    grad_fn = ST.make_grad_fn(cfg, True)
+    b0 = {"tokens": torch.from_numpy(host[0]).to(dev)}
+    loss_a, _, g = grad_fn(params, b0, scores)
+    first = [t.cpu() for t in leaves(g)]
+    del g
+    loss_b, _, g = grad_fn(params, b0, scores)
+    same = bool(torch.equal(loss_a, loss_b)) and all(
+        torch.equal(a, b.cpu()) for a, b in zip(first, leaves(g)))
+    del g, first, b0
+    print(f"moe train: two step-0 gradient computations at {MOE_TRAIN_BATCH}"
+          f" x {MOE_TRAIN_SEQ} bitwise equal: {same} (loss "
+          f"{loss_a.item():.6f})", flush=True)
+    require(same, "moe train: two step-0 gradient computations differ")
+
+    step = ST.make_train_step(cfg, opt, with_pruning=True)
+
+    def one(i):
+        toks = torch.from_numpy(host[i]).to(dev)
+        return step(params, opt_state, {"tokens": toks}, scores)
+
+    def drops(seen):
+        """The share of the forward's (token, expert) pairs dropped."""
+        n = sum(int((~k).sum()) for _, k, _ in seen[:L])
+        return n / (L * tokens * K)
+
+    metrics, walls, counts, dropped = [], [], [], []
+    with count_plain((FA, "attention_causal_plain"),
+                     (A, "flash_attention_torch")) as plain_calls:
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(MOE_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            backend.reset_launches()
+            with record_routes(torch) if i == 0 else \
+                    contextlib.nullcontext([]) as seen:
+                t0 = time.perf_counter()
+                params, scores, opt_state, m = one(i)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            if i == 0:
+                dropped.append(drops(seen))
+            counts.append(backend.launches())
+            metrics.append({k: v.item() for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.synchronize()
+        ffn, mask = MOE.moe_ffn, PG.apply_pruning
+
+        def ranged(name, fn):
+            def call(*a, **kw):
+                with record_function(name):
+                    return fn(*a, **kw)
+            return call
+        MOE.moe_ffn = ranged("moe_ffn", ffn)
+        PG.apply_pruning = ranged("apply_pruning", mask)
+        try:
+            with record_routes(torch) as seen, \
+                    profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, scores, opt_state, m = one(MOE_TRAIN_STEPS)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        finally:
+            MOE.moe_ffn, PG.apply_pruning = ffn, mask
+        dropped.append(drops(seen))
+        last = {k: v.item() for k, v in m.items()}
+    require(not any(plain_calls.values()),
+            f"moe train: the plain attention ran on the card: {plain_calls}")
+    want = {"flash_prefill_bf16": 2 * L, "flash_prefill_bwd_bf16": L}
+    for i, n in enumerate(counts):
+        got = {k: v for k, v in n.items() if v}
+        require(got == want, f"moe train step {i}: launches {got}, want "
+                             f"{want}")
+    losses = [x["loss"] for x in metrics] + [last["loss"]]
+    require(all(math.isfinite(x) for x in losses),
+            f"moe train: a loss is not finite: {losses}")
+    require(losses[-1] < losses[0], f"moe train: loss did not fall: {losses}")
+    wall = statistics.median(walls[1:])
+    print(f"moe train: losses {[round(x, 4) for x in losses]} (ce "
+          f"{[round(x['ce'], 4) for x in metrics + [last]]}; aux summed over "
+          f"{L} layers {metrics[0]['aux']:.4f} at step 0, {last['aux']:.4f} "
+          f"at step {MOE_TRAIN_STEPS} ({L} when balanced); pairs dropped "
+          f"{dropped[0]:.4f} at step 0, {dropped[1]:.4f} at step "
+          f"{MOE_TRAIN_STEPS}); launches per step {want}, plain attention "
+          f"calls 0", flush=True)
+    print(f"moe train: wall per step median {wall * 1e3:.2f} ms over "
+          f"{len(walls) - 1} steps after step 0 (min "
+          f"{min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}; step "
+          f"0 {walls[0] * 1e3:.1f} ms; the batch copied in the step): "
+          f"{tokens / wall:.1f} training tokens/s; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    rows = _device_rows(prof)
+    busy_us = sum(r[2] for r in rows)
+    print(f"profile moe train step ({sum(r[1] for r in rows)} device "
+          f"launches): wall {dt * 1e6:.0f} us profiled / {wall * 1e6:.0f} us "
+          f"unprofiled median, device busy {busy_us:.0f} us, idle share "
+          f"{1.0 - busy_us / (dt * 1e6):.3f} profiled / "
+          f"{1.0 - busy_us / (wall * 1e6):.3f} unprofiled", flush=True)
+    split = train_parts(rows, busy_us, "moe train")
+    # host ranges' device time (subsets of the kernel groups above): every
+    # aten::bmm is an expert GEMM; the backward's run under BmmBackward0
+    total = {e.key: e.device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU}
+    bmm = total.get("aten::bmm", 0.0)
+    bmm_bwd = total.get("autograd::engine::evaluate_function: BmmBackward0",
+                        0.0)
+    parts = {"expert GEMMs forward and recompute": bmm - bmm_bwd,
+             "expert GEMMs backward": bmm_bwd,
+             "the rest of moe_ffn forward and recompute (router, top-k, "
+             "ranks, dispatch, SwiGLU, combine)":
+                 total.get("moe_ffn", 0.0) - (bmm - bmm_bwd),
+             "masks (apply_pruning forward)": total.get("apply_pruning", 0.0)}
+    print("profile moe train step by host range: " + "; ".join(
+        f"{k} {v / 1e3:.2f} ms ({v / busy_us:.3f})" for k, v in parts.items())
+        + "; attention forward / backward "
+        + " / ".join(f"{split[k][1] / 1e3:.2f} ms "
+                     f"({split[k][1] / busy_us:.3f})"
+                     for k in ("attention forward (flash_prefill_bf16)",
+                               "attention backward (flash_prefill_bwd_bf16)"))
+        + f"; AdamW {split['AdamW (multi_tensor_apply)'][1] / 1e3:.2f} ms; "
+          f"casts and copies {split['casts and copies'][1] / 1e3:.2f} ms",
+        flush=True)
+    print(f"moe train: phase wall {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
     del params, scores, opt_state, m, prof
     torch.cuda.empty_cache()
     return counts[-1]
@@ -3375,6 +3780,7 @@ def main() -> int:
     path_counts.update(traffic_counts)
     syncs.update(traffic_syncs)
     path_counts["lm train"] = lm_train_path(torch, dev)
+    path_counts["moe train"] = moe_train_path(torch, dev)
     path_counts["trained fp32"], path_counts["vit train"] = train_path(
         torch, dev)
     for key, n in syncs.items():

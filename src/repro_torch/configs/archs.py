@@ -120,7 +120,7 @@ QWEN2_MOE_A2_7B = ModelConfig(
     skip_shapes=("long_500k",),
 )
 
-# [hf:ibm-granite/granite-3.0-1b-a400m-base; hf] — 40 experts top-8
+# [hf:ibm-granite/granite-3.0-3b-a800m-base; hf] — 40 experts top-8
 GRANITE_MOE_3B_A800M = ModelConfig(
     name="granite-moe-3b-a800m",
     family="moe",

@@ -14,6 +14,11 @@ MLP weights are pruned by whole columns (``wi``) / rows (``wo``) via score
 vectors (paper Fig. 3); MSA weights use 2-D block scores, with the
 alternate pattern tying a ``W_p`` block column to a ``W_proj`` block row
 (paper Fig. 2). The sparsity regularizer (Eq. 8) is ``λ · Σ σ(S)``.
+
+A stack of matrices ``[..., M1, M2]`` (an MoE layer's expert bank) owns one
+score vector per matrix (``[..., M2]`` or ``[..., M1]``) and keeps the top-k
+of each, as the reference's vmap over its leading axes does; the top-k of
+every matrix is taken in one batched pass.
 """
 from __future__ import annotations
 
@@ -25,17 +30,20 @@ import torch
 from repro_torch.tree import leaves
 
 
-def _hard_topk(scores: torch.Tensor, keep: int) -> torch.Tensor:
+def _hard_topk(scores: torch.Tensor, keep: int,
+               lead: int = 0) -> torch.Tensor:
     """Binary mask keeping the ``keep`` largest entries of ``scores``;
-    ties at the threshold are kept (the reference's rule)."""
-    flat = scores.reshape(-1)
+    ties at the threshold are kept (the reference's rule). With ``lead``
+    leading axes, the top-k is taken per index of those axes (one sort
+    along the rest, each row's ``keep``-th value its threshold)."""
+    flat = scores.reshape(scores.shape[:lead] + (-1,))
     keep = int(keep)
-    if keep >= flat.shape[0]:
+    if keep >= flat.shape[-1]:
         return torch.ones_like(scores)
     if keep <= 0:
         return torch.zeros_like(scores)
-    kth = torch.sort(flat, descending=True).values[keep - 1]
-    return (scores >= kth).to(scores.dtype)
+    kth = torch.sort(flat, dim=-1, descending=True).values[..., keep - 1:keep]
+    return (flat >= kth).reshape(scores.shape).to(scores.dtype)
 
 
 class SteTopkMask(torch.autograd.Function):
@@ -44,18 +52,21 @@ class SteTopkMask(torch.autograd.Function):
     ``keep``)."""
 
     @staticmethod
-    def forward(ctx, scores: torch.Tensor, keep: int) -> torch.Tensor:
-        return _hard_topk(scores, keep)
+    def forward(ctx, scores: torch.Tensor, keep: int,
+                lead: int = 0) -> torch.Tensor:
+        return _hard_topk(scores, keep, lead)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return g, None
+        return g, None, None
 
 
-def ste_topk_mask(scores: torch.Tensor, keep: int) -> torch.Tensor:
+def ste_topk_mask(scores: torch.Tensor, keep: int,
+                  lead: int = 0) -> torch.Tensor:
     """Binary mask keeping the ``keep`` largest entries of ``scores`` (ties
-    at the threshold kept), with the straight-through gradient."""
-    return SteTopkMask.apply(scores, int(keep))
+    at the threshold kept; per index of the ``lead`` leading axes), with
+    the straight-through gradient."""
+    return SteTopkMask.apply(scores, int(keep), int(lead))
 
 
 def score_shape(w_shape: Tuple[int, int], block_size: int) -> Tuple[int, int]:
@@ -92,14 +103,17 @@ def masked_weight(w: torch.Tensor, scores: torch.Tensor, r_b: float,
 def masked_weight_vector(w: torch.Tensor, scores: torch.Tensor, r_b: float,
                          axis: int) -> torch.Tensor:
     """MLP column (``axis=1``) / row (``axis=0``) pruning via top-k on a
-    score vector of length ``w.shape[axis]``."""
+    score vector of length ``M2`` / ``M1``. ``w`` may be a stack ``[...,
+    M1, M2]`` with ``scores`` ``[..., n]``: each matrix keeps its own
+    top-k."""
     if r_b >= 1.0:
         return w
-    n = w.shape[axis]
+    lead = w.ndim - 2
+    n = w.shape[lead + axis]
     keep = max(1, math.ceil(n * r_b))
-    m = ste_topk_mask(scores, keep)
-    shape = [1, 1]
-    shape[axis] = n
+    m = ste_topk_mask(scores, keep, lead)
+    shape = list(w.shape[:lead]) + [1, 1]
+    shape[lead + axis] = n
     return w * m.reshape(shape).to(w.dtype)
 
 
@@ -124,17 +138,22 @@ def init_scores_for(w: torch.Tensor, block_size: int, kind: str,
     """Score parameter for weight ``w``: "block" -> 2-D block scores;
     "col"/"row" -> score vector for MLP column/row pruning. Small random
     init, drawn from ``generator`` on the CPU and moved to ``w``'s
-    device."""
+    device. A stack ``w`` [..., M1, M2] gets one score tensor per matrix,
+    drawn matrix by matrix in order."""
+    m1, m2 = w.shape[-2:]
     if kind == "block":
-        shape = score_shape(tuple(w.shape), block_size)
+        shape = score_shape((m1, m2), block_size)
     elif kind == "col":
-        shape = (w.shape[1],)
+        shape = (m2,)
     elif kind == "row":
-        shape = (w.shape[0],)
+        shape = (m1,)
     else:
         raise ValueError(kind)
-    s = 0.01 * torch.randn(shape, generator=generator, dtype=torch.float32)
-    return s.to(w.device)
+    lead = tuple(w.shape[:-2])
+    s = torch.stack([
+        0.01 * torch.randn(shape, generator=generator, dtype=torch.float32)
+        for _ in range(math.prod(lead))])
+    return s.reshape(lead + tuple(shape)).to(w.device)
 
 
 def sparsity_regularizer(scores_tree) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Training launcher: configs, synthetic data, the training step, and
 (with ``--ckpt``) the fault-tolerant loop and checkpointing — the port of
-the reference package's ``launch/train.py`` for the ``vit`` and ``dense``
-families.
+the reference package's ``launch/train.py`` for the ``vit``, ``dense`` and
+``moe`` families.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deit-small \
         [--full] [--steps 50] [--batch 8] [--lr 1e-3] [--ckpt DIR] \
         [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         [--full] [--seq 128] [--prune] [--ckpt DIR] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m [--full] [--seq 512] [--prune] ...
 
 The reduced config is the default; ``--full`` trains the architecture at
 full width and depth. ``--device`` picks the card (``cuda``, the default)
@@ -19,9 +21,10 @@ restarted from ``--ckpt`` resumes exactly (the checkpoint holds params,
 scores and the optimizer's state). The ViT's step is
 ``models/steps.make_vit_train_step`` (classification, AdamW; the paper's
 Algorithm 1 is ``core/simultaneous``); the LM's is
-``models/steps.make_train_step`` (next-token CE, AdamW; with ``--prune``
-the paper's block pruning at block 16, r_b 0.5, trained jointly through
-the STE, as the reference's ``--prune``).
+``models/steps.make_train_step`` (next-token CE plus the MoE's 0.01 x aux,
+AdamW in place; with ``--prune`` the paper's block pruning at block 16,
+r_b 0.5, per expert in an MoE layer's banks, trained jointly through the
+STE, as the reference's ``--prune``).
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ def make_state_factory(cfg, opt, device: torch.device, seed: int = 0,
     LM's on ``device``), scores (``with_scores``) from one seeded ``seed +
     7`` on the CPU, and the optimizer's zero state over both."""
     def make_state():
-        gen = torch.Generator(device if cfg.family == "dense" else "cpu")
+        gen = torch.Generator("cpu" if cfg.family == "vit" else device)
         params = M.init_params(cfg, gen.manual_seed(seed), device=device)
         scores = (PG.init_scores(cfg, params,
                                  torch.Generator().manual_seed(seed + 7))
@@ -75,17 +78,17 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
           log_every: int = 10, seed: int = 0,
           device: "str | torch.device" = "cuda"):
     cfg = get_config(arch)
-    if cfg.family not in ("vit", "dense"):
+    if cfg.family not in ("vit", "dense", "moe"):
         raise NotImplementedError(
-            f"training family {cfg.family!r}: this package trains the ViT "
-            f"and the dense LMs (the MoE training slice and the other "
-            f"families: ROADMAP queue A, item 8)")
+            f"training family {cfg.family!r}: this package trains the ViT, "
+            f"the dense LMs and the MoE LMs (the other families: ROADMAP "
+            f"queue A, item 8)")
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)
     opt = AdamW(lr=lr)
     dc = DataConfig(seed=seed)
-    lm = cfg.family == "dense"
+    lm = cfg.family in ("dense", "moe")
     if lm and prune:
         cfg = prune_config(cfg)
 

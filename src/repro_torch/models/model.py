@@ -17,7 +17,8 @@ kernel wrapper (the kernels for CUDA tensors; in training the causal
 kernel pair with its backward) and, in train mode, checkpoints each layer
 by ``cfg.remat_policy`` as the reference's ``_remat`` does. The MoE
 family runs the same attention layers with ``models/moe.moe_ffn`` in place
-of the SwiGLU MLP; it serves, and does not train yet.
+of the SwiGLU MLP, and each layer's load-balancing loss is carried out of
+its checkpoint into the training loss.
 """
 from __future__ import annotations
 
@@ -263,8 +264,8 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     recomputes the layer in the backward, "dots" keeps its projections'
     outputs and recomputes the rest, "none" keeps everything.
     ``Output.aux_loss`` is the MoE load-balancing loss summed over layers
-    (0.0 for the dense family). The MoE family runs every mode but train
-    mode with grad enabled: its training is a later slice."""
+    (0.0 for the dense family), differentiable through each layer's router
+    in train mode."""
     moe = cfg.family == "moe"
     if cfg.family != "dense" and not moe:
         raise NotImplementedError(
@@ -273,11 +274,6 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
-    if moe and mode == "train" and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "training the MoE family (gradients through moe_ffn, the aux "
-            "loss in lm_loss) is the MoE training slice of ROADMAP queue A, "
-            "item 8; run its train-mode forward under torch.no_grad()")
     adt = getattr(torch, cfg.dtype)
     eps = cfg.norm_eps
     x = params["embed"][tokens].to(adt)
@@ -293,19 +289,19 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     ckpt = (mode == "train" and policy != "none"
             and torch.is_grad_enabled())
     aux_total = 0.0
+    layer = _moe_layer if moe else _lm_layer
     for i, lp in enumerate(params["layers"]):
         if ckpt:
-            x = checkpoint(_lm_layer, cfg, x, lp, None, valid_start,
-                           use_reentrant=False, **_REMAT[policy])[0]
-            continue
-        cache = caches[i] if want_cache else None
-        if moe:
-            x, nc, aux = _moe_layer(cfg, x, lp, cache, valid_start)
-            aux_total = aux_total + aux
+            out = checkpoint(layer, cfg, x, lp, None, valid_start,
+                             use_reentrant=False, **_REMAT[policy])
         else:
-            x, nc = _lm_layer(cfg, x, lp, cache, valid_start)
+            out = layer(cfg, x, lp, caches[i] if want_cache else None,
+                        valid_start)
+        x = out[0]
+        if moe:
+            aux_total = aux_total + out[2]
         if want_cache:
-            new_caches.append(nc)
+            new_caches.append(out[1])
 
     x = L.rms_norm(x, params["ln_f"], eps)
     if logits_for == "none":

@@ -22,6 +22,16 @@ host wait and a fixed order of floating-point adds:
   the order in which the reference's scatter-add applies its expert-sorted
   updates. Nothing accumulates through atomics, so two calls on the card
   agree bitwise.
+
+Under autograd the gradients are the reference's: through the gates to the
+router's probabilities (and their renormalization), the aux through
+``probs.mean(0)`` only (the routed fractions carry none), and each kept
+pair's rows back to its token, its K copies summed by a reduction. Dropped
+pairs read and write the spare row, so they pass 0. The backward of the
+combine writes each pair's gradient to its row (:class:`_GatherRows`):
+every real row is written once, and only the discarded spare row is
+written by several pairs, so no row is summed through atomics and two
+backwards on the card agree bitwise.
 """
 from __future__ import annotations
 
@@ -78,16 +88,22 @@ class Routing(NamedTuple):
 
 
 def route(xf: torch.Tensor, p: Dict, cfg,
-          capacity_factor: Optional[float] = None) -> Routing:
+          capacity_factor: Optional[float] = None,
+          expert: Optional[torch.Tensor] = None) -> Routing:
     """Route the tokens ``xf`` [T, D]: router in the activation dtype, fp32
     softmax, top-k with ties toward the lower index, capacity ``C`` from
-    this call's own ``T``."""
+    this call's own ``T``. ``expert`` [T, K] (int64) replaces the top-k's
+    choices, so that a run replays another's routing (the card-vs-CPU
+    checks do): gates, ranks and the aux follow from it as from the top-k."""
     T = xf.shape[0]
     E, K = cfg.moe_num_experts, cfg.moe_top_k
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     probs = torch.softmax(L.linear(xf, p["router"]).float(), dim=-1)
-    gate, expert = stable_topk(probs, K)
+    if expert is None:
+        gate, expert = stable_topk(probs, K)
+    else:
+        gate = probs.gather(1, expert)
     gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
     # pairs in token order against experts: a pair's rank within its
     # expert is the count of earlier pairs routed there
@@ -104,6 +120,28 @@ def route(xf: torch.Tensor, p: Dict, cfg,
     return Routing(gate, expert, slot, kept, aux, C)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``rows[idx]`` for ``idx`` [T, K] whose entries repeat only at the
+    last row (the spare row). The backward copies each pair's gradient
+    into its row instead of summing: a real row receives exactly one, and
+    the spare row, which dropped pairs write over one another, is
+    discarded by the caller."""
+
+    @staticmethod
+    def forward(ctx, rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n_rows = rows.shape[0]
+        return rows[idx]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        D = g.shape[-1]
+        out = g.new_zeros((ctx.n_rows, D))
+        out.index_copy_(0, idx.reshape(-1), g.reshape(-1, D))
+        return out, None
+
+
 def moe_ffn(x: torch.Tensor, p: Dict, cfg,
             capacity_factor: Optional[float] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,7 +154,9 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg,
     r = route(xf, p, cfg, capacity_factor)
     C = r.capacity
     buf = xf.new_zeros((E_pad * C + 1, D))
-    buf.index_copy_(0, r.slot.reshape(-1), xf.repeat_interleave(K, dim=0))
+    # each token's K copies (the backward sums them in a reduction)
+    pairs = xf[:, None].expand(B * S, K, D).reshape(B * S * K, D)
+    buf.index_copy_(0, r.slot.reshape(-1), pairs)
     buf = buf[:-1].view(E_pad, C, D)
     # grouped expert FFN: [E, C, D] x [E, D, F] -> [E, C, F]
     g = F.silu(torch.bmm(buf, p["wg"].to(x.dtype)))
@@ -124,12 +164,14 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg,
     y_e = torch.bmm(g * u, p["wo"].to(x.dtype)).reshape(E_pad * C, D)
     rows = torch.cat([y_e, y_e.new_zeros((1, D))])  # the spare row reads 0
     # each token's pairs in ascending expert order, summed in that order
+    # (``order`` permutes each row, so the gates' gather has one gradient
+    # per element)
     _, order = torch.sort(r.expert, dim=1)
-    part = (rows[r.slot.gather(1, order)]
-            * r.gate.gather(1, order).to(x.dtype)[..., None])
-    yf = part[:, 0]
+    part = (_GatherRows.apply(rows, r.slot.gather(1, order))
+            * r.gate.gather(1, order).to(x.dtype)[..., None]).unbind(1)
+    yf = part[0]
     for k in range(1, K):
-        yf = yf + part[:, k]
+        yf = yf + part[k]
     if "shared" in p:
         yf = yf + L.glu_mlp(xf, p["shared"])
     return yf.reshape(B, S, D), r.aux

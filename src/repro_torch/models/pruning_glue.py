@@ -1,20 +1,24 @@
-"""Glue between the paper's pruning (core/) and the model params (the ViT
-and the dense LMs) — the port of the reference package's
+"""Glue between the paper's pruning (core/) and the model params (the ViT,
+the dense LMs and the MoE LMs) — the port of the reference package's
 ``models/pruning_glue.py``: identify prunable weights in a param tree,
 create score parameters, and produce masked params and hard block masks.
 
 Prunable groups:
   * attention projections  wq/wk/wv/wo (block scores)
-  * MLP                    wi (column score vector), wo (row score vector)
-  * everything else (embeddings, norms, head) is dense.
+  * MLP / expert FFN       wi, wg (column score vector), wo (row score
+    vector)
+  * everything else (embeddings, norms, the router, head) is dense.
 
 Paths are strings like ``layers/{i}/attn/wq`` and the tree is walked in
 the reference's order (dict keys sorted, lists by index). The port keeps
-one dict per layer, so every prunable leaf is 2-D and owns its own scores
-(per layer and matrix, as in the paper); the reference stacks the LMs'
-layers (``layers/attn/wq`` [L, ...]), and ``convert.lm_scores_from_jax``
-splits its scores into these paths. The ViT's paths are the reference's
-own.
+one dict per layer, so a prunable leaf is one 2-D matrix with its own
+scores (per layer and matrix, as in the paper), except an MoE layer's
+expert banks ``layers/{i}/moe/w*`` [E, M1, M2]: each expert's matrix owns
+its own score vector (scores [E, n]) and keeps its own top-k, as the
+reference's vmap over the stacked axes gives. The reference stacks the
+LMs' layers (``layers/attn/wq`` [L, ...]), and
+``convert.lm_scores_from_jax`` splits its scores into these paths. The
+ViT's paths are the reference's own.
 """
 from __future__ import annotations
 
@@ -49,35 +53,40 @@ def prunable_kind(path: Path, leaf: torch.Tensor) -> str | None:
     return None
 
 
-def _check_2d(ps: str, leaf: torch.Tensor) -> None:
-    if leaf.ndim != 2:
-        raise NotImplementedError(
-            f"{ps}: stacked layer axes (shape {tuple(leaf.shape)}) are not "
-            f"taken: the port keeps one 2-D weight per layer and matrix; "
-            f"convert the reference's stacked LM trees with "
-            f"convert.lm_params_from_jax / lm_scores_from_jax")
+def _check_shape(path: Path, leaf: torch.Tensor, kind: str) -> None:
+    """A prunable leaf is one matrix, or an MoE layer's expert bank [E, M1,
+    M2] pruned by columns or rows."""
+    if leaf.ndim == 2 or (leaf.ndim == 3 and kind in ("col", "row")
+                          and "moe" in path and "shared" not in path):
+        return
+    raise NotImplementedError(
+        f"{_path_str(path)}: stacked layer axes (shape {tuple(leaf.shape)}) "
+        f"are not taken: the port keeps one 2-D weight per layer and "
+        f"matrix (an MoE layer's expert banks [E, M1, M2] by columns or "
+        f"rows); convert the reference's stacked LM trees with "
+        f"convert.lm_params_from_jax / lm_scores_from_jax")
 
 
 def init_scores(cfg: ModelConfig, params: Dict,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Score dict {path: scores} at the prunable leaves, drawn in tree
-    order from ``generator``."""
+    order from ``generator`` (an expert bank's expert by expert)."""
     b = cfg.pruning.block_size
     out = {}
     for path, leaf in flatten_with_path(params):
         kind = prunable_kind(path, leaf)
         if kind is None:
             continue
-        ps = _path_str(path)
-        _check_2d(ps, leaf)
-        out[ps] = BP.init_scores_for(leaf, b, kind, generator)
+        _check_shape(path, leaf, kind)
+        out[_path_str(path)] = BP.init_scores_for(leaf, b, kind, generator)
     return out
 
 
 def apply_pruning(cfg: ModelConfig, params: Dict, scores: Dict,
                   r_b: float | None = None) -> Dict:
     """Masked params for the forward pass: differentiable in ``params``
-    and, through the straight-through estimator, in ``scores``."""
+    and, through the straight-through estimator, in ``scores``. An expert
+    bank's experts each keep their own top-k."""
     p = cfg.pruning
     if r_b is None:
         r_b = p.r_b
@@ -93,7 +102,7 @@ def apply_pruning(cfg: ModelConfig, params: Dict, scores: Dict,
         if (kind == "block" and not p.prune_msa) or \
                 (kind in ("col", "row") and not p.prune_mlp):
             return leaf
-        _check_2d(ps, leaf)
+        _check_shape(path, leaf, kind)
         s = scores[ps]
         if kind == "block":
             return BP.masked_weight(leaf, s, r_b, b)
@@ -118,7 +127,7 @@ def hard_masks(cfg: ModelConfig, params: Dict,
         ps = _path_str(path)
         if kind != "block" or ps not in scores:
             continue
-        _check_2d(ps, leaf)
+        _check_shape(path, leaf, kind)
         out[ps] = BP.hard_block_mask(scores[ps], p.r_b, tuple(leaf.shape),
                                      p.block_size)
     return out

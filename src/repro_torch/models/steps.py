@@ -1,10 +1,10 @@
 """Step functions — the reference package's ``models/steps.py`` for the
-families this package runs: the ViT's training step, the dense LM's
-training step (with the paper's block pruning trained jointly, and
-gradient accumulation over microbatches), and the dense and MoE LMs' serve
-steps: cache constructors, whole-batch prefill, per-slot prefill (a B=1
-prefill scattered into one row of the live batched cache) and the decode
-step.
+families this package runs: the ViT's training step, the dense and MoE
+LMs' training step (with the paper's block pruning trained jointly, per
+expert in an MoE layer's banks, and gradient accumulation over
+microbatches), and their serve steps: cache constructors, whole-batch
+prefill, per-slot prefill (a B=1 prefill scattered into one row of the
+live batched cache) and the decode step.
 
 The reference jits these; PyTorch runs them eagerly, so they are plain
 functions. Caches are a list with one ``KVCache`` per layer, and every
@@ -33,7 +33,7 @@ MASKABLE_FAMILIES = ("dense", "moe", "vlm", "audio")
 # can be prefilled in isolation and scattered into the live batch.
 SLOT_PREFILL_FAMILIES = ("dense", "moe")
 
-# Families this package serves; it trains only "dense" of them.
+# Families this package serves and trains (besides the ViT).
 SERVE_FAMILIES = ("dense", "moe")
 
 
@@ -45,16 +45,12 @@ def _require_served(cfg: ModelConfig) -> None:
             f"{SERVE_FAMILIES}")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "training the MoE family is the MoE training slice of ROADMAP "
-            "queue A, item 8 (expert banks in pruning_glue, the aux loss's "
-            "gradient, launch/train); this package serves it")
-    if cfg.family != "dense":
+def _require_trained(cfg: ModelConfig) -> None:
+    if cfg.family not in SERVE_FAMILIES:
         raise NotImplementedError(
             f"training steps for family {cfg.family!r} are a later slice "
-            f"(ROADMAP queue A, item 8); this package trains 'dense'")
+            f"(ROADMAP queue A, item 8); this package trains "
+            f"{SERVE_FAMILIES}")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -142,7 +138,8 @@ def make_decode_step(cfg: ModelConfig):
 
 def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
     """Returns ``grads(params, batch, scores=None) -> (loss, parts,
-    grads)``: the gradient of the LM's training loss, the half of
+    grads)``: the gradient of the LM's training loss (dense or MoE; the
+    MoE's includes 0.01 x the aux through its routers), the half of
     :func:`make_train_step` before the optimizer. ``grads`` has the
     trainables' structure: ``{"params", "scores"}`` when ``scores`` are
     given (the paper's simultaneous pruning: the STE through
@@ -151,7 +148,7 @@ def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
     the batch splits along dim 0 into M pieces and the gradients, the loss
     and its parts are averaged over them (the reference's scan: g_acc +
     g / M from zeros)."""
-    _require_dense(cfg)
+    _require_trained(cfg)
     p = cfg.pruning
     use_prune = (p.weight_pruning_enabled if with_pruning is None
                  else with_pruning)
@@ -201,8 +198,9 @@ def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
 def stacked_decay(trainables) -> List[bool]:
     """AdamW's weight-decay rule (``ndim >= 2``) as the reference applies it
     to the LM, whose layers are stacked on a leading axis: every leaf of a
-    layer is decayed (norm scales and MLP score vectors too), other leaves
-    by their own ``ndim``. In flatten order."""
+    layer is decayed (norm scales, MLP score vectors, the MoE router,
+    expert banks and their score vectors too), other leaves by their own
+    ``ndim``. In flatten order."""
     return [leaf.ndim >= 2 or "layers" in path_str(path).split("/")
             for path, leaf in flatten_with_path(trainables)]
 
@@ -213,7 +211,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
     scores, opt_state, metrics)``, the reference's signature: the gradient
     of :func:`make_grad_fn`, then the AdamW update over ``{"params",
     "scores"}`` (the paper's weights and scores trained jointly) or over
-    the params alone. ``opt_state`` must be ``optimizer.init`` of the same
+    the params alone, in place (``AdamW.update_``, the reference's donated
+    buffers): the params, scores and moments passed in are the ones
+    returned, updated. ``opt_state`` must be ``optimizer.init`` of the same
     trainables; ``batch["tokens"]`` [B, S] on the params' device;
     ``metrics`` ``{"loss", "ce", "aux"}`` as 0-d tensors. Weight decay
     follows the reference's stacked layout (:func:`stacked_decay`). The
@@ -229,8 +229,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
         trainables = ({"params": params, "scores": scores} if scores
                       else params)
         loss, parts, grads = grad_fn(params, batch, scores)
-        new_tr, new_opt = opt.update(grads, opt_state, trainables,
-                                     decay=stacked_decay(trainables))
+        new_tr, new_opt = opt.update_(grads, opt_state, trainables,
+                                      decay=stacked_decay(trainables))
         metrics = {"loss": loss, **parts}
         if scores:
             return new_tr["params"], new_tr["scores"], new_opt, metrics

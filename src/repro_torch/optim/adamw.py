@@ -11,10 +11,16 @@ reference package's ``optim/adamw.py``, with its arithmetic:
   (the LM's step does: the reference stacks the LM's layers, where every
   per-layer leaf has ``ndim >= 2``).
 
-The update is functional: it returns new params and a new state and
-leaves its inputs as they are. It runs on the leaves' device with
-``torch._foreach_*`` ops (a few launches per tree, not per leaf) and
-never reads a value back to the host.
+Two forms share that arithmetic, operation for operation, so they give
+bitwise-equal results. :meth:`AdamW.update` is functional: it returns new
+params and a new state and leaves its inputs as they are (its peak is the
+params, the gradients, both moments old and new and two temporaries).
+:meth:`AdamW.update_` is the counterpart of the reference's donated
+buffers: it scales the gradients by the clip, and updates the params and
+both moments, in place, one group of leaves at a time, so the temporaries
+are one group's. Both run on the leaves' device with ``torch._foreach_*``
+ops (a few launches per group of leaves, not per leaf) and never read a
+value back to the host.
 """
 from __future__ import annotations
 
@@ -23,6 +29,11 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.tree import leaves, tree_map, unflatten
+
+# The in-place update's group of consecutive leaves, in elements: its
+# temporaries (the squared gradients, the denominator, the step) are three
+# fp32 copies of a group, 768 MiB at most (a larger leaf is a group alone)
+GROUP_NUMEL = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -47,54 +58,99 @@ class AdamW(NamedTuple):
             mu=tree_map(torch.zeros_like, params),
             nu=tree_map(torch.zeros_like, params))
 
-    @torch.no_grad()
-    def update(self, grads, state: AdamWState, params,
-               decay: Optional[Sequence[bool]] = None
-               ) -> Tuple[Any, AdamWState]:
-        """One step. ``decay``: per leaf of ``params`` in flatten order,
-        whether weight decay applies (default: ``ndim >= 2``)."""
-        step = state.step + 1
+    def _lr_and_corrections(self, step: torch.Tensor):
         lr = self.lr(step) if callable(self.lr) else self.lr
-        g = leaves(grads)
-        if self.grad_clip > 0:
-            scale = torch.clamp(self.grad_clip / (global_norm(g) + 1e-9),
-                                max=1.0)
-            g = torch._foreach_mul(g, scale)
+        t = step.to(torch.float32)
+        return lr, 1 - self.b1 ** t, 1 - self.b2 ** t
 
-        # the reference's arithmetic, operation for operation, each
-        # intermediate made once and updated in place (the peak is the
-        # params, the gradients, both moments old and new and two
-        # temporaries: ~8 copies of the params for an LM of 1.6 B)
+    def _clip_scale(self, g) -> Optional[torch.Tensor]:
+        if self.grad_clip <= 0:
+            return None
+        return torch.clamp(self.grad_clip / (global_norm(g) + 1e-9), max=1.0)
+
+    def _group(self, g, mu, nu, p, decay, lr, c1, c2, fresh: bool):
+        """The reference's arithmetic on one group of leaves (``g`` clipped
+        already): returns the new ``(mu, nu, p)``, new lists when
+        ``fresh``, else ``mu``, ``nu`` and ``p`` updated in place."""
         b1, b2 = self.b1, self.b2
-        mu = torch._foreach_mul(leaves(state.mu), b1)
+        if fresh:
+            mu = torch._foreach_mul(mu, b1)
+            nu = torch._foreach_mul(nu, b2)
+        else:
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_mul_(nu, b2)
         tmp = torch._foreach_mul(g, 1 - b1)
         torch._foreach_add_(mu, tmp)
-        nu = torch._foreach_mul(leaves(state.nu), b2)
         tmp = torch._foreach_mul(g, g)
-        del g
         torch._foreach_mul_(tmp, 1 - b2)
         torch._foreach_add_(nu, tmp)
         del tmp
-        t = step.to(torch.float32)
-        c1 = 1 - b1 ** t
-        c2 = 1 - b2 ** t
         denom = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         delta = list(torch._foreach_div(mu, c1))
         torch._foreach_div_(delta, denom)
         del denom
-        p = leaves(params)
+        dec = [i for i, d in enumerate(decay) if d]
+        if dec:
+            wd = torch._foreach_mul([p[i] for i in dec], self.weight_decay)
+            torch._foreach_add_([delta[i] for i in dec], wd)
+            del wd
+        torch._foreach_mul_(delta, lr)
+        if fresh:
+            return mu, nu, torch._foreach_sub(p, delta)
+        torch._foreach_sub_(p, delta)
+        return mu, nu, p
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params,
+               decay: Optional[Sequence[bool]] = None
+               ) -> Tuple[Any, AdamWState]:
+        """One step, functional. ``decay``: per leaf of ``params`` in
+        flatten order, whether weight decay applies (default: ``ndim >=
+        2``)."""
+        step = state.step + 1
+        lr, c1, c2 = self._lr_and_corrections(step)
+        g, p = leaves(grads), leaves(params)
+        scale = self._clip_scale(g)
+        if scale is not None:
+            g = torch._foreach_mul(g, scale)
         if decay is None:
             decay = [leaf.ndim >= 2 for leaf in p]
-        for i, leaf in enumerate(p):
-            if decay[i]:
-                delta[i].add_(self.weight_decay * leaf)
-        torch._foreach_mul_(delta, lr)
-        new = torch._foreach_sub(p, delta)
-        del delta
+        mu, nu, new = self._group(g, leaves(state.mu), leaves(state.nu), p,
+                                  decay, lr, c1, c2, fresh=True)
         return unflatten(params, new), AdamWState(
             step, unflatten(state.mu, mu), unflatten(state.nu, nu))
+
+    @torch.no_grad()
+    def update_(self, grads, state: AdamWState, params,
+                decay: Optional[Sequence[bool]] = None
+                ) -> Tuple[Any, AdamWState]:
+        """One step in place, bitwise :meth:`update`'s: ``grads`` are scaled
+        by the clip, ``params``, ``state.mu`` and ``state.nu`` updated, and
+        the same ``params`` returned with a state holding the same moment
+        trees and the next step. The global norm is taken over the whole
+        tree first; then consecutive leaves are updated in groups of at
+        most ``GROUP_NUMEL`` elements (a larger leaf alone), so the
+        temporaries are one group's."""
+        step = state.step + 1
+        lr, c1, c2 = self._lr_and_corrections(step)
+        g, p = leaves(grads), leaves(params)
+        mu, nu = leaves(state.mu), leaves(state.nu)
+        scale = self._clip_scale(g)
+        if scale is not None:
+            torch._foreach_mul_(g, scale)
+        if decay is None:
+            decay = [leaf.ndim >= 2 for leaf in p]
+        start, n = 0, 0
+        for i, leaf in enumerate(p):
+            n += leaf.numel()
+            if n >= GROUP_NUMEL or i == len(p) - 1:
+                sl = slice(start, i + 1)
+                self._group(g[sl], mu[sl], nu[sl], p[sl], decay[sl], lr, c1,
+                            c2, fresh=False)
+                start, n = i + 1, 0
+        return params, AdamWState(step, state.mu, state.nu)
 
 
 def global_norm(tree) -> torch.Tensor:

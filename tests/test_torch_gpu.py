@@ -1048,7 +1048,9 @@ TRAIN_CASES = [  # B, N, Hq, KV, Dh, kv_start
     # more than the blocks the card holds (each walks several items through
     # both of its fixed slots)
     (1, 100, 6, 2, 64, [0]), (2, 130, 24, 8, 64, [3, 70]),
-    (1, 1024, 8, 2, 64, [100]), (8, 512, 16, 8, 16, None)]
+    (1, 1024, 8, 2, 64, [100]), (8, 512, 16, 8, 16, None),
+    # Granite-MoE-3B-A800M's training step: GQA 3:1, Dh 64, 8 x 512
+    (8, 512, 24, 8, 64, None)]
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES,
@@ -1326,3 +1328,151 @@ def test_moe_serve_on_card_same_at_both_depths(dev):
             chosen = rows.gather(1, torch.tensor(r.generated,
                                                  device=dev)[:, None])[:, 0]
             assert (rows.max(dim=1).values - chosen).max().item() <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# MoE training
+# ---------------------------------------------------------------------------
+def test_moe_train_grad_on_card_launches_and_matches_cpu(dev, monkeypatch):
+    """The gradient of the pruned reduced Granite-MoE-3B-A800M's loss (3
+    layers, 4 experts top-2, a shared expert, Dh 16, GQA 4:1, capacity
+    factor 1.25 so that pairs drop; full remat) on the card: the forward
+    kernel twice per layer, the backward once, nothing else; two card
+    backwards bitwise equal. Against the CPU, both with bf16 activations:
+    a token the CPU, routing freely, sends to other experts must owe it
+    to a near tie (each differing expert's CPU probability within 2 d of
+    the token's k-th largest, d the layer's largest card-vs-CPU
+    probability difference); with the card's routing replayed on the CPU
+    (``moe.route(expert=...)``), the loss within 1e-2 relative, the aux
+    within 1e-2 and each gradient leaf within 5e-2 of its largest CPU
+    element, as the dense LM's."""
+    from repro_torch.configs import GRANITE_MOE_3B_A800M
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import steps as ST
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    cfg = GRANITE_MOE_3B_A800M.reduced().replace(moe_capacity_factor=1.25)
+    cfg = cfg.replace(pruning=type(cfg.pruning)(block_size=16, r_b=0.5,
+                                                r_t=1.0))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    scores = PG.init_scores(cfg, params, torch.Generator().manual_seed(7))
+    b = synthetic_lm_batch(cfg, ShapeConfig("t", 64, 2, "train"),
+                           DataConfig(), 0)
+    fn = ST.make_grad_fn(cfg, with_pruning=True)
+    route, seen, replay = MOE.route, [], []
+
+    def recorded(xf, p, c, capacity_factor=None):
+        e = replay[len(seen)].to(xf.device) if replay else None
+        r = route(xf, p, c, capacity_factor, e)
+        with torch.no_grad():
+            probs = torch.softmax(L.linear(xf, p["router"]).float(), -1)
+        seen.append((r.expert.cpu(), probs.cpu()))
+        return r
+    monkeypatch.setattr(MOE, "route", recorded)
+
+    def run(d):
+        seen.clear()
+        backend.reset_launches()
+        out = fn(tree_map(lambda t: t.to(d), params), {
+            "tokens": torch.from_numpy(b["tokens"]).to(d)},
+            tree_map(lambda t: t.to(d), scores))
+        return out, backend.launches(), list(seen)
+    (lg, pg, gg), ng, card = run(dev)
+    (lg2, _, gg2), _, _ = run(dev)
+    (_, _, _), nc, free = run("cpu")
+    replay.extend(e for e, _ in card)
+    (lc, pc, gc), _, _ = run("cpu")
+    assert not any(nc.values())
+    L_ = cfg.num_layers
+    assert {k: v for k, v in ng.items() if v} == {
+        "flash_prefill_bf16": 2 * L_, "flash_prefill_bwd_bf16": L_}
+    assert torch.equal(lg, lg2)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(gg), leaves(gg2)))
+    K = cfg.moe_top_k
+    for (e_c, p_c), (e_h, p_h) in zip(card[:L_], free[:L_]):
+        d = (p_c - p_h).abs().max().item()
+        s_c, s_h = (torch.sort(e, dim=1).values for e in (e_c, e_h))
+        kth = torch.sort(p_h, dim=1, descending=True).values[:, K - 1]
+        for t in torch.nonzero((s_c != s_h).any(dim=1))[:, 0].tolist():
+            for e in set(s_c[t].tolist()) ^ set(s_h[t].tolist()):
+                assert abs(p_h[t, e] - kth[t]) <= 2 * d, (t, e, d)
+    assert abs(lg.item() - lc.item()) <= 1e-2 * abs(lc.item())
+    assert abs(pg["aux"].item() - pc["aux"].item()) <= 1e-2
+    for (path, a), (_, c) in zip(flatten_with_path(gg),
+                                 flatten_with_path(gc)):
+        a = a.cpu()
+        assert bool(torch.isfinite(a).all()), path
+        assert (a - c).abs().max() <= 5e-2 * c.abs().max(), path
+
+
+@pytest.mark.parametrize("T", [512, 4096])
+def test_moe_ffn_backward_on_card_is_repeatable(dev, T):
+    """One MoE layer at Granite-MoE-3B-A800M's widths (D=1536, 40 experts
+    top-8, d_ff 512; bf16, capacity factor 1.25, so that pairs drop and
+    the spare row is written by many) under autograd on the card, twice:
+    y, aux and the gradients of x, the router and the banks bitwise
+    equal; finite. Capacity factor 0.5 drops pairs (random inputs route
+    about evenly): a token with every pair dropped gets no gradient from
+    y, only the aux's (this layer has no shared expert)."""
+    from repro_torch.configs import GRANITE_MOE_3B_A800M
+    from repro_torch.models import moe as MOE
+    cfg = GRANITE_MOE_3B_A800M
+    g = torch.Generator().manual_seed(1)
+    p = {k: v.to(dev, torch.bfloat16).requires_grad_(True)
+         for k, v in MOE.init_moe_params(g, cfg).items()}
+    x = torch.randn((1, T, cfg.d_model), generator=g).to(
+        dev, torch.bfloat16).requires_grad_(True)
+    cot = torch.randn((1, T, cfg.d_model), generator=g).to(dev,
+                                                           torch.bfloat16)
+    out = []
+    for _ in range(2):
+        y, aux = MOE.moe_ffn(x, p, cfg, 0.5)
+        grads = torch.autograd.grad((y.float() * cot).sum() + aux,
+                                    [x, *p.values()])
+        out.append((y, aux, grads))
+    (y, aux, ga), (y2, aux2, gb) = out
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+    assert all(bool(torch.isfinite(a.float()).all()) for a in ga)
+    with torch.no_grad():
+        r = MOE.route(x.reshape(T, -1), p, cfg, 0.5)
+    gone = ~r.kept.any(dim=1)
+    assert bool(gone.any())
+    # the aux's gradient reaches every token through probs.mean(0)
+    (gx_aux,) = torch.autograd.grad(MOE.moe_ffn(x, p, cfg, 0.5)[1], x)
+    assert torch.equal(ga[0][0, gone], gx_aux[0, gone])
+
+
+def test_inplace_adamw_on_card_equals_functional(dev, monkeypatch):
+    """``AdamW.update_`` against ``AdamW.update`` on the card over 3 steps
+    of a tree of fp32 leaves (matrices, vectors, a 3-D bank) with random
+    gradients, clipped, decay by the LM's rule and by ndim, groups small
+    enough to split the tree: params and moments bitwise equal."""
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW, adamw
+    from repro_torch.tree import leaves, tree_map
+    monkeypatch.setattr(adamw, "GROUP_NUMEL", 20000)
+    g = torch.Generator().manual_seed(2)
+    tree = {"embed": torch.randn((300, 64), generator=g),
+            "layers": [{"ln": torch.randn((64,), generator=g),
+                        "moe": {"wi": torch.randn((4, 64, 128), generator=g),
+                                "router": torch.randn((64, 4), generator=g)}}
+                       for _ in range(2)],
+            "ln_f": torch.randn((64,), generator=g)}
+    tree = tree_map(lambda t: t.to(dev), tree)
+    opt = AdamW(lr=1e-2, grad_clip=1.0)
+    tr_f, st_f = tree, opt.init(tree)
+    tr_i = tree_map(torch.clone, tree)
+    st_i = opt.init(tr_i)
+    for step in range(3):
+        grads = tree_map(lambda t: torch.randn(
+            t.shape, generator=g).to(dev), tree)
+        decay = ST.stacked_decay(tree) if step != 1 else None
+        tr_f, st_f = opt.update(grads, st_f, tr_f, decay=decay)
+        tr_i, st_i = opt.update_(tree_map(torch.clone, grads), st_i, tr_i,
+                                 decay=decay)
+        for a, b in zip(leaves(tr_i) + leaves(st_i.mu) + leaves(st_i.nu),
+                        leaves(tr_f) + leaves(st_f.mu) + leaves(st_f.nu)):
+            assert torch.equal(a, b), step

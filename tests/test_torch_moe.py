@@ -57,12 +57,12 @@ from repro_torch import traffic as T
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import serve_trace as TSTL
-from repro_torch.launch import train as ttrain
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import steps as ST
 from repro_torch.serving import EngineConfig, Request, ServeEngine
+from repro_torch.tree import leaves, unflatten
 
 OP_TOL = 1e-5
 LOGIT_TOL = 1e-3
@@ -278,7 +278,9 @@ def _aux_tol(dtype):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_lm_matches_reference(arch, dtype):
     """Train mode (no cache, under no_grad): logits and the aux summed over
-    layers; then the train-mode forward with grad enabled raises."""
+    layers; then the train-mode forward with grad enabled gives the same
+    logits and aux, and a finite, nonzero gradient for every param
+    (``tests/test_torch_moe_train.py`` holds it against the reference)."""
     jcfg, tcfg, jp, tp = _model(arch)
     jcfg, tcfg = (c.replace(dtype=dtype) for c in (jcfg, tcfg))
     toks = np.random.default_rng(2).integers(0, 256, (2, 20)).astype(
@@ -288,8 +290,15 @@ def test_forward_lm_matches_reference(arch, dtype):
         to = M.forward_lm(tcfg, tp, torch.from_numpy(toks))
     _assert_logits(jo.logits, to.logits, dtype)
     assert abs(float(to.aux_loss) - float(jo.aux_loss)) <= _aux_tol(dtype)
-    with pytest.raises(NotImplementedError, match="MoE training slice"):
-        M.forward_lm(tcfg, tp, torch.from_numpy(toks))
+    flat = [t.detach().requires_grad_(True) for t in leaves(tp)]
+    go = M.forward_lm(tcfg, unflatten(tp, flat), torch.from_numpy(toks))
+    assert torch.equal(go.logits.detach(), to.logits)
+    assert torch.equal(go.aux_loss.detach(), to.aux_loss)
+    grads = torch.autograd.grad(go.logits.sum() + go.aux_loss, flat,
+                                allow_unused=True)
+    for g in grads:
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert bool((g != 0).any())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -525,15 +534,6 @@ def test_serve_trace_replays_moe_like_the_reference():
         rep.pop("outputs_digest")
         reps.append((h.lifecycle(), rep))
     assert reps[0] == reps[1]
-
-
-def test_training_refuses_moe():
-    _, tcfg, _, _ = _model("granite-moe-3b-a800m")
-    for build in (ST.make_grad_fn, ST.make_train_step):
-        with pytest.raises(NotImplementedError, match="MoE training slice"):
-            build(tcfg)
-    with pytest.raises(NotImplementedError, match="MoE training slice"):
-        ttrain.train("granite-moe-3b-a800m", steps=1, device="cpu")
 
 
 def test_moe_entry_points_default_to_the_card():
