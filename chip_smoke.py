@@ -32,7 +32,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode and a decode row spanning all 9 key splits against a 572-slot
    bf16 cache, and the prefill and batch-4 decode at StableLM-1.6B's 32
    heads of Dh 64 and at Granite-MoE-3B-A800M's 24 over 8 heads of Dh 64,
-   two launches bitwise equal); LM training's causal pair at
+   two launches bitwise equal); the SSM and hybrid families' scans
+   (``mamba_scan_f32`` at Zamba2-1.2B's widths, ``wkv6_f32`` at
+   RWKV6-1.6B's) at the recurrent serve's whole-batch prefill (B 4, S 512)
+   and decode (B 4, S 1): y within 1e-5 x max(1, max|plain|), the final
+   state bitwise, two launches bitwise equal, the prefill split at 200
+   with the state carried bitwise one pass; LM training's causal pair at
    full-width StableLM-1.6B ([8, 512, 32, 64]) and at GQA 3:1 ([2, 512,
    24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
    serve's, lse within 1e-5) and ``flash_prefill_bwd_bf16`` (dq, dk, dv
@@ -121,6 +126,35 @@ Phases, in order; any failure exits non-zero and prints no result:
       rest). Then Qwen2-MoE-A2.7B at full width and 4 of its 24 layers
       (its shared expert and Dh 128), continuous at depth 1, under the
       call-for-call oracle.
+   e. The SSM and hybrid families (``ssm_path``, after d): full-width
+      Zamba2-1.2B (38 Mamba2 layers of 64 heads of dh 64 and state 64, a
+      shared attention block of 32 MHA heads of Dh 64 after every 6,
+      vocab 32000) and RWKV6-1.6B (24 layers of 32 WKV heads of dh 64,
+      d_ff 7168, vocab 65536), weights from seed 0 drawn on the card in
+      fp32 and served from a bf16 copy, through the same 8 requests and
+      engine as c (every admission a whole-batch re-prefill: recurrent
+      state cannot be prefilled slot by slot): Zamba2 continuous at
+      depths 1 and 2, with KV pruning and in static waves, RWKV6
+      continuous at depths 1 and 2, each timed over one serve after a
+      warm-up. Gates: (a) the scan kernel (``mamba_scan_f32``,
+      ``wkv6_f32``) once per recurrent layer of every call, the causal
+      pair once per shared block of every call, no plain scan or
+      attention on the card; depths 1 and 2 identical; (b) the
+      call-for-call oracle: per request, one ``forward_lm`` over its row
+      as last prefilled (pad tokens and all) plus the tokens decoded
+      after it, each such token within 0.05 of its position's largest or
+      within the model's own bf16 noise where that is larger (the same
+      forward with a random half of the embedding moved by one bf16 ulp,
+      the witness): RWKV6 at full depth, Zamba2 cut to 7 layers (one
+      stage, its shared block and a tail layer) and served once for it;
+      at Zamba2's 38 layers the witness swamps any tolerance (the
+      random-init model is chaotic in bf16, as the reference is), so
+      there it is printed only; (c) at the first prune of
+      the pruned Zamba2 serve, the shared blocks' caches compacted and
+      every Mamba2 state passed on as it was. Prints tokens/s, the peak
+      memory and one decode step alone (wall, device launches, idle
+      share, device time against its bytes' floor and by part: scan,
+      causal kernels, GEMMs, the rest).
 5. Profile (``torch.profiler``): each kernel's device time per launch at
    the phase-3 shapes (the causal backward's also per kernel), the device
    time of all its wrapper call's device
@@ -1248,17 +1282,20 @@ def lm_engine(cfg, params, dev, tracer=None, **kw):
 
 
 def run_lm_serves(torch, dev, cfg, params, tag, serves=LM_SERVES,
-                  repeats=LM_REPEATS, warm=True):
+                  repeats=LM_REPEATS, warm=True, attn_layers=None,
+                  scan=None):
     """Every serve of ``serves`` on its own engine over ``params``: each
     warmed up once (with ``warm``), then ``repeats`` timed serves in turns
     (so the paths share the host's load alike). Gates: every request gets
-    ``LM_MAX_NEW`` tokens; the decode kernel launches once per layer of
-    every decode call and the prefill kernel once per layer of every
-    prefill call, both of which run; a pruned serve prunes; depths 1 and
-    2 give the same tokens. Prints each serve's numbers under ``tag``.
+    ``LM_MAX_NEW`` tokens; the decode kernel launches once per attention
+    layer (``attn_layers``, all layers by default) of every decode call
+    and the prefill kernel once per attention layer of every prefill call;
+    with ``scan`` (entry point, layers), that kernel once per such layer
+    of every call; every path launches; a pruned serve prunes; depths 1
+    and 2 give the same tokens. Prints each serve's numbers under ``tag``.
     Returns ({serve: (requests, outputs, launch counts, stats, warm-up
-    spans) of its last timed serve}, {serve: median wall}, {serve: host
-    syncs per serve})."""
+    spans, engine) of its last timed serve}, {serve: median wall},
+    {serve: host syncs per serve})."""
     from repro_torch.kernels import backend
     from repro_torch.obs import Tracer
     engines, tracers, syncs, walls, last = {}, {}, {}, {}, {}
@@ -1287,20 +1324,29 @@ def run_lm_serves(torch, dev, cfg, params, tag, serves=LM_SERVES,
                     f"{tag} {label}: prefill or decode never ran: {st}")
             n_dec = counts["flash_decode_bf16"]
             n_pre = counts["flash_prefill_bf16"]
-            require(n_dec == cfg.num_layers * st["runner_decode_calls"]
-                    and n_pre == cfg.num_layers * calls,
+            n_attn = cfg.num_layers if attn_layers is None else attn_layers
+            require(n_dec == n_attn * st["runner_decode_calls"]
+                    and n_pre == n_attn * calls,
                     f"{tag} {label}: flash_decode_bf16 / flash_prefill_bf16 "
-                    f"launched {n_dec} / {n_pre} times, not once per layer "
-                    f"of every decode / prefill call "
-                    f"({cfg.num_layers * st['runner_decode_calls']} / "
-                    f"{cfg.num_layers * calls})")
+                    f"launched {n_dec} / {n_pre} times, not once per "
+                    f"attention layer of every decode / prefill call "
+                    f"({n_attn * st['runner_decode_calls']} / "
+                    f"{n_attn * calls})")
+            if scan is not None:
+                entry, n_layers = scan
+                n_scan = counts[entry]
+                want = n_layers * (calls + st["runner_decode_calls"])
+                require(n_scan == want > 0,
+                        f"{tag} {label}: {entry} launched {n_scan} times, "
+                        f"not once per recurrent layer of every call "
+                        f"({want})")
             if kw.get("kv_prune_keep", 1.0) < 1.0:
                 require(st["prune_events"] >= 1,
                         f"{tag} {label}: no KV prune fired")
-            last[label] = (reqs, out, counts, st, n_warm)
+            last[label] = (reqs, out, counts, st, n_warm, engines[label])
     walls_by = {}
     for label, continuous, _ in serves:
-        reqs, out, counts, st, n_warm = last[label]
+        reqs, out, counts, st, n_warm, _ = last[label]
         wall = statistics.median(walls[label])
         calls = st["runner_prefill_calls"] + st["runner_prefill_slot_calls"]
         steps = (st["pipeline_steps"] if continuous
@@ -1322,7 +1368,9 @@ def run_lm_serves(torch, dev, cfg, params, tag, serves=LM_SERVES,
               f"{st['pipeline_block_s'] * 1e3:.2f} ms in all; prune events "
               f"{st['prune_events']}; kernel launches decode / prefill "
               f"{counts['flash_decode_bf16']} / "
-              f"{counts['flash_prefill_bf16']}; host syncs besides "
+              f"{counts['flash_prefill_bf16']}"
+              + (f", {scan[0]} {counts[scan[0]]}" if scan else "")
+              + f"; host syncs besides "
               f"the step events per serve"
               f"{' (warm-up first)' if warm else ''}={syncs[label]}",
               flush=True)
@@ -1480,10 +1528,11 @@ def check_moe_call_oracle(torch, cfg, params, reqs, dev, label):
     return [d.tolist() for d in drops]
 
 
-def moe_params(torch, dev, cfg, tag):
+def lm_serve_params(torch, dev, cfg, tag):
     """``cfg``'s weights from seed 0 drawn on the card in fp32, then the
-    bf16 serving copy; the fp32 draw is dropped once the copy exists.
-    Prints the params, the copy's size and the peak while both lived."""
+    bf16 serving copy (``serving_params``: RWKV6's ``u`` stays fp32); the
+    fp32 draw is dropped once the copy exists. Prints the params, the
+    copy's size and the peak while both lived."""
     from repro_torch.models import model as M
     from repro_torch.serving.runner import serving_params
     from repro_torch.tree import leaves
@@ -1496,13 +1545,15 @@ def moe_params(torch, dev, cfg, tag):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
-    print(f"{tag}: {cfg.name} ({cfg.num_layers} layers, D={cfg.d_model}, "
-          f"{cfg.num_heads} query / {cfg.num_kv_heads} KV heads, "
-          f"Dh={cfg.head_dim}, {cfg.moe_num_experts} experts top-"
-          f"{cfg.moe_top_k}, d_ff {cfg.d_ff}, shared d_ff "
-          f"{cfg.moe_shared_d_ff or cfg.d_ff * cfg.moe_num_shared}, vocab "
-          f"{cfg.vocab_size}), {n_params} params ({n_params / 1e9:.3f} B), "
-          f"bf16 serving copy {n_bytes / 2 ** 30:.2f} GiB made in "
+    moe = (f", {cfg.moe_num_experts} experts top-{cfg.moe_top_k}, d_ff "
+           f"{cfg.d_ff}, shared d_ff "
+           f"{cfg.moe_shared_d_ff or cfg.d_ff * cfg.moe_num_shared}"
+           if cfg.family == "moe" else f", d_ff {cfg.d_ff}")
+    print(f"{tag}: {cfg.name} ({cfg.family}, {cfg.num_layers} layers, "
+          f"D={cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV "
+          f"heads, Dh={cfg.head_dim}{moe}, vocab {cfg.vocab_size}), "
+          f"{n_params} params ({n_params / 1e9:.3f} B), bf16 serving copy "
+          f"{n_bytes / 2 ** 30:.2f} GiB made in "
           f"{time.perf_counter() - t0:.2f} s; peak while the fp32 draw "
           f"lived {(torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30:.2f}"
           f" GiB above the {base / 2 ** 30:.2f} GiB earlier phases hold; "
@@ -1590,7 +1641,7 @@ def profile_moe(torch, dev, cfg, params, wall):
 
 
 def moe_path(torch, dev):
-    """Phase 4d. Full-width Granite-MoE-3B-A800M (``moe_params``) serving
+    """Phase 4d. Full-width Granite-MoE-3B-A800M (``lm_serve_params``) serving
     the 8 requests on each of ``LM_SERVES`` (``run_lm_serves``); the
     call-for-call oracle on continuous depth 1 (and on static waves'
     tokens where they differ from those), with the real pairs
@@ -1609,7 +1660,7 @@ def moe_path(torch, dev):
     cfg = GRANITE_MOE_3B_A800M
     with count_plain((FA, "attention_causal_plain"),
                      (A, "flash_attention_torch")) as plain:
-        params = moe_params(torch, dev, cfg, "moe")
+        params = lm_serve_params(torch, dev, cfg, "moe")
         last, walls, s = run_lm_serves(torch, dev, cfg, params, "moe",
                                        repeats=MOE_REPEATS)
         counts["moe"] = last["continuous depth 1"][2]
@@ -1660,7 +1711,7 @@ def moe_path(torch, dev):
         print(f"moe qwen: {QWEN2_MOE_A2_7B.name} at full width, "
               f"{MOE_QWEN_LAYERS} of {QWEN2_MOE_A2_7B.num_layers} layers",
               flush=True)
-        params = moe_params(torch, dev, qcfg, "moe qwen")
+        params = lm_serve_params(torch, dev, qcfg, "moe qwen")
         last, _, s = run_lm_serves(torch, dev, qcfg, params, "moe qwen",
                                       LM_SERVES[:1])
         counts["moe qwen"] = last["continuous depth 1"][2]
@@ -1678,6 +1729,424 @@ def moe_path(torch, dev):
     require(not any(plain.values()),
             f"moe: a plain attention ran on the card: {plain}")
     print(f"moe: phase wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return counts, syncs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (recurrent families): the scans against their plain versions
+# ---------------------------------------------------------------------------
+# (label, B, S): the recurrent serve's whole-batch prefill (4 slots, a
+# 512-token row) and its decode step
+SCAN_FORMS = (("prefill", 4, 512), ("decode", 4, 1))
+SCAN_SPLIT = 200  # S1 of the prefill split as S1 + (S - S1), state carried
+# y against the plain version: fp32 sums of dh or N terms in another order
+# (the state is bitwise: the same rounded products and sums, in order)
+SCAN_TOL = 1e-5   # x max(1, max|plain y|)
+SCAN_KERNELS = (  # kind, entry point, source, config whose widths it takes
+    ("mamba", "mamba_scan_f32", "mamba_scan.cu", "ZAMBA2_1_2B"),
+    ("wkv6", "wkv6_f32", "wkv6.cu", "RWKV6_1_6B"))
+
+
+def scan_inputs(torch, dev, kind, cfg, B, S, g):
+    """A scan's inputs at ``cfg``'s full widths, drawn from ``g`` and
+    shaped as the model makes them: Mamba2's dt through softplus, decay
+    exp(-dt A) with A of 1..16 (``init_mamba_params``); RWKV6's w =
+    exp(-exp(-6 + noise)) (``w_bias`` -6), near 1; bf16 activations,
+    random incoming states."""
+    rand = lambda *s: torch.randn(s, generator=g)
+    if kind == "mamba":
+        inner = cfg.ssm_expand * cfg.d_model
+        H, dh, N = inner // 64, 64, cfg.ssm_state
+        dt = torch.nn.functional.softplus(rand(B, S, H))
+        args = (rand(B, S, H, dh).to(torch.bfloat16), dt,
+                torch.exp(-dt * torch.linspace(1.0, 16.0, H)), rand(B, S, N),
+                rand(B, S, N), 0.1 * rand(B, H, dh, N))
+    else:
+        H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+        args = (*(rand(B, S, H, dh).to(torch.bfloat16) for _ in range(3)),
+                torch.exp(-torch.exp(-6.0 + rand(B, S, H, dh))),
+                0.1 * rand(H, dh), 0.1 * rand(B, H, dh, dh))
+    return tuple(t.to(dev) for t in args)
+
+
+def scan_bound(kind, args):
+    """(bound ms, bound by) of one scan call: each input read once and y and
+    the state written once (bytes); 5 fp32 operations per (d, n, t) for
+    Mamba2 (two products and a sum for the state, a product and a sum for
+    y), 7 per (d, e, t) for the WKV (k v, u k v, its sum with s, r times
+    that summed, s w plus k v)."""
+    n_bytes = sum(t.numel() * t.element_size() for t in args)
+    B, S, H, dh = args[0].shape
+    n_bytes += 4 * (B * S * H * dh + args[-1].numel())  # y, the new state
+    if kind == "mamba":
+        return bound_ms(n_bytes, 5 * B * S * H * dh * args[3].shape[-1])
+    return bound_ms(n_bytes, 7 * B * S * H * dh * dh)
+
+
+def check_ssm_scans(torch, dev):
+    """``mamba_scan_f32`` at full-width Zamba2-1.2B and ``wkv6_f32`` at
+    full-width RWKV6-1.6B, each at ``SCAN_FORMS``, against its plain
+    version: y within ``SCAN_TOL``, the final state bitwise; two launches
+    bitwise equal; at prefill, S split as ``SCAN_SPLIT`` + the rest with
+    the state carried bitwise one pass. No library call computes either
+    scan. Returns one check per kernel, a case per form."""
+    from repro_torch import configs
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.ssm_scan import ops as SS
+    g = torch.Generator().manual_seed(12)
+    checks = []
+    for kind, entry, source, cfg_name in SCAN_KERNELS:
+        cfg = getattr(configs, cfg_name)
+        fn, plain = ((SS.mamba_scan, SS.mamba_scan_plain) if kind == "mamba"
+                     else (SS.wkv6, SS.wkv6_plain))
+        cases = []
+        for label, B, S in SCAN_FORMS:
+            args = scan_inputs(torch, dev, kind, cfg, B, S, g)
+            before = backend.launches()[entry]
+            (y, s), again = fn(*args), fn(*args)
+            y_ref, s_ref = plain(*args)
+            torch.cuda.synchronize()
+            tag = f"{entry} ({label})"
+            require(backend.launches()[entry] == before + 2,
+                    f"{tag}: not one launch a call")
+            require(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+                    f"{tag}: not finite")
+            require(torch.equal(y, again[0]) and torch.equal(s, again[1]),
+                    f"{tag}: two launches differ")
+            errs = [(f"y ({label})", (y - y_ref).abs().max().item(),
+                     SCAN_TOL * max(1.0, y_ref.abs().max().item()),
+                     f"{SCAN_TOL:g} x max(1, max|plain|)"),
+                    (f"state ({label})", (s - s_ref).abs().max().item(), 0.0,
+                     "bitwise")]
+            if S > 1:
+                seq = lambda a, b: tuple(t[:, a:b].contiguous()
+                                         if t.shape[:2] == (B, S) else t
+                                         for t in args[:-1])
+                ya, sa = fn(*seq(0, SCAN_SPLIT), args[-1])
+                yb, sb = fn(*seq(SCAN_SPLIT, S), sa)
+                split = max((torch.cat([ya, yb], 1) - y).abs().max().item(),
+                            (sb - s).abs().max().item())
+                errs.append((f"split at {SCAN_SPLIT} ({label})", split, 0.0,
+                             "bitwise one pass"))
+            bnd, by = scan_bound(kind, args)
+            shapes = (f"{' '.join(f'{list(t.shape)}' for t in args)} "
+                      f"({cfg.name} widths, {label}; activations bf16)")
+            call = lambda a=args, f=fn: f(*a)
+            cases.append(dict(
+                label=label, errs=errs, fn=call, ms=time_ms(call),
+                plain_ms=time_ms(lambda a=args, f=plain: f(*a), samples=3,
+                                 calls=1, warmup=1),
+                library_fn=None, library_ms=None, bound_ms=bnd, bound_by=by,
+                shapes=shapes))
+        head = cases[0]
+        checks.append(dict(
+            name=entry, source=source,
+            errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
+            ms=head["ms"], plain_ms=head["plain_ms"], library_fn=None,
+            library_ms=None, library_call=None, bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"],
+            shapes="; ".join(c["shapes"] for c in cases), cases=cases))
+    return checks
+
+
+# ---------------------------------------------------------------------------
+# Phase 4e, the SSM and hybrid families: full-width Zamba2-1.2B and
+# RWKV6-1.6B through ServeEngine
+# ---------------------------------------------------------------------------
+SSM_REPEATS = 1  # timed serves of each path after its warm-up
+# Zamba2-1.2B with random weights is chaotic in bf16 at depth: a random
+# half of the embedding moved by one bf16 ulp moves its logits by up to
+# 1.82 at 38 layers (argmaxes equal at 6% of positions) and 0.21 at 6
+# (``tools/ssm_probe.py``, NVIDIA H100 80GB HBM3, 700 W), and the
+# reference does the same on the CPU. A wrong state or cache would leave
+# the engine's tokens near random at any depth, and that shows against
+# the witness only where the witness stays small. So the oracle gates a
+# full-width Zamba2 cut to one stage (6 Mamba2 layers and the shared
+# block) and a tail layer, and is printed ungated at full depth.
+ZAMBA2_ORACLE_LAYERS = 7
+ZAMBA2_CHAOS = ("at 38 layers the random-init Zamba2's own bf16 noise "
+                "swamps any tolerance; the gate runs at 7 layers")
+SSM_SERVES = {"zamba2-1.2b": LM_SERVES,       # d1, d2, KV prune, static
+              "rwkv6-1.6b": LM_SERVES[:2]}    # d1, d2
+
+
+@contextlib.contextmanager
+def record_prefill_rows():
+    """While the block runs, record for every engine's whole-batch prefill
+    each running request's row (left padding included: recurrent state
+    absorbs pad tokens) and how many tokens it had generated before it.
+    Yields {id(engine): {uid: (row, n generated)}}, the last prefill of
+    each request kept."""
+    import numpy as np
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.runner import build_padded_batch
+    rows, inner = {}, ServeEngine._prefill_prefixes
+
+    def recorded(self, prefixes, max_new):
+        toks, _ = build_padded_batch(prefixes)
+        mine = rows.setdefault(id(self), {})
+        for slot, req in self.scheduler.running.items():
+            mine[req.uid] = (np.array(toks[slot]), len(req.generated))
+        return inner(self, prefixes, max_new)
+    ServeEngine._prefill_prefixes = recorded
+    try:
+        yield rows
+    finally:
+        ServeEngine._prefill_prefixes = inner
+
+
+def check_recurrent_oracle(torch, cfg, params, reqs, rows, dev, label,
+                           gate=True):
+    """The call-for-call oracle of a recurrent serve: for each request, one
+    ``forward_lm`` (train mode, no state, B=1) over its row as last
+    prefilled (pad tokens and all) plus the tokens decoded after it; one
+    pass over the whole sequence stands against the engine's prefill state
+    carried through its decode steps. The same forward with a random half
+    of the embedding moved by one bf16 ulp is the witness: how far the
+    model alone moves its own argmax token (the gap at that token, as
+    ``token_gaps`` measures the engine's). With ``gate``, each engine
+    token's logit lies within ``LM_ORACLE_TOL`` of its position's largest,
+    or within the witness's largest gap where the model's own bf16 noise
+    is larger; else both are printed only."""
+    import numpy as np
+    from repro_torch.models import model as M
+    emb = params["embed"]
+    up = torch.nextafter(emb, torch.full_like(emb, float("inf")))
+    half = torch.rand(emb.shape, generator=torch.Generator(
+        emb.device).manual_seed(2), device=emb.device) < 0.5
+    moved = dict(params, embed=torch.where(half, up, emb))
+    worst, exact, n, wit, wit_exact = 0.0, 0, 0, 0.0, 0
+    for r in reqs:
+        row, g = rows[r.uid]
+        seq = torch.from_numpy(np.concatenate(
+            [row, r.generated[g:-1]]).astype(np.int64))[None].to(dev)
+        with torch.no_grad():
+            logits, shifted = (M.forward_lm(cfg, p, seq).logits[
+                0, len(row) - 1:] for p in (params, moved))
+        w, e = token_gaps(torch, logits, r.generated[g:], dev)
+        ww, we = token_gaps(torch, shifted, logits.argmax(dim=1).tolist(),
+                            dev)
+        worst, exact, n = max(worst, w), exact + e, n + len(r.generated) - g
+        wit, wit_exact = max(wit, ww), wit_exact + we
+    del moved, up, half
+    tol = max(LM_ORACLE_TOL, wit)
+    require(not gate or worst <= tol,
+            f"{label}: an engine token's oracle logit lies {worst:.4g} below "
+            f"its position's largest (tolerance {tol:.4g}: {LM_ORACLE_TOL} "
+            f"or the witness's {wit:.4g})")
+    print(f"{label}: call-for-call oracle over each row as last prefilled: "
+          f"{exact}/{n} tokens the exact argmax ({exact / n:.3f}), largest "
+          f"gap {worst:.4g}; witness (one bf16 ulp on half the embedding) "
+          f"keeps {wit_exact}/{n} argmaxes, largest gap {wit:.4g}; "
+          + (f"tolerance {tol:.4g}" if gate else
+             f"measured, not gated: {ZAMBA2_CHAOS}"), flush=True)
+
+
+@contextlib.contextmanager
+def record_first_prune():
+    """While the block runs, keep what the first KV prune took in and gave
+    back (no wait on the card inside the serve); ``check_first_prune``
+    reads it after. Yields {"pairs": [(in, out)], "keep_frac"} or {}."""
+    from repro_torch.serving import cache_manager as CM
+    seen, inner = {}, CM.prune_kv_caches
+
+    def recorded(caches, keep_frac, starts=None):
+        pruned, new_starts = inner(caches, keep_frac, starts=starts)
+        if not seen:
+            seen.update(pairs=list(zip(caches, pruned)), keep_frac=keep_frac)
+        return pruned, new_starts
+    CM.prune_kv_caches = recorded
+    try:
+        yield seen
+    finally:
+        CM.prune_kv_caches = inner
+
+
+def check_first_prune(torch, seen, tag):
+    """Gate (c) of the KV-pruned hybrid serve: at the first prune, every
+    ``KVCache`` (the shared blocks') came back compacted to the keep count
+    and every Mamba2 state came back as it went in, the same tensors and
+    so bitwise what an unpruned step carries on."""
+    from repro_torch.models import attention as A
+    from repro_torch.serving import cache_manager as CM
+    require(bool(seen), f"{tag}: the pruned serve never pruned")
+    kv = [(a, b) for a, b in seen["pairs"] if isinstance(a, A.KVCache)]
+    states = [(a, b) for a, b in seen["pairs"]
+              if not isinstance(a, A.KVCache)]
+    keep = CM._keep_count(kv[0][0].k.shape[1], seen["keep_frac"])
+    require(all(bool((b.length == keep).all()) for _, b in kv),
+            f"{tag}: a shared block's cache was not compacted to the keep "
+            f"count at the first prune")
+    require(all(x is y and torch.equal(x, y)
+                for a, b in states for x, y in zip(a, b)),
+            f"{tag}: a Mamba2 state changed at the first prune")
+    print(f"{tag} continuous kv-prune: at the first prune {len(kv)} "
+          f"shared-block caches compacted to {keep} slots, {len(states)} "
+          f"Mamba2 states passed on as they were (the same tensors)",
+          flush=True)
+
+
+def recurrent_decode_step(torch, dev, cfg, params):
+    """One batch-4 decode step of the engine's runner, as a closure: zeroed
+    recurrent states, and the shared blocks' 572-slot caches at the decode
+    check's lengths."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import steps as ST
+    eng = lm_engine(cfg, params, dev)
+    lens = torch.tensor(LM_DECODE[4], dtype=torch.int32, device=dev) - 1
+    caches = [c._replace(length=lens.clone()) if isinstance(c, A.KVCache)
+              else c for c in ST.init_caches(cfg, LM_MAX_BATCH, LM_MAX_LEN,
+                                             device=dev)]
+    toks = torch.zeros((LM_MAX_BATCH,), dtype=torch.int64, device=dev)
+    return lambda: eng.runner.decode(toks, caches, None)
+
+
+def profile_recurrent(torch, dev, cfg, params, tag, scan):
+    """One batch-4 decode step alone: its wall (CUDA events around
+    back-to-back steps, so a host-bound step is timed at its issue rate)
+    and, from 5 steps profiled on the card's side (kernel records only:
+    the parts go by kernel name), its device launches, its idle share
+    (1 - device time / wall), and its device time against the least the
+    card could take (the bytes of every weight it reads, all but the
+    embedding table, plus the recurrent states read and written, over the
+    HBM rate) and by part: the scan kernel, the causal kernels, GEMMs,
+    the rest. (A whole serve is not profiled here: parsing its ~150,000
+    kernel records costs tens of seconds a model.)"""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention as A
+    from repro_torch.models import steps as ST
+    from repro_torch.tree import leaves
+    step = recurrent_decode_step(torch, dev, cfg, params)
+    step_ms = time_ms(step, samples=5, calls=5, warmup=2)
+    n = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_us = sum(r[2] for r in rows) / n
+    groups = {"scan kernel": lambda nm: kernel_symbol(scan) in nm,
+              "causal kernels": lambda nm: any(
+                  kernel_symbol(c) in nm
+                  for c in ("flash_decode_bf16", "flash_prefill_bf16")),
+              "GEMMs": lambda nm: "nvjet" in nm or "gemm" in nm.lower()
+              or "xmma" in nm}
+    parts = {k: 0.0 for k in [*groups, "the rest"]}
+    for nm, _, us in rows:
+        parts[next((k for k, f in groups.items() if f(nm)),
+                   "the rest")] += us / n
+    states = [c for c in ST.init_caches(cfg, LM_MAX_BATCH, 1, device=dev)
+              if not isinstance(c, A.KVCache)]
+    s_bytes = 2 * sum(t.numel() * t.element_size() for c in states
+                      for t in c)
+    w_bytes = sum(t.numel() * t.element_size() for k, v in params.items()
+                  if k != "embed" for t in leaves(v))
+    floor_ms = (w_bytes + s_bytes) / PEAK_HBM_BYTES * 1e3
+    print(f"{tag}: one decode step alone (B=4, 572-slot caches): wall "
+          f"{step_ms:.3f} ms, {sum(r[1] for r in rows) / n:g} device "
+          f"launches, idle share {1.0 - busy_us / 1e3 / step_ms:.3f}, "
+          f"device {busy_us / 1e3:.3f} ms against the "
+          f"{floor_ms:.3f} ms floor ({w_bytes / 1e9:.3f} GB of weights and "
+          f"{s_bytes / 2 ** 20:.1f} MiB of states read and written over "
+          f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s; {busy_us / 1e3 / floor_ms:.2f}"
+          f"x); by part: " + ", ".join(
+              f"{k} {v / 1e3:.3f} ms ({v / busy_us:.3f})"
+              for k, v in parts.items()), flush=True)
+
+
+def ssm_path(torch, dev):
+    """Phase 4e. Full-width Zamba2-1.2B (38 Mamba2 layers and a shared
+    attention block every 6; ``lm_serve_params``) serving the 8 requests
+    continuous at depths 1 and 2, with KV pruning (keep 0.5 every 4 steps)
+    and in static waves; full-width RWKV6-1.6B (24 layers) continuous at
+    depths 1 and 2 (``run_lm_serves`` with their gates: the scan kernel
+    once per recurrent layer of every call, the causal pair once per
+    shared block of every call). Gates: (a) ``mamba_scan_f32`` (Zamba2),
+    ``wkv6_f32`` (RWKV6) and the causal pair (Zamba2) launched, no plain
+    scan or attention on the card; (b) the call-for-call oracle
+    (``check_recurrent_oracle``) on continuous depth 1 and on static
+    waves where their tokens differ: gated for RWKV6, printed for
+    Zamba2 at 38 layers and gated on a continuous depth-1 serve of
+    Zamba2 cut to ``ZAMBA2_ORACLE_LAYERS``; (c) at the first prune of the
+    pruned Zamba2 serve, only the shared blocks' caches compacted, every
+    Mamba2 state passed on as it was (``check_first_prune``). Prints
+    tokens/s, the peak memory and ``profile_recurrent`` (one decode step
+    by part). Returns ({path: launch counts of its last timed depth-1
+    serve}, {serve: host syncs per serve})."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssm_scan import ops as SS
+    from repro_torch.models import attention as A
+    t0 = time.perf_counter()
+    counts, syncs = {}, {}
+    with count_plain((SS, "mamba_scan_plain"), (SS, "wkv6_plain"),
+                     (FA, "attention_causal_plain"),
+                     (A, "flash_attention_torch")) as plain, \
+            record_prefill_rows() as rows:
+        for cfg, scan, tag in (
+                (configs.ZAMBA2_1_2B, "mamba_scan_f32", "zamba2"),
+                (configs.RWKV6_1_6B, "wkv6_f32", "rwkv6")):
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            params = lm_serve_params(torch, dev, cfg, tag)
+            attn = (cfg.num_layers // cfg.attn_layer_period
+                    if cfg.family == "hybrid" else 0)
+            with record_first_prune() as pruned:
+                last, _, s = run_lm_serves(
+                    torch, dev, cfg, params, tag, SSM_SERVES[cfg.name],
+                    repeats=SSM_REPEATS, attn_layers=attn,
+                    scan=(scan, cfg.num_layers))
+            syncs.update({f"{tag} {k}": v for k, v in s.items()})
+            counts[tag] = last["continuous depth 1"][2]
+            for key in ((scan, "flash_decode_bf16", "flash_prefill_bf16")
+                        if attn else (scan,)):
+                require(counts[tag][key] > 0,
+                        f"{tag}: {key} never launched on the serve path")
+            if "continuous kv-prune" in last:
+                check_first_prune(torch, pruned, tag)
+            del pruned
+            gate = cfg.family != "hybrid"
+            for label in ("continuous depth 1", "static waves"):
+                if label not in last:
+                    continue
+                if label != "continuous depth 1" and last[label][1] == \
+                        last["continuous depth 1"][1]:
+                    print(f"{tag} {label}: tokens identical to continuous "
+                          f"depth 1's (the same whole-batch prefills): the "
+                          f"same oracle holds", flush=True)
+                    continue
+                reqs, eng = last[label][0], last[label][5]
+                check_recurrent_oracle(torch, cfg, params, reqs,
+                                       rows[id(eng)], dev, f"{tag} {label}",
+                                       gate=gate)
+            profile_recurrent(torch, dev, cfg, params, tag, scan)
+            if not gate:
+                # the gate at a depth where the random-init model's bf16
+                # noise leaves the 0.05 tolerance meaningful
+                del params, last
+                torch.cuda.empty_cache()
+                cut = cfg.replace(num_layers=ZAMBA2_ORACLE_LAYERS)
+                params = lm_serve_params(torch, dev, cut, f"{tag} cut")
+                last, _, s = run_lm_serves(
+                    torch, dev, cut, params, f"{tag} cut", LM_SERVES[:1],
+                    repeats=1, warm=False,
+                    attn_layers=cut.num_layers // cut.attn_layer_period,
+                    scan=(scan, cut.num_layers))
+                syncs.update({f"{tag} cut {k}": v for k, v in s.items()})
+                reqs, eng = last["continuous depth 1"][0], \
+                    last["continuous depth 1"][5]
+                check_recurrent_oracle(torch, cut, params, reqs,
+                                       rows[id(eng)], dev,
+                                       f"{tag} cut continuous depth 1")
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            print(f"{tag}: peak {peak / 2 ** 30:.2f} GiB above the "
+                  f"{base / 2 ** 30:.2f} GiB earlier phases hold; done at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            del params, last
+            torch.cuda.empty_cache()
+    require(not any(plain.values()),
+            f"ssm: a plain scan or attention ran on the card: {plain}")
+    print(f"ssm: phase wall {time.perf_counter() - t0:.2f} s", flush=True)
     return counts, syncs
 
 
@@ -3699,6 +4168,11 @@ REPLACES = {  # the reference's pallas_call each kernel stands in for
     "token_drop.cu": "src/repro/kernels/token_drop/token_drop.py:62",
     "token_package.cu":
         "src/repro/kernels/token_package/token_package.py:68",
+    # the recurrences, which the reference runs as jax.lax.scan, not Pallas
+    "mamba_scan.cu": "no Pallas kernel: jax.lax.scan at "
+                     "src/repro/models/ssm.py:116",
+    "wkv6.cu": "no Pallas kernel: jax.lax.scan at "
+               "src/repro/models/ssm.py:234",
 }
 
 
@@ -3739,6 +4213,7 @@ def main() -> int:
         torch, dev, by_name["flash_attention_f32"]))
     checks.append(check_token_drop_training(torch, dev,
                                             by_name["token_drop_f32"]))
+    checks.extend(check_ssm_scans(torch, dev))
     require(sorted(c["name"] for c in checks) == sorted(backend.ENTRY_POINTS),
             "a kernel entry point has no check")
     for check in checks:
@@ -3776,6 +4251,9 @@ def main() -> int:
     moe_counts, moe_syncs = moe_path(torch, dev)
     path_counts.update(moe_counts)
     syncs.update(moe_syncs)
+    ssm_counts, ssm_syncs = ssm_path(torch, dev)
+    path_counts.update(ssm_counts)
+    syncs.update(ssm_syncs)
     traffic_counts, traffic_syncs = traffic_path(torch, dev, checks)
     path_counts.update(traffic_counts)
     syncs.update(traffic_syncs)

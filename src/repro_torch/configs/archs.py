@@ -1,6 +1,6 @@
 """The architectures this package serves: the paper's own DeiT-Small,
-the four dense LMs and the two MoE LMs (public-literature configs, sources
-inline). Each
+the four dense LMs, the two MoE LMs, the hybrid Zamba2-1.2B and the
+attention-free RWKV6-1.6B (public-literature configs, sources inline). Each
 configuration is identical to the reference package's."""
 from __future__ import annotations
 
@@ -136,4 +136,41 @@ GRANITE_MOE_3B_A800M = ModelConfig(
     use_bias=False,
     pruning=_NO_PRUNE,
     skip_shapes=("long_500k",),
+)
+
+# --------------------------------------------------------------------------
+# Hybrid — Mamba2 + shared attention blocks [arXiv:2411.15242; hf]
+# --------------------------------------------------------------------------
+ZAMBA2_1_2B = ModelConfig(
+    name="zamba2-1.2b",
+    family="hybrid",
+    num_layers=38,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=8192,
+    vocab_size=32000,
+    ssm_state=64,
+    ssm_expand=2,
+    attn_layer_period=6,  # shared attention block applied every 6 mamba layers
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=(),  # sub-quadratic: long_500k runs
+)
+
+# --------------------------------------------------------------------------
+# SSM (attention-free) — RWKV6 "Finch" [arXiv:2404.05892; unverified]
+# --------------------------------------------------------------------------
+RWKV6_1_6B = ModelConfig(
+    name="rwkv6-1.6b",
+    family="ssm",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,  # rwkv6 heads for the wkv state (head_dim=64)
+    num_kv_heads=32,
+    d_ff=7168,
+    vocab_size=65536,
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=(),  # attention-free: long_500k runs
 )

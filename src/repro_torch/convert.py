@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.quant import QuantizedPackedWeight
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import MambaState, RWKVState
 
 
 def params_from_jax(np_tree, device: "str | torch.device" = "cpu"):
@@ -45,17 +46,38 @@ def _layer(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _count(stacked) -> int:
+    """The leading-axis length of a tree of stacked arrays."""
+    while isinstance(stacked, dict):
+        stacked = next(iter(stacked.values()))
+    return len(np.asarray(stacked))
+
+
+def _unstack(stacked, device) -> List:
+    """A tree whose leaves are stacked on a leading axis -> a list of
+    per-entry trees of tensors on ``device``."""
+    return [params_from_jax(_layer(stacked, i), device)
+            for i in range(_count(stacked))]
+
+
 def lm_params_from_jax(np_tree, device: "str | torch.device" = "cpu"
                        ) -> Dict:
-    """A reference dense-LM param tree, whose ``layers`` are stacked arrays
-    (``[L, ...]``), -> this package's layout: ``layers`` as a list of
-    per-layer dicts, every leaf a torch tensor on ``device``."""
+    """A reference LM param tree, whose stacked layers are arrays with a
+    leading layer axis, -> this package's layout, every leaf a torch
+    tensor on ``device``: ``layers`` (dense, MoE, SSM) as a list of
+    per-layer dicts; the hybrid's ``stages`` ([n_stages, period, ...]) as
+    a list of stages, each a list of layer dicts, and its ``tail`` as a
+    list; ``shared_attn`` as it is."""
     tree = dict(np_tree)
-    stacked = tree.pop("layers")
-    n = len(np.asarray(stacked["ln1"]))
+    stacked = {k: tree.pop(k) for k in ("layers", "stages", "tail")
+               if k in tree}
     out = params_from_jax(tree, device)
-    out["layers"] = [params_from_jax(_layer(stacked, i), device)
-                     for i in range(n)]
+    for key in ("layers", "tail"):
+        if key in stacked:
+            out[key] = _unstack(stacked[key], device)
+    if "stages" in stacked:
+        out["stages"] = [_unstack(_layer(stacked["stages"], i), device)
+                         for i in range(_count(stacked["stages"]))]
     return out
 
 
@@ -79,21 +101,55 @@ def lm_scores_from_jax(np_scores: Dict,
     return out
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """An array as a tensor on ``device``, dtype kept (bf16 through fp32,
+    which holds it exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32),
+                               device=device).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
 def kv_caches_from_jax(cache, device: "str | torch.device" = "cpu"
                        ) -> List[KVCache]:
     """A reference stacked ``KVCache`` (leaves ``[L, B, ...]``) -> one
     ``KVCache`` per layer on ``device`` (dtypes kept; bf16 arrays pass
     through fp32, which holds them exactly)."""
-    def t(a, i):
-        a = np.asarray(a)[i]
-        if a.dtype.name == "bfloat16":
-            return torch.as_tensor(a.astype(np.float32),
-                                   device=device).to(torch.bfloat16)
-        return torch.as_tensor(np.array(a), device=device)
     n = np.asarray(cache.length).shape[0]
-    return [KVCache(*(t(a, i) for a in (cache.k, cache.v, cache.length,
-                                        cache.attn_mass)))
+    return [KVCache(*(_tensor(np.asarray(a)[i], device)
+                      for a in (cache.k, cache.v, cache.length,
+                                cache.attn_mass)))
             for i in range(n)]
+
+
+def states_from_jax(caches, device: "str | torch.device" = "cpu") -> List:
+    """The reference's serve caches of a recurrent family -> this
+    package's flat list (``models/steps.init_caches``), on ``device``.
+    SSM: a stacked ``RWKVState`` (leaves ``[L, B, ...]``) -> one
+    ``RWKVState`` per layer. Hybrid: ``(mamba, tail, attn)`` (a
+    ``MambaState`` with leaves ``[n_stages, period, B, ...]``, one with
+    ``[rem, B, ...]`` or None, a ``KVCache`` with ``[n_stages, B, ...]``)
+    -> per stage its ``MambaState``s then its ``KVCache``, then the
+    tail's ``MambaState``s."""
+    if hasattr(caches, "wkv"):
+        n = np.asarray(caches.wkv).shape[0]
+        return [RWKVState(*(_tensor(np.asarray(a)[i], device)
+                            for a in caches)) for i in range(n)]
+    mamba, tail, attn = caches
+    kv = kv_caches_from_jax(attn, device)
+    h = np.asarray(mamba.h)
+    out: List = []
+    for s in range(h.shape[0]):
+        out += [MambaState(_tensor(h[s, j], device),
+                           _tensor(np.asarray(mamba.conv)[s, j], device))
+                for j in range(h.shape[1])]
+        out.append(kv[s])
+    if tail is not None:
+        out += [MambaState(_tensor(np.asarray(tail.h)[j], device),
+                           _tensor(np.asarray(tail.conv)[j], device))
+                for j in range(np.asarray(tail.h).shape[0])]
+    return out
 
 
 def packed_from_jax(pw, device: "str | torch.device" = "cpu") -> PackedWeight:

@@ -65,6 +65,8 @@ _ENTRY_POINTS = {
     "token_drop": {"token_drop_f32": [P] * 4 + [I] * 5 + [P],
                    "token_drop_bwd_f32": [P] * 7 + [I] * 5 + [P]},
     "token_package": {"token_package_f32": [P] * 6 + [I] * 6 + [P]},
+    "mamba_scan": {"mamba_scan_f32": [P] * 8 + [I] * 6 + [P]},
+    "wkv6": {"wkv6_f32": [P] * 8 + [I] * 5 + [P]},
 }
 KERNELS = tuple(_ENTRY_POINTS)  # one library each
 ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)

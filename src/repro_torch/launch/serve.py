@@ -8,7 +8,10 @@
 (admission prefills only the admitted prompt via per-slot cache writes);
 ``--no-slot-prefill`` forces the whole-batch re-prefill for A/B runs.
 ``--reduced`` (the default) serves the architecture's reduced config;
-``--no-reduced`` serves it at full width and depth. ``--device`` picks
+``--no-reduced`` serves it at full width and depth. Every LM family the
+package runs serves here: dense, MoE, the hybrid ``zamba2-1.2b`` and the
+SSM ``rwkv6-1.6b`` (these two always through the whole-batch re-prefill:
+recurrent state cannot be prefilled slot by slot). ``--device`` picks
 the card (``cuda``, the default) or the CPU, where the kernels' plain
 PyTorch versions run. Weights are random, drawn from ``seed`` (0 on the
 command line) with a ``torch.Generator`` on the device. Elastic

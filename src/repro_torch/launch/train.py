@@ -82,7 +82,8 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
         raise NotImplementedError(
             f"training family {cfg.family!r}: this package trains the ViT, "
             f"the dense LMs and the MoE LMs (the other families: ROADMAP "
-            f"queue A, item 8)")
+            f"queue A, item 8; the SSM and hybrid families need the scans' "
+            f"backward)")
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)

@@ -1,7 +1,8 @@
-"""The models: the ViT (the paper's model), the dense LM family and the
-MoE LM family — params, patchify, the ViT's dense oracle forward, the LM
-forward and the LM's training loss; the port of the reference package's
-``models/model.py`` for those families.
+"""The models: the ViT (the paper's model) and the dense, MoE, hybrid
+(Mamba2 with a shared attention block) and SSM (RWKV6) LM families —
+params, patchify, the ViT's dense oracle forward, the LM forward and the
+LM's training loss; the port of the reference package's ``models/model.py``
+for those families.
 
 Params are a nested dict with the reference's layout, except that
 ``layers`` is a list of per-layer dicts where the reference stacks them
@@ -18,7 +19,9 @@ kernel pair with its backward) and, in train mode, checkpoints each layer
 by ``cfg.remat_policy`` as the reference's ``_remat`` does. The MoE
 family runs the same attention layers with ``models/moe.moe_ffn`` in place
 of the SwiGLU MLP, and each layer's load-balancing loss is carried out of
-its checkpoint into the training loss.
+its checkpoint into the training loss. The hybrid and SSM families run
+``models/ssm``'s blocks, whose scans are the ``ssm_scan`` kernels on the
+card.
 """
 from __future__ import annotations
 
@@ -37,12 +40,16 @@ from repro_torch.kernels.token_drop import ops as TD
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.tree import tree_map
+
+# LM families ``forward_lm`` runs
+LM_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 class Output(NamedTuple):
     logits: Optional[torch.Tensor]
-    caches: Any = None    # LM prefill/decode: one KVCache per layer
+    caches: Any = None    # LM prefill/decode: the serve-cache list
     hidden: Optional[torch.Tensor] = None  # LM: the final-norm hidden states
     aux_loss: Any = 0.0   # LM: the MoE load-balancing loss summed over layers
 
@@ -94,13 +101,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         raise NotImplementedError(
             "fuse_qkv (a training perf lever of the reference's "
             "launch/perf.py) is not ported; the port keeps wq, wk, wv apart")
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in LM_FAMILIES:
         return _init_lm(cfg, generator, resolve_device(device))
     if cfg.family != "vit":
         raise NotImplementedError(
-            f"family {cfg.family!r}: this package serves the ViT, the "
-            f"dense LMs and the MoE LMs (SSM, hybrid, VLM and audio: "
-            f"ROADMAP queue A, item 8)")
+            f"family {cfg.family!r}: this package runs the ViT and the "
+            f"{', '.join(LM_FAMILIES)} LMs (VLM and audio: ROADMAP queue A, "
+            f"item 8)")
     dev = resolve_device(device)
     g = generator
     D = cfg.d_model
@@ -125,9 +132,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _init_lm(cfg: ModelConfig, g: torch.Generator,
              dev: torch.device) -> Dict:
-    """embed → [RMSNorm, attention, RMSNorm, SwiGLU or MoE FFN] × L →
-    RMSNorm → unembed (``model.py:94-124`` of the reference, layers as a
-    list)."""
+    """embed → layers → RMSNorm → unembed (``model.py:94-183`` of the
+    reference, stacked layers as lists). Dense and MoE: ``layers`` of
+    [RMSNorm, attention, RMSNorm, SwiGLU or MoE FFN]. Hybrid: ``stages``
+    (each ``attn_layer_period`` Mamba2 layers ``{"ln", "mamba"}``), one
+    ``shared_attn`` block (a dense layer) applied after every stage, and a
+    ``tail`` of the remaining Mamba2 layers. SSM: ``layers`` of RWKV6
+    blocks."""
     dtype = getattr(torch, cfg.param_dtype)
     D = cfg.d_model
     ones = lambda: torch.ones(D, dtype=dtype, device=g.device)
@@ -146,8 +157,37 @@ def _init_lm(cfg: ModelConfig, g: torch.Generator,
         else:
             lp["mlp"] = _mlp_params(g, cfg, glu=True, dtype=dtype)
         return lp
-    p["layers"] = [layer() for _ in range(cfg.num_layers)]
+
+    def mamba():
+        return {"ln": ones(), "mamba": SSM.init_mamba_params(g, cfg, dtype)}
+    if cfg.family == "hybrid":
+        period, n_stages, rem = hybrid_layout(cfg)
+        p["stages"] = [[mamba() for _ in range(period)]
+                       for _ in range(n_stages)]
+        p["shared_attn"] = layer()
+        if rem:
+            p["tail"] = [mamba() for _ in range(rem)]
+    elif cfg.family == "ssm":
+        p["layers"] = [SSM.init_rwkv_params(g, cfg, dtype)
+                       for _ in range(cfg.num_layers)]
+    else:
+        p["layers"] = [layer() for _ in range(cfg.num_layers)]
     return to_device(p, dev)
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(period, stages, tail layers) of a hybrid config."""
+    period = cfg.attn_layer_period
+    n_stages = cfg.num_layers // period
+    return period, n_stages, cfg.num_layers - n_stages * period
+
+
+def num_caches(cfg: ModelConfig) -> int:
+    """Entries of the serve-cache list of ``cfg``: one per layer, and for
+    the hybrid one more per stage (its shared block's ``KVCache``)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers + hybrid_layout(cfg)[1]
+    return cfg.num_layers
 
 
 def to_device(tree, device: torch.device):
@@ -248,12 +288,18 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                mode: str = "train", caches: Optional[List] = None,
                logits_for: str = "all",
                valid_start: Optional[torch.Tensor] = None) -> Output:
-    """Dense- or MoE-LM forward: ``tokens`` [B, N] int.
+    """LM forward (dense, MoE, hybrid or SSM): ``tokens`` [B, N] int.
 
     ``mode``: "train" (full sequence, no cache), "prefill" (full sequence
     into ``caches``) or "decode" (one token per row against ``caches``);
-    ``caches`` is one ``KVCache`` per layer, updated in place
-    (``attention_block``). ``logits_for``: "all" gives [B, N, V] logits,
+    ``caches`` is the list of ``steps.init_caches``: for the dense and MoE
+    families one ``KVCache`` per layer, updated in place
+    (``attention_block``); for the hybrid a ``MambaState`` per Mamba2
+    layer and a ``KVCache`` per stage's shared block, in execution order;
+    for the SSM one ``RWKVState`` per layer. Recurrent states are
+    functional: ``Output.caches`` holds new ones. The hybrid and SSM
+    families take no ``valid_start`` and, in train mode, run without
+    checkpoints. ``logits_for``: "all" gives [B, N, V] logits,
     "last" only the final position's ([B, 1, V]), "none" none (hidden
     states only). Logits are computed in the activation dtype
     (``cfg.dtype``) and returned in fp32. ``valid_start`` ([B] int32):
@@ -266,11 +312,12 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     ``Output.aux_loss`` is the MoE load-balancing loss summed over layers
     (0.0 for the dense family), differentiable through each layer's router
     in train mode."""
-    moe = cfg.family == "moe"
-    if cfg.family != "dense" and not moe:
+    fam = cfg.family
+    moe = fam == "moe"
+    if fam not in LM_FAMILIES:
         raise NotImplementedError(
-            f"forward_lm runs the dense and MoE families; {cfg.family!r} is "
-            f"a later slice (ROADMAP queue A, item 8)")
+            f"forward_lm runs the {', '.join(LM_FAMILIES)} families; "
+            f"{fam!r} is a later slice (ROADMAP queue A, item 8)")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
@@ -278,9 +325,19 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     eps = cfg.norm_eps
     x = params["embed"][tokens].to(adt)
     want_cache = mode != "train"
-    if want_cache and (caches is None or len(caches) != cfg.num_layers):
-        raise ValueError(f"mode {mode!r} needs one KVCache per layer "
-                         f"({cfg.num_layers})")
+    if want_cache and (caches is None or len(caches) != num_caches(cfg)):
+        raise ValueError(f"mode {mode!r} needs the serve-cache list of "
+                         f"models/steps.init_caches ({num_caches(cfg)} "
+                         f"entries)")
+    if fam in ("hybrid", "ssm"):
+        if valid_start is not None:
+            raise ValueError(
+                f"family {fam!r} takes no valid_start: recurrent state "
+                f"cannot mask pad tokens it has absorbed, so it is served "
+                f"unpadded")
+        x, new_caches = _forward_recurrent(cfg, params, x,
+                                           caches if want_cache else None)
+        return _lm_head(cfg, params, x, new_caches, logits_for, 0.0)
     new_caches = [] if want_cache else None
     policy = cfg.remat_policy
     if policy not in ("full", "dots", "none"):
@@ -302,16 +359,64 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             aux_total = aux_total + out[2]
         if want_cache:
             new_caches.append(out[1])
+    return _lm_head(cfg, params, x, new_caches, logits_for, aux_total)
 
-    x = L.rms_norm(x, params["ln_f"], eps)
+
+def _lm_head(cfg: ModelConfig, params: Dict, x: torch.Tensor, caches,
+             logits_for: str, aux_total) -> Output:
+    """Final RMSNorm, then the unembedding in the activation dtype."""
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     if logits_for == "none":
-        return Output(None, new_caches, hidden=x, aux_loss=aux_total)
-    w_un = unembed_matrix(params).to(adt)
+        return Output(None, caches, hidden=x, aux_loss=aux_total)
+    w_un = unembed_matrix(params).to(x.dtype)
     if logits_for == "last":
         logits = (x[:, -1] @ w_un)[:, None]
     else:
         logits = x @ w_un
-    return Output(logits.float(), new_caches, hidden=x, aux_loss=aux_total)
+    return Output(logits.float(), caches, hidden=x, aux_loss=aux_total)
+
+
+def _forward_recurrent(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                       caches: Optional[List]) -> Tuple[torch.Tensor,
+                                                        Optional[List]]:
+    """The hybrid and SSM families' layers (the reference's
+    ``_forward_hybrid`` and ``ssm`` branch). ``caches``: the flat list of
+    ``steps.init_caches`` in execution order, or None (train mode: every
+    state starts at zero, the shared block runs without a cache). Hybrid:
+    per stage, its Mamba2 layers (residual, behind an RMSNorm), then the
+    shared attention block with that stage's own ``KVCache``; then the
+    tail's Mamba2 layers. SSM: the RWKV6 blocks. Returns (x, the new states
+    and caches in the same order, or None)."""
+    it = iter(caches) if caches is not None else None
+    new: Optional[List] = [] if caches is not None else None
+
+    def state():
+        return next(it) if it is not None else None
+
+    def keep(c):
+        if new is not None:
+            new.append(c)
+
+    eps = cfg.norm_eps
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
+            x, st = SSM.rwkv_block(x, lp, cfg, state())
+            keep(st)
+        return x, new
+
+    def mamba(x, lp):
+        y, st = SSM.mamba_block(L.rms_norm(x, lp["ln"], eps), lp["mamba"],
+                                cfg, state())
+        keep(st)
+        return x + y
+    for stage in params["stages"]:
+        for lp in stage:
+            x = mamba(x, lp)
+        x, nc = _lm_layer(cfg, x, params["shared_attn"], state(), None)
+        keep(nc)
+    for lp in params.get("tail", ()):
+        x = mamba(x, lp)
+    return x, new
 
 
 # ===========================================================================

@@ -2,13 +2,15 @@
 families this package runs: the ViT's training step, the dense and MoE
 LMs' training step (with the paper's block pruning trained jointly, per
 expert in an MoE layer's banks, and gradient accumulation over
-microbatches), and their serve steps: cache constructors, whole-batch
-prefill, per-slot prefill (a B=1 prefill scattered into one row of the
-live batched cache) and the decode step.
+microbatches), and the serve steps of the dense, MoE, hybrid and SSM LMs:
+cache constructors, whole-batch prefill, per-slot prefill (a B=1 prefill
+scattered into one row of the live batched cache; dense and MoE) and the
+decode step.
 
 The reference jits these; PyTorch runs them eagerly, so they are plain
-functions. Caches are a list with one ``KVCache`` per layer, and every
-step updates the caches it is given in place and returns them.
+functions. Caches are a flat list (:func:`init_caches`); every step
+updates the ``KVCache``s it is given in place, replaces the recurrent
+states with new ones, and returns the list.
 """
 from __future__ import annotations
 
@@ -17,24 +19,29 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import pruning_glue as PG
+from repro_torch.models import ssm as SSM
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import (flatten_with_path, leaves, path_str, tree_map,
                               unflatten)
 
 # Families whose serve state is pure KV cache — left-padding can be masked
-# exactly via valid_start (the reference's list; this package serves the
-# dense and MoE families).
+# exactly via valid_start (the reference's list). Recurrent state (ssm,
+# hybrid) cannot mask pad tokens it has absorbed: those families are served
+# through the whole-batch path, unmasked, as in the reference.
 MASKABLE_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 # Families whose serve state is purely per-layer KV caches — a single slot
 # can be prefilled in isolation and scattered into the live batch.
 SLOT_PREFILL_FAMILIES = ("dense", "moe")
 
-# Families this package serves and trains (besides the ViT).
-SERVE_FAMILIES = ("dense", "moe")
+# LM families this package serves (all that ``forward_lm`` runs), and
+# those it trains (besides the ViT).
+SERVE_FAMILIES = M.LM_FAMILIES
+TRAIN_FAMILIES = ("dense", "moe")
 
 
 def _require_served(cfg: ModelConfig) -> None:
@@ -46,20 +53,38 @@ def _require_served(cfg: ModelConfig) -> None:
 
 
 def _require_trained(cfg: ModelConfig) -> None:
-    if cfg.family not in SERVE_FAMILIES:
+    if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
             f"training steps for family {cfg.family!r} are a later slice "
-            f"(ROADMAP queue A, item 8); this package trains "
-            f"{SERVE_FAMILIES}")
+            f"(ROADMAP queue A, item 8: training the SSM and hybrid "
+            f"families needs the scans' backward); this package trains "
+            f"{TRAIN_FAMILIES}")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device="cuda") -> List[A.KVCache]:
-    """Zeroed serve caches for ``cfg``: one ``KVCache`` per layer, on
-    ``device`` (the card unless the CPU is asked for)."""
+                dtype=torch.bfloat16, device="cuda") -> List:
+    """Zeroed serve caches for ``cfg`` on ``device`` (the card unless the
+    CPU is asked for), as one flat list in execution order: dense and MoE,
+    one ``KVCache`` per layer; hybrid, per stage its Mamba2 layers'
+    ``MambaState``s and then its shared block's ``KVCache``, then the
+    tail's ``MambaState``s; SSM, one ``RWKVState`` per layer. Recurrent
+    states hold their carried activations (conv buffer, token shifts) in
+    ``dtype`` and their recurrences in fp32, as the reference's."""
     _require_served(cfg)
-    return [A.init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                            dtype, device) for _ in range(cfg.num_layers)]
+    device = resolve_device(device)
+    kv = lambda: A.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                 cfg.head_dim, dtype, device)
+    if cfg.family == "ssm":
+        return [SSM.init_rwkv_state(batch, cfg, dtype, device)
+                for _ in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        period, n_stages, rem = M.hybrid_layout(cfg)
+        mamba = lambda: SSM.init_mamba_state(batch, cfg, dtype, device)
+        out: List = []
+        for _ in range(n_stages):
+            out += [mamba() for _ in range(period)] + [kv()]
+        return out + [mamba() for _ in range(rem)]
+    return [kv() for _ in range(cfg.num_layers)]
 
 
 def make_prefill(cfg: ModelConfig):

@@ -46,18 +46,25 @@ def build_padded_batch(prefixes: Sequence[Optional[np.ndarray]],
     return toks, starts
 
 
+# leaves with ndim >= 2 that the reference reads in fp32 whatever the
+# activation dtype: RWKV6's bonus ``u`` [H, dh] (``ssm.py:205``)
+FP32_LEAVES = ("u",)
+
+
 def serving_params(cfg: ModelConfig, params: Dict) -> Dict:
     """``params`` with every matrix (ndim >= 2) in the activation dtype;
-    vectors (norm scales, biases) unchanged. Equal in value to what
-    ``linear`` and the embedding lookup cast to on every call."""
+    vectors (norm scales, biases, Mamba2's ``A_log``, ``dt_bias`` and
+    ``D``, RWKV6's mixes and ``w_bias``) and ``FP32_LEAVES`` unchanged.
+    Equal in value to what ``linear``, the embedding lookup, the Mamba2
+    conv (``conv_w``) and the token mixes cast to on every call."""
     adt = getattr(torch, cfg.dtype)
 
-    def cast(t):
+    def cast(t, key=None):
         if isinstance(t, dict):
-            return {k: cast(v) for k, v in t.items()}
+            return {k: cast(v, k) for k, v in t.items()}
         if isinstance(t, list):
             return [cast(v) for v in t]
-        return t.to(adt) if t.dim() >= 2 else t
+        return t.to(adt) if t.dim() >= 2 and key not in FP32_LEAVES else t
     return cast(params)
 
 

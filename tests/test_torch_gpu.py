@@ -1476,3 +1476,176 @@ def test_inplace_adamw_on_card_equals_functional(dev, monkeypatch):
         for a, b in zip(leaves(tr_i) + leaves(st_i.mu) + leaves(st_i.nu),
                         leaves(tr_f) + leaves(st_f.mu) + leaves(st_f.nu)):
             assert torch.equal(a, b), step
+
+
+# ---------------------------------------------------------------------------
+# The SSM and hybrid families' scans (kernels/ssm_scan)
+# ---------------------------------------------------------------------------
+# (kernel, B, S, H, dh, N): full-width Zamba2-1.2B (64 Mamba2 heads of dh
+# 64, state 64) and RWKV6-1.6B (32 WKV heads of dh 64) at the serve's
+# prefill (B 4, S 512) and decode (B 4, S 1), and the reduced configs' widths
+SCAN_CASES = [("mamba", 4, 512, 64, 64, 64), ("mamba", 4, 1, 64, 64, 64),
+              ("mamba", 3, 37, 2, 64, 8), ("wkv6", 4, 512, 32, 64, 0),
+              ("wkv6", 4, 1, 32, 64, 0), ("wkv6", 3, 37, 4, 16, 0)]
+# y against the plain version: 1e-5 x max(1, max|plain y|), fp32 sums of dh
+# or N terms in another order; the state bitwise (the same rounded
+# products and sums in the same order)
+SCAN_TOL = 1e-5
+
+
+def _scan_args(dev, kind, B, S, H, dh, N, dtype=torch.bfloat16, seed=0):
+    """Inputs shaped as the model makes them, from a seed: Mamba2's dt
+    through softplus and decay exp(-dt A) with A of 1..16; RWKV6's w =
+    exp(-exp(-6 + noise)) (near 1, so the state grows over the
+    sequence); random incoming states."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=g)
+    if kind == "mamba":
+        dt = torch.nn.functional.softplus(rand(B, S, H))
+        A = torch.linspace(1.0, 16.0, H)
+        args = (rand(B, S, H, dh).to(dtype), dt, torch.exp(-dt * A),
+                rand(B, S, N), rand(B, S, N), 0.1 * rand(B, H, dh, N))
+    else:
+        w = torch.exp(-torch.exp(-6.0 + rand(B, S, H, dh)))
+        args = (rand(B, S, H, dh).to(dtype), rand(B, S, H, dh).to(dtype),
+                rand(B, S, H, dh).to(dtype), w, 0.1 * rand(H, dh),
+                0.1 * rand(B, H, dh, dh))
+    return tuple(t.to(dev) for t in args)
+
+
+def _scan_fns(kind):
+    from repro_torch.kernels.ssm_scan import (mamba_scan, mamba_scan_plain,
+                                              wkv6, wkv6_plain)
+    return (mamba_scan, mamba_scan_plain) if kind == "mamba" else \
+        (wkv6, wkv6_plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", SCAN_CASES,
+                         ids=lambda c: f"{c[0]}-B{c[1]}-S{c[2]}-H{c[3]}")
+def test_ssm_scan_matches_plain_on_card(dev, case, dtype):
+    """Each scan kernel against its plain version: y within ``SCAN_TOL``,
+    the final state bitwise; two launches bitwise equal; S split as S1 +
+    (S - S1) with the state carried bitwise one pass; one launch a call,
+    no plain version on the card."""
+    kind, B, S, H, dh, N = case
+    fn, plain = _scan_fns(kind)
+    args = _scan_args(dev, kind, B, S, H, dh, N, dtype)
+    before = backend.launches()
+    y, s = fn(*args)
+    entry = "mamba_scan_f32" if kind == "mamba" else "wkv6_f32"
+    assert backend.launches()[entry] == before[entry] + 1
+    y_ref, s_ref = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    err = (y - y_ref).abs().max().item()
+    assert err <= SCAN_TOL * max(1.0, y_ref.abs().max().item()), err
+    assert torch.equal(s, s_ref)
+    y2, s2 = fn(*args)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    if S > 1:
+        S1 = S // 3 + 5
+        seq = lambda a, b: tuple(t[:, a:b] if t.dim() >= 3 and
+                                 t.shape[:2] == (B, S) else t
+                                 for t in args[:-1])
+        ya, sa = fn(*(t.contiguous() for t in seq(0, S1)), args[-1])
+        yb, sb = fn(*(t.contiguous() for t in seq(S1, S)), sa)
+        assert torch.equal(torch.cat([ya, yb], dim=1), y)
+        assert torch.equal(sb, s)
+
+
+def test_ssm_scans_raise_on_card(dev):
+    """On the card a scan launches or raises: a width over 64, a
+    non-contiguous operand, an input that needs a gradient."""
+    fn, _ = _scan_fns("wkv6")
+    wide = _scan_args(dev, "wkv6", 1, 4, 2, 80, 0)
+    with pytest.raises(ValueError, match="widths of 1 to 64"):
+        fn(*wide)
+    args = _scan_args(dev, "wkv6", 2, 4, 2, 16, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
+    with pytest.raises(NotImplementedError, match="backward"):
+        fn(args[0].float().requires_grad_(), *(t.float() if t.dtype ==
+                                                torch.bfloat16 else t
+                                                for t in args[1:3]),
+           *args[3:])
+    mfn, _ = _scan_fns("mamba")
+    with pytest.raises(ValueError, match="widths of 1 to 64"):
+        mfn(*_scan_args(dev, "mamba", 1, 4, 2, 64, 72))
+
+
+def _record_prefills(eng):
+    """Wrap ``eng.runner.prefill`` to record, per request, the row of its
+    last whole-batch prefill (left padding included) and how many tokens
+    it had generated before it: {uid: (row, n generated)}."""
+    rows, inner = {}, eng.runner.prefill
+
+    def prefill(tokens, valid_start, caches):
+        for slot, req in eng.scheduler.running.items():
+            rows[req.uid] = (np.array(tokens[slot]), len(req.generated))
+        return inner(tokens, valid_start, caches)
+    eng.runner.prefill = prefill
+    return rows
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b"])
+def test_recurrent_serve_on_card_same_at_both_depths(dev, arch):
+    """A reduced Zamba2 / RWKV6 serve on the card (bf16, the whole-batch
+    re-prefill at every admission): depths 1 and 2 give the same tokens,
+    the scan kernel launches once per recurrent layer of every prefill and
+    decode call (the causal pair once per shared-block call), no plain scan
+    runs, and in a ``forward_lm`` on the card over each request's row as
+    last prefilled (pad tokens and all: recurrent state absorbs them) plus
+    the tokens decoded after it, every such token's logit lies within 0.05
+    of its position's largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops as SS
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    plain = {"n": 0}
+    inner = (SS.mamba_scan_plain, SS.wkv6_plain)
+
+    def counted(fn):
+        def call(*a):
+            plain["n"] += 1
+            return fn(*a)
+        return call
+    outs, reqs, rows = [], None, None
+    try:
+        SS.mamba_scan_plain, SS.wkv6_plain = map(counted, inner)
+        for depth in (1, 2):
+            eng = ServeEngine(cfg, params, EngineConfig(
+                max_batch=3, max_len=64, pipeline_depth=depth), device=dev)
+            rows = _record_prefills(eng)
+            rng = np.random.default_rng(1)
+            reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                            .astype(np.int32), max_new_tokens=m)
+                    for i, (n, m) in enumerate(((5, 6), (11, 4), (3, 8),
+                                                (17, 9)))]
+            before = backend.launches()
+            outs.append(eng.serve(reqs, continuous=True))
+            n = {k: v - before[k] for k, v in backend.launches().items()}
+            st = eng.stats()
+            calls = st["runner_prefill_calls"] + st["runner_decode_calls"]
+            scan = "wkv6_f32" if cfg.family == "ssm" else "mamba_scan_f32"
+            assert n[scan] == cfg.num_layers * calls
+            if cfg.family == "hybrid":
+                stages = cfg.num_layers // cfg.attn_layer_period
+                assert n["flash_prefill_bf16"] == \
+                    stages * st["runner_prefill_calls"]
+                assert n["flash_decode_bf16"] == \
+                    stages * st["runner_decode_calls"]
+    finally:
+        SS.mamba_scan_plain, SS.wkv6_plain = inner
+    assert outs[0] == outs[1] and plain["n"] == 0
+    for r in reqs:
+        row, g = rows[r.uid]
+        seq = np.concatenate([row, r.generated[g:-1]]).astype(np.int64)
+        with torch.no_grad():
+            lg = M.forward_lm(cfg, params, torch.from_numpy(seq)[None].to(
+                dev)).logits[0, len(row) - 1:]
+        gen = torch.tensor(r.generated[g:], device=dev)
+        gap = lg.max(dim=1).values - lg.gather(1, gen[:, None])[:, 0]
+        assert gap.max().item() <= 0.05

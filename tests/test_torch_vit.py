@@ -238,8 +238,8 @@ def test_unported_modes_raise(vit):
     """Soft TDM and the fp16/int8 tiers are ported (their parity tests
     follow), and so is causal attention with the dense LM path
     (``test_torch_lm.py``); what is still unported raises: the LM
-    families other than dense and MoE (``test_torch_moe.py``), and stacked
-    layers in the pruning glue."""
+    families other than dense, MoE, hybrid and SSM (``test_torch_moe.py``,
+    ``test_torch_ssm.py``), and stacked layers in the pruning glue."""
     _, t = vit
     cfg = t["cfg"]
     x = _patches(cfg, 1, 16)
@@ -250,7 +250,7 @@ def test_unported_modes_raise(vit):
                                       device="cpu").logits
             assert y.shape == (1, cfg.num_classes)
     with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        M.init_params(get_config("deit-small").replace(family="ssm"),
+        M.init_params(get_config("deit-small").replace(family="vlm"),
                       torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="stacked layer axes"):
         PG.init_scores(cfg, {"layers": {"attn": {"wq": torch.zeros(
