@@ -34,10 +34,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    heads of Dh 64 and at Granite-MoE-3B-A800M's 24 over 8 heads of Dh 64,
    two launches bitwise equal); the SSM and hybrid families' scans
    (``mamba_scan_f32`` at Zamba2-1.2B's widths, ``wkv6_f32`` at
-   RWKV6-1.6B's) at the recurrent serve's whole-batch prefill (B 4, S 512)
-   and decode (B 4, S 1): y within 1e-5 x max(1, max|plain|), the final
-   state bitwise, two launches bitwise equal, the prefill split at 200
-   with the state carried bitwise one pass; LM training's causal pair at
+   RWKV6-1.6B's) at the recurrent serve's whole-batch prefill (B 4, S 512,
+   also with strong decays down to exactly 0), its re-prefill length (S
+   500) and decode (B 4, S 1): y within 1e-5 x max(1, max|plain|); the
+   final state bitwise in the sequential form (decode), within 1e-5 x
+   max(1, max|plain|) in the chunked form (prefill); two launches bitwise
+   equal; the prefill split at 200 with the state carried, within the
+   same bounds of one pass; LM training's causal pair at
    full-width StableLM-1.6B ([8, 512, 32, 64]) and at GQA 3:1 ([2, 512,
    24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
    serve's, lse within 1e-5) and ``flash_prefill_bwd_bf16`` (dq, dk, dv
@@ -152,9 +155,10 @@ Phases, in order; any failure exits non-zero and prints no result:
       there it is printed only; (c) at the first prune of
       the pruned Zamba2 serve, the shared blocks' caches compacted and
       every Mamba2 state passed on as it was. Prints tokens/s, the peak
-      memory and one decode step alone (wall, device launches, idle
-      share, device time against its bytes' floor and by part: scan,
-      causal kernels, GEMMs, the rest).
+      memory, one decode step alone (wall, device launches, idle share,
+      device time against its bytes' floor and by part: scan, causal
+      kernels, GEMMs, the rest) and one whole-batch re-prefill alone (B
+      4, S 500: device time by the same parts).
 5. Profile (``torch.profiler``): each kernel's device time per launch at
    the phase-3 shapes (the causal backward's also per kernel), the device
    time of all its wrapper call's device
@@ -599,8 +603,9 @@ def check_tensor_cores(backend):
     non-causal fp32 tier's none (no TF32 or other split product), nor its
     backward's two kernels, which issue no atomic either (their sums run
     in a fixed order); its fp16 tier's HMMA; the causal backward's two kernels
-    (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA. Prints the
-    count per kernel."""
+    (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA; the scans'
+    chunked kernels HMMA (their 3xTF32 products) and no atomic, their
+    sequential kernels neither. Prints the count per kernel."""
     from repro_torch.kernels.flash_attention.ops import CAUSAL_HEAD_DIMS
     bwd_dims = CAUSAL_HEAD_DIMS["flash_prefill_bwd_bf16"]
     tiers = {}
@@ -648,6 +653,26 @@ def check_tensor_cores(backend):
     for kern, ops in bwd.items():
         require(ops.get("HGMMA", 0) > 0 and not ops.get("HMMA"),
                 f"{kern} must issue HGMMA and no HMMA, issues {ops}")
+    scans = {}
+    for lib, entry in (("mamba_scan", "mamba_scan_f32"), ("wkv6", "wkv6_f32")):
+        for fn, ops in _sass_ops(backend, lib,
+                                 TENSOR_CORE_OPS + ATOMIC_OPS).items():
+            for form in ("chunked_kernel", "kernel"):
+                if f"{entry}_{form}I" in fn:
+                    t = "bf16" if "bfloat16" in fn else "f32"
+                    scans[f"{entry}_{form}<{t}>"] = ops
+    print("sass: tensor-core and atomic instructions of the scans "
+          + json.dumps(scans), flush=True)
+    require(len(scans) == 8, f"expected both forms of both scans at both "
+                             f"input types in the SASS, found {sorted(scans)}")
+    for kern, ops in scans.items():
+        if "_chunked_" in kern:  # 3xTF32 products, no atomic
+            require(set(ops) == {"HMMA"},
+                    f"{kern} must issue HMMA and nothing else of "
+                    f"{TENSOR_CORE_OPS + ATOMIC_OPS}, issues {ops}")
+        else:
+            require(not ops, f"{kern} issues tensor-core or atomic "
+                             f"instructions {ops}")
 
 
 # the causal kernels' cases at full-width Minitron-4B (24 query heads over 8
@@ -1736,36 +1761,46 @@ def moe_path(torch, dev):
 # Phase 3 (recurrent families): the scans against their plain versions
 # ---------------------------------------------------------------------------
 # (label, B, S): the recurrent serve's whole-batch prefill (4 slots, a
-# 512-token row) and its decode step
-SCAN_FORMS = (("prefill", 4, 512), ("decode", 4, 1))
+# 512-token row), its re-prefill length (500: a ragged last chunk) and its
+# decode step; then the prefill with strong decays (down to exactly 0)
+SCAN_FORMS = (("prefill", 4, 512), ("re-prefill", 4, 500), ("decode", 4, 1))
+SCAN_STRONG = ("prefill, strong decays", 4, 512)
 SCAN_SPLIT = 200  # S1 of the prefill split as S1 + (S - S1), state carried
-# y against the plain version: fp32 sums of dh or N terms in another order
-# (the state is bitwise: the same rounded products and sums, in order)
-SCAN_TOL = 1e-5   # x max(1, max|plain y|)
+# y and, in the chunked form, the final state against the plain version:
+# fp32 sums of dh or N terms, and in the chunked form of a chunk's steps
+# taken as products, in another order. The sequential form's state is
+# bitwise (the plain loop's rounded products and sums in its order); the
+# chunked form's is not, nor is a split prefill's continuation
+SCAN_TOL = 1e-5   # x max(1, max|plain|)
 SCAN_KERNELS = (  # kind, entry point, source, config whose widths it takes
     ("mamba", "mamba_scan_f32", "mamba_scan.cu", "ZAMBA2_1_2B"),
     ("wkv6", "wkv6_f32", "wkv6.cu", "RWKV6_1_6B"))
 
 
-def scan_inputs(torch, dev, kind, cfg, B, S, g):
+def scan_inputs(torch, dev, kind, cfg, B, S, g, strong=False):
     """A scan's inputs at ``cfg``'s full widths, drawn from ``g`` and
     shaped as the model makes them: Mamba2's dt through softplus, decay
     exp(-dt A) with A of 1..16 (``init_mamba_params``); RWKV6's w =
     exp(-exp(-6 + noise)) (``w_bias`` -6), near 1; bf16 activations,
-    random incoming states."""
+    random incoming states. ``strong``: Mamba2's dt scaled by 10, so dt A
+    passes 104 and decays reach exactly 0; RWKV6's w_raw uniform on [-6,
+    5], so w runs from near 1 to exactly 0."""
     rand = lambda *s: torch.randn(s, generator=g)
     if kind == "mamba":
         inner = cfg.ssm_expand * cfg.d_model
         H, dh, N = inner // 64, 64, cfg.ssm_state
-        dt = torch.nn.functional.softplus(rand(B, S, H))
+        dt = torch.nn.functional.softplus(rand(B, S, H)) * (
+            10.0 if strong else 1.0)
         args = (rand(B, S, H, dh).to(torch.bfloat16), dt,
                 torch.exp(-dt * torch.linspace(1.0, 16.0, H)), rand(B, S, N),
                 rand(B, S, N), 0.1 * rand(B, H, dh, N))
     else:
         H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+        w_raw = (-6.0 + 11.0 * torch.rand((B, S, H, dh), generator=g)
+                 if strong else -6.0 + rand(B, S, H, dh))
         args = (*(rand(B, S, H, dh).to(torch.bfloat16) for _ in range(3)),
-                torch.exp(-torch.exp(-6.0 + rand(B, S, H, dh))),
-                0.1 * rand(H, dh), 0.1 * rand(B, H, dh, dh))
+                torch.exp(-torch.exp(w_raw)), 0.1 * rand(H, dh),
+                0.1 * rand(B, H, dh, dh))
     return tuple(t.to(dev) for t in args)
 
 
@@ -1785,23 +1820,32 @@ def scan_bound(kind, args):
 
 def check_ssm_scans(torch, dev):
     """``mamba_scan_f32`` at full-width Zamba2-1.2B and ``wkv6_f32`` at
-    full-width RWKV6-1.6B, each at ``SCAN_FORMS``, against its plain
-    version: y within ``SCAN_TOL``, the final state bitwise; two launches
-    bitwise equal; at prefill, S split as ``SCAN_SPLIT`` + the rest with
-    the state carried bitwise one pass. No library call computes either
-    scan. Returns one check per kernel, a case per form."""
+    full-width RWKV6-1.6B, each at ``SCAN_FORMS`` and ``SCAN_STRONG``,
+    against its plain version: y within ``SCAN_TOL``; the final state
+    bitwise in the sequential form, within ``SCAN_TOL`` in the chunked
+    form (each case prints the form that ran); two launches bitwise equal;
+    from S > 1, S split as ``SCAN_SPLIT`` + the rest with the state carried
+    against one pass (bitwise when every call runs sequential, else within
+    the same bounds). No library call computes either scan. Returns one
+    check per kernel, a case per form."""
     from repro_torch import configs
     from repro_torch.kernels import backend
     from repro_torch.kernels.ssm_scan import ops as SS
     g = torch.Generator().manual_seed(12)
     checks = []
+    within = (lambda got, ref: ((got - ref).abs().max().item(),
+                                SCAN_TOL * max(1.0, ref.abs().max().item())))
+    tol_text = f"{SCAN_TOL:g} x max(1, max|plain|)"
     for kind, entry, source, cfg_name in SCAN_KERNELS:
         cfg = getattr(configs, cfg_name)
         fn, plain = ((SS.mamba_scan, SS.mamba_scan_plain) if kind == "mamba"
                      else (SS.wkv6, SS.wkv6_plain))
         cases = []
-        for label, B, S in SCAN_FORMS:
-            args = scan_inputs(torch, dev, kind, cfg, B, S, g)
+        for label, B, S in (*SCAN_FORMS, SCAN_STRONG):
+            args = scan_inputs(torch, dev, kind, cfg, B, S, g,
+                               strong=(label, B, S) == SCAN_STRONG)
+            form = SS.scan_form(kind, S)
+            label = f"{label}, {form} form"
             before = backend.launches()[entry]
             (y, s), again = fn(*args), fn(*args)
             y_ref, s_ref = plain(*args)
@@ -1813,9 +1857,9 @@ def check_ssm_scans(torch, dev):
                     f"{tag}: not finite")
             require(torch.equal(y, again[0]) and torch.equal(s, again[1]),
                     f"{tag}: two launches differ")
-            errs = [(f"y ({label})", (y - y_ref).abs().max().item(),
-                     SCAN_TOL * max(1.0, y_ref.abs().max().item()),
-                     f"{SCAN_TOL:g} x max(1, max|plain|)"),
+            errs = [(f"y ({label})", *within(y, y_ref), tol_text),
+                    (f"state ({label})", *within(s, s_ref), tol_text)
+                    if form == "chunked" else
                     (f"state ({label})", (s - s_ref).abs().max().item(), 0.0,
                      "bitwise")]
             if S > 1:
@@ -1824,10 +1868,19 @@ def check_ssm_scans(torch, dev):
                                          for t in args[:-1])
                 ya, sa = fn(*seq(0, SCAN_SPLIT), args[-1])
                 yb, sb = fn(*seq(SCAN_SPLIT, S), sa)
-                split = max((torch.cat([ya, yb], 1) - y).abs().max().item(),
-                            (sb - s).abs().max().item())
-                errs.append((f"split at {SCAN_SPLIT} ({label})", split, 0.0,
-                             "bitwise one pass"))
+                yc = torch.cat([ya, yb], 1)
+                if {SS.scan_form(kind, n) for n in (S, SCAN_SPLIT,
+                                                    S - SCAN_SPLIT)} == \
+                        {"sequential"}:
+                    split = max((yc - y).abs().max().item(),
+                                (sb - s).abs().max().item())
+                    errs.append((f"split at {SCAN_SPLIT} ({label})", split,
+                                 0.0, "bitwise one pass"))
+                else:
+                    errs += [(f"split at {SCAN_SPLIT}, y ({label})",
+                              *within(yc, y), f"{tol_text} of one pass"),
+                             (f"split at {SCAN_SPLIT}, state ({label})",
+                              *within(sb, s), f"{tol_text} of one pass")]
             bnd, by = scan_bound(kind, args)
             shapes = (f"{' '.join(f'{list(t.shape)}' for t in args)} "
                       f"({cfg.name} widths, {label}; activations bf16)")
@@ -2001,6 +2054,22 @@ def recurrent_decode_step(torch, dev, cfg, params):
     return lambda: eng.runner.decode(toks, caches, None)
 
 
+def _device_parts(rows, n, scan):
+    """A profiled window's device µs a call by part: the scan kernel, the
+    causal kernels, GEMMs, the rest."""
+    groups = {"scan kernel": lambda nm: kernel_symbol(scan) in nm,
+              "causal kernels": lambda nm: any(
+                  kernel_symbol(c) in nm
+                  for c in ("flash_decode_bf16", "flash_prefill_bf16")),
+              "GEMMs": lambda nm: "nvjet" in nm or "gemm" in nm.lower()
+              or "xmma" in nm}
+    parts = {k: 0.0 for k in [*groups, "the rest"]}
+    for nm, _, us in rows:
+        parts[next((k for k, f in groups.items() if f(nm)),
+                   "the rest")] += us / n
+    return parts
+
+
 def profile_recurrent(torch, dev, cfg, params, tag, scan):
     """One batch-4 decode step alone: its wall (CUDA events around
     back-to-back steps, so a host-bound step is timed at its issue rate)
@@ -2010,8 +2079,9 @@ def profile_recurrent(torch, dev, cfg, params, tag, scan):
     card could take (the bytes of every weight it reads, all but the
     embedding table, plus the recurrent states read and written, over the
     HBM rate) and by part: the scan kernel, the causal kernels, GEMMs,
-    the rest. (A whole serve is not profiled here: parsing its ~150,000
-    kernel records costs tens of seconds a model.)"""
+    the rest. Then ``profile_reprefill``. (A whole serve is not profiled
+    here: parsing its ~150,000 kernel records costs tens of seconds a
+    model.)"""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import attention as A
     from repro_torch.models import steps as ST
@@ -2025,16 +2095,7 @@ def profile_recurrent(torch, dev, cfg, params, tag, scan):
         torch.cuda.synchronize()
     rows = _device_rows(prof)
     busy_us = sum(r[2] for r in rows) / n
-    groups = {"scan kernel": lambda nm: kernel_symbol(scan) in nm,
-              "causal kernels": lambda nm: any(
-                  kernel_symbol(c) in nm
-                  for c in ("flash_decode_bf16", "flash_prefill_bf16")),
-              "GEMMs": lambda nm: "nvjet" in nm or "gemm" in nm.lower()
-              or "xmma" in nm}
-    parts = {k: 0.0 for k in [*groups, "the rest"]}
-    for nm, _, us in rows:
-        parts[next((k for k, f in groups.items() if f(nm)),
-                   "the rest")] += us / n
+    parts = _device_parts(rows, n, scan)
     states = [c for c in ST.init_caches(cfg, LM_MAX_BATCH, 1, device=dev)
               if not isinstance(c, A.KVCache)]
     s_bytes = 2 * sum(t.numel() * t.element_size() for c in states
@@ -2052,6 +2113,48 @@ def profile_recurrent(torch, dev, cfg, params, tag, scan):
           f"x); by part: " + ", ".join(
               f"{k} {v / 1e3:.3f} ms ({v / busy_us:.3f})"
               for k, v in parts.items()), flush=True)
+    profile_reprefill(torch, dev, cfg, params, tag, scan)
+
+
+REPREFILL = (4, 500)  # the serve's whole-batch re-prefill: B x S
+
+
+def profile_reprefill(torch, dev, cfg, params, tag, scan):
+    """One whole-batch re-prefill alone (``REPREFILL``: the engine's
+    runner from fresh caches, random tokens from a seed, no padding): its
+    wall (CUDA events), and from 3 prefills profiled on the card's side
+    its device launches and device time by part (the scan kernel, the
+    causal kernels, GEMMs, the rest) with the scan's share: what the
+    scans cost an admission of the recurrent families. Returns those
+    numbers (``tools/scan_ab.py`` compares them across checkouts)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import steps as ST
+    eng = lm_engine(cfg, params, dev)
+    B, S = REPREFILL
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    starts = np.zeros((B,), np.int32)
+    caches = ST.init_caches(cfg, LM_MAX_BATCH, LM_MAX_LEN, device=dev)
+    step = lambda: eng.runner.prefill(tokens, starts, caches)
+    wall_ms = time_ms(step, samples=3, calls=2, warmup=1)
+    n = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_us = sum(r[2] for r in rows) / n
+    parts = _device_parts(rows, n, scan)
+    launches = sum(r[1] for r in rows) / n
+    print(f"{tag}: one whole-batch re-prefill alone (B={B}, S={S}, fresh "
+          f"caches): wall {wall_ms:.3f} ms, {launches:g} device launches, "
+          f"device {busy_us / 1e3:.3f} ms; by part: " + ", ".join(
+              f"{k} {v / 1e3:.3f} ms ({v / busy_us:.3f})"
+              for k, v in parts.items()), flush=True)
+    return dict(wall_ms=wall_ms, launches=launches,
+                device_ms=busy_us / 1e3,
+                parts_ms={k: v / 1e3 for k, v in parts.items()})
 
 
 def ssm_path(torch, dev):
@@ -2160,10 +2263,15 @@ KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2,
                       "flash_attention_bwd_f32": 2}
 
 
+# entry points with two forms, one kernel a launch chosen by the sequence's
+# length (``<entry point>_kernel`` sequential, ``<entry point>_chunked_kernel``)
+TWO_FORMS = ("mamba_scan_f32", "wkv6_f32")
+
+
 def kernel_symbol(entry_point: str) -> str:
     """The CUDA kernel an entry point launches (``csrc/*.cu``), or the
     prefix of its kernels' names."""
-    if entry_point in KERNELS_PER_LAUNCH:
+    if entry_point in KERNELS_PER_LAUNCH or entry_point in TWO_FORMS:
         return f"{entry_point}_"
     return f"{entry_point}_kernel"
 

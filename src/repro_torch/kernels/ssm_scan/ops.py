@@ -7,8 +7,14 @@ Neither replaces a Pallas kernel. The reference runs both as
 Python loop would issue about eight launches a token a layer, and the
 recurrent families re-prefill the whole batch at every admission, so each
 scan is a hand-written kernel (``csrc/mamba_scan.cu``, ``csrc/wkv6.cu``;
-their bounds and designs are noted there). The plain versions beside them
-are the reference's loops over the sequence.
+their bounds and designs are noted there). Each C entry point has two
+forms, one launch either way: below ``CHUNK_MIN`` steps the sequential
+kernel (its final state bitwise the plain loop's), from it on a chunked
+kernel whose products run on the tensor cores in 3xTF32 (y and the state
+within 1e-5 of max(1, max|plain|)). The plain versions beside them are the
+reference's loops over the sequence; ``mamba_scan_chunked_plain`` and
+``wkv6_chunked_plain`` are the chunked kernels' algorithm as tensor code,
+for the CPU tests only.
 
 Rules (``kernels/backend``): CUDA tensors launch the kernel or raise, CPU
 tensors run the plain version. Outputs and the new state are new tensors
@@ -56,6 +62,193 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                s + u[None, :, :, None] * kv))
         s = s * w[:, t].float()[..., None] + kv
     return torch.stack(ys, dim=1), s
+
+
+# The kernels' two forms (``csrc/mamba_scan.cu``, ``csrc/wkv6.cu``): below
+# CHUNK_MIN[kind] steps the sequential kernel, from it on the chunked one,
+# which takes CHUNK steps at a time in sub-chunks of SUB (the kernels'
+# ``kChunkMin``, ``kC``, ``kSub``; ``test_torch_scan_chunked`` holds the
+# sources to these numbers)
+CHUNK, SUB = 64, 16
+CHUNK_MIN = {"mamba": 32, "wkv6": 48}
+
+
+def scan_form(kind: str, S: int) -> str:
+    """Which form of the ``kind`` ("mamba" or "wkv6") kernel a call of
+    ``S`` steps runs."""
+    return "chunked" if S >= CHUNK_MIN[kind] else "sequential"
+
+
+def _chunks(S: int, *seqs: torch.Tensor):
+    """Yield (start, steps, per-chunk tensors) with every [B, S, ...]
+    tensor cut to CHUNK steps and padded past the end with zeros."""
+    for c0 in range(0, S, CHUNK):
+        n = min(CHUNK, S - c0)
+        yield c0, n, [torch.nn.functional.pad(
+            t[:, c0:c0 + n].float(),
+            (0, 0) * (t.dim() - 2) + (0, CHUNK - n)) for t in seqs]
+
+
+def _sub_factors(dec: torch.Tensor):
+    """The decay factors of one chunk, every one a running product of
+    factors <= 1 (no division, no log): ``dec`` [..., CHUNK] with padded
+    steps at 1. Returns (incl [..., CHUNK]: the product over the sub-chunk
+    up to and including t; excl: up to t, excluding it; suffix: after s to
+    the sub-chunk's end; total [..., CHUNK / SUB]: each sub-chunk's
+    product)."""
+    d = dec.unflatten(-1, (CHUNK // SUB, SUB))
+    incl, excl, suffix = (torch.empty_like(d) for _ in range(3))
+    run = torch.ones_like(d[..., 0])
+    for t in range(SUB):
+        excl[..., t] = run
+        run = run * d[..., t]
+        incl[..., t] = run
+    run = torch.ones_like(run)
+    for t in reversed(range(SUB)):
+        suffix[..., t] = run
+        run = run * d[..., t]
+    return (incl.flatten(-2), excl.flatten(-2), suffix.flatten(-2),
+            incl[..., -1])
+
+
+def _across(total: torch.Tensor):
+    """From each sub-chunk's product [..., n]: (before [..., n], the
+    product of the sub-chunks before each; after, of those after it;
+    between(j, i) for j < i - 1, of those strictly between, as
+    {(j, i): tensor}), each a running product in sub-chunk order."""
+    n = total.shape[-1]
+    before, after = torch.empty_like(total), torch.empty_like(total)
+    run = torch.ones_like(total[..., 0])
+    for i in range(n):
+        before[..., i] = run
+        run = run * total[..., i]
+    run = torch.ones_like(run)
+    for j in reversed(range(n)):
+        after[..., j] = run
+        run = run * total[..., j]
+    between = {}
+    for i in range(n):
+        run = torch.ones_like(total[..., 0])
+        for j in reversed(range(i - 1)):
+            run = run * total[..., j + 1]
+            between[(j, i)] = run
+    return before, after, between
+
+
+def _within_sub(d: torch.Tensor) -> torch.Tensor:
+    """seg(s->t) within each sub-chunk, [..., n, SUB (t), SUB (s)], from
+    ``d`` [..., n, SUB]: from each s a running product of the decays after
+    it, 0 above the diagonal."""
+    s_idx = torch.arange(SUB)
+    run = torch.ones(d.shape[:-1] + (SUB,))
+    out = torch.zeros(d.shape[:-1] + (SUB, SUB))
+    for t in range(SUB):
+        run = torch.where(t > s_idx, run * d[..., t:t + 1], run)
+        out[..., t, :] = torch.where(t >= s_idx, run, torch.zeros(()))
+    return out
+
+
+def _wkv_within_sub(r, k, w, u):
+    """A's diagonal blocks, [..., n, SUB (t), SUB (s)], from r, k, w
+    [..., n, SUB, dh]: ``r_t . (k_s (*) prod_{s<u<t} w_u)`` below the
+    diagonal by running products from each key s on, the bonus ``r_t . (u
+    (*) k_t)`` on it, 0 above."""
+    s_idx = torch.arange(SUB)[:, None]
+    run = torch.ones(k.shape)                       # [..., n, SUB (s), dh]
+    out = torch.zeros(k.shape[:-1] + (SUB,))
+    for t in range(SUB):
+        below = (t > s_idx)[..., 0]
+        part = (r[..., t:t + 1, :] * (k * run)).sum(-1)
+        out[..., t, :] = torch.where(below, part, torch.zeros(()))
+        run = torch.where(t > s_idx, run * w[..., t:t + 1, :], run)
+    bonus = (r * u[:, None, None, :] * k).sum(-1)   # [..., n, SUB]
+    return out + torch.diag_embed(bonus)
+
+
+def mamba_scan_chunked_plain(x: torch.Tensor, dt_sp: torch.Tensor,
+                             decay: torch.Tensor, Bm: torch.Tensor,
+                             Cm: torch.Tensor, h0: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel's algorithm as tensor code (tests only; the plain
+    version stays the reference loop). Per chunk of CHUNK steps, with
+    ``seg(s->t)`` the product of the decays after s up to t, formed in
+    sub-chunks of SUB as ``mamba_scan.cu`` forms it:
+    ``y_t = sum_{s<=t} seg(s->t) (C_t . B_s) dt_s x_s + seg(start->t) h C_t``
+    and ``h_end = seg(start->end) h + sum_s seg(s->end) dt_s x_s B_s^T``,
+    four products a (batch row, head, chunk)."""
+    B, S, H, dh = x.shape
+    h, ys, nsub = h0.float(), [], CHUNK // SUB
+    for c0, n, (xc, dtc, Bc, Cc) in _chunks(S, x, dt_sp, Bm, Cm):
+        dec = torch.ones((B, CHUNK, H))
+        dec[:, :n] = decay[:, c0:c0 + n]
+        Xp = (dtc[..., None] * xc).permute(0, 2, 1, 3)   # [B, H, C, dh]
+        incl, _, suffix, total = _sub_factors(dec.permute(0, 2, 1))
+        before, after, between = _across(total)          # [B, H, nsub]
+        sub = torch.arange(CHUNK) // SUB
+        a = before[..., sub] * incl                       # seg(start->t)
+        e = suffix * after[..., sub]                      # seg(s->end)
+        L = torch.zeros((B, H, CHUNK, CHUNK))
+        lin = _within_sub(dec.permute(0, 2, 1).unflatten(-1, (nsub, SUB)))
+        for i in range(nsub):
+            rows = slice(SUB * i, SUB * (i + 1))
+            L[..., rows, rows] = lin[..., i, :, :]
+            for j in range(i):
+                cols = slice(SUB * j, SUB * (j + 1))
+                f = incl[..., rows, None]
+                if j < i - 1:
+                    f = f * between[(j, i)][..., None, None]
+                L[..., rows, cols] = f * suffix[..., None, cols]
+        G = torch.einsum("btn,bsn->bts", Cc, Bc)[:, None]  # shared by heads
+        y = (G * L) @ Xp + (a[..., None] * Cc[:, None]) @ h.transpose(-1, -2)
+        h = (before[..., -1] * total[..., -1])[..., None, None] * h + \
+            (e[..., None] * Xp).transpose(-1, -2) @ Bc[:, None]
+        ys.append(y.permute(0, 2, 1, 3)[:, :n])
+    return torch.cat(ys, dim=1), h
+
+
+def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel's algorithm as tensor code (tests only; the plain
+    version stays the reference loop). Per chunk of CHUNK steps in
+    sub-chunks of SUB, as ``wkv6.cu`` forms it: ``A[t, s] = r_t . (k_s (*)
+    prod_{s<u<t} w_u)`` for s < t, by running products within a sub-chunk
+    and, for an earlier sub-chunk, as ``(r_t (*) prod_{ref<=u<t} w_u) .
+    (k_s (*) prod_{s<u<ref} w_u)`` with ref the query sub-chunk's first
+    step (both factors <= 1); ``A[t, t] = r_t . (u (*) k_t)`` (the bonus);
+    ``y = A v + (r_t (*) prod_{u<t} w_u) S`` and ``S_end = prod w (*) S +
+    sum_s (k_s (*) prod_{s<u} w_u) v_s^T``."""
+    B, S, H, dh = r.shape
+    s, ys, nsub = s0.float(), [], CHUNK // SUB
+    for c0, n, (rc, kc, vc) in _chunks(S, r, k, v):
+        wc = torch.ones((B, CHUNK, H, dh))
+        wc[:, :n] = w[:, c0:c0 + n]
+        rc, kc, vc, wc = (t.permute(0, 2, 1, 3) for t in (rc, kc, vc, wc))
+        _, excl, suffix, total = _sub_factors(wc.transpose(-1, -2))
+        excl, suffix = excl.transpose(-1, -2), suffix.transpose(-1, -2)
+        before, after, between = _across(total)           # [B, H, dh, nsub]
+        sub = torch.arange(CHUNK) // SUB
+        rt = rc * excl                       # r_t (*) prod_{ref<=u<t} w_u
+        kq = kc * suffix                     # k_s (*) prod_{s<u<=end} w_u
+        A = torch.zeros((B, H, CHUNK, CHUNK))
+        diag = _wkv_within_sub(*(t.unflatten(-2, (nsub, SUB))
+                                 for t in (rc, kc, wc)), u)
+        for i in range(nsub):
+            rows = slice(SUB * i, SUB * (i + 1))
+            A[..., rows, rows] = diag[..., i, :, :]
+            for j in range(i):
+                cols = slice(SUB * j, SUB * (j + 1))
+                kj = kq[..., cols, :]
+                if j < i - 1:
+                    kj = kj * between[(j, i)][..., None, :]
+                A[..., rows, cols] = rt[..., rows, :] @ kj.transpose(-1, -2)
+        rhat = rt * before[..., sub].transpose(-1, -2)    # prod_{u<t} w_u
+        y = A @ vc + rhat @ s
+        kbar = kq * after[..., sub].transpose(-1, -2)     # prod_{s<u} w_u
+        s = (before[..., -1] * total[..., -1])[..., None] * s + \
+            kbar.transpose(-1, -2) @ vc
+        ys.append(y.permute(0, 2, 1, 3)[:, :n])
+    return torch.cat(ys, dim=1), s
 
 
 def _require(cond: bool, exc, msg: str) -> None:

@@ -24,6 +24,8 @@ from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.core.quant import dequantize_blocks
 from repro_torch.kernels.sbmm import (sbmm, sbmm_plain, sbmm_quant_raw,
                                       sbmm_raw)
+from repro_torch.kernels.ssm_scan import ops as SS
+from repro_torch.kernels.ssm_scan.ops import CHUNK_MIN as SS_CHUNK_MIN
 from repro_torch.kernels.token_drop import token_drop, token_drop_plain
 from repro_torch.kernels.token_drop import ops as TD
 from repro_torch.kernels.token_drop.ops import MAX_TOKENS
@@ -1481,32 +1483,55 @@ def test_inplace_adamw_on_card_equals_functional(dev, monkeypatch):
 # ---------------------------------------------------------------------------
 # The SSM and hybrid families' scans (kernels/ssm_scan)
 # ---------------------------------------------------------------------------
-# (kernel, B, S, H, dh, N): full-width Zamba2-1.2B (64 Mamba2 heads of dh
-# 64, state 64) and RWKV6-1.6B (32 WKV heads of dh 64) at the serve's
-# prefill (B 4, S 512) and decode (B 4, S 1), and the reduced configs' widths
-SCAN_CASES = [("mamba", 4, 512, 64, 64, 64), ("mamba", 4, 1, 64, 64, 64),
-              ("mamba", 3, 37, 2, 64, 8), ("wkv6", 4, 512, 32, 64, 0),
-              ("wkv6", 4, 1, 32, 64, 0), ("wkv6", 3, 37, 4, 16, 0)]
+# (kernel, B, S, H, dh, N, regime): full-width Zamba2-1.2B (64 Mamba2
+# heads of dh 64, state 64) and RWKV6-1.6B (32 WKV heads of dh 64) at the
+# serve's prefill (B 4, S 512), its re-prefill length (S 500, chunked with
+# a ragged last chunk) and decode (B 4, S 1); at the prefill also strong
+# decays (down to exactly 0); the reduced configs' widths on each side of
+# the chunked form's first length (``CHUNK_MIN``)
+SCAN_CASES = [("mamba", 4, 512, 64, 64, 64, "model"),
+              ("mamba", 4, 500, 64, 64, 64, "model"),
+              ("mamba", 4, 512, 64, 64, 64, "strong"),
+              ("mamba", 4, 1, 64, 64, 64, "model"),
+              ("mamba", 3, 37, 2, 64, 8, "model"),
+              ("mamba", 3, SS_CHUNK_MIN["mamba"] - 1, 2, 64, 8, "model"),
+              ("mamba", 3, SS_CHUNK_MIN["mamba"], 2, 64, 8, "strong"),
+              ("wkv6", 4, 512, 32, 64, 0, "model"),
+              ("wkv6", 4, 500, 32, 64, 0, "model"),
+              ("wkv6", 4, 512, 32, 64, 0, "strong"),
+              ("wkv6", 4, 1, 32, 64, 0, "model"),
+              ("wkv6", 3, 37, 4, 16, 0, "model"),
+              ("wkv6", 3, SS_CHUNK_MIN["wkv6"] - 1, 4, 16, 0, "model"),
+              ("wkv6", 3, SS_CHUNK_MIN["wkv6"], 4, 16, 0, "strong")]
 # y against the plain version: 1e-5 x max(1, max|plain y|), fp32 sums of dh
-# or N terms in another order; the state bitwise (the same rounded
-# products and sums in the same order)
+# or N terms in another order. The final state: bitwise in the sequential
+# form (the same rounded products and sums in the same order); in the
+# chunked form within 1e-5 x max(1, max|plain state|), its sums over a
+# chunk's steps taken as products in another order
 SCAN_TOL = 1e-5
 
 
-def _scan_args(dev, kind, B, S, H, dh, N, dtype=torch.bfloat16, seed=0):
+def _scan_args(dev, kind, B, S, H, dh, N, dtype=torch.bfloat16, seed=0,
+               regime="model"):
     """Inputs shaped as the model makes them, from a seed: Mamba2's dt
     through softplus and decay exp(-dt A) with A of 1..16; RWKV6's w =
     exp(-exp(-6 + noise)) (near 1, so the state grows over the
-    sequence); random incoming states."""
+    sequence); random incoming states. ``regime="strong"``: Mamba2's dt
+    scaled up to ~40, so dt A passes 104 and decays reach exactly 0;
+    RWKV6's w_raw uniform on [-6, 5], so w runs from near 1 to exactly 0."""
     g = torch.Generator().manual_seed(seed)
     rand = lambda *s: torch.randn(s, generator=g)
     if kind == "mamba":
         dt = torch.nn.functional.softplus(rand(B, S, H))
+        if regime == "strong":
+            dt = dt * 10.0
         A = torch.linspace(1.0, 16.0, H)
         args = (rand(B, S, H, dh).to(dtype), dt, torch.exp(-dt * A),
                 rand(B, S, N), rand(B, S, N), 0.1 * rand(B, H, dh, N))
     else:
-        w = torch.exp(-torch.exp(-6.0 + rand(B, S, H, dh)))
+        w_raw = (-6.0 + rand(B, S, H, dh) if regime == "model" else
+                 -6.0 + 11.0 * torch.rand((B, S, H, dh), generator=g))
+        w = torch.exp(-torch.exp(w_raw))
         args = (rand(B, S, H, dh).to(dtype), rand(B, S, H, dh).to(dtype),
                 rand(B, S, H, dh).to(dtype), w, 0.1 * rand(H, dh),
                 0.1 * rand(B, H, dh, dh))
@@ -1520,18 +1545,29 @@ def _scan_fns(kind):
         (wkv6, wkv6_plain)
 
 
+def _within(got, ref):
+    err = (got - ref).abs().max().item()
+    tol = SCAN_TOL * max(1.0, ref.abs().max().item())
+    assert err <= tol, (err, tol)
+    return True
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("case", SCAN_CASES,
-                         ids=lambda c: f"{c[0]}-B{c[1]}-S{c[2]}-H{c[3]}")
+@pytest.mark.parametrize(
+    "case", SCAN_CASES,
+    ids=lambda c: f"{c[0]}-B{c[1]}-S{c[2]}-H{c[3]}"
+    + ("" if c[6] == "model" else f"-{c[6]}"))
 def test_ssm_scan_matches_plain_on_card(dev, case, dtype):
-    """Each scan kernel against its plain version: y within ``SCAN_TOL``,
-    the final state bitwise; two launches bitwise equal; S split as S1 +
-    (S - S1) with the state carried bitwise one pass; one launch a call,
-    no plain version on the card."""
-    kind, B, S, H, dh, N = case
+    """Each scan kernel against its plain version: y within ``SCAN_TOL``;
+    the final state bitwise in the sequential form, within ``SCAN_TOL`` in
+    the chunked form; two launches bitwise equal; S split as S1 + (S - S1)
+    with the state carried equal to one pass (bitwise when both parts and
+    the pass run sequential, else within the same bounds); one launch a
+    call, no plain version on the card."""
+    kind, B, S, H, dh, N, regime = case
     fn, plain = _scan_fns(kind)
-    args = _scan_args(dev, kind, B, S, H, dh, N, dtype)
+    args = _scan_args(dev, kind, B, S, H, dh, N, dtype, regime=regime)
     before = backend.launches()
     y, s = fn(*args)
     entry = "mamba_scan_f32" if kind == "mamba" else "wkv6_f32"
@@ -1539,9 +1575,11 @@ def test_ssm_scan_matches_plain_on_card(dev, case, dtype):
     y_ref, s_ref = plain(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
-    err = (y - y_ref).abs().max().item()
-    assert err <= SCAN_TOL * max(1.0, y_ref.abs().max().item()), err
-    assert torch.equal(s, s_ref)
+    assert _within(y, y_ref)
+    if SS.scan_form(kind, S) == "sequential":
+        assert torch.equal(s, s_ref)
+    else:
+        assert _within(s, s_ref)
     y2, s2 = fn(*args)
     assert torch.equal(y, y2) and torch.equal(s, s2)
     if S > 1:
@@ -1551,8 +1589,13 @@ def test_ssm_scan_matches_plain_on_card(dev, case, dtype):
                                  for t in args[:-1])
         ya, sa = fn(*(t.contiguous() for t in seq(0, S1)), args[-1])
         yb, sb = fn(*(t.contiguous() for t in seq(S1, S)), sa)
-        assert torch.equal(torch.cat([ya, yb], dim=1), y)
-        assert torch.equal(sb, s)
+        if {SS.scan_form(kind, n) for n in (S, S1, S - S1)} == \
+                {"sequential"}:
+            assert torch.equal(torch.cat([ya, yb], dim=1), y)
+            assert torch.equal(sb, s)
+        else:
+            assert _within(torch.cat([ya, yb], dim=1), y)
+            assert _within(sb, s)
 
 
 def test_ssm_scans_raise_on_card(dev):
