@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: the quickest proof that the port builds, serves and trains (the ViT,
-the dense LM and the MoE LM) on the card.
+GPU: the quickest proof that the port builds, serves (the ViT and every
+LM family) and trains (the ViT, the dense LM and the MoE LM) on the
+card.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode and a decode row spanning all 9 key splits against a 572-slot
    bf16 cache, and the prefill and batch-4 decode at StableLM-1.6B's 32
    heads of Dh 64 and at Granite-MoE-3B-A800M's 24 over 8 heads of Dh 64,
-   two launches bitwise equal); the SSM and hybrid families' scans
+   two launches bitwise equal); the same two kernels' non-causal mode
+   (bf16, any Nq and Nk, GQA; ``MM_NONCAUSAL_CASES``) at Whisper-base's
+   encoder self-attention [4, 1500, 8, 64], its cross-attention at
+   prefill (q [4, 32, 8, 64]) and decode (q [4, 1, 8, 64]) over 1500
+   frames, Llama-3.2-Vision-90B's cross layers at prefill (q [2, 64, 64,
+   128]) and decode (q [2, 1, 64, 128]) over [2, 1601, 8, 128], and Dh 16
+   at 8 and 33 keys: o within one bf16 ulp of the plain version, two
+   launches bitwise equal, each call one launch counted under its form;
+   the SSM and hybrid families' scans
    (``mamba_scan_f32`` at Zamba2-1.2B's widths, ``wkv6_f32`` at
    RWKV6-1.6B's) at the recurrent serve's whole-batch prefill (B 4, S 512,
    also with strong decays down to exactly 0), its re-prefill length (S
@@ -159,6 +168,29 @@ Phases, in order; any failure exits non-zero and prints no result:
       device time against its bytes' floor and by part: scan, causal
       kernels, GEMMs, the rest) and one whole-batch re-prefill alone (B
       4, S 500: device time by the same parts).
+   f. The VLM and audio families (``multimodal_path``, after e), each
+      through ``models/steps.make_prefill`` and ``make_decode_step``
+      (greedy, left-padded prompts with ``valid_start``, weights from
+      seed 0 drawn on the card in fp32 and served from a bf16 copy):
+      full-width Whisper-base (6 encoder and 6 decoder layers, D 512, 8
+      heads of Dh 64, vocab 51,865, biases), 4 requests with their own
+      1500 audio frames, prompts of 4, 9, 16 and 32 tokens, 64 generated
+      each; Llama-3.2-Vision-90B at full width (D 8192, 64 query over 8
+      KV heads of Dh 128, d_ff 28,672, vocab 128,256, 1601 vision tokens)
+      and 2 of its 20 stages (4 self-attention layers and a gated cross
+      layer each; 1 where the fp32 draw and its copy do not fit; the
+      depth printed as "reduced"), every gate 1.0, 4 requests with their
+      own vision embeddings, prompts of 16-64 tokens, 32 generated each.
+      Per model one warm-up serve, one timed and one profiled. Gates:
+      the timed serve launches exactly the causal kernels once per
+      self-attention layer of every step and their non-causal mode once
+      per cross layer of every step (and per encoder layer at Whisper's
+      prefill), nothing else; no plain attention on the card; every
+      generated token within 0.05 of its position's largest logit in the
+      teacher-forced oracle (``forward_lm`` in train mode over the
+      request's prompt and tokens with its own modality input). Prints
+      tokens/s, launches per serve, host syncs, the profiled serve's
+      device busy and idle share and device time by kernel form.
 5. Profile (``torch.profiler``): each kernel's device time per launch at
    the phase-3 shapes (the causal backward's also per kernel), the device
    time of all its wrapper call's device
@@ -275,13 +307,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    in it, and the trained model's block density, head retained ratio and
    analytic compression ratio.
 7. The script's total wall (``total: ... s``), a ``kernels`` JSON line
-   (one entry per C entry point, with the
+   (one entry per C entry point and one per form of ``backend.FORMS``,
+   the causal kernels' non-causal mode, whose launches the entry point's
+   own line then leaves out; with the
    wrapper call's device time as ``call_device_ms`` and the library
    call's as ``library_device_ms``; ``launches``
    summed over the last timed serve of each path, the depth-1 replay of
    each trace, the trained model's serve and the last LM and ViT training
-   steps among them, the LM's and the MoE LMs' continuous depth-1 serves
-   and the LM replay for the causal kernels, whose entries list each of
+   steps among them, the LM's and the MoE LMs' continuous depth-1 serves,
+   the multimodal serves and the LM replay for the causal kernels and
+   their non-causal forms, whose entries list each of
    their
    shapes under ``cases`` and head with the first), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -828,6 +863,111 @@ def check_flash_attention_causal(torch, dev):
             library_fn=head["library_fn"], library_ms=head["library_ms"],
             library_call="F.scaled_dot_product_attention(enable_gqa=True) "
                          "on bf16 (bool causal window mask)",
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cs),
+            cases=cs))
+    return checks
+
+
+# the causal kernels' non-causal mode (bf16, any Nq and Nk, GQA) at the
+# multimodal serves' shapes (label, q shape, k/v shape): Whisper-base's
+# encoder self-attention over 1500 audio frames, its cross-attention at
+# prefill (a 32-token bucket) and decode; Llama-3.2-Vision-90B's gated
+# cross layers at prefill (64 tokens) and decode over 1601 vision tokens
+# (GQA 8:1, Dh 128); Dh 16 at 8 and 33 keys (the reduced configs). The
+# first case of each kernel is its headline.
+MM_NONCAUSAL_CASES = (
+    ("whisper encoder", (4, 1500, 8, 64), (4, 1500, 8, 64)),
+    ("whisper cross prefill", (4, 32, 8, 64), (4, 1500, 8, 64)),
+    ("vision cross prefill", (2, 64, 64, 128), (2, 1601, 8, 128)),
+    ("Dh 16, 8 keys", (3, 5, 4, 16), (3, 8, 1, 16)),
+    ("whisper cross decode", (4, 1, 8, 64), (4, 1500, 8, 64)),
+    ("vision cross decode", (2, 1, 64, 128), (2, 1601, 8, 128)),
+    ("Dh 16, 33 keys", (3, 1, 4, 16), (3, 33, 1, 16)),
+)
+
+
+def check_flash_attention_noncausal(torch, dev):
+    """The causal kernels' non-causal mode through the wrapper at
+    ``MM_NONCAUSAL_CASES`` (``flash_decode_bf16`` for one query row,
+    ``flash_prefill_bf16`` for more, each counted under its non-causal
+    form in ``backend.FORMS``) against the plain version
+    (``attention_noncausal_plain``): o within one bf16 ulp of the largest
+    plain element (both round fp32 sums taken in another order to bf16),
+    two calls bitwise equal, each call one launch of its form. Returns one
+    entry per form, each case's numbers under ``cases``, the first case's
+    as the entry's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import (
+        attention_noncausal_plain, flash_attention)
+    from repro_torch.kernels.flash_attention import ops as FA
+    g = torch.Generator().manual_seed(12)
+    cases = {form: [] for form in backend.FORMS}
+    for label, q_shape, kv_shape in MM_NONCAUSAL_CASES:
+        B, Nq, Hq, Dh = q_shape
+        Nk, KV = kv_shape[1], kv_shape[2]
+        q = torch.randn(q_shape, generator=g).to(dev, torch.bfloat16)
+        k, v = (torch.randn(kv_shape, generator=g).to(dev, torch.bfloat16)
+                for _ in range(2))
+        decode = Nq == 1
+        name = FA.NONCAUSAL_FORMS[decode]
+
+        def kern(q=q, k=k, v=v):
+            return flash_attention(q, k, v)
+
+        def plain(q=q, k=k, v=v):
+            return attention_noncausal_plain(q, k, v)
+
+        before, forms = backend.launches(), backend.form_launches()
+        o, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        require(backend.form_launches()[name] == forms[name] + 2
+                and sum(backend.launches().values())
+                == sum(before.values()) + 2,
+                f"non-causal attention ({label}) did not launch {name} "
+                f"once a call")
+        require(torch.equal(o, again),
+                f"{name} ({label}): two launches on the same inputs differ")
+        require(o.dtype == torch.bfloat16 and o.shape == q.shape
+                and bool(torch.isfinite(o.float()).all()),
+                f"{name} ({label}): output {o.dtype} {tuple(o.shape)} or "
+                f"not finite")
+        errs = [(f"o ({label})", (o.float() - ref.float()).abs().max().item(),
+                 BF16_ULP * ref.float().abs().max().item(),
+                 "one bf16 ulp at max|plain|")]
+        # the work, counted as for the causal forms: every (row, head, key)
+        # pair takes 2 Dh operations for Q.K and 2 Dh for P.V (the prefill
+        # kernel's P.V as two bf16 products, 4 Dh at the bf16 rate; the
+        # decode kernel's in fp32) and ~4 for the softmax; bytes: q and o
+        # once, k and v once
+        pairs = B * Hq * Nq * Nk
+        n_bytes = 2 * 2 * q.numel() + 2 * 2 * k.numel()
+        bnd, by = (bound_ms(n_bytes, (2 * Dh + 4) * pairs, 2 * Dh * pairs)
+                   if decode else
+                   bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs))
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library(qh=qh, kh=kh, vh=vh):
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  enable_gqa=True)
+
+        cases[name].append(dict(
+            label=label, errs=errs, fn=kern, ms=time_ms(kern),
+            plain_ms=time_ms(plain), library_fn=library,
+            library_ms=time_ms(library), bound_ms=bnd, bound_by=by,
+            shapes=f"q[{B},{Nq},{Hq},{Dh}] k,v[{B},{Nk},{KV},{Dh}] bf16 "
+                   f"non-causal"))
+    checks = []
+    for name, cs in cases.items():
+        head = cs[0]
+        checks.append(dict(
+            name=name, source=f"{backend.FORMS[name][:-5]}.cu",
+            errs=[e for c in cs for e in c["errs"]], fn=head["fn"],
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            library_fn=head["library_fn"], library_ms=head["library_ms"],
+            library_call="F.scaled_dot_product_attention(enable_gqa=True) "
+                         "on bf16, no mask",
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cs),
             cases=cs))
@@ -2254,6 +2394,236 @@ def ssm_path(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4f, VLM and audio: full-width Whisper-base and Llama-3.2-Vision-90B
+# through make_prefill / make_decode_step
+# ---------------------------------------------------------------------------
+# (prompt lengths, left-padded to the longest; tokens generated per request)
+MM_WHISPER = ((4, 9, 16, 32), 64)
+MM_VISION = ((16, 32, 48, 64), 32)
+MM_VISION_STAGES = 2  # of Llama-3.2-Vision-90B's 20 (5 layers each), if
+#                       the fp32 draw and its bf16 copy fit; else 1
+MM_GATE = 1.0  # every cross layer's gate (the reference initializes it to 0,
+#                and tanh(0) = 0 would keep the cross-attention off the
+#                logits)
+MM_MARGIN_GIB = 6.0  # device memory kept free beside the VLM's weights
+
+
+def vlm_param_bytes(cfg, n_stages: int) -> int:
+    """fp32 bytes of the VLM's params at ``n_stages`` stages: each stage
+    ``cross_attn_period - 1`` self-attention layers and a gated cross layer
+    (attention and SwiGLU MLP each), plus embedding and unembedding."""
+    D, F = cfg.d_model, cfg.d_ff
+    attn = 2 * D * cfg.num_heads * cfg.head_dim \
+        + 2 * D * cfg.num_kv_heads * cfg.head_dim
+    layer = attn + 3 * D * F + 2 * D
+    return 4 * (n_stages * cfg.cross_attn_period * layer
+                + 2 * cfg.vocab_size * D + D)
+
+
+def mm_batch(torch, dev, cfg, prompts, seed):
+    """The serve's inputs: prompts of ``prompts`` tokens from ``seed``,
+    left-padded to the longest (tokens [B, Lp] and ``valid_start`` [B] on
+    the card), and the family's modality input drawn on the card from the
+    same seed (vision embeddings [B, 1601, 8192] or audio frames [B, 1500,
+    512], fp32)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    B, Lp = len(prompts), max(prompts)
+    toks = np.zeros((B, Lp), np.int64)
+    rows = [rng.integers(0, cfg.vocab_size, n) for n in prompts]
+    for b, r in enumerate(rows):
+        toks[b, Lp - len(r):] = r
+    start = np.array([Lp - n for n in prompts], np.int32)
+    n = (cfg.num_vision_tokens if cfg.family == "vlm"
+         else cfg.num_audio_frames)
+    x = torch.randn((B, n, cfg.vision_d_model or cfg.d_model),
+                    generator=torch.Generator(dev).manual_seed(seed),
+                    device=dev)
+    return rows, torch.from_numpy(toks).to(dev), \
+        torch.from_numpy(start).to(dev), x
+
+
+def mm_serve(torch, cfg, params, toks, start, x, max_new):
+    """Greedy generation of ``max_new`` tokens a row through the reference's
+    serve steps: ``make_prefill`` over the left-padded prompts with the
+    modality input, then ``make_decode_step`` per token (the VLM's vision
+    embeddings at every step; the audio family's encoder output carried in
+    prefill's cache pair). Tokens stay on the card, step to step. Returns
+    [B, max_new] on the card."""
+    from repro_torch.models import steps as ST
+    B, Lp = toks.shape
+    name = "vision_embeds" if cfg.family == "vlm" else "audio_frames"
+    decode = ST.make_decode_step(cfg)
+    with torch.no_grad():
+        tok, caches = ST.make_prefill(cfg)(
+            params, {"tokens": toks, "valid_start": start, name: x},
+            ST.init_caches(cfg, B, Lp + max_new, device=toks.device))
+        out = [tok]
+        for _ in range(max_new - 1):
+            tok, caches = decode(params, out[-1][:, None], caches,
+                                 vision_embeds=x if cfg.family == "vlm"
+                                 else None, valid_start=start)
+            out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def check_mm_oracle(torch, cfg, params, rows, x, gen, dev, tag):
+    """The teacher-forced oracle of ``check_lm_oracle`` with the row's
+    modality input: per request, ``forward_lm`` in train mode (no cache,
+    B=1) over its prompt plus the generated tokens with its own vision
+    embeddings or audio frames; each generated token's logit within
+    ``LM_ORACLE_TOL`` of its position's largest."""
+    from repro_torch.models import model as M
+    name = "vision_embeds" if cfg.family == "vlm" else "audio_frames"
+    worst, exact, n = 0.0, 0, 0
+    for b, prompt in enumerate(rows):
+        g = gen[b].tolist()
+        seq = torch.tensor([*prompt.tolist(), *g[:-1]], device=dev)
+        with torch.no_grad():
+            logits = M.forward_lm(cfg, params, seq[None], **{
+                name: x[b:b + 1]}).logits[0, len(prompt) - 1:]
+        w, e = token_gaps(torch, logits, g, dev)
+        worst, exact, n = max(worst, w), exact + e, n + len(g)
+    require(worst <= LM_ORACLE_TOL,
+            f"{tag}: a generated token's oracle logit lies {worst:.4g} below "
+            f"its position's largest (tolerance {LM_ORACLE_TOL})")
+    print(f"{tag}: teacher-forced oracle: {exact}/{n} tokens the exact "
+          f"argmax ({exact / n:.3f}), largest gap {worst:.4g} (tolerance "
+          f"{LM_ORACLE_TOL})", flush=True)
+
+
+def mm_launches(cfg, max_new):
+    """The launches one serve must make, by entry point and form: the
+    decoder's causal self-attention once per self-attention layer of the
+    prefill and of every decode step, and the non-causal mode once per
+    cross layer of each (and per encoder layer at Whisper's prefill)."""
+    from repro_torch.models import model as M
+    if cfg.family == "vlm":
+        n_stages, n_self = M.vlm_layout(cfg)
+        n_causal, n_cross, n_enc = n_stages * n_self, n_stages, 0
+    else:
+        n_causal = n_cross = cfg.num_layers
+        n_enc = cfg.encoder_layers
+    steps = max_new - 1
+    return {"flash_prefill_bf16": n_causal + n_cross + n_enc,
+            "flash_decode_bf16": (n_causal + n_cross) * steps,
+            "flash_prefill_bf16/noncausal": n_cross + n_enc,
+            "flash_decode_bf16/noncausal": n_cross * steps}
+
+
+def mm_model(torch, dev, cfg, tag, prompts, max_new, seed):
+    """Serve ``cfg`` once as a warm-up, once timed (launch counts set to 0
+    just before and read just after, host waits counted) and once under
+    the profiler; gate the launches (``mm_launches``, nothing else
+    launched) and the tokens (``check_mm_oracle``). Prints tokens/s,
+    launches per serve and the profiled serve's busy and idle share.
+    Returns the timed serve's launch counts, entry points and forms
+    together."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import backend
+    params = lm_serve_params(torch, dev, cfg, tag)
+    if cfg.family == "vlm":
+        for c in params["stages"]["cross"]:
+            c["gate"].fill_(MM_GATE)
+        print(f"{tag}: every cross layer's gate set to {MM_GATE} "
+              f"(tanh {math.tanh(MM_GATE):.4f})", flush=True)
+    rows, toks, start, x = mm_batch(torch, dev, cfg, prompts, seed)
+    B = len(prompts)
+
+    def serve():
+        return mm_serve(torch, cfg, params, toks, start, x, max_new)
+    serve()
+    gen, dt, counts, syncs = timed_window(torch, backend, serve)
+    forms = backend.form_launches()
+    counts.update(forms)
+    want = mm_launches(cfg, max_new)
+    got = {k: v for k, v in counts.items() if v}
+    require(got == want, f"{tag}: one serve launched {got}, not {want}")
+    gen = gen.cpu()
+    require(gen.shape == (B, max_new) and bool(
+        ((gen >= 0) & (gen < cfg.vocab_size)).all()),
+        f"{tag}: generated tokens {tuple(gen.shape)} out of the vocabulary")
+    check_mm_oracle(torch, cfg, params, rows, x, gen, dev, tag)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        dt_prof = time.perf_counter() - t0
+    rows_dev = _device_rows(prof)
+    busy = sum(r[2] for r in rows_dev)
+    part = {}
+    for name, k, us in rows_dev:
+        key = next((f"{e}{'/noncausal' if 'false>' in name else ''}"
+                    for e in ("flash_prefill_bf16", "flash_decode_bf16")
+                    if kernel_symbol(e) in name), "other")
+        part[key] = part.get(key, 0.0) + us
+    print(f"{tag}: {B} requests (prompts {list(prompts)} left-padded to "
+          f"{max(prompts)}) x {max_new} tokens in {dt:.4f} s: "
+          f"{B * max_new / dt:.2f} tokens/s, {dt / max_new * 1e3:.3f} ms "
+          f"per step; launches per serve {json.dumps(got)} "
+          f"({sum(backend.launches().values())} kernel launches); host "
+          f"syncs in the serve {syncs}; profiled serve: wall "
+          f"{dt_prof * 1e6:.0f} us, device busy {busy:.0f} us, idle share "
+          f"{1 - busy / (dt_prof * 1e6):.3f} profiled / "
+          f"{1 - busy / (dt * 1e6):.3f} unprofiled; device us by part "
+          + json.dumps({k: round(v, 1) for k, v in part.items()}),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def multimodal_path(torch, dev):
+    """Phase 4f. Full-width Whisper-base (6 encoder and 6 decoder layers, D
+    512, 8 heads of Dh 64, d_ff 2048, vocab 51,865, biases) serving 4
+    requests with their own 1500 audio frames (prompts of 4, 9, 16 and 32
+    tokens left-padded to 32, 64 tokens generated each), and
+    Llama-3.2-Vision-90B at full width (D 8192, 64 query over 8 KV heads
+    of Dh 128, d_ff 28,672, vocab 128,256, 1601 vision tokens) and cut
+    depth (``MM_VISION_STAGES`` stages of 4 self-attention layers and a
+    gated cross layer, gates ``MM_GATE``) serving 4 requests (prompts of
+    16-64 tokens, 32 generated), each through ``make_prefill`` /
+    ``make_decode_step`` (``mm_model``). Weights from seed 0, drawn on the
+    card in fp32 and served from a bf16 copy. No plain attention runs on
+    the card. Returns {model: launch counts of its timed serve}."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import attention as A
+    t0 = time.perf_counter()
+    counts = {}
+    with count_plain((FA, "attention_causal_plain"),
+                     (FA, "attention_noncausal_plain"),
+                     (FA, "attention_plain"),
+                     (A, "flash_attention_torch")) as plain:
+        counts["whisper"] = mm_model(torch, dev, configs.WHISPER_BASE,
+                                     "whisper", *MM_WHISPER, seed=21)
+        full = configs.LLAMA_3_2_VISION_90B
+        free = torch.cuda.mem_get_info(dev)[0]
+        stages = MM_VISION_STAGES
+        while stages > 1 and 1.5 * vlm_param_bytes(full, stages) > \
+                free - MM_MARGIN_GIB * 2 ** 30:
+            stages -= 1
+        cfg = full.replace(num_layers=stages * full.cross_attn_period)
+        all_stages = full.num_layers // full.cross_attn_period
+        print(f"vision: reduced: {cfg.num_layers} of {full.num_layers} "
+              f"layers ({stages} stage(s) of {full.cross_attn_period - 1} "
+              f"self-attention layers and a gated cross layer) at full "
+              f"width: the fp32 draw and its bf16 copy need "
+              f"{1.5 * vlm_param_bytes(full, stages) / 2 ** 30:.1f} GiB of "
+              f"the {free / 2 ** 30:.1f} GiB free ({MM_VISION_STAGES} "
+              f"stages asked for); all {full.num_layers} layers in fp32 "
+              f"would be {vlm_param_bytes(full, all_stages) / 1e9:.0f} GB, "
+              f"more than the card holds", flush=True)
+        counts["vision"] = mm_model(torch, dev, cfg, "vision", *MM_VISION,
+                                    seed=22)
+    require(not any(plain.values()),
+            f"multimodal: a plain attention ran on the card: {plain}")
+    print(f"multimodal: phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: device time by kernel, busy share, host spans (torch.profiler)
 # ---------------------------------------------------------------------------
 # entry points that run two kernels per launch, each named
@@ -2270,7 +2640,11 @@ TWO_FORMS = ("mamba_scan_f32", "wkv6_f32")
 
 def kernel_symbol(entry_point: str) -> str:
     """The CUDA kernel an entry point launches (``csrc/*.cu``), or the
-    prefix of its kernels' names."""
+    prefix of its kernels' names; for a form of an entry point
+    (``backend.FORMS``), its entry point's kernel (the non-causal mode is
+    that kernel's ``<Dh, false>`` instantiation)."""
+    from repro_torch.kernels import backend
+    entry_point = backend.FORMS.get(entry_point, entry_point)
     if entry_point in KERNELS_PER_LAUNCH or entry_point in TWO_FORMS:
         return f"{entry_point}_"
     return f"{entry_point}_kernel"
@@ -4313,7 +4687,8 @@ def main() -> int:
               check_flash_attention(torch, dev, half=False),
               check_flash_attention(torch, dev, half=True),
               check_token_drop(torch, dev), check_token_package(torch, dev),
-              *check_flash_attention_causal(torch, dev)]
+              *check_flash_attention_causal(torch, dev),
+              *check_flash_attention_noncausal(torch, dev)]
     by_name = {c["name"]: c for c in checks}
     checks.append(check_causal_training(torch, dev,
                                         by_name["flash_prefill_bf16"]))
@@ -4322,8 +4697,9 @@ def main() -> int:
     checks.append(check_token_drop_training(torch, dev,
                                             by_name["token_drop_f32"]))
     checks.extend(check_ssm_scans(torch, dev))
-    require(sorted(c["name"] for c in checks) == sorted(backend.ENTRY_POINTS),
-            "a kernel entry point has no check")
+    require(sorted(c["name"] for c in checks)
+            == sorted((*backend.ENTRY_POINTS, *backend.FORMS)),
+            "a kernel entry point or form has no check")
     for check in checks:
         check["err"] = max(e[1] for e in check["errs"])
         for c in check.get("cases", [check]):
@@ -4362,6 +4738,7 @@ def main() -> int:
     ssm_counts, ssm_syncs = ssm_path(torch, dev)
     path_counts.update(ssm_counts)
     syncs.update(ssm_syncs)
+    path_counts.update(multimodal_path(torch, dev))
     traffic_counts, traffic_syncs = traffic_path(torch, dev, checks)
     path_counts.update(traffic_counts)
     syncs.update(traffic_syncs)
@@ -4373,8 +4750,12 @@ def main() -> int:
         require(not any(n), f"{key}: the engine waited on the card outside "
                             f"its step events: {n}")
 
-    launches = {name: sum(c[name] for c in path_counts.values())
-                for name in backend.ENTRY_POINTS}
+    # a form's launches count under its entry point too: the entry's own
+    # line keeps the launches of its other (causal) mode
+    launches = {name: sum(c.get(name, 0) for c in path_counts.values())
+                for name in (*backend.ENTRY_POINTS, *backend.FORMS)}
+    for form, entry in backend.FORMS.items():
+        launches[entry] -= launches[form]
     print(f"total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": c["name"], "route": "cuda",

@@ -1,5 +1,6 @@
 """The architectures this package serves: the paper's own DeiT-Small,
-the four dense LMs, the two MoE LMs, the hybrid Zamba2-1.2B and the
+the four dense LMs, the two MoE LMs, the VLM Llama-3.2-Vision-90B, the
+audio encoder-decoder Whisper-base, the hybrid Zamba2-1.2B and the
 attention-free RWKV6-1.6B (public-literature configs, sources inline). Each
 configuration is identical to the reference package's."""
 from __future__ import annotations
@@ -134,6 +135,45 @@ GRANITE_MOE_3B_A800M = ModelConfig(
     moe_top_k=8,
     moe_num_shared=0,
     use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),
+)
+
+# --------------------------------------------------------------------------
+# VLM — cross-attn image layers [hf:meta-llama/Llama-3.2-11B-Vision; unverified]
+# --------------------------------------------------------------------------
+LLAMA_3_2_VISION_90B = ModelConfig(
+    name="llama-3.2-vision-90b",
+    family="vlm",
+    num_layers=100,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=28672,
+    vocab_size=128256,
+    cross_attn_period=5,  # a cross-attention layer every 5 decoder layers
+    num_vision_tokens=1601,  # stub frontend: precomputed patch embeddings
+    use_bias=False,
+    pruning=_NO_PRUNE,
+    skip_shapes=("long_500k",),
+)
+
+# --------------------------------------------------------------------------
+# Audio enc-dec — backbone only; conv frontend is a STUB (precomputed frames).
+# [arXiv:2212.04356; unverified]
+# --------------------------------------------------------------------------
+WHISPER_BASE = ModelConfig(
+    name="whisper-base",
+    family="audio",
+    num_layers=6,  # decoder layers
+    encoder_layers=6,
+    d_model=512,
+    num_heads=8,
+    num_kv_heads=8,
+    d_ff=2048,
+    vocab_size=51865,
+    use_bias=True,
+    num_audio_frames=1500,
     pruning=_NO_PRUNE,
     skip_shapes=("long_500k",),
 )

@@ -64,20 +64,32 @@ def lm_params_from_jax(np_tree, device: "str | torch.device" = "cpu"
                        ) -> Dict:
     """A reference LM param tree, whose stacked layers are arrays with a
     leading layer axis, -> this package's layout, every leaf a torch
-    tensor on ``device``: ``layers`` (dense, MoE, SSM) as a list of
+    tensor on ``device``: ``layers`` (dense, MoE, SSM, the audio
+    family's decoder) and ``enc_layers`` (its encoder) as lists of
     per-layer dicts; the hybrid's ``stages`` ([n_stages, period, ...]) as
     a list of stages, each a list of layer dicts, and its ``tail`` as a
-    list; ``shared_attn`` as it is."""
+    list; ``shared_attn`` as it is; the VLM's ``stages`` (``{"self":
+    [n_stages, n_self, ...], "cross": [n_stages, ...]}``) as ``{"self": a
+    list of stages, each a list of layer dicts, "cross": a list of layer
+    dicts}``."""
     tree = dict(np_tree)
-    stacked = {k: tree.pop(k) for k in ("layers", "stages", "tail")
-               if k in tree}
+    stacked = {k: tree.pop(k) for k in ("layers", "stages", "tail",
+                                        "enc_layers") if k in tree}
     out = params_from_jax(tree, device)
-    for key in ("layers", "tail"):
+    for key in ("layers", "tail", "enc_layers"):
         if key in stacked:
             out[key] = _unstack(stacked[key], device)
-    if "stages" in stacked:
-        out["stages"] = [_unstack(_layer(stacked["stages"], i), device)
-                         for i in range(_count(stacked["stages"]))]
+    stages = stacked.get("stages")
+    if stages is None:
+        return out
+
+    def nested(st):
+        return [_unstack(_layer(st, i), device) for i in range(_count(st))]
+    if set(stages) == {"self", "cross"}:
+        out["stages"] = {"self": nested(stages["self"]),
+                         "cross": _unstack(stages["cross"], device)}
+    else:
+        out["stages"] = nested(stages)
     return out
 
 
@@ -111,16 +123,22 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def kv_caches_from_jax(cache, device: "str | torch.device" = "cpu"
-                       ) -> List[KVCache]:
-    """A reference stacked ``KVCache`` (leaves ``[L, B, ...]``) -> one
-    ``KVCache`` per layer on ``device`` (dtypes kept; bf16 arrays pass
-    through fp32, which holds them exactly)."""
-    n = np.asarray(cache.length).shape[0]
-    return [KVCache(*(_tensor(np.asarray(a)[i], device)
-                      for a in (cache.k, cache.v, cache.length,
-                                cache.attn_mass)))
-            for i in range(n)]
+def kv_caches_from_jax(cache, device: "str | torch.device" = "cpu"):
+    """A reference stacked ``KVCache`` -> one ``KVCache`` per layer on
+    ``device`` (dtypes kept; bf16 arrays pass through fp32, which holds
+    them exactly): leaves ``[L, B, ...]``, or the VLM's ``[n_stages,
+    n_self, B, ...]`` taken stage by stage (``steps.init_caches``' order).
+    The audio family's serve caches, the pair ``(stacked KVCache, encoder
+    output)``, convert to the pair ``(list, tensor)``."""
+    if not hasattr(cache, "length"):
+        kv, enc = cache
+        return kv_caches_from_jax(kv, device), _tensor(enc, device)
+    lead = np.asarray(cache.length).ndim - 1  # axes before the batch's
+    leaves = [np.asarray(a) for a in (cache.k, cache.v, cache.length,
+                                      cache.attn_mass)]
+    leaves = [a.reshape((-1,) + a.shape[lead:]) for a in leaves]
+    return [KVCache(*(_tensor(a[i], device) for a in leaves))
+            for i in range(leaves[2].shape[0])]
 
 
 def states_from_jax(caches, device: "str | torch.device" = "cpu") -> List:

@@ -12,7 +12,9 @@ Rules every kernel wrapper of this package follows:
 * Each launch adds one to its C entry point's count in :data:`LAUNCHES`
   (``sbmm_f32`` and ``sbmm_f16w`` apart, though one library holds both),
   at the launch site and nowhere else, so a run can show that the main
-  path went through every kernel it needs.
+  path went through every kernel it needs. A launch in one of the
+  :data:`FORMS` (the causal attention kernels' non-causal mode) also adds
+  one to that form's count in :data:`FORM_LAUNCHES`.
 
 Build: each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface under ``build/repro_torch_kernels/`` at
@@ -32,7 +34,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -48,8 +50,8 @@ _SBMM_QUANT = [P] * 6 + [I] * 5 + [P]
 _FLASH = [P] * 7 + [I] * 4 + [ctypes.c_float, P]
 _FLASH_BWD = [P] * 11 + [I] * 4 + [ctypes.c_longlong] * 2 + \
     [ctypes.c_float, P]
-_FLASH_DECODE = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
-_FLASH_PREFILL = [P] * 8 + [I] * 6 + [ctypes.c_float, P]
+_FLASH_DECODE = [P] * 10 + [I] * 7 + [ctypes.c_float, P]
+_FLASH_PREFILL = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
 _FLASH_PREFILL_BWD = [P] * 11 + [I] * 5 + [ctypes.c_float, P]
 # C entry points and their signatures, by library (csrc/<library>.cu)
 _ENTRY_POINTS = {
@@ -70,9 +72,14 @@ _ENTRY_POINTS = {
 }
 KERNELS = tuple(_ENTRY_POINTS)  # one library each
 ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)
+# forms of an entry point counted apart as well, by name: the entry point
+# each is a mode of
+FORMS = {"flash_prefill_bf16/noncausal": "flash_prefill_bf16",
+         "flash_decode_bf16/noncausal": "flash_decode_bf16"}
 
-# launches per C entry point (see module docstring)
+# launches per C entry point, and per form (see module docstring)
 LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+FORM_LAUNCHES: Dict[str, int] = {name: 0 for name in FORMS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}  # resolved C entry points
@@ -235,16 +242,19 @@ def _error_string(err: int) -> str:
 
 
 def launch(lib_name: str, entry_point: str, device: torch.device,
-           *args) -> None:
+           *args, form: Optional[str] = None) -> None:
     """Call C entry point ``entry_point`` of library ``lib_name`` (built,
     loaded and resolved on first use) with ``args`` and PyTorch's current
     stream on ``device``, read at this call (every entry point takes the
-    stream last), raise if the launch failed, and count it."""
+    stream last), raise if the launch failed, and count it, also under
+    ``form`` (a key of :data:`FORMS` naming a mode of ``entry_point``)."""
     fn = _FNS.get(entry_point)
     if fn is None:
         fn = _FNS[entry_point] = getattr(library(lib_name), entry_point)
     check(entry_point, fn(*args, current_stream(device)))
     LAUNCHES[entry_point] += 1
+    if form is not None:
+        FORM_LAUNCHES[form] += 1
 
 
 def current_stream(device: torch.device) -> int:
@@ -256,10 +266,16 @@ def current_stream(device: torch.device) -> int:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FORM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launches() -> Dict[str, int]:
     """A copy of the launch counts, by C entry point."""
     return dict(LAUNCHES)
+
+
+def form_launches() -> Dict[str, int]:
+    """A copy of the launch counts of the :data:`FORMS`, by form."""
+    return dict(FORM_LAUNCHES)

@@ -1,5 +1,6 @@
-// Causal GQA attention of one decode row per batch row over a per-slot bf16
-// KV cache, split over the key window (flash-decoding).
+// GQA attention of one decode row per batch row over a per-slot bf16 KV
+// cache, split over the key window (flash-decoding): causal (the LMs' self-
+// attention) or not (a decoder's cross-attention).
 //
 // Replaces the Pallas kernel `_flash_kernel` (src/repro/kernels/
 // flash_attention/flash_attention.py:25) in its causal mode with the GQA
@@ -11,6 +12,14 @@
 // q_offset[b] + 1)); query head h reads KV head h / (Hq / KV) in place.
 // Arithmetic fp32, output bf16 rounded to nearest even; probabilities fp32,
 // exactly 0 at masked keys; a row with no valid key writes 0 for both.
+//// Non-causal mode (`causal` 0): the Pallas kernel's `causal=False` form
+// with one query row, where the reference calls `flash_attention_jnp(q, k,
+// v, causal=False)` from `attention_block`'s `kv_override` branch at each
+// decode step (Whisper's decoder, Llama-3.2-Vision's gated cross layers:
+// q [B, 1, Hq, Dh] against the encoder's or the vision tokens' K, V [B, Nk,
+// KV, Dh]). Row b sees keys [kv_start[b], kv_len[b]) (the wrapper passes
+// neither: all Nk keys) and no probabilities are asked for. The mode is a
+// template parameter (causal::Window<false>::hi): nothing else changes.
 //
 // Bound on the H100: the launch must read the valid window of the cache
 // once (B x window x KV x Dh x 2 tensors x 2 bytes: ~5.4 MB at Minitron-4B
@@ -74,7 +83,7 @@ __device__ __forceinline__ float ld_l2(const float* p) {
   return x;
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -95,7 +104,7 @@ flash_decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x;
   const int per = Hq / KV;
-  const causal::Window w(q_offset, kv_len, kv_start, b, S);
+  const causal::Window<CAUSAL> w(q_offset, kv_len, kv_start, b, S);
   const int lo = w.lo, hi = w.hi(0);
   const int first = lo / kSplit;
   const int n_live = hi > lo ? (hi - 1) / kSplit - first + 1 : 0;
@@ -341,7 +350,7 @@ flash_decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* q_offset,
            const void* kv_len, const void* kv_start, void* o, void* probs,
            void* part, void* arrivals, int B, int S, int Hq, int KV,
@@ -350,10 +359,10 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
   const int n_split = (S + kSplit - 1) / kSplit;
   const size_t bytes = DecodeSmem<DH>::bytes(Hq / KV, n_split);
   const cudaError_t err =
-      allow_smem(flash_decode_bf16_kernel<DH>, bytes, &raised);
+      allow_smem(flash_decode_bf16_kernel<DH, CAUSAL>, bytes, &raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(n_split, KV, B);
-  flash_decode_bf16_kernel<DH><<<grid, kThreads, bytes, stream>>>(
+  flash_decode_bf16_kernel<DH, CAUSAL><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(q_offset),
       static_cast<const int*>(kv_len), static_cast<const int*>(kv_start),
@@ -363,35 +372,50 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int launch_mode(bool causal, const void* q, const void* k, const void* v,
+                const void* q_offset, const void* kv_len, const void* kv_start,
+                void* o, void* probs, void* part, void* arrivals, int B, int S,
+                int Hq, int KV, float scale, cudaStream_t stream) {
+  return causal ? launch<DH, true>(q, k, v, q_offset, kv_len, kv_start, o,
+                                   probs, part, arrivals, B, S, Hq, KV, scale,
+                                   stream)
+                : launch<DH, false>(q, k, v, q_offset, kv_len, kv_start, o,
+                                    probs, part, arrivals, B, S, Hq, KV, scale,
+                                    stream);
+}
+
 }  // namespace
 
 // q, o [B, 1, Hq, Dh] and k, v [B, S, KV, Dh], bf16 contiguous, KV dividing
 // Hq, Dh in {16, 64, 128}; q_offset, kv_len, kv_start [B] int32 or null (0, S
-// and 0): row b sees keys [kv_start[b], min(kv_len[b], q_offset[b] + 1))
-// (kv_len past S acts as S); a row with no such key writes 0. probs
-// [B, Hq, S] fp32 or null: the row's probabilities, 0 at masked keys.
-// Scratch: part [B, KV, n_split, Hq / KV, Dh + 2] fp32 with n_split =
-// ceil(S / 64) (any contents), arrivals [B * KV] int32, zero before the
-// launch and zero again after it.
+// and 0): with causal != 0 row b sees keys [kv_start[b], min(kv_len[b],
+// q_offset[b] + 1)), with causal == 0 keys [kv_start[b], kv_len[b]) (kv_len
+// past S acts as S); a row with no such key writes 0. probs [B, Hq, S] fp32
+// or null: the row's probabilities, 0 at masked keys. Scratch: part [B, KV,
+// n_split, Hq / KV, Dh + 2] fp32 with n_split = ceil(S / 64) (any
+// contents), arrivals [B * KV] int32, zero before the launch and zero again
+// after it.
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* q_offset, const void* kv_len,
                                  const void* kv_start, void* o, void* probs,
                                  void* part, void* arrivals, int B, int S,
                                  int Hq, int KV, int Dh, int n_split,
-                                 float scale, void* stream) {
+                                 int causal, float scale, void* stream) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || Hq % KV != 0 || KV > 65535 || B > 65535 ||
       n_split != (S + kSplit - 1) / kSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
   if (Dh == 16)
-    return launch<16>(q, k, v, q_offset, kv_len, kv_start, o, probs, part,
-                      arrivals, B, S, Hq, KV, scale, st);
+    return launch_mode<16>(c, q, k, v, q_offset, kv_len, kv_start, o, probs,
+                           part, arrivals, B, S, Hq, KV, scale, st);
   if (Dh == 64)
-    return launch<64>(q, k, v, q_offset, kv_len, kv_start, o, probs, part,
-                      arrivals, B, S, Hq, KV, scale, st);
+    return launch_mode<64>(c, q, k, v, q_offset, kv_len, kv_start, o, probs,
+                           part, arrivals, B, S, Hq, KV, scale, st);
   if (Dh == 128)
-    return launch<128>(q, k, v, q_offset, kv_len, kv_start, o, probs, part,
-                       arrivals, B, S, Hq, KV, scale, st);
+    return launch_mode<128>(c, q, k, v, q_offset, kv_len, kv_start, o, probs,
+                            part, arrivals, B, S, Hq, KV, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,7 @@
-// Causal GQA attention of a prompt (Nq > 1 query rows per batch row) over a
-// per-slot bf16 KV cache, with Q.K^T and P.V on the tensor cores.
+// GQA attention of a prompt (Nq > 1 query rows per batch row) over a
+// per-slot bf16 KV cache, with Q.K^T and P.V on the tensor cores: causal
+// (the LMs' self-attention) or not (cross-attention, an encoder's
+// self-attention).
 //
 // Replaces the Pallas kernel `_flash_kernel` (src/repro/kernels/
 // flash_attention/flash_attention.py:25) in its causal mode with the GQA
@@ -16,6 +18,16 @@
 // Nq], which the backward (flash_prefill_bwd.cu) recomputes P from; a row
 // with no valid key writes -inf there. With a null lse the kernel stores
 // nothing more and its output is the serve's, bit for bit.
+//// Non-causal mode (`causal` 0): the Pallas kernel's `causal=False` form,
+// which the reference reaches through `flash_attention_jnp(q, k, v,
+// causal=False)` on bf16 activations, with Nq and Nk free and the GQA
+// repeat: the decoders' cross-attention (`kv_override` in
+// `attention_block`; Whisper's decoder, Llama-3.2-Vision's gated cross
+// layers) and Whisper's encoder self-attention. Every query row sees keys
+// [kv_start[b], kv_len[b]); the wrapper passes neither, so every row sees
+// all S keys. The mode is a template parameter: only the window's end
+// changes (causal::Window<false>::hi), so each row tile walks every key
+// tile, and only the last tile, where S is not a multiple of 64, is masked.
 //
 // Bound on the H100: a per-slot prefill of a 512-token bucket at
 // Minitron-4B (24 query over 8 KV heads, Dh 128) has ~3.0e6 (row, head,
@@ -78,7 +90,7 @@ struct PrefillSmem {
   static constexpr size_t kBytes = sizeof(bf16) * (kBr * kLd + 4 * kTile);
 };
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -95,14 +107,14 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* kvs = qs + kBr * kLd;  // stage s: K at 2 s tiles, V at 2 s + 1
 
-  // the last row tiles see the most keys: launch them first, for every
-  // (KV head, batch row) before any lighter tile
+  // the last row tiles see the most keys (causal mode): launch them first,
+  // for every (KV head, batch row) before any lighter tile
   const int g = blockIdx.x, b = blockIdx.y, rt = gridDim.z - 1 - blockIdx.z;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int per = Hq / KV;
   const int n_rows = Nq * per;
   const int r0 = rt * kBr;
-  const causal::Window w(q_offset, kv_len, kv_start, b, S);
+  const causal::Window<CAUSAL> w(q_offset, kv_len, kv_start, b, S);
   const int lo = w.lo;
   // keys every row of the block sees from lo on, and keys any row sees
   const int all_hi = w.hi(r0 / per);
@@ -282,17 +294,17 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* q_offset,
            const void* kv_len, const void* kv_start, void* o, void* lse, int B,
            int Nq, int S, int Hq, int KV, float scale, cudaStream_t stream) {
   static size_t raised = 0;
   constexpr size_t kBytes = PrefillSmem<DH>::kBytes;
   const cudaError_t err =
-      allow_smem(flash_prefill_bf16_kernel<DH>, kBytes, &raised);
+      allow_smem(flash_prefill_bf16_kernel<DH, CAUSAL>, kBytes, &raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(KV, B, (Nq * (Hq / KV) + kBr - 1) / kBr);
-  flash_prefill_bf16_kernel<DH><<<grid, kThreads, kBytes, stream>>>(
+  flash_prefill_bf16_kernel<DH, CAUSAL><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(q_offset),
       static_cast<const int*>(kv_len), static_cast<const int*>(kv_start),
@@ -300,32 +312,45 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int launch_mode(bool causal, const void* q, const void* k, const void* v,
+                const void* q_offset, const void* kv_len, const void* kv_start,
+                void* o, void* lse, int B, int Nq, int S, int Hq, int KV,
+                float scale, cudaStream_t stream) {
+  return causal ? launch<DH, true>(q, k, v, q_offset, kv_len, kv_start, o, lse,
+                                   B, Nq, S, Hq, KV, scale, stream)
+                : launch<DH, false>(q, k, v, q_offset, kv_len, kv_start, o,
+                                    lse, B, Nq, S, Hq, KV, scale, stream);
+}
+
 }  // namespace
 
 // q, o [B, Nq, Hq, Dh] and k, v [B, S, KV, Dh], bf16 contiguous, KV
 // dividing Hq, Dh in {16, 64, 128}; q_offset, kv_len, kv_start [B] int32 or
-// null (0, S and 0): query row i of batch row b sees keys [kv_start[b],
-// min(kv_len[b], q_offset[b] + i + 1)) (kv_len past S acts as S); a row
-// with no such key writes 0. lse [B, Hq, Nq] fp32 or null: each row's
-// natural log-sum-exp of its scaled scores (-inf for a row with no key).
+// null (0, S and 0): with causal != 0, query row i of batch row b sees keys
+// [kv_start[b], min(kv_len[b], q_offset[b] + i + 1)), with causal == 0 keys
+// [kv_start[b], kv_len[b]) (kv_len past S acts as S); a row with no such
+// key writes 0. lse [B, Hq, Nq] fp32 or null: each row's natural
+// log-sum-exp of its scaled scores (-inf for a row with no key).
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* q_offset, const void* kv_len,
                                   const void* kv_start, void* o, void* lse,
                                   int B, int Nq, int S, int Hq, int KV, int Dh,
-                                  float scale, void* stream) {
+                                  int causal, float scale, void* stream) {
   if (B <= 0 || Nq <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || Hq % KV != 0 || B > 65535 ||
       static_cast<long long>(Nq) * (Hq / KV) > 65535LL * kBr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
   if (Dh == 16)
-    return launch<16>(q, k, v, q_offset, kv_len, kv_start, o, lse, B, Nq, S,
-                      Hq, KV, scale, st);
+    return launch_mode<16>(c, q, k, v, q_offset, kv_len, kv_start, o, lse, B,
+                           Nq, S, Hq, KV, scale, st);
   if (Dh == 64)
-    return launch<64>(q, k, v, q_offset, kv_len, kv_start, o, lse, B, Nq, S,
-                      Hq, KV, scale, st);
+    return launch_mode<64>(c, q, k, v, q_offset, kv_len, kv_start, o, lse, B,
+                           Nq, S, Hq, KV, scale, st);
   if (Dh == 128)
-    return launch<128>(q, k, v, q_offset, kv_len, kv_start, o, lse, B, Nq, S,
-                       Hq, KV, scale, st);
+    return launch_mode<128>(c, q, k, v, q_offset, kv_len, kv_start, o, lse, B,
+                            Nq, S, Hq, KV, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

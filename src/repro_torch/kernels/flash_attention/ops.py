@@ -22,6 +22,13 @@ and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
   (split over the key window, fp32 on CUDA cores, the row's
   probabilities as a by-product) and ``flash_prefill_bf16`` for more
   (Q.K^T and P.V on the bf16 tensor cores, fp32 accumulation).
+* non-causal on bf16 operands, q [B, Nq, Hq, Dh] against k, v [B, Nk, KV,
+  Dh] with any Nq and Nk (the LMs' cross-attention, Whisper's encoder):
+  the same two entry points in their non-causal mode (``causal`` 0), picked
+  by ``Nq`` alike, every query row seeing all Nk keys, no probabilities.
+  Their launches also count under the forms ``flash_prefill_bf16/noncausal``
+  and ``flash_decode_bf16/noncausal`` (``backend.FORMS``).
+  :func:`attention_noncausal_plain` is their plain version.
 * training: :class:`CausalAttention`, the causal form over a whole
   sequence as an autograd function, taken when a CUDA input requires
   grad: ``flash_prefill_bf16`` also writing each row's log-sum-exp, and
@@ -62,6 +69,10 @@ HEAD_DIMS = (16, 64)  # head widths the non-causal kernel is instantiated
 CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 64, 128),
                     "flash_prefill_bf16": (16, 64, 128),
                     "flash_prefill_bwd_bf16": (16, 64)}
+# the form each causal kernel's non-causal mode counts under
+# (``backend.FORMS``), by whether Nq == 1
+NONCAUSAL_FORMS = {decode: f"{entry}/noncausal"
+                   for decode, (_, entry) in CAUSAL_KERNELS.items()}
 BWD_KERNEL = ("flash_prefill_bwd", "flash_prefill_bwd_bf16")
 NONCAUSAL_BWD_KERNEL = ("flash_attention_bwd", "flash_attention_bwd_f32")
 NONCAUSAL_BWD_KEYS = 64  # keys per block of its main kernel (kKT)
@@ -134,6 +145,15 @@ def attention_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    kv_start=kv_start)
              if collect_probs else None)
     return o, probs
+
+
+def attention_noncausal_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the causal kernels' non-causal mode: every query row
+    of q [B, Nq, Hq, Dh] against all keys of k, v [B, Nk, KV, Dh] (query
+    head h reads KV head h // (Hq / KV)). Returns [B, Nq, Hq, Dh] in q's
+    dtype."""
+    return A.flash_attention_torch(q, k, v)
 
 
 def attention_causal_lse_plain(q: torch.Tensor, k: torch.Tensor,
@@ -311,12 +331,16 @@ def _check_causal(entry: str, Dh: int, *tensors: torch.Tensor) -> None:
 
 
 def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool,
-                 with_lse: bool = False):
+                 with_lse: bool = False, causal: bool = True):
+    """``(o, probs)``, or ``(o, lse)`` with ``with_lse`` (prefill only), by
+    the decode kernel for one query row and the prefill kernel for more;
+    with ``causal`` False their non-causal mode, counted under its form."""
     B, Nq, Hq, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     decode = Nq == 1
     lib, entry = CAUSAL_KERNELS[decode]
     _check_causal(entry, Dh, q, k, v)
+    mode = {} if causal else {"form": NONCAUSAL_FORMS[decode]}
     if collect_probs and not decode:
         raise ValueError(f"causal attention writes the probabilities of a "
                          f"decode row only (Nq == 1), got Nq={Nq}")
@@ -338,12 +362,13 @@ def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool,
                            dtype=torch.float32, device=q.device)
         backend.launch(lib, entry, q.device, *args, ptr(probs),
                        part.data_ptr(), _arrivals(q.device, B * KV).data_ptr(),
-                       B, S, Hq, KV, Dh, n_split, Dh ** -0.5)
+                       B, S, Hq, KV, Dh, n_split, int(causal), Dh ** -0.5,
+                       **mode)
     else:
         lse = (torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
                if with_lse else None)
         backend.launch(lib, entry, q.device, *args, ptr(lse), B, Nq, S, Hq,
-                       KV, Dh, Dh ** -0.5)
+                       KV, Dh, int(causal), Dh ** -0.5, **mode)
         if with_lse:
             return o, lse
     return o, probs
@@ -432,6 +457,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with no valid key comes out finite: the plain version averages V
     there, as the reference does, and the kernel gives 0.
 
+    Non-causal on bf16 operands (the LMs' cross-attention and Whisper's
+    encoder): q [B, Nq, Hq, Dh] against k, v [B, Nk, KV, Dh], any Nq and
+    Nk, every query row seeing all Nk keys: on the card the causal
+    kernels' non-causal mode (the decode kernel for ``Nq == 1``, the
+    prefill kernel otherwise), on the CPU
+    :func:`attention_noncausal_plain`. It takes no ``kv_len``, no
+    scores and, on the card, no gradient (the non-causal bf16 backward is
+    later work, with training the VLM and audio families). fp32 and fp16
+    calls whose q, k and v differ in shape run the same plain version on
+    the CPU and raise on the card.
+
     Returns ``o`` in q's dtype, or ``(o, scores [B, Nk])`` with
     ``collect_scores`` — fp32, exactly 0 at masked keys."""
     if causal:
@@ -464,11 +500,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (o, probs.mean(dim=1)) if collect_scores else o
     if q_offset is not None or kv_start is not None:
         raise ValueError("q_offset and kv_start apply to causal attention")
+    if q.dtype == torch.bfloat16 or k.shape != q.shape or v.shape != q.shape:
+        return _grouped_noncausal(q, k, v, kv_len, collect_scores)
     B, N, H, Dh = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one [B, N, H, Dh] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
     if not backend.on_card(q, k, v):
         o, probs = attention_plain(q, k, v, kv_len)
     else:
@@ -497,3 +531,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not collect_scores:
         return o
     return o, probs.mean(dim=1)
+
+
+def _grouped_noncausal(q, k, v, kv_len, collect_scores: bool) -> torch.Tensor:
+    """The non-causal form of any Nq and Nk with the GQA repeat
+    (:func:`flash_attention`): the causal kernels' non-causal mode for bf16
+    CUDA tensors, :func:`attention_noncausal_plain` for CPU tensors."""
+    if q.shape[0] != k.shape[0] or k.shape != v.shape \
+            or q.shape[3] != k.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"non-causal attention takes q [B, Nq, Hq, Dh] and "
+                         f"k, v [B, Nk, KV, Dh] with KV dividing Hq, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if kv_len is not None or collect_scores:
+        raise ValueError("non-causal attention over Nk != Nq keys, with the "
+                         "GQA repeat or on bf16 takes no kv_len and writes "
+                         "no scores")
+    if not backend.on_card(q, k, v):
+        return attention_noncausal_plain(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"non-causal attention with Nq != Nk or the GQA "
+                        f"repeat runs on the card on bf16 operands (the "
+                        f"causal kernels' non-causal mode), got {q.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "non-causal bf16 attention has no gradient on the card yet: its "
+            "backward comes with training the VLM and audio families "
+            "(ROADMAP queue A)")
+    return _causal_cuda(q, k, v, None, None, None, False, causal=False)[0]

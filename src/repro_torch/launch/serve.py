@@ -11,7 +11,10 @@
 ``--no-reduced`` serves it at full width and depth. Every LM family the
 package runs serves here: dense, MoE, the hybrid ``zamba2-1.2b`` and the
 SSM ``rwkv6-1.6b`` (these two always through the whole-batch re-prefill:
-recurrent state cannot be prefilled slot by slot). ``--device`` picks
+recurrent state cannot be prefilled slot by slot). The VLM and audio
+families are refused: their prefill needs vision embeddings or audio
+frames, which the engine, like the reference's, does not feed (serve them
+through ``models/steps.make_prefill`` / ``make_decode_step``). ``--device`` picks
 the card (``cuda``, the default) or the CPU, where the kernels' plain
 PyTorch versions run. Weights are random, drawn from ``seed`` (0 on the
 command line) with a ``torch.Generator`` on the device. Elastic
@@ -35,6 +38,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import model as M
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving import EngineConfig, Request, ServeEngine
+from repro_torch.serving.runner import require_tokens_only
 
 
 def serve(arch: str, num_requests: int = 8, prompt_len: int = 16,
@@ -44,6 +48,7 @@ def serve(arch: str, num_requests: int = 8, prompt_len: int = 16,
           pipeline_depth: int = 1, trace_out: str = "",
           metrics_out: str = "", device: str = "cuda"):
     cfg = get_config(arch)
+    require_tokens_only(cfg)
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)

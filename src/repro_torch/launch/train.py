@@ -81,9 +81,10 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
     if cfg.family not in ("vit", "dense", "moe"):
         raise NotImplementedError(
             f"training family {cfg.family!r}: this package trains the ViT, "
-            f"the dense LMs and the MoE LMs (the other families: ROADMAP "
-            f"queue A, item 8; the SSM and hybrid families need the scans' "
-            f"backward)")
+            f"the dense LMs and the MoE LMs and serves the other families "
+            f"(training them is ROADMAP queue A, item 8: the SSM and "
+            f"hybrid families need the scans' backward, the VLM and audio "
+            f"families a non-causal bf16 attention backward)")
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)

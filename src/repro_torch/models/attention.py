@@ -1,9 +1,11 @@
 """Attention, plain PyTorch — the port of the reference package's
-``models/attention.py`` apart from cross-attention: the ViT's non-causal
-attention with per-row ``kv_len``, the LMs' causal grouped-query attention
-with per-row ``q_offset``, ``kv_len`` and ``kv_start``, the per-slot KV
-cache, and ``attention_block`` (projections, qk-norm, RoPE, cache write,
-attention, and the decode ``attn_mass`` update).
+``models/attention.py``: the ViT's non-causal attention with per-row
+``kv_len``, the LMs' causal grouped-query attention with per-row
+``q_offset``, ``kv_len`` and ``kv_start``, non-causal grouped-query
+attention over any number of keys (cross-attention, Whisper's encoder),
+the per-slot KV cache, and ``attention_block`` (projections, qk-norm,
+RoPE, cache write, attention, and the decode ``attn_mass`` update; or a
+cross-attention call over keys and values projected elsewhere).
 
 :func:`flash_attention_torch` and :func:`attention_probs_row` are the
 references the ``flash_attention`` kernels are held against
@@ -165,8 +167,12 @@ def _fill_keyless_rows(out: torch.Tensor, v: torch.Tensor,
 def attention_block(x: torch.Tensor, p, cfg, *,
                     cache: Optional[KVCache] = None,
                     valid_start: Optional[torch.Tensor] = None,
+                    causal: bool = True, use_rope: bool = True,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """One causal self-attention sublayer. Returns ``(out, new_cache)``.
+    """One attention sublayer: causal self-attention by default. Returns
+    ``(out, new_cache)``.
 
     * train / no cache: ``cache is None``; RoPE positions 0..N-1.
     * prefill / decode: each row writes its new K/V at its own
@@ -183,11 +189,31 @@ def attention_block(x: torch.Tensor, p, cfg, *,
       kernel's by-product, accumulate into ``attn_mass``.
     * rows without a key (left padding) hold the mean of V, as in the
       reference (:func:`_fill_keyless_rows`).
+    * ``causal=False`` without a cache (Whisper's encoder): every position
+      sees every other; RoPE still applies unless ``use_rope`` is False,
+      as in the reference, where ``use_rope`` defaults to True.
+    * cross-attention: ``kv_override=(k, v)``, keys and values [B, Nk, KV,
+      Dh] projected elsewhere (from the encoder's output or the vision
+      tokens). Only q is projected from x (with ``bq``); there is no
+      qk-norm on k, no RoPE, no cache and no mask: every query row,
+      left-pad rows too, sees all Nk keys.
     """
     B, N, D = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     q = linear(x, p["wq"], p.get("bq")).reshape(B, N, H, Dh)
+    if kv_override is not None:
+        if cache is not None or valid_start is not None:
+            raise ValueError("cross-attention (kv_override) takes no cache "
+                             "and no valid_start")
+        k, v = kv_override
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        out = FA.flash_attention(q, k, v)
+        return linear(out.reshape(B, N, H * Dh), p["wo"], p.get("bo")), None
+    if not causal and (cache is not None or valid_start is not None):
+        raise ValueError("non-causal self-attention (an encoder) takes no "
+                         "cache and no valid_start")
     k = linear(x, p["wk"], p.get("bk")).reshape(B, N, KV, Dh)
     v = linear(x, p["wv"], p.get("bv")).reshape(B, N, KV, Dh)
 
@@ -202,8 +228,9 @@ def attention_block(x: torch.Tensor, p, cfg, *,
         base = (slot_off - valid_start) if valid_start is not None \
             else slot_off  # rope counts real tokens, not buffer slots
         positions = base[:, None] + positions
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -223,6 +250,8 @@ def attention_block(x: torch.Tensor, p, cfg, *,
             if valid_start is not None:
                 out = _fill_keyless_rows(out, v_all, slot_off, valid_start)
         new_cache = KVCache(k_all, v_all, new_len.to(torch.int32), mass)
+    elif not causal:
+        out = FA.flash_attention(q, k, v)
     else:
         out = FA.flash_attention(q, k, v, causal=True, kv_start=valid_start)
         if valid_start is not None and N > 1:

@@ -1,8 +1,9 @@
-"""The models: the ViT (the paper's model) and the dense, MoE, hybrid
-(Mamba2 with a shared attention block) and SSM (RWKV6) LM families —
-params, patchify, the ViT's dense oracle forward, the LM forward and the
-LM's training loss; the port of the reference package's ``models/model.py``
-for those families.
+"""The models: the ViT (the paper's model) and the dense, MoE, VLM (gated
+cross-attention layers over vision tokens), audio (Whisper's
+encoder-decoder), hybrid (Mamba2 with a shared attention block) and SSM
+(RWKV6) LM families — params, patchify, the ViT's dense oracle forward, the
+LM forward and the LM's training loss; the port of the reference package's
+``models/model.py``.
 
 Params are a nested dict with the reference's layout, except that
 ``layers`` is a list of per-layer dicts where the reference stacks them
@@ -19,9 +20,11 @@ kernel pair with its backward) and, in train mode, checkpoints each layer
 by ``cfg.remat_policy`` as the reference's ``_remat`` does. The MoE
 family runs the same attention layers with ``models/moe.moe_ffn`` in place
 of the SwiGLU MLP, and each layer's load-balancing loss is carried out of
-its checkpoint into the training loss. The hybrid and SSM families run
-``models/ssm``'s blocks, whose scans are the ``ssm_scan`` kernels on the
-card.
+its checkpoint into the training loss. The VLM and audio families'
+cross-attention and Whisper's encoder run the non-causal form of the
+``flash_attention`` wrapper, the causal kernels' non-causal mode on the
+card. The hybrid and SSM families run ``models/ssm``'s blocks, whose scans
+are the ``ssm_scan`` kernels on the card.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.tree import tree_map
 
 # LM families ``forward_lm`` runs
-LM_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+LM_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
 
 class Output(NamedTuple):
@@ -55,12 +58,15 @@ class Output(NamedTuple):
 
 
 def _attn_params(g: torch.Generator, cfg: ModelConfig,
-                 dtype=torch.float32) -> Dict:
+                 dtype=torch.float32, kv_from: Optional[int] = None) -> Dict:
+    """q, k, v and output projections; ``kv_from``: the width k and v are
+    projected from (a cross-attention layer's vision tokens), else D."""
     H, KV, Dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     dev = g.device
+    d_kv = kv_from or D
     p = {"wq": L.dense_init(g, D, H * Dh, dtype),
-         "wk": L.dense_init(g, D, KV * Dh, dtype),
-         "wv": L.dense_init(g, D, KV * Dh, dtype),
+         "wk": L.dense_init(g, d_kv, KV * Dh, dtype),
+         "wv": L.dense_init(g, d_kv, KV * Dh, dtype),
          "wo": L.dense_init(g, H * Dh, D, dtype)}
     zeros = lambda n: torch.zeros(n, dtype=dtype, device=dev)
     if cfg.use_bias:
@@ -106,8 +112,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.family != "vit":
         raise NotImplementedError(
             f"family {cfg.family!r}: this package runs the ViT and the "
-            f"{', '.join(LM_FAMILIES)} LMs (VLM and audio: ROADMAP queue A, "
-            f"item 8)")
+            f"{', '.join(LM_FAMILIES)} LMs")
     dev = resolve_device(device)
     g = generator
     D = cfg.d_model
@@ -138,7 +143,13 @@ def _init_lm(cfg: ModelConfig, g: torch.Generator,
     (each ``attn_layer_period`` Mamba2 layers ``{"ln", "mamba"}``), one
     ``shared_attn`` block (a dense layer) applied after every stage, and a
     ``tail`` of the remaining Mamba2 layers. SSM: ``layers`` of RWKV6
-    blocks."""
+    blocks. VLM: ``stages`` = ``{"self": [n_stages][n_self] dense layers,
+    "cross": [n_stages] gated cross layers}`` (``vlm_layout``), a cross
+    layer's k and v projected from the vision tokens' width and its
+    ``gate`` a 0-d tensor at 0, as the reference initializes it. Audio:
+    ``enc_layers`` (encoder layers with a GELU MLP), ``enc_pos`` [frames,
+    D], ``enc_ln_f``, and decoder ``layers`` of [RMSNorm, self-attention,
+    RMSNorm ``ln_x``, cross-attention ``xattn``, RMSNorm, GELU MLP]."""
     dtype = getattr(torch, cfg.param_dtype)
     D = cfg.d_model
     ones = lambda: torch.ones(D, dtype=dtype, device=g.device)
@@ -160,7 +171,35 @@ def _init_lm(cfg: ModelConfig, g: torch.Generator,
 
     def mamba():
         return {"ln": ones(), "mamba": SSM.init_mamba_params(g, cfg, dtype)}
-    if cfg.family == "hybrid":
+
+    def cross_layer():
+        return {"ln1": ones(), "ln2": ones(),
+                "attn": _attn_params(g, cfg, dtype,
+                                     kv_from=cfg.vision_d_model or D),
+                "mlp": _mlp_params(g, cfg, glu=True, dtype=dtype),
+                "gate": torch.zeros((), dtype=dtype, device=g.device)}
+
+    def audio_layer(decoder: bool):
+        lp = {"ln1": ones(), "ln2": ones(),
+              "attn": _attn_params(g, cfg, dtype)}
+        if decoder:
+            lp.update(ln_x=ones(), xattn=_attn_params(g, cfg, dtype))
+        lp["mlp"] = _mlp_params(g, cfg, glu=False, dtype=dtype)
+        return lp
+    if cfg.family == "vlm":
+        n_stages, n_self = vlm_layout(cfg)
+        p["stages"] = {"self": [[layer() for _ in range(n_self)]
+                                for _ in range(n_stages)],
+                       "cross": [cross_layer() for _ in range(n_stages)]}
+    elif cfg.family == "audio":
+        p["enc_layers"] = [audio_layer(False)
+                           for _ in range(cfg.encoder_layers)]
+        p["layers"] = [audio_layer(True) for _ in range(cfg.num_layers)]
+        p["enc_ln_f"] = ones()
+        p["enc_pos"] = 0.02 * torch.randn(
+            (cfg.num_audio_frames, D), generator=g, dtype=dtype,
+            device=g.device)
+    elif cfg.family == "hybrid":
         period, n_stages, rem = hybrid_layout(cfg)
         p["stages"] = [[mamba() for _ in range(period)]
                        for _ in range(n_stages)]
@@ -182,11 +221,24 @@ def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
     return period, n_stages, cfg.num_layers - n_stages * period
 
 
+def vlm_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(stages, self-attention layers per stage) of a VLM config: each
+    stage is ``cross_attn_period - 1`` dense layers and one gated cross
+    layer; layers past the last whole stage are not built, as in the
+    reference."""
+    period = cfg.cross_attn_period
+    return cfg.num_layers // period, period - 1
+
+
 def num_caches(cfg: ModelConfig) -> int:
-    """Entries of the serve-cache list of ``cfg``: one per layer, and for
-    the hybrid one more per stage (its shared block's ``KVCache``)."""
+    """Entries of the serve-cache list of ``cfg``: one per layer, for the
+    hybrid one more per stage (its shared block's ``KVCache``), for the
+    VLM one per self-attention layer (its cross layers keep none)."""
     if cfg.family == "hybrid":
         return cfg.num_layers + hybrid_layout(cfg)[1]
+    if cfg.family == "vlm":
+        n_stages, n_self = vlm_layout(cfg)
+        return n_stages * n_self
     return cfg.num_layers
 
 
@@ -284,16 +336,92 @@ def _moe_layer(cfg: ModelConfig, x: torch.Tensor, lp: Dict, cache,
     return x + y, nc, aux
 
 
+def _cross_layer(cfg: ModelConfig, x: torch.Tensor, lp: Dict,
+                 vis: torch.Tensor) -> torch.Tensor:
+    """The VLM's gated cross-attention layer (the reference's
+    ``_cross_layer_fwd``): k and v projected from the vision tokens ``vis``
+    [B, Nv, Dv] without bias, attention with no mask and no RoPE, added as
+    ``tanh(gate) * h``; then a SwiGLU MLP."""
+    eps = cfg.norm_eps
+    k, v = _cross_kv(cfg, vis, lp["attn"])
+    h, _ = A.attention_block(L.rms_norm(x, lp["ln1"], eps), lp["attn"], cfg,
+                             causal=False, use_rope=False, kv_override=(k, v))
+    x = x + torch.tanh(lp["gate"]).to(x.dtype) * h
+    return x + L.glu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"])
+
+
+def _cross_kv(cfg: ModelConfig, src: torch.Tensor,
+              ap: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values [B, Nk, KV, Dh] projected from
+    ``src`` [B, Nk, Dk] by ``wk`` and ``wv`` alone: the reference adds no
+    ``bk``/``bv`` here, even where the params hold them."""
+    B, Nk, _ = src.shape
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    return (L.linear(src, ap["wk"]).reshape(B, Nk, KV, Dh),
+            L.linear(src, ap["wv"]).reshape(B, Nk, KV, Dh))
+
+
+def _encoder_layer(cfg: ModelConfig, x: torch.Tensor,
+                   lp: Dict) -> torch.Tensor:
+    """One layer of Whisper's encoder: non-causal self-attention (RoPE
+    applied, as in the reference) and a GELU MLP, each residual."""
+    eps = cfg.norm_eps
+    h, _ = A.attention_block(L.rms_norm(x, lp["ln1"], eps), lp["attn"], cfg,
+                             causal=False)
+    x = x + h
+    return x + L.gelu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"])
+
+
+def _decoder_layer(cfg: ModelConfig, x: torch.Tensor, lp: Dict,
+                   enc: torch.Tensor, cache,
+                   valid_start) -> Tuple[torch.Tensor, Any]:
+    """One layer of Whisper's decoder: causal self-attention, then
+    cross-attention over the encoder's output ``enc`` (its k and v
+    projected again on every call, as the reference does), then a GELU
+    MLP, each residual."""
+    eps = cfg.norm_eps
+    h, nc = A.attention_block(L.rms_norm(x, lp["ln1"], eps), lp["attn"], cfg,
+                              cache=cache, valid_start=valid_start)
+    x = x + h
+    k, v = _cross_kv(cfg, enc, lp["xattn"])
+    h, _ = A.attention_block(L.rms_norm(x, lp["ln_x"], eps), lp["xattn"],
+                             cfg, causal=False, use_rope=False,
+                             kv_override=(k, v))
+    x = x + h
+    return x + L.gelu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"]), nc
+
+
+def encode_audio(cfg: ModelConfig, params: Dict,
+                 audio_frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over ``audio_frames`` [B, F, D] (the stub
+    frontend's output): plus ``enc_pos`` (tiled when F exceeds the table,
+    as the reference does for longer stub inputs), the encoder layers, then
+    ``enc_ln_f``. Returns [B, F, D] in the activation dtype."""
+    adt = getattr(torch, cfg.dtype)
+    pos_tab = params["enc_pos"]
+    nf = audio_frames.shape[1]
+    if nf > pos_tab.shape[0]:
+        pos_tab = pos_tab.repeat(-(-nf // pos_tab.shape[0]), 1)
+    enc = audio_frames.to(adt) + pos_tab[None, :nf].to(adt)
+    for lp in params["enc_layers"]:
+        enc = _encoder_layer(cfg, enc, lp)
+    return L.rms_norm(enc, params["enc_ln_f"], cfg.norm_eps)
+
+
 def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                mode: str = "train", caches: Optional[List] = None,
                logits_for: str = "all",
-               valid_start: Optional[torch.Tensor] = None) -> Output:
-    """LM forward (dense, MoE, hybrid or SSM): ``tokens`` [B, N] int.
+               valid_start: Optional[torch.Tensor] = None,
+               vision_embeds: Optional[torch.Tensor] = None,
+               audio_frames: Optional[torch.Tensor] = None) -> Output:
+    """LM forward (dense, MoE, VLM, audio, hybrid or SSM): ``tokens``
+    [B, N] int.
 
     ``mode``: "train" (full sequence, no cache), "prefill" (full sequence
     into ``caches``) or "decode" (one token per row against ``caches``);
-    ``caches`` is the list of ``steps.init_caches``: for the dense and MoE
-    families one ``KVCache`` per layer, updated in place
+    ``caches`` is the list of ``steps.init_caches``: for the dense, MoE
+    and audio families one ``KVCache`` per (decoder) layer, for the VLM one
+    per self-attention layer in execution order, updated in place
     (``attention_block``); for the hybrid a ``MambaState`` per Mamba2
     layer and a ``KVCache`` per stage's shared block, in execution order;
     for the SSM one ``RWKVState`` per layer. Recurrent states are
@@ -311,13 +439,20 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     outputs and recomputes the rest, "none" keeps everything.
     ``Output.aux_loss`` is the MoE load-balancing loss summed over layers
     (0.0 for the dense family), differentiable through each layer's router
-    in train mode."""
+    in train mode.
+
+    The VLM takes ``vision_embeds`` [B, Nv, Dv] in every mode: each stage
+    runs its self-attention layers, then its gated cross layer over them.
+    The audio family takes ``audio_frames`` [B, F, D] in train and prefill
+    mode (:func:`encode_audio`); prefill returns ``Output.caches`` as the
+    pair ``(KV caches, encoder output)``, which decode takes as its
+    ``caches`` in place of the frames (the reference's pair)."""
     fam = cfg.family
     moe = fam == "moe"
     if fam not in LM_FAMILIES:
         raise NotImplementedError(
-            f"forward_lm runs the {', '.join(LM_FAMILIES)} families; "
-            f"{fam!r} is a later slice (ROADMAP queue A, item 8)")
+            f"forward_lm runs the {', '.join(LM_FAMILIES)} families, not "
+            f"{fam!r}")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
@@ -325,6 +460,18 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     eps = cfg.norm_eps
     x = params["embed"][tokens].to(adt)
     want_cache = mode != "train"
+    enc = None
+    if fam == "audio":
+        if mode == "decode" and isinstance(caches, tuple):
+            caches, enc = caches  # the encoder's output, kept at prefill
+        elif audio_frames is None:
+            raise ValueError(f"the audio family takes audio_frames in "
+                             f"mode {mode!r}, or in decode the "
+                             f"(caches, encoder output) pair of prefill")
+        else:
+            enc = encode_audio(cfg, params, audio_frames)
+    if fam == "vlm" and vision_embeds is None:
+        raise ValueError("the VLM family takes vision_embeds in every mode")
     if want_cache and (caches is None or len(caches) != num_caches(cfg)):
         raise ValueError(f"mode {mode!r} needs the serve-cache list of "
                          f"models/steps.init_caches ({num_caches(cfg)} "
@@ -345,15 +492,39 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                          f"{policy!r}")
     ckpt = (mode == "train" and policy != "none"
             and torch.is_grad_enabled())
+
+    def run(fn, *args):
+        if ckpt:
+            return checkpoint(fn, cfg, *args, use_reentrant=False,
+                              **_REMAT[policy])
+        return fn(cfg, *args)
+    cache_it = iter(caches) if want_cache else None
+
+    def next_cache():
+        return next(cache_it) if want_cache else None
+    if fam == "vlm":
+        vis = vision_embeds.to(adt)
+        st = params["stages"]
+        for self_layers, cross in zip(st["self"], st["cross"]):
+            for lp in self_layers:
+                x, nc = run(_lm_layer, x, lp, next_cache(), valid_start)
+                if want_cache:
+                    new_caches.append(nc)
+            x = run(_cross_layer, x, cross, vis)
+        return _lm_head(cfg, params, x, new_caches, logits_for, 0.0)
+    if fam == "audio":
+        for lp in params["layers"]:
+            x, nc = run(_decoder_layer, x, lp, enc, next_cache(),
+                        valid_start)
+            if want_cache:
+                new_caches.append(nc)
+        return _lm_head(cfg, params, x,
+                        (new_caches, enc) if want_cache else None,
+                        logits_for, 0.0)
     aux_total = 0.0
     layer = _moe_layer if moe else _lm_layer
-    for i, lp in enumerate(params["layers"]):
-        if ckpt:
-            out = checkpoint(layer, cfg, x, lp, None, valid_start,
-                             use_reentrant=False, **_REMAT[policy])
-        else:
-            out = layer(cfg, x, lp, caches[i] if want_cache else None,
-                        valid_start)
+    for lp in params["layers"]:
+        out = run(layer, x, lp, next_cache(), valid_start)
         x = out[0]
         if moe:
             aux_total = aux_total + out[2]
@@ -479,7 +650,9 @@ def lm_loss(cfg: ModelConfig, params: Dict,
     plus 0.01 x ``Output.aux_loss`` (0 for the dense family). Returns
     ``(total, {"ce", "aux"})``."""
     tokens = batch["tokens"]
-    out = forward_lm(cfg, params, tokens, mode="train", logits_for="none")
+    out = forward_lm(cfg, params, tokens, mode="train", logits_for="none",
+                     vision_embeds=batch.get("vision_embeds"),
+                     audio_frames=batch.get("audio_frames"))
     labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
                        dim=1)
     loss = chunked_lm_xent(cfg, params, out.hidden, labels,

@@ -2,15 +2,17 @@
 families this package runs: the ViT's training step, the dense and MoE
 LMs' training step (with the paper's block pruning trained jointly, per
 expert in an MoE layer's banks, and gradient accumulation over
-microbatches), and the serve steps of the dense, MoE, hybrid and SSM LMs:
-cache constructors, whole-batch prefill, per-slot prefill (a B=1 prefill
-scattered into one row of the live batched cache; dense and MoE) and the
-decode step.
+microbatches), and the serve steps of the dense, MoE, VLM, audio, hybrid
+and SSM LMs: cache constructors, whole-batch prefill, per-slot prefill (a
+B=1 prefill scattered into one row of the live batched cache; dense and
+MoE) and the decode step.
 
 The reference jits these; PyTorch runs them eagerly, so they are plain
 functions. Caches are a flat list (:func:`init_caches`); every step
 updates the ``KVCache``s it is given in place, replaces the recurrent
-states with new ones, and returns the list.
+states with new ones, and returns the list. The audio family's prefill
+returns the pair ``(list, encoder output)``, which its decode steps take
+and return (the reference's pair).
 """
 from __future__ import annotations
 
@@ -47,8 +49,7 @@ TRAIN_FAMILIES = ("dense", "moe")
 def _require_served(cfg: ModelConfig) -> None:
     if cfg.family not in SERVE_FAMILIES:
         raise NotImplementedError(
-            f"serve steps for family {cfg.family!r} are a later slice "
-            f"(ROADMAP queue A, item 8); this package serves "
+            f"no serve steps for family {cfg.family!r}; this package serves "
             f"{SERVE_FAMILIES}")
 
 
@@ -57,17 +58,21 @@ def _require_trained(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"training steps for family {cfg.family!r} are a later slice "
             f"(ROADMAP queue A, item 8: training the SSM and hybrid "
-            f"families needs the scans' backward); this package trains "
-            f"{TRAIN_FAMILIES}")
+            f"families needs the scans' backward, training the VLM and "
+            f"audio families a non-causal bf16 attention backward); this "
+            f"package trains {TRAIN_FAMILIES} and serves {SERVE_FAMILIES}")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> List:
     """Zeroed serve caches for ``cfg`` on ``device`` (the card unless the
     CPU is asked for), as one flat list in execution order: dense and MoE,
-    one ``KVCache`` per layer; hybrid, per stage its Mamba2 layers'
-    ``MambaState``s and then its shared block's ``KVCache``, then the
-    tail's ``MambaState``s; SSM, one ``RWKVState`` per layer. Recurrent
+    one ``KVCache`` per layer; VLM, one per self-attention layer, stage by
+    stage (``n_self`` each; the cross layers keep no cache); audio, one
+    per decoder layer (the encoder's output joins them at prefill); hybrid,
+    per stage its Mamba2 layers' ``MambaState``s and then its shared
+    block's ``KVCache``, then the tail's ``MambaState``s; SSM, one
+    ``RWKVState`` per layer. Recurrent
     states hold their carried activations (conv buffer, token shifts) in
     ``dtype`` and their recurrences in fp32, as the reference's."""
     _require_served(cfg)
@@ -84,19 +89,25 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         for _ in range(n_stages):
             out += [mamba() for _ in range(period)] + [kv()]
         return out + [mamba() for _ in range(rem)]
-    return [kv() for _ in range(cfg.num_layers)]
+    return [kv() for _ in range(M.num_caches(cfg))]
 
 
 def make_prefill(cfg: ModelConfig):
     """``prefill(params, batch, caches) -> (next_token [B], caches)``;
     ``batch`` may carry "valid_start" ([B] int32): first real token per
-    row — left-padded prompt positions are masked out of attention."""
+    row — left-padded prompt positions are masked out of self-attention
+    (not of cross-attention, as in the reference) — and carries the
+    modality input of the VLM ("vision_embeds") or the audio family
+    ("audio_frames"). The audio family's ``caches`` come back as the pair
+    ``(caches, encoder output)``."""
     _require_served(cfg)
 
     def prefill(params, batch, caches):
         out = M.forward_lm(cfg, params, batch["tokens"], mode="prefill",
                            caches=caches, logits_for="last",
-                           valid_start=batch.get("valid_start"))
+                           valid_start=batch.get("valid_start"),
+                           vision_embeds=batch.get("vision_embeds"),
+                           audio_frames=batch.get("audio_frames"))
         return torch.argmax(out.logits[:, -1], dim=-1), out.caches
     return prefill
 
@@ -151,12 +162,17 @@ def make_prefill_slot(cfg: ModelConfig):
 
 
 def make_decode_step(cfg: ModelConfig):
-    """One token in, one token out, caches updated in place."""
+    """One token in, one token out, caches updated in place:
+    ``decode(params, token [B, 1], caches, vision_embeds=None,
+    valid_start=None) -> (next_token [B], caches)``. The VLM takes its
+    ``vision_embeds`` at every step; the audio family takes prefill's
+    ``(caches, encoder output)`` pair as ``caches``."""
     _require_served(cfg)
 
-    def decode(params, token, caches, valid_start=None):
+    def decode(params, token, caches, vision_embeds=None, valid_start=None):
         out = M.forward_lm(cfg, params, token, mode="decode", caches=caches,
-                           valid_start=valid_start)
+                           valid_start=valid_start,
+                           vision_embeds=vision_embeds)
         return torch.argmax(out.logits[:, -1], dim=-1), out.caches
     return decode
 

@@ -56,7 +56,7 @@ from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving.cache_manager import KVCacheManager, prune_kv_caches
 from repro_torch.serving.pipeline import StagedStep, StepPipeline, StepReport
 from repro_torch.serving.runner import (ModelRunner, build_padded_batch,
-                                        to_host)
+                                        require_tokens_only, to_host)
 from repro_torch.serving.scheduler import Scheduler
 
 __all__ = ["Request", "EngineConfig", "ServeEngine", "prune_kv_caches"]
@@ -125,6 +125,7 @@ class ServeEngine:
                  policy: "str | Callable" = "fifo",
                  tracer: Optional[Tracer] = None,
                  device: "str | torch.device" = "cuda"):
+        require_tokens_only(cfg)
         if elastic is not None:
             raise NotImplementedError(
                 "elastic degradation is not ported yet (ROADMAP queue A, "

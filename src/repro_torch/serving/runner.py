@@ -50,6 +50,26 @@ def build_padded_batch(prefixes: Sequence[Optional[np.ndarray]],
 # activation dtype: RWKV6's bonus ``u`` [H, dh] (``ssm.py:205``)
 FP32_LEAVES = ("u",)
 
+# families whose prefill needs a modality input beside the tokens (vision
+# embeddings, audio frames)
+MODALITY_FAMILIES = ("vlm", "audio")
+
+
+def require_tokens_only(cfg: ModelConfig) -> None:
+    """Raise for a family the runner cannot serve: it feeds its steps
+    tokens and ``valid_start`` only, as the reference's ``ModelRunner``
+    does, so the VLM and audio families (whose prefill needs
+    ``vision_embeds`` / ``audio_frames``) are served through
+    ``models/steps.make_prefill`` and ``make_decode_step`` directly."""
+    if cfg.family in MODALITY_FAMILIES:
+        raise NotImplementedError(
+            f"the serving engine feeds prefill tokens and valid_start only "
+            f"(as the reference's ModelRunner does), so it cannot serve "
+            f"family {cfg.family!r}, whose prefill needs "
+            f"{'vision_embeds' if cfg.family == 'vlm' else 'audio_frames'}"
+            f"; serve it through models/steps.make_prefill and "
+            f"make_decode_step")
+
 
 def serving_params(cfg: ModelConfig, params: Dict) -> Dict:
     """``params`` with every matrix (ndim >= 2) in the activation dtype;
@@ -88,6 +108,7 @@ class ModelRunner:
 
     def __init__(self, cfg: ModelConfig, params: Any,
                  device: "str | torch.device" = "cuda"):
+        require_tokens_only(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = (serving_params(cfg, params)

@@ -674,6 +674,112 @@ def test_prefill_kernel_shapes_on_card(dev, Dh, Hq, KV):
                  seed=2)
 
 
+# the non-causal bf16 forms (label, q shape, k/v shape): Whisper-base's
+# encoder self-attention, its cross-attention at prefill (a 32-token
+# bucket) and decode over 1500 audio frames; Llama-3.2-Vision-90B's gated
+# cross layers at prefill (64 tokens) and decode over 1601 vision tokens;
+# Dh 16 at 8 and 33 keys (the reduced configs)
+NONCAUSAL_CASES = (
+    ("whisper encoder", (4, 1500, 8, 64), (4, 1500, 8, 64)),
+    ("whisper cross prefill", (4, 32, 8, 64), (4, 1500, 8, 64)),
+    ("whisper cross decode", (4, 1, 8, 64), (4, 1500, 8, 64)),
+    ("vision cross prefill", (2, 64, 64, 128), (2, 1601, 8, 128)),
+    ("vision cross decode", (2, 1, 64, 128), (2, 1601, 8, 128)),
+    ("Dh 16, 8 keys", (3, 5, 4, 16), (3, 8, 1, 16)),
+    ("Dh 16, 33 keys", (3, 1, 4, 16), (3, 33, 1, 16)),
+    ("Dh 16, 33 keys, prefill", (3, 70, 4, 16), (3, 33, 1, 16)),
+)
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES, ids=lambda c: c[0])
+def test_noncausal_bf16_kernels_match_plain_on_card(dev, case):
+    """The causal kernels' non-causal mode through the wrapper (bf16, any
+    Nq and Nk, GQA): one launch of the prefill kernel (Nq > 1) or the
+    decode kernel (Nq == 1) per call, counted under its non-causal form
+    and not under the other kernel; two calls bitwise equal; every row
+    within one bf16 ulp of the largest element of the plain version (both
+    round fp32 sums taken in another order)."""
+    _, q_shape, kv_shape = case
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(q_shape, generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn(kv_shape, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    decode = q_shape[1] == 1
+    entry = "flash_decode_bf16" if decode else "flash_prefill_bf16"
+    form = entry + "/noncausal"
+    before, forms = backend.launches(), backend.form_launches()
+    o, again = flash_attention(q, k, v), flash_attention(q, k, v)
+    ref = FA.attention_noncausal_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert backend.launches()[entry] == before[entry] + 2
+    assert sum(backend.launches().values()) == sum(before.values()) + 2
+    assert backend.form_launches()[form] == forms[form] + 2
+    assert torch.equal(o, again)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    err = (o.float() - ref.float()).abs().max()
+    assert err <= BF16_ULP * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_multimodal_serve_steps_on_card_match_cpu(dev, arch):
+    """The reduced Whisper-base and Llama-3.2-Vision-90B (gates 1.0) through
+    ``make_prefill`` and ``make_decode_step`` at fp32 weights and bf16
+    activations: the non-causal kernels launch once per cross-attention
+    (and encoder) layer of every step, and the greedy tokens of 6 steps on
+    the card hold the teacher-forced oracle on the CPU (plain versions,
+    the same weights): each within 0.05 of its position's largest
+    logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps as ST
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    if cfg.family == "vlm":
+        for c in params["stages"]["cross"]:
+            c["gate"] = torch.ones(())
+    name = "vision_embeds" if cfg.family == "vlm" else "audio_frames"
+    n_mod = (cfg.num_vision_tokens if cfg.family == "vlm"
+             else cfg.num_audio_frames)
+    rng = np.random.default_rng(0)
+    lens = (3, 7)
+    B, Lp, n_new = 2, 7, 6
+    toks = np.zeros((B, Lp), np.int64)
+    for b, n in enumerate(lens):
+        toks[b, Lp - n:] = rng.integers(0, cfg.vocab_size, n)
+    start = np.array([Lp - n for n in lens], np.int32)
+    x = rng.standard_normal((B, n_mod, cfg.d_model)).astype(np.float32)
+    card = tree_map(lambda t: t.to(dev), params)
+    backend.reset_launches()
+    tok, caches = ST.make_prefill(cfg)(card, {
+        "tokens": torch.from_numpy(toks).to(dev),
+        "valid_start": torch.from_numpy(start).to(dev),
+        name: torch.from_numpy(x).to(dev)},
+        ST.init_caches(cfg, B, Lp + n_new, device=dev))
+    out = [tok]
+    decode = ST.make_decode_step(cfg)
+    vis = torch.from_numpy(x).to(dev) if cfg.family == "vlm" else None
+    for _ in range(n_new - 1):
+        tok, caches = decode(card, out[-1][:, None], caches,
+                             vision_embeds=vis,
+                             valid_start=torch.from_numpy(start).to(dev))
+        out.append(tok)
+    forms = backend.form_launches()
+    n_cross = (M.vlm_layout(cfg)[0] if cfg.family == "vlm"
+               else cfg.num_layers)
+    n_enc = 0 if cfg.family == "vlm" else cfg.encoder_layers
+    assert forms["flash_prefill_bf16/noncausal"] == n_cross + n_enc
+    assert forms["flash_decode_bf16/noncausal"] == n_cross * (n_new - 1)
+    gen = torch.stack(out, dim=1).cpu()
+    for b, n in enumerate(lens):
+        seq = torch.cat([torch.from_numpy(toks[b, Lp - n:]), gen[b, :-1]])
+        logits = M.forward_lm(cfg, params, seq[None], **{
+            name: torch.from_numpy(x[b:b + 1])}).logits[0, n - 1:]
+        gap = logits.max(dim=1).values - logits.gather(
+            1, gen[b][:, None])[:, 0]
+        assert gap.max().item() <= 0.05
+
+
 def test_causal_kernels_bitwise_repeatable_across_serves(dev):
     """Two serves of the reduced Minitron-4B on the card at pipeline
     depths 1 and 2 give identical tokens: the decode kernel's split

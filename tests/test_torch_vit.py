@@ -237,9 +237,11 @@ def test_patchify_matches_reference():
 def test_unported_modes_raise(vit):
     """Soft TDM and the fp16/int8 tiers are ported (their parity tests
     follow), and so is causal attention with the dense LM path
-    (``test_torch_lm.py``); what is still unported raises: the LM
-    families other than dense, MoE, hybrid and SSM (``test_torch_moe.py``,
-    ``test_torch_ssm.py``), and stacked layers in the pruning glue."""
+    (``test_torch_lm.py``), and every LM family (``test_torch_moe.py``,
+    ``test_torch_ssm.py``, ``test_torch_multimodal.py``); what is still
+    unported raises: the fused QKV projection (a training lever of the
+    reference's ``launch/perf.py``) and stacked layers in the pruning
+    glue."""
     _, t = vit
     cfg = t["cfg"]
     x = _patches(cfg, 1, 16)
@@ -249,8 +251,8 @@ def test_unported_modes_raise(vit):
                                       soft=soft, precision=precision,
                                       device="cpu").logits
             assert y.shape == (1, cfg.num_classes)
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        M.init_params(get_config("deit-small").replace(family="vlm"),
+    with pytest.raises(NotImplementedError, match="fuse_qkv"):
+        M.init_params(get_config("deit-small").replace(fuse_qkv=True),
                       torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="stacked layer axes"):
         PG.init_scores(cfg, {"layers": {"attn": {"wq": torch.zeros(

@@ -13,7 +13,10 @@ For each checkout, on the same bf16 inputs made from a seed on the CPU:
 * the serve cases: ``flash_attention(causal=True)`` at ``chip_smoke.py``'s
   LM serve shapes (full-width Minitron-4B: 24 query over 8 KV heads, Dh
   128, a 572-slot cache; a prefill of a 512-token bucket with
-  ``kv_start`` 12, a batch-4 decode, and a decode row over 9 splits);
+  ``kv_start`` 12, a batch-4 decode, and a decode row over 9 splits; the
+  prefill and the batch-4 decode at StableLM-1.6B's 32 heads of Dh 64 and
+  at Granite-MoE-3B-A800M's 24 over 8 of Dh 64), each with its device µs
+  per call by kernel;
 * the training cases, at ``chip_smoke.LM_TRAIN_CASES`` (StableLM-1.6B
   [8, 512, 32, 64] and GQA 3:1 [2, 512, 24/8, 64]): the forward with the
   log-sum-exp (``flash_prefill_bf16``: o, lse) and the backward
@@ -39,6 +42,16 @@ CASES = (  # label, B, Nq, q_offset, kv_len, kv_start (chip_smoke.py's)
     ("decode", 4, 1, [129, 289, 419, 570], [130, 290, 420, 571],
      [32, 56, 0, 12]),
     ("decode 9 splits", 1, 1, [571], [572], [0]))
+HEADS = (24, 8, 128)  # Minitron-4B's Hq, KV, Dh
+
+
+def serve_cases():
+    """(case, (Hq, KV, Dh)) of every serve case: ``CASES`` at Minitron-4B's
+    heads, then ``chip_smoke.LM_DH64`` and ``LM_GQA3`` at StableLM-1.6B's
+    and Granite-MoE-3B-A800M's."""
+    from chip_smoke import LM_DH64, LM_GQA3
+    return ([(c, HEADS) for c in CASES] + [(c, (32, 32, 64)) for c in LM_DH64]
+            + [(c, (24, 8, 64)) for c in LM_GQA3])
 
 
 def _sha(t) -> str:
@@ -111,10 +124,10 @@ def one(tree: str) -> dict:
     dev = backend.resolve_device("cuda")
     build_s = backend.build(["flash_decode", "flash_prefill",
                              "flash_prefill_bwd"])
-    Hq, KV, Dh, S = 24, 8, 128, 572
+    S = 572
     g = torch.Generator().manual_seed(8)
     res = {"tree": tree, "build_s": build_s}
-    for label, B, Nq, off, lens, starts in CASES:
+    for (label, B, Nq, off, lens, starts), (Hq, KV, Dh) in serve_cases():
         q = torch.randn((B, Nq, Hq, Dh), generator=g).to(dev, torch.bfloat16)
         k, v = (torch.randn((B, S, KV, Dh), generator=g).to(
             dev, torch.bfloat16) for _ in range(2))
@@ -128,7 +141,8 @@ def one(tree: str) -> dict:
         out = call()
         out = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
-        res[label] = dict(sha256=[_sha(t) for t in out], ms=time_ms(call))
+        res[label] = dict(sha256=[_sha(t) for t in out], ms=time_ms(call),
+                          device_us=_device_us(call))
     res.update(train_cases(torch, dev, time_ms))
     return res
 
