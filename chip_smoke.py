@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    SASS, the fp32 non-causal attention kernels and their backward's issue
    no tensor-core instruction (no TF32; the backward no atomic either),
    the fp16 ones issue HMMA, and the
-   causal backward's two kernels (dQ, dK/dV) issue HGMMA (wgmma) and no
-   HMMA.
+   causal backward's two kernels (dQ, dK/dV) and the non-causal bf16
+   prefill's kernels issue HGMMA (wgmma) and no HMMA, the non-causal
+   decode's HMMA.
 3. Every kernel entry point against its plain PyTorch version on the
    card, at the main path's shapes (DeiT-Small: M=788 rows for the SBMMs
    over fp32, fp16 and int8 blocks with per-block and per-channel scales;
@@ -33,14 +34,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode and a decode row spanning all 9 key splits against a 572-slot
    bf16 cache, and the prefill and batch-4 decode at StableLM-1.6B's 32
    heads of Dh 64 and at Granite-MoE-3B-A800M's 24 over 8 heads of Dh 64,
-   two launches bitwise equal); the same two kernels' non-causal mode
-   (bf16, any Nq and Nk, GQA; ``MM_NONCAUSAL_CASES``) at Whisper-base's
-   encoder self-attention [4, 1500, 8, 64], its cross-attention at
-   prefill (q [4, 32, 8, 64]) and decode (q [4, 1, 8, 64]) over 1500
-   frames, Llama-3.2-Vision-90B's cross layers at prefill (q [2, 64, 64,
-   128]) and decode (q [2, 1, 64, 128]) over [2, 1601, 8, 128], and Dh 16
-   at 8 and 33 keys: o within one bf16 ulp of the plain version, two
-   launches bitwise equal, each call one launch counted under its form;
+   two launches bitwise equal); the same two entry points' non-causal
+   kernels (``causal`` 0: bf16, any Nq and Nk, GQA;
+   ``MM_NONCAUSAL_CASES``) at Whisper-base's encoder self-attention [4,
+   1500, 8, 64], its cross-attention at prefill (q [4, 32, 8, 64]) and
+   decode (q [4, 1, 8, 64]) over 1500 frames, Llama-3.2-Vision-90B's
+   cross layers at prefill (q [2, 64, 64, 128]) and decode (q [2, 1, 64,
+   128]) over [2, 1601, 8, 128], Dh 16 at 8 and 33 keys, and a case for
+   each other branch of their design (whole keys at Dh 128 with one
+   warpgroup, a decode split holding one key, two head tiles): o within
+   one bf16 ulp of the plain version, two launches bitwise equal, each
+   call one launch counted under its form;
    the SSM and hybrid families' scans
    (``mamba_scan_f32`` at Zamba2-1.2B's widths, ``wkv6_f32`` at
    RWKV6-1.6B's) at the recurrent serve's whole-batch prefill (B 4, S 512,
@@ -183,8 +187,8 @@ Phases, in order; any failure exits non-zero and prints no result:
       own vision embeddings, prompts of 16-64 tokens, 32 generated each.
       Per model one warm-up serve, one timed and one profiled. Gates:
       the timed serve launches exactly the causal kernels once per
-      self-attention layer of every step and their non-causal mode once
-      per cross layer of every step (and per encoder layer at Whisper's
+      self-attention layer of every step and their non-causal kernels
+      once per cross layer of every step (and per encoder layer at Whisper's
       prefill), nothing else; no plain attention on the card; every
       generated token within 0.05 of its position's largest logit in the
       teacher-forced oracle (``forward_lm`` in train mode over the
@@ -308,7 +312,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    analytic compression ratio.
 7. The script's total wall (``total: ... s``), a ``kernels`` JSON line
    (one entry per C entry point and one per form of ``backend.FORMS``,
-   the causal kernels' non-causal mode, whose launches the entry point's
+   the entry points' non-causal kernels, whose launches the entry point's
    own line then leaves out; with the
    wrapper call's device time as ``call_device_ms`` and the library
    call's as ``library_device_ms``; ``launches``
@@ -638,7 +642,9 @@ def check_tensor_cores(backend):
     non-causal fp32 tier's none (no TF32 or other split product), nor its
     backward's two kernels, which issue no atomic either (their sums run
     in a fixed order); its fp16 tier's HMMA; the causal backward's two kernels
-    (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA; the scans'
+    (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA; the
+    non-causal bf16 prefill's kernels (Dh 16, 64, 128; one and two
+    warpgroups) HGMMA and no HMMA, the non-causal decode's HMMA; the scans'
     chunked kernels HMMA (their 3xTF32 products) and no atomic, their
     sequential kernels neither. Prints the count per kernel."""
     from repro_torch.kernels.flash_attention.ops import CAUSAL_HEAD_DIMS
@@ -688,6 +694,28 @@ def check_tensor_cores(backend):
     for kern, ops in bwd.items():
         require(ops.get("HGMMA", 0) > 0 and not ops.get("HMMA"),
                 f"{kern} must issue HGMMA and no HMMA, issues {ops}")
+    nc = {}
+    for lib, entry in (("flash_prefill", "flash_prefill_bf16"),
+                       ("flash_decode", "flash_decode_bf16")):
+        for fn, ops in _sass_ops(backend, lib).items():
+            if f"{entry}_noncausal_kernelILi" in fn:
+                args = fn.split("_kernelILi")[1].split("EE")[0]
+                nc[f"{entry}_noncausal_kernel<"
+                   f"{args.replace('ELi', ', ')}>"] = ops
+    print("sass: tensor-core instructions of the non-causal kernels "
+          + json.dumps(nc), flush=True)
+    prefill = [k for k in nc if "prefill" in k]
+    decode = [k for k in nc if "decode" in k]
+    require(len(prefill) == 6 and len(decode) == 3,
+            f"expected the non-causal prefill at Dh 16, 64 and 128 with one "
+            f"and two warpgroups and the decode at each Dh in the SASS, "
+            f"found {sorted(nc)}")
+    for kern in prefill:  # wgmma, whose products are HGMMA
+        require(nc[kern].get("HGMMA", 0) > 0 and not nc[kern].get("HMMA"),
+                f"{kern} must issue HGMMA and no HMMA, issues {nc[kern]}")
+    for kern in decode:  # mma.sync
+        require(nc[kern].get("HMMA", 0) > 0,
+                f"{kern} issues no HMMA: {nc[kern]}")
     scans = {}
     for lib, entry in (("mamba_scan", "mamba_scan_f32"), ("wkv6", "wkv6_f32")):
         for fn, ops in _sass_ops(backend, lib,
@@ -869,29 +897,38 @@ def check_flash_attention_causal(torch, dev):
     return checks
 
 
-# the causal kernels' non-causal mode (bf16, any Nq and Nk, GQA) at the
-# multimodal serves' shapes (label, q shape, k/v shape): Whisper-base's
-# encoder self-attention over 1500 audio frames, its cross-attention at
-# prefill (a 32-token bucket) and decode; Llama-3.2-Vision-90B's gated
-# cross layers at prefill (64 tokens) and decode over 1601 vision tokens
-# (GQA 8:1, Dh 128); Dh 16 at 8 and 33 keys (the reduced configs). The
-# first case of each kernel is its headline.
+# the non-causal bf16 kernels (any Nq and Nk, GQA) at the multimodal
+# serves' shapes (label, q shape, k/v shape): Whisper-base's encoder
+# self-attention over 1500 audio frames (whole keys, two warpgroups a
+# block), its cross-attention at prefill (a 32-token bucket: split keys)
+# and decode (one head a group); Llama-3.2-Vision-90B's gated cross layers
+# at prefill (64 tokens: split keys, two warpgroups) and decode (GQA 8:1 on
+# the tensor cores) over 1601 vision tokens, Dh 128; Dh 16 at 8 and 33
+# keys (the reduced configs); then the rest of the design's branches on a
+# 132-SM card: whole keys with one warpgroup at Dh 128 (50 keys), a decode
+# whose last split holds one key (65 keys, GQA 8:1: three warps see none
+# of it) and one of 32 heads a group (two head tiles). The first case of
+# each kernel is its headline.
 MM_NONCAUSAL_CASES = (
     ("whisper encoder", (4, 1500, 8, 64), (4, 1500, 8, 64)),
     ("whisper cross prefill", (4, 32, 8, 64), (4, 1500, 8, 64)),
     ("vision cross prefill", (2, 64, 64, 128), (2, 1601, 8, 128)),
     ("Dh 16, 8 keys", (3, 5, 4, 16), (3, 8, 1, 16)),
-    ("whisper cross decode", (4, 1, 8, 64), (4, 1500, 8, 64)),
+    ("whole keys, Dh 128", (2, 40, 8, 128), (2, 50, 8, 128)),
     ("vision cross decode", (2, 1, 64, 128), (2, 1601, 8, 128)),
+    ("whisper cross decode", (4, 1, 8, 64), (4, 1500, 8, 64)),
     ("Dh 16, 33 keys", (3, 1, 4, 16), (3, 33, 1, 16)),
+    ("decode GQA 8:1, 65 keys", (1, 1, 8, 64), (1, 65, 1, 64)),
+    ("decode 32 heads a group", (2, 1, 32, 128), (2, 100, 1, 128)),
 )
 
 
 def check_flash_attention_noncausal(torch, dev):
-    """The causal kernels' non-causal mode through the wrapper at
+    """The non-causal bf16 kernels through the wrapper at
     ``MM_NONCAUSAL_CASES`` (``flash_decode_bf16`` for one query row,
-    ``flash_prefill_bf16`` for more, each counted under its non-causal
-    form in ``backend.FORMS``) against the plain version
+    ``flash_prefill_bf16`` for more, each with ``causal`` 0 and counted
+    under its non-causal form in ``backend.FORMS``) against the plain
+    version
     (``attention_noncausal_plain``): o within one bf16 ulp of the largest
     plain element (both round fp32 sums taken in another order to bf16),
     two calls bitwise equal, each call one launch of its form. Returns one
@@ -937,15 +974,12 @@ def check_flash_attention_noncausal(torch, dev):
                  BF16_ULP * ref.float().abs().max().item(),
                  "one bf16 ulp at max|plain|")]
         # the work, counted as for the causal forms: every (row, head, key)
-        # pair takes 2 Dh operations for Q.K and 2 Dh for P.V (the prefill
-        # kernel's P.V as two bf16 products, 4 Dh at the bf16 rate; the
-        # decode kernel's in fp32) and ~4 for the softmax; bytes: q and o
-        # once, k and v once
+        # pair takes 2 Dh operations for Q.K and 2 Dh for P.V (both
+        # kernels' P.V as two bf16 products, 4 Dh at the bf16 rate) and ~4
+        # for the softmax; bytes: q and o once, k and v once
         pairs = B * Hq * Nq * Nk
         n_bytes = 2 * 2 * q.numel() + 2 * 2 * k.numel()
-        bnd, by = (bound_ms(n_bytes, (2 * Dh + 4) * pairs, 2 * Dh * pairs)
-                   if decode else
-                   bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs))
+        bnd, by = bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
 
         def library(qh=qh, kh=kh, vh=vh):
@@ -2495,7 +2529,7 @@ def check_mm_oracle(torch, cfg, params, rows, x, gen, dev, tag):
 def mm_launches(cfg, max_new):
     """The launches one serve must make, by entry point and form: the
     decoder's causal self-attention once per self-attention layer of the
-    prefill and of every decode step, and the non-causal mode once per
+    prefill and of every decode step, and the non-causal kernels once per
     cross layer of each (and per encoder layer at Whisper's prefill)."""
     from repro_torch.models import model as M
     if cfg.family == "vlm":
@@ -2553,8 +2587,8 @@ def mm_model(torch, dev, cfg, tag, prompts, max_new, seed):
     busy = sum(r[2] for r in rows_dev)
     part = {}
     for name, k, us in rows_dev:
-        key = next((f"{e}{'/noncausal' if 'false>' in name else ''}"
-                    for e in ("flash_prefill_bf16", "flash_decode_bf16")
+        key = next((e for e in (*backend.FORMS, "flash_prefill_bf16",
+                                "flash_decode_bf16")
                     if kernel_symbol(e) in name), "other")
         part[key] = part.get(key, 0.0) + us
     print(f"{tag}: {B} requests (prompts {list(prompts)} left-padded to "
@@ -2641,10 +2675,11 @@ TWO_FORMS = ("mamba_scan_f32", "wkv6_f32")
 def kernel_symbol(entry_point: str) -> str:
     """The CUDA kernel an entry point launches (``csrc/*.cu``), or the
     prefix of its kernels' names; for a form of an entry point
-    (``backend.FORMS``), its entry point's kernel (the non-causal mode is
-    that kernel's ``<Dh, false>`` instantiation)."""
+    (``backend.FORMS``), the kernel of its own that the form launches
+    (``<entry point>_noncausal_kernel``)."""
     from repro_torch.kernels import backend
-    entry_point = backend.FORMS.get(entry_point, entry_point)
+    if entry_point in backend.FORMS:
+        return f"{backend.FORMS[entry_point]}_noncausal_kernel"
     if entry_point in KERNELS_PER_LAUNCH or entry_point in TWO_FORMS:
         return f"{entry_point}_"
     return f"{entry_point}_kernel"

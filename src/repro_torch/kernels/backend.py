@@ -13,7 +13,7 @@ Rules every kernel wrapper of this package follows:
   (``sbmm_f32`` and ``sbmm_f16w`` apart, though one library holds both),
   at the launch site and nowhere else, so a run can show that the main
   path went through every kernel it needs. A launch in one of the
-  :data:`FORMS` (the causal attention kernels' non-causal mode) also adds
+  :data:`FORMS` (the attention entry points' non-causal kernels) also adds
   one to that form's count in :data:`FORM_LAUNCHES`.
 
 Build: each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
@@ -51,7 +51,7 @@ _FLASH = [P] * 7 + [I] * 4 + [ctypes.c_float, P]
 _FLASH_BWD = [P] * 11 + [I] * 4 + [ctypes.c_longlong] * 2 + \
     [ctypes.c_float, P]
 _FLASH_DECODE = [P] * 10 + [I] * 7 + [ctypes.c_float, P]
-_FLASH_PREFILL = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
+_FLASH_PREFILL = [P] * 8 + [I] * 9 + [ctypes.c_float, P]
 _FLASH_PREFILL_BWD = [P] * 11 + [I] * 5 + [ctypes.c_float, P]
 # C entry points and their signatures, by library (csrc/<library>.cu)
 _ENTRY_POINTS = {
@@ -73,7 +73,7 @@ _ENTRY_POINTS = {
 KERNELS = tuple(_ENTRY_POINTS)  # one library each
 ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)
 # forms of an entry point counted apart as well, by name: the entry point
-# each is a mode of
+# each is a mode of (``causal`` 0 launches kernels of its own)
 FORMS = {"flash_prefill_bf16/noncausal": "flash_prefill_bf16",
          "flash_decode_bf16/noncausal": "flash_decode_bf16"}
 

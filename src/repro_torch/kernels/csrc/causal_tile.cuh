@@ -1,7 +1,7 @@
-// Pieces shared by the two GQA attention kernels over a bf16 KV cache
-// (flash_decode.cu, flash_prefill.cu): the per-row key window of a query
-// row, causal or not; their asynchronous copies and shared memory limit
-// come from cp_async.cuh.
+// Pieces shared by the GQA attention kernels over bf16 keys and values
+// (flash_decode.cu, flash_prefill.cu): the causal key window of a query
+// row and the SFU's exp2; their asynchronous copies and shared memory
+// limit come from cp_async.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,13 +13,9 @@ namespace causal {
 
 using bf16 = __nv_bfloat16;
 
-// Batch row b's bounds: query row i sees keys [lo, min(len, off + i + 1))
-// when CAUSAL, else [lo, len) whatever its position (cross-attention and an
-// encoder's self-attention). Null bounds default to q_offset 0, kv_len S and
-// kv_start 0; kv_len past S acts as S. The mode is a template parameter:
-// each kernel is compiled once per mode, and neither pays for the other's
-// test.
-template <bool CAUSAL>
+// Batch row b's bounds: query row i sees keys [lo, min(len, off + i + 1)).
+// Null bounds default to q_offset 0, kv_len S and kv_start 0; kv_len past S
+// acts as S.
 struct Window {
   int off, len, lo;
   __device__ __forceinline__ Window(const int* q_offset, const int* kv_len,
@@ -29,8 +25,16 @@ struct Window {
         lo(max(kv_start != nullptr ? kv_start[b] : 0, 0)) {}
   // the end of query row i's keys
   __device__ __forceinline__ int hi(int i) const {
-    return CAUSAL ? min(len, off + i + 1) : len;
+    return min(len, off + i + 1);
   }
 };
+
+// 2^x on the SFU (subnormal results flushed to 0; 2^-inf = 0): the
+// non-causal kernels' softmax in base 2
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 }  // namespace causal

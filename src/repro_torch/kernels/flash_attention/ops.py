@@ -24,11 +24,18 @@ and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
   (Q.K^T and P.V on the bf16 tensor cores, fp32 accumulation).
 * non-causal on bf16 operands, q [B, Nq, Hq, Dh] against k, v [B, Nk, KV,
   Dh] with any Nq and Nk (the LMs' cross-attention, Whisper's encoder):
-  the same two entry points in their non-causal mode (``causal`` 0), picked
-  by ``Nq`` alike, every query row seeing all Nk keys, no probabilities.
-  Their launches also count under the forms ``flash_prefill_bf16/noncausal``
-  and ``flash_decode_bf16/noncausal`` (``backend.FORMS``).
-  :func:`attention_noncausal_plain` is their plain version.
+  the same two entry points with ``causal`` 0, which launch kernels of
+  their own, picked by ``Nq`` alike, every query row seeing all Nk keys,
+  no probabilities: the prefill on ``wgmma`` fed by TMA, the decode on
+  ``mma.sync``, each splitting the key range across a cluster of blocks
+  where rows are few (:func:`noncausal_prefill_plan`,
+  :func:`noncausal_decode_plan`) that combine the chunks' partials in
+  distributed shared memory. Their launches also count under the forms
+  ``flash_prefill_bf16/noncausal`` and ``flash_decode_bf16/noncausal``
+  (``backend.FORMS``).
+  :func:`attention_noncausal_plain` is their plain version;
+  :func:`attention_noncausal_chunked_plain` their split-key algorithm as
+  tensor code (tests only).
 * training: :class:`CausalAttention`, the causal form over a whole
   sequence as an autograd function, taken when a CUDA input requires
   grad: ``flash_prefill_bf16`` also writing each row's log-sum-exp, and
@@ -69,10 +76,29 @@ HEAD_DIMS = (16, 64)  # head widths the non-causal kernel is instantiated
 CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 64, 128),
                     "flash_prefill_bf16": (16, 64, 128),
                     "flash_prefill_bwd_bf16": (16, 64)}
-# the form each causal kernel's non-causal mode counts under
-# (``backend.FORMS``), by whether Nq == 1
+# the form each entry point's non-causal kernels (``causal`` 0) count
+# under (``backend.FORMS``), by whether Nq == 1
 NONCAUSAL_FORMS = {decode: f"{entry}/noncausal"
                    for decode, (_, entry) in CAUSAL_KERNELS.items()}
+# the non-causal kernels' work split (their sources' constants): keys per
+# tile (kTile), query heads per decode block (nc::kRows), the most key
+# chunks of a prefill row tile (nc::kMaxChunks) and splits of a decode
+# (nc::kMaxSplits), each a cluster of at most 8 blocks (the portable size)
+NONCAUSAL_TILE = 64
+NONCAUSAL_HEAD_TILE = 16
+MAX_CHUNKS = 8
+MAX_SPLITS = 8
+# blocks an SM is counted to hold when the host sizes a split of the keys
+# (one wave of the card): a decode block, a prefill block of one warpgroup
+# and of two
+DECODE_BLOCKS_PER_SM = 3
+PREFILL_BLOCKS_PER_SM = {1: 2, 2: 1}
+# the most chunks or splits the plans give a cluster: past six, its
+# barrier and combine cost more than the shorter walk saves
+# (tools/noncausal_sweep.py on an H100 at every headline shape)
+PLAN_MAX_CHUNKS = 6
+LOG2E = 1.4426950408889634
+_SMS: Dict[int, int] = {}  # SMs of each card, by device index
 BWD_KERNEL = ("flash_prefill_bwd", "flash_prefill_bwd_bf16")
 NONCAUSAL_BWD_KERNEL = ("flash_attention_bwd", "flash_attention_bwd_f32")
 NONCAUSAL_BWD_KEYS = 64  # keys per block of its main kernel (kKT)
@@ -149,11 +175,96 @@ def attention_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_noncausal_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor) -> torch.Tensor:
-    """Plain version of the causal kernels' non-causal mode: every query row
+    """Plain version of the non-causal bf16 kernels: every query row
     of q [B, Nq, Hq, Dh] against all keys of k, v [B, Nk, KV, Dh] (query
     head h reads KV head h // (Hq / KV)). Returns [B, Nq, Hq, Dh] in q's
     dtype."""
     return A.flash_attention_torch(q, k, v)
+
+
+def key_chunks(n_keys: int, n_chunk: int) -> Tuple[Tuple[int, int], ...]:
+    """The key ranges [start, end) of the non-causal kernels' ``n_chunk``
+    chunks over ``n_keys`` keys, as the kernels cut them: each
+    ceil(ceil(n_keys / 64) / n_chunk) whole tiles of 64 keys, in order (the
+    last may be short, and an index past the last tile gives an empty
+    range, which the plans never ask for)."""
+    n_kt = -(-n_keys // NONCAUSAL_TILE)
+    per = -(-n_kt // n_chunk) * NONCAUSAL_TILE
+    return tuple((min(c * per, n_keys), min((c + 1) * per, n_keys))
+                 for c in range(n_chunk))
+
+
+def _spread(items: int, n_kt: int, slots: int, cap: int) -> int:
+    """Chunks of ``n_kt`` key tiles so that ``items`` work items times the
+    chunks come to about ``slots`` blocks (one wave): at least 1, at most
+    ``n_kt`` and ``cap``, and none empty (the count is recomputed from the
+    tiles per chunk)."""
+    want = max(1, min(n_kt, cap, slots // max(items, 1)))
+    per = -(-n_kt // want)
+    return -(-n_kt // per)
+
+
+def noncausal_prefill_plan(B: int, Nq: int, Hq: int, KV: int, Nk: int,
+                           sms: int) -> Tuple[int, int]:
+    """``(warpgroups a block, key chunks)`` of the non-causal prefill
+    kernel for q [B, Nq, Hq, Dh] against Nk keys on a card of ``sms`` SMs:
+    two warpgroups (128 rows of a KV head's flattened (position, head)
+    rows) where a (b, g) has more than 64 rows, else one; the key range
+    split into chunks only where the blocks of whole rows fill less than a
+    wave (``PREFILL_BLOCKS_PER_SM`` blocks an SM), at most
+    ``PLAN_MAX_CHUNKS`` of them."""
+    rows = Nq * (Hq // KV)
+    wgs = 2 if rows > 64 else 1
+    items = B * KV * -(-rows // (64 * wgs))
+    n_kt = -(-Nk // NONCAUSAL_TILE)
+    return wgs, _spread(items, n_kt, sms * PREFILL_BLOCKS_PER_SM[wgs],
+                        PLAN_MAX_CHUNKS)
+
+
+def noncausal_decode_plan(B: int, Hq: int, KV: int, Nk: int,
+                          sms: int) -> int:
+    """The key splits of the non-causal decode kernel for q [B, 1, Hq, Dh]
+    against Nk keys on a card of ``sms`` SMs: about one wave of blocks
+    (``DECODE_BLOCKS_PER_SM`` an SM) over the B KV (head tiles) items,
+    each walking whole tiles of 64 keys, none empty, at most
+    ``PLAN_MAX_CHUNKS`` splits."""
+    items = B * KV * -(-(Hq // KV) // NONCAUSAL_HEAD_TILE)
+    n_kt = -(-Nk // NONCAUSAL_TILE)
+    return _spread(items, n_kt, sms * DECODE_BLOCKS_PER_SM, PLAN_MAX_CHUNKS)
+
+
+def attention_noncausal_chunked_plain(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor,
+                                      n_chunk: int) -> torch.Tensor:
+    """The non-causal kernels' split-key algorithm as tensor code (used by
+    the tests only): q [B, Nq, Hq, Dh] against k, v [B, Nk, KV, Dh] (query
+    head h reads KV head h // (Hq / KV)), the keys cut by
+    :func:`key_chunks`. Per chunk, in fp32 with the scores in log2 units,
+    the partial m (the chunk's max), l = sum exp2(s - m) and the
+    unnormalised o = sum exp2(s - m) v; then M = max_j m_j, w_j = exp2(m_j
+    - M) and o = sum_j w_j o_j / sum_j w_j l_j, both sums in chunk order.
+    Returns q's dtype."""
+    B, Nq, Hq, Dh = q.shape
+    Nk, KV = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Nq, KV, Hq // KV, Dh)
+    s = torch.einsum("bqgpd,bkgd->bgpqk", qg, k.float()) * (Dh ** -0.5
+                                                            * LOG2E)
+    vf = v.float()
+    parts = []
+    for lo, hi in key_chunks(Nk, n_chunk):
+        m = s[..., lo:hi].amax(dim=-1, keepdim=True)
+        p = torch.exp2(s[..., lo:hi] - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bgpqk,bkgd->bgpqd", p, vf[:, lo:hi])))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    o = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, oj in parts:
+        w = torch.exp2(m - M)
+        o = o + oj * w
+        den = den + l * w
+    return (o / den).permute(0, 3, 1, 2, 4).reshape(B, Nq, Hq, Dh).to(
+        q.dtype)
 
 
 def attention_causal_lse_plain(q: torch.Tensor, k: torch.Tensor,
@@ -331,16 +442,14 @@ def _check_causal(entry: str, Dh: int, *tensors: torch.Tensor) -> None:
 
 
 def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool,
-                 with_lse: bool = False, causal: bool = True):
+                 with_lse: bool = False):
     """``(o, probs)``, or ``(o, lse)`` with ``with_lse`` (prefill only), by
-    the decode kernel for one query row and the prefill kernel for more;
-    with ``causal`` False their non-causal mode, counted under its form."""
+    the decode kernel for one query row and the prefill kernel for more."""
     B, Nq, Hq, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     decode = Nq == 1
     lib, entry = CAUSAL_KERNELS[decode]
     _check_causal(entry, Dh, q, k, v)
-    mode = {} if causal else {"form": NONCAUSAL_FORMS[decode]}
     if collect_probs and not decode:
         raise ValueError(f"causal attention writes the probabilities of a "
                          f"decode row only (Nq == 1), got Nq={Nq}")
@@ -362,16 +471,54 @@ def _causal_cuda(q, k, v, q_offset, kv_len, kv_start, collect_probs: bool,
                            dtype=torch.float32, device=q.device)
         backend.launch(lib, entry, q.device, *args, ptr(probs),
                        part.data_ptr(), _arrivals(q.device, B * KV).data_ptr(),
-                       B, S, Hq, KV, Dh, n_split, int(causal), Dh ** -0.5,
-                       **mode)
+                       B, S, Hq, KV, Dh, n_split, 1, Dh ** -0.5)
     else:
         lse = (torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
                if with_lse else None)
         backend.launch(lib, entry, q.device, *args, ptr(lse), B, Nq, S, Hq,
-                       KV, Dh, int(causal), Dh ** -0.5, **mode)
+                       KV, Dh, 1, 1, 1, Dh ** -0.5)
         if with_lse:
             return o, lse
     return o, probs
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` names (read once per card)."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _noncausal_cuda(q, k, v):
+    """o by the non-causal kernels, with the key range split by the host's
+    plan: ``flash_decode_bf16`` for one query row
+    (:func:`noncausal_decode_plan`), ``flash_prefill_bf16`` for more
+    (:func:`noncausal_prefill_plan`), both with ``causal`` 0 and counted
+    under their form. One launch a call: the chunks of a row tile are a
+    cluster of blocks that combine their partials in shared memory."""
+    B, Nq, Hq, Dh = q.shape
+    Nk, KV = k.shape[1], k.shape[2]
+    decode = Nq == 1
+    lib, entry = CAUSAL_KERNELS[decode]
+    _check_causal(entry, Dh, q, k, v)
+    q, k, v = (backend.aligned(t) for t in (q, k, v))
+    o = torch.empty_like(q)
+    sms = _sm_count(q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
+            o.data_ptr(), None)
+    if decode:
+        n_split = noncausal_decode_plan(B, Hq, KV, Nk, sms)
+        backend.launch(lib, entry, q.device, *args, None, None, B, Nk, Hq,
+                       KV, Dh, n_split, 0, Dh ** -0.5,
+                       form=NONCAUSAL_FORMS[decode])
+    else:
+        wgs, n_chunk = noncausal_prefill_plan(B, Nq, Hq, KV, Nk, sms)
+        backend.launch(lib, entry, q.device, *args, B, Nq, Nk, Hq, KV, Dh, 0,
+                       wgs, n_chunk, Dh ** -0.5,
+                       form=NONCAUSAL_FORMS[decode])
+    return o
 
 
 class CausalAttention(torch.autograd.Function):
@@ -459,9 +606,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Non-causal on bf16 operands (the LMs' cross-attention and Whisper's
     encoder): q [B, Nq, Hq, Dh] against k, v [B, Nk, KV, Dh], any Nq and
-    Nk, every query row seeing all Nk keys: on the card the causal
-    kernels' non-causal mode (the decode kernel for ``Nq == 1``, the
-    prefill kernel otherwise), on the CPU
+    Nk, every query row seeing all Nk keys: on the card the non-causal
+    kernels (``causal`` 0 of the decode entry point for ``Nq == 1``, of the
+    prefill entry point otherwise), on the CPU
     :func:`attention_noncausal_plain`. It takes no ``kv_len``, no
     scores and, on the card, no gradient (the non-causal bf16 backward is
     later work, with training the VLM and audio families). fp32 and fp16
@@ -535,8 +682,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _grouped_noncausal(q, k, v, kv_len, collect_scores: bool) -> torch.Tensor:
     """The non-causal form of any Nq and Nk with the GQA repeat
-    (:func:`flash_attention`): the causal kernels' non-causal mode for bf16
-    CUDA tensors, :func:`attention_noncausal_plain` for CPU tensors."""
+    (:func:`flash_attention`): the non-causal kernels for bf16 CUDA
+    tensors, :func:`attention_noncausal_plain` for CPU tensors."""
     if q.shape[0] != k.shape[0] or k.shape != v.shape \
             or q.shape[3] != k.shape[3] or q.shape[2] % k.shape[2]:
         raise ValueError(f"non-causal attention takes q [B, Nq, Hq, Dh] and "
@@ -552,10 +699,10 @@ def _grouped_noncausal(q, k, v, kv_len, collect_scores: bool) -> torch.Tensor:
     if q.dtype != torch.bfloat16:
         raise TypeError(f"non-causal attention with Nq != Nk or the GQA "
                         f"repeat runs on the card on bf16 operands (the "
-                        f"causal kernels' non-causal mode), got {q.dtype}")
+                        f"non-causal bf16 kernels), got {q.dtype}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise ValueError(
             "non-causal bf16 attention has no gradient on the card yet: its "
             "backward comes with training the VLM and audio families "
             "(ROADMAP queue A)")
-    return _causal_cuda(q, k, v, None, None, None, False, causal=False)[0]
+    return _noncausal_cuda(q, k, v)

@@ -22,8 +22,7 @@ family runs the same attention layers with ``models/moe.moe_ffn`` in place
 of the SwiGLU MLP, and each layer's load-balancing loss is carried out of
 its checkpoint into the training loss. The VLM and audio families'
 cross-attention and Whisper's encoder run the non-causal form of the
-``flash_attention`` wrapper, the causal kernels' non-causal mode on the
-card. The hybrid and SSM families run ``models/ssm``'s blocks, whose scans
+``flash_attention`` wrapper, the non-causal bf16 kernels on the card. The hybrid and SSM families run ``models/ssm``'s blocks, whose scans
 are the ``ssm_scan`` kernels on the card.
 """
 from __future__ import annotations

@@ -678,7 +678,12 @@ def test_prefill_kernel_shapes_on_card(dev, Dh, Hq, KV):
 # encoder self-attention, its cross-attention at prefill (a 32-token
 # bucket) and decode over 1500 audio frames; Llama-3.2-Vision-90B's gated
 # cross layers at prefill (64 tokens) and decode over 1601 vision tokens;
-# Dh 16 at 8 and 33 keys (the reduced configs)
+# Dh 16 at 8 and 33 keys (the reduced configs); then a case for each
+# branch of the kernels' design (on a 132-SM card): the prefill over split
+# keys with two warpgroups a block (8 chunks of 1000 keys) and over whole
+# keys with one (Dh 128, 50 keys); the tensor-core decode at GQA 8:1 whose
+# last split holds one key (65 keys in 2 splits: three warps see none of
+# it), and at 32 heads a group (two head tiles, 100 keys)
 NONCAUSAL_CASES = (
     ("whisper encoder", (4, 1500, 8, 64), (4, 1500, 8, 64)),
     ("whisper cross prefill", (4, 32, 8, 64), (4, 1500, 8, 64)),
@@ -688,17 +693,21 @@ NONCAUSAL_CASES = (
     ("Dh 16, 8 keys", (3, 5, 4, 16), (3, 8, 1, 16)),
     ("Dh 16, 33 keys", (3, 1, 4, 16), (3, 33, 1, 16)),
     ("Dh 16, 33 keys, prefill", (3, 70, 4, 16), (3, 33, 1, 16)),
+    ("split keys, two warpgroups", (2, 48, 16, 64), (2, 1000, 2, 64)),
+    ("whole keys, Dh 128", (2, 40, 8, 128), (2, 50, 8, 128)),
+    ("decode GQA 8:1, 65 keys", (1, 1, 8, 64), (1, 65, 1, 64)),
+    ("decode 32 heads a group", (2, 1, 32, 128), (2, 100, 1, 128)),
 )
 
 
 @pytest.mark.parametrize("case", NONCAUSAL_CASES, ids=lambda c: c[0])
 def test_noncausal_bf16_kernels_match_plain_on_card(dev, case):
-    """The causal kernels' non-causal mode through the wrapper (bf16, any
-    Nq and Nk, GQA): one launch of the prefill kernel (Nq > 1) or the
-    decode kernel (Nq == 1) per call, counted under its non-causal form
-    and not under the other kernel; two calls bitwise equal; every row
-    within one bf16 ulp of the largest element of the plain version (both
-    round fp32 sums taken in another order)."""
+    """The non-causal bf16 kernels through the wrapper (any Nq and Nk,
+    GQA): one launch of the prefill entry point (Nq > 1) or the decode
+    entry point (Nq == 1) per call, counted under its non-causal form and
+    not under the other; two calls bitwise equal; every row within one
+    bf16 ulp of the largest element of the plain version (both round fp32
+    sums taken in another order)."""
     _, q_shape, kv_shape = case
     g = torch.Generator().manual_seed(11)
     q = torch.randn(q_shape, generator=g).to(dev, torch.bfloat16)

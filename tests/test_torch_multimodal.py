@@ -358,10 +358,11 @@ class _FakeLibrary:
 @pytest.mark.parametrize("Nq", [1, 7])
 def test_bf16_noncausal_routes_to_the_causal_kernels(monkeypatch, Nq):
     """With ``backend.on_card`` patched true, a bf16 non-causal call
-    launches the decode kernel (one query row) or the prefill kernel (more)
-    with its ``causal`` argument 0, no probabilities, no bounds, and counts
-    under the entry point and under its non-causal form; the plain version
-    never stands in."""
+    launches the decode entry point (one query row) or the prefill entry
+    point (more) with its ``causal`` argument 0, no probabilities, no
+    bounds and the host's split of the keys, and counts under
+    the entry point and under its non-causal form; the plain version never
+    stands in."""
     def refused(*a, **kw):
         raise AssertionError("the plain version ran on the card")
     calls = []
@@ -369,8 +370,7 @@ def test_bf16_noncausal_routes_to_the_causal_kernels(monkeypatch, Nq):
     monkeypatch.setattr(backend, "library", lambda name: _FakeLibrary(calls))
     monkeypatch.setattr(backend, "_FNS", {})
     monkeypatch.setattr(backend, "current_stream", lambda dev: 0)
-    monkeypatch.setattr(FA, "_arrivals",
-                        lambda dev, n: torch.zeros(n, dtype=torch.int32))
+    monkeypatch.setattr(FA, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(FA, "attention_noncausal_plain", refused)
     monkeypatch.setattr(A, "flash_attention_torch", refused)
     backend.reset_launches()
@@ -382,12 +382,16 @@ def test_bf16_noncausal_routes_to_the_causal_kernels(monkeypatch, Nq):
     assert args[3:6] == (None, None, None)  # q_offset, kv_len, kv_start
     assert args[7] is None  # the decode row's probs, the prefill's lse
     assert args[-1] == 0  # the stream
-    if Nq == 1:  # ..., B, S, Hq, KV, Dh, n_split, causal, scale
+    if Nq == 1:  # ..., part, arrivals, B, S, Hq, KV, Dh, n_split, causal,
+        # scale (no scratch: the splits combine in a cluster)
         assert entry == "flash_decode_bf16"
+        assert args[8:10] == (None, None)
         assert args[10:18] == (2, 70, 8, 2, 16, 2, 0, 0.25)
-    else:  # ..., B, Nq, S, Hq, KV, Dh, causal, scale
+    else:  # ..., B, Nq, S, Hq, KV, Dh, causal, warpgroups, key chunks
+        # (28 rows a (b, g) on 132 SMs: one warpgroup, the 2 key tiles in
+        # 2 chunks), scale
         assert entry == "flash_prefill_bf16"
-        assert args[8:16] == (2, Nq, 70, 8, 2, 16, 0, 0.25)
+        assert args[8:18] == (2, Nq, 70, 8, 2, 16, 0, 1, 2, 0.25)
     form = "flash_decode_bf16/noncausal" if Nq == 1 else \
         "flash_prefill_bf16/noncausal"
     assert backend.launches()[entry] == 1

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The LM's causal attention kernels of one or more checkouts of this
-repository on one NVIDIA GPU, in turns, each in its own process:
+"""The bf16 attention kernels, causal and non-causal, of one or more
+checkouts of this repository on one NVIDIA GPU, in turns, each in its own
+process:
 
     python3 tools/causal_ab.py PARENT . . PARENT
 
@@ -22,6 +23,15 @@ For each checkout, on the same bf16 inputs made from a seed on the CPU:
   log-sum-exp (``flash_prefill_bf16``: o, lse) and the backward
   (``flash_prefill_bwd_bf16``: dq, dk, dv), each with its device µs per
   call by kernel (``torch.profiler`` over 20 calls).
+
+* the non-causal bf16 cases, at ``chip_smoke.MM_NONCAUSAL_CASES``
+  (Whisper-base's encoder and cross-attention, Llama-3.2-Vision-90B's
+  cross layers, the reduced configs' Dh 16 and the design's other
+  branches): ``flash_attention(q, k, v)`` on bf16 inputs made as
+  ``chip_smoke.check_flash_attention_noncausal`` makes them, with its
+  device µs per call by kernel and, on the same inputs,
+  ``F.scaled_dot_product_attention(enable_gqa=True)``'s (``sdpa_us``,
+  all its device work).
 
 For each output the sha256 of its bytes (equal hashes across checkouts
 mean bitwise-equal outputs), and the wall ms per call (CUDA events around
@@ -75,7 +85,7 @@ def _device_us(fn, n: int = 20) -> dict:
         torch.cuda.synchronize()
     out = {}
     for name, _, us in _device_rows(prof):
-        m = re.search(r"\w+_kernel(<\d+>)?", name)
+        m = re.search(r"\w+_kernel", name)
         key = m.group(0) if m else name[:60]
         out[key] = out.get(key, 0.0) + us / n
     return out
@@ -113,8 +123,39 @@ def train_cases(torch, dev, time_ms) -> dict:
     return res
 
 
+def noncausal_cases(torch, dev, time_ms) -> dict:
+    """The non-causal bf16 form of the checkout on the path at
+    ``MM_NONCAUSAL_CASES``, and SDPA on the same inputs."""
+    import torch.nn.functional as F
+    from chip_smoke import MM_NONCAUSAL_CASES
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator().manual_seed(12)
+    res = {}
+    for label, q_shape, kv_shape in MM_NONCAUSAL_CASES:
+        q = torch.randn(q_shape, generator=g).to(dev, torch.bfloat16)
+        k, v = (torch.randn(kv_shape, generator=g).to(dev, torch.bfloat16)
+                for _ in range(2))
+
+        def call(q=q, k=k, v=v):
+            return flash_attention(q, k, v)
+
+        def sdpa(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                enable_gqa=True)
+        o = call()
+        torch.cuda.synchronize()
+        by_kernel = _device_us(call)
+        res[f"noncausal {label}"] = dict(
+            sha256=[_sha(o)], ms=time_ms(call),
+            device_us=sum(by_kernel.values()), device_us_by_kernel=by_kernel,
+            sdpa_us=sum(_device_us(sdpa).values()))
+    return res
+
+
 def one(tree: str) -> dict:
-    """Hash and time the causal wrappers of the checkout at ``tree``."""
+    """Hash and time the bf16 attention wrappers of the checkout at
+    ``tree``."""
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms  # puts ROOT/src on the path
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
@@ -144,6 +185,7 @@ def one(tree: str) -> dict:
         res[label] = dict(sha256=[_sha(t) for t in out], ms=time_ms(call),
                           device_us=_device_us(call))
     res.update(train_cases(torch, dev, time_ms))
+    res.update(noncausal_cases(torch, dev, time_ms))
     return res
 
 
