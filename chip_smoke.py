@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, serves (the ViT and every
-LM family) and trains (the ViT, the dense LM and the MoE LM) on the
-card.
+LM family, and an LM prompt under the paper's TDM) and trains (the ViT,
+the dense, MoE, hybrid and SSM LMs) on the card.
 
     python3 chip_smoke.py
 
@@ -53,7 +53,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    final state bitwise in the sequential form (decode), within 1e-5 x
    max(1, max|plain|) in the chunked form (prefill); two launches bitwise
    equal; the prefill split at 200 with the state carried, within the
-   same bounds of one pass; LM training's causal pair at
+   same bounds of one pass; the scans' backward (``mamba_scan_bwd_f32``,
+   ``wkv6_bwd_f32``) at the training step's widths and 8 x 512 (bf16,
+   zero states) and at the edges (``SCAN_BWD_CASES``: fp32, S 1, 33 and
+   70, strong decays, nonzero initial states and final-state gradients):
+   every gradient within 1e-5 x max(1, max|plain|) of the plain backward,
+   two launches bitwise equal, no atomic in either library's SASS; LM
+   training's causal pair at
    full-width StableLM-1.6B ([8, 512, 32, 64]) and at GQA 3:1 ([2, 512,
    24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
    serve's, lse within 1e-5) and ``flash_prefill_bwd_bf16`` (dq, dk, dv
@@ -135,11 +141,11 @@ Phases, in order; any failure exits non-zero and prints no result:
       K) served once continuous at depth 1 and in static waves under the
       teacher-forced oracle of c; no plain attention on the card. Prints
       the real (token, expert) pairs dropped per prefill call and its aux
-      loss, one continuous serve profiled on the card's side (busy, idle
-      share, launches) and one decode step alone (wall, device launches,
-      device time against the weights' bytes over the HBM rate and by
-      part: causal kernels, expert GEMMs, the rest of the MoE FFN, the
-      rest). Then Qwen2-MoE-A2.7B at full width and 4 of its 24 layers
+      loss, one continuous serve at 8 of the 32 layers profiled on the
+      card's side (busy, idle share, launches) and one decode step alone
+      (wall, device launches, device time against the weights' bytes over
+      the HBM rate and by part: causal kernels, expert GEMMs, the rest of
+      the MoE FFN, the rest). Then Qwen2-MoE-A2.7B at full width and 4 of its 24 layers
       (its shared expert and Dh 128), continuous at depth 1, under the
       call-for-call oracle.
    e. The SSM and hybrid families (``ssm_path``, after d): full-width
@@ -172,6 +178,18 @@ Phases, in order; any failure exits non-zero and prints no result:
       device time against its bytes' floor and by part: scan, causal
       kernels, GEMMs, the rest) and one whole-batch re-prefill alone (B
       4, S 500: device time by the same parts).
+   c2. The paper's TDM on LM prompts (``prefill_tdm_path``, after c's
+      profile, on c's weights): ``models/prefill_prune
+      .pruned_prefill_logits`` over 4 prompts of 500 tokens at r_t 0.7 at
+      layers (2, 6, 9) against the dense prefill of the same prompts, in
+      turns. Gates: 175 tokens left, finite logits, the prefill kernel
+      once per layer and the decode kernel once per TDM layer (the score
+      row), no other launch; at 12 of the 32 layers, one prompt, the
+      kept positions equal to the CPU's (fp32) at each TDM layer or
+      differing only at near-ties (within 5% of the CPU's k-th score,
+      the card's kept sets then replayed on the CPU), and the card's
+      argmax token's CPU logit within 0.05 of the CPU's largest. Prints
+      the wall and device time against the dense prefill's.
    f. The VLM and audio families (``multimodal_path``, after e), each
       through ``models/steps.make_prefill`` and ``make_decode_step``
       (greedy, left-padded prompts with ``valid_start``, weights from
@@ -205,8 +223,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and idle share, the device time by kernel and the engine's host spans
    (plan / stage / dispatch / complete), and the host's self time by
    operator and CUDA runtime call; the same for one continuous depth-1
-   serve of the LM, with the decode and prefill kernels' device time and
-   launches, each and together, against its device busy time.
+   serve of the LM at 8 of its 32 layers, with the decode and prefill
+   kernels' device time and launches, each and together, against its
+   device busy time.
 5b. Traffic (``traffic_path``): seeded traces replayed on the harness's
    virtual clock through ``launch/serve_trace.build_driver`` and
    ``traffic.TrafficHarness``, each replay with the launch counts set to
@@ -279,6 +298,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    busy and idle share, its device time by kernel group and by host
    range (expert GEMMs forward and backward, the rest of ``moe_ffn``,
    masks).
+6c. Training the hybrid and SSM families (``ssm_train_path``, after
+   6b): ``make_train_step`` with ``--prune`` (the hybrid's shared block,
+   RWKV6's channel mix) on full-width Zamba2-1.2B (38 Mamba2 layers, no
+   remat, as the reference) and RWKV6-1.6B (24 layers, full remat),
+   batches of 8 x 512, AdamW at lr 1e-3, bf16 activations, 8 steps and
+   one profiled each. Gates: (a) step 0 against the CPU at fp32
+   (``SSM_TRAIN_STEP0``: Zamba2 at 1 layer of period 1, a Mamba2 layer
+   and the shared block; RWKV6 at 2 layers): the loss within 1e-3 and
+   every gradient leaf within 5% of its largest; (b) every loss
+   finite; (c) every step launches exactly the scan pair once per
+   recurrent layer (RWKV6's forward twice, recomputed) and the causal
+   pair once per shared block, and no plain scan, scan backward or
+   attention runs on the card. Prints the losses, wall per step, tokens/s,
+   peak memory, the profiled step's busy and idle share, its device time
+   by part and each scan kernel's device time per step.
 6. Training (``train_path``): the paper's Algorithm 1
    (``core/simultaneous``) on full-width DeiT-Small: a student (seed 0,
    its scores from the same generator) distilled from a dense DeiT-Small
@@ -736,6 +770,24 @@ def check_tensor_cores(backend):
         else:
             require(not ops, f"{kern} issues tensor-core or atomic "
                              f"instructions {ops}")
+    scan_bwd = {}
+    for lib, entry in (("mamba_scan_bwd", "mamba_scan_bwd_f32"),
+                       ("wkv6_bwd", "wkv6_bwd_f32")):
+        for fn, ops in _sass_ops(backend, lib,
+                                 TENSOR_CORE_OPS + ATOMIC_OPS).items():
+            if f"{entry}_kernelI" in fn:
+                t = "bf16" if "bfloat16" in fn else "f32"
+                scan_bwd[f"{entry}_kernel<{t}>"] = ops
+            elif f"{entry}_" in fn and "_sum_kernel" in fn:
+                scan_bwd[f"{entry} sum kernel"] = ops
+    print("sass: tensor-core and atomic instructions of the scans' "
+          "backward " + json.dumps(scan_bwd), flush=True)
+    require(len(scan_bwd) == 6, f"expected each backward's walk at both "
+                                f"input types and its sum in the SASS, "
+                                f"found {sorted(scan_bwd)}")
+    for kern, ops in scan_bwd.items():
+        require(not ops, f"{kern} issues tensor-core or atomic instructions "
+                         f"{ops}")
 
 
 # the causal kernels' cases at full-width Minitron-4B (24 query heads over 8
@@ -1390,6 +1442,11 @@ def main_path(torch, dev):
 # Phase 4, LM: full-width Minitron-4B through ServeEngine
 # ---------------------------------------------------------------------------
 LM_PROMPTS = (96, 200, 384, 500)  # prompt lengths, twice over: 8 requests
+# The profiled serves of Minitron-4B and Granite-MoE run the first 8 of
+# their 32 layers: a full-depth serve's profile (~200,000 and ~300,000
+# kernel records, with their launches and host operators) took 192 s and
+# 95 s of the script's time limit, most of it the profiler's parse
+PROFILE_LAYERS = 8
 LM_MAX_NEW, LM_MAX_BATCH, LM_MAX_LEN = 32, 4, 572
 LM_REPEATS = 2    # timed serves of each LM path, in turns after warm-ups
 # (label, continuous, EngineConfig overrides); the teacher-forced oracle
@@ -1588,8 +1645,7 @@ def lm_path(torch, dev):
     card; the serving copy holds its matrices in bf16) serving 8 requests
     on each of ``LM_SERVES`` (``run_lm_serves``), then the teacher-forced
     oracle. Returns ({"lm": launch counts of the last timed depth-1
-    serve}, {serve: host syncs per serve}, (cfg, params, {serve: median
-    wall})."""
+    serve}, {serve: host syncs per serve}, (cfg, params))."""
     from repro_torch.configs import MINITRON_4B
     from repro_torch.models import model as M
     from repro_torch.serving.runner import serving_params
@@ -1607,7 +1663,7 @@ def lm_path(torch, dev):
           f"{time.perf_counter() - t0:.2f} s; "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated",
           flush=True)
-    last, walls_by, syncs = run_lm_serves(torch, dev, cfg, params, "lm")
+    last, _, syncs = run_lm_serves(torch, dev, cfg, params, "lm")
     for label in ("continuous depth 1", "static waves"):
         check_lm_oracle(torch, cfg, params, last[label][0], dev,
                         f"lm {label}")
@@ -1616,7 +1672,7 @@ def lm_path(torch, dev):
     print(f"lm: one decode step alone (B=4, 572-slot cache, windows of "
           f"{LM_DECODE[4]} keys): {step_ms:.3f} ms", flush=True)
     return ({"lm": last["continuous depth 1"][2]}, syncs,
-            (cfg, params, walls_by))
+            (cfg, params))
 
 
 def decode_step_alone(torch, dev, cfg, params):
@@ -1761,13 +1817,13 @@ def lm_serve_params(torch, dev, cfg, tag):
     return params
 
 
-def profile_moe(torch, dev, cfg, params, wall):
-    """One continuous depth-1 MoE serve profiled on the card's side only
-    (kernel records: host operators would triple a trace of ~300,000
-    launches, whose parsing alone then takes minutes): ``report_profile``
-    and the causal kernels' share of device busy. Then one batch-4 decode
+def profile_moe(torch, dev, cfg, params):
+    """One continuous depth-1 MoE serve of ``profiled_engine`` profiled
+    on the card's side only (kernel records: host operators would triple
+    the trace): ``report_profile`` and the causal
+    kernels' share of device busy. Then, at full depth, one batch-4 decode
     step alone (``decode_step_alone``): its wall (CUDA events), and, from
-    5 steps profiled with host operators and a ``record_function`` range
+    2 steps profiled with host operators and a ``record_function`` range
     around each ``moe_ffn``, its device launches, its device time against
     the least the card could take (the bytes of every weight the step
     reads, all but the embedding table, of which it reads 4 rows, over
@@ -1779,16 +1835,15 @@ def profile_moe(torch, dev, cfg, params, wall):
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels import backend
     from repro_torch.models import moe as MOE
-    from repro_torch.obs import Tracer
     from repro_torch.tree import leaves
-    tracer = Tracer()
-    eng = lm_engine(cfg, params, dev, tracer=tracer)
+    t0 = time.perf_counter()
+    eng, tracer, wall, n_warm = profiled_engine(torch, dev, cfg, params)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, dt, _, st = serve_lm(torch, backend, eng, True)
     rows, busy_us = report_profile(
-        prof, dt, wall, tracer, 0, "moe continuous",
-        f"depth 1, 8 requests x {LM_MAX_NEW} tokens, "
-        f"{st['pipeline_steps']} steps")
+        prof, dt, wall, tracer, n_warm, "moe continuous",
+        f"depth 1, {PROFILE_LAYERS} of {cfg.num_layers} layers, 8 "
+        f"requests x {LM_MAX_NEW} tokens, {st['pipeline_steps']} steps")
     causal = ("flash_decode_bf16", "flash_prefill_bf16")
     attn_us = sum(us for n, _, us in rows
                   if any(kernel_symbol(c) in n for c in causal))
@@ -1796,11 +1851,12 @@ def profile_moe(torch, dev, cfg, params, wall):
           f"of {busy_us / 1e3:.3f} ms device busy ({attn_us / busy_us:.3f}); "
           f"{sum(r[1] for r in rows) / st['pipeline_steps']:.1f} device "
           f"launches per step over {st['runner_decode_calls']} decode and "
-          f"{st['runner_prefill_slot_calls']} prefill calls", flush=True)
+          f"{st['runner_prefill_slot_calls']} prefill calls; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     step = decode_step_alone(torch, dev, cfg, params)
     step_ms = time_ms(step, samples=5, calls=5, warmup=2)
-    ffn, n = MOE.moe_ffn, 5
+    ffn, n = MOE.moe_ffn, 2
 
     def ranged(*a, **kw):
         with record_function("moe_ffn"):
@@ -1836,7 +1892,8 @@ def profile_moe(torch, dev, cfg, params, wall):
           f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s; {busy_us / 1e3 / floor_ms:.2f}"
           f"x); by part: " + ", ".join(
               f"{k} {v / 1e3:.3f} ms ({v / busy_us:.3f})"
-              for k, v in parts.items()), flush=True)
+              for k, v in parts.items())
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def moe_path(torch, dev):
@@ -1860,8 +1917,8 @@ def moe_path(torch, dev):
     with count_plain((FA, "attention_causal_plain"),
                      (A, "flash_attention_torch")) as plain:
         params = lm_serve_params(torch, dev, cfg, "moe")
-        last, walls, s = run_lm_serves(torch, dev, cfg, params, "moe",
-                                       repeats=MOE_REPEATS)
+        last, _, s = run_lm_serves(torch, dev, cfg, params, "moe",
+                                   repeats=MOE_REPEATS)
         counts["moe"] = last["continuous depth 1"][2]
         syncs.update({f"moe {k}": v for k, v in s.items()})
         print(f"moe: serves done at {time.perf_counter() - t0:.1f} s",
@@ -1901,7 +1958,7 @@ def moe_path(torch, dev):
                             f"moe no-drop {label}")
         print(f"moe: no-drop variant done at {time.perf_counter() - t0:.1f} "
               f"s", flush=True)
-        profile_moe(torch, dev, cfg, params, walls["continuous depth 1"])
+        profile_moe(torch, dev, cfg, params)
         print(f"moe: profile done at {time.perf_counter() - t0:.1f} s",
               flush=True)
         del params
@@ -2073,6 +2130,122 @@ def check_ssm_scans(torch, dev):
             library_ms=None, library_call=None, bound_ms=head["bound_ms"],
             bound_by=head["bound_by"],
             shapes="; ".join(c["shapes"] for c in cases), cases=cases))
+    return checks
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (recurrent training): the scans' backward against their plain
+# versions
+# ---------------------------------------------------------------------------
+# (label, B, S, activations, regime, nonzero states): the training step's
+# scan (8 x 512, bf16, zero initial state and no final-state gradient: the
+# headline, timed), then the edges: fp32 activations, S = 1, S under the
+# checkpoint interval, S past it and not a multiple of it, strong decays
+# (down to exactly 0), nonzero h0 / s0 and final-state gradients
+SCAN_BWD_CASES = (("training step", 8, 512, "bf16", "model", False),
+                  ("fp32, S 200", 2, 200, "fp32", "model", True),
+                  ("S 1", 2, 1, "bf16", "model", True),
+                  ("S 33", 2, 33, "bf16", "model", True),
+                  ("S 70, strong decays", 2, 70, "fp32", "strong", True))
+# each gradient against the plain backward's (both fp32, the same recomputed
+# states: the kernel's are bitwise the plain loop's): sums over 64 rows or
+# columns and over the steps in another order, fused multiply-adds where
+# the plain version rounds twice (measured on an NVIDIA H100 80GB HBM3 at
+# 700 W, tools/scan_bwd_probe.py: at most 1.1e-6 x max|plain| at every case)
+SCAN_BWD_TOL = 1e-5  # x max(1, max|plain|)
+SCAN_BWD_KERNELS = (  # kind, entry point, source, config whose widths it takes
+    ("mamba", "mamba_scan_bwd_f32", "mamba_scan_bwd.cu", "ZAMBA2_1_2B"),
+    ("wkv6", "wkv6_bwd_f32", "wkv6_bwd.cu", "RWKV6_1_6B"))
+SCAN_BWD_OUTS = {"mamba": ("dx", "ddt", "ddecay", "dB", "dC", "dh0"),
+                 "wkv6": ("dr", "dk", "dv", "dw", "du", "ds0")}
+
+
+def scan_bwd_bound(kind, args, grads):
+    """(bound ms, bound by) of one backward call: each input and incoming
+    gradient read once, each gradient written once (bytes); 14 fp32
+    operations per state element and step (recomputing the state once, 3;
+    the adjoint, 3; its four sums, 8; ``csrc/*_bwd.cu``)."""
+    n_bytes = sum(t.numel() * t.element_size() for t in (*args, *grads))
+    n_bytes += 4 * sum(t.numel() for t in args)
+    B, S, H, dh = args[0].shape
+    width = args[3].shape[-1] if kind == "mamba" else dh
+    return bound_ms(n_bytes, 14 * B * S * H * dh * width)
+
+
+def check_scan_training(torch, dev):
+    """``mamba_scan_bwd_f32`` at full-width Zamba2-1.2B and
+    ``wkv6_bwd_f32`` at full-width RWKV6-1.6B, each at
+    ``SCAN_BWD_CASES``, against ``mamba_scan_bwd_plain`` /
+    ``wkv6_bwd_plain`` on the same inputs and incoming gradients: each
+    gradient within ``SCAN_BWD_TOL``; two launches bitwise equal; one
+    launch a call. No library call computes either gradient. Returns one
+    check per kernel, a case per shape."""
+    from repro_torch import configs
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.ssm_scan import ops as SS
+    g = torch.Generator().manual_seed(14)
+    checks = []
+    tol_text = f"{SCAN_BWD_TOL:g} x max(1, max|plain|)"
+    for kind, entry, source, cfg_name in SCAN_BWD_KERNELS:
+        cfg = getattr(configs, cfg_name)
+        fn, plain = ((SS._mamba_scan_bwd_cuda, SS.mamba_scan_bwd_plain)
+                     if kind == "mamba" else
+                     (SS._wkv6_bwd_cuda, SS.wkv6_bwd_plain))
+        cases = []
+        for label, B, S, act, regime, nonzero in SCAN_BWD_CASES:
+            args = scan_inputs(torch, dev, kind, cfg, B, S, g,
+                               strong=regime == "strong")
+            if act == "fp32":
+                args = tuple(t.float() for t in args)
+            if not nonzero:
+                args = (*args[:-1], torch.zeros_like(args[-1]))
+            y_shape = args[0].shape
+            dy = torch.randn(y_shape, generator=g).to(dev)
+            ds = (0.1 * torch.randn(args[-1].shape, generator=g).to(dev)
+                  if nonzero else torch.zeros_like(args[-1]))
+            grads = (dy, ds)
+            before = backend.launches()[entry]
+            got, again = fn(*args, *grads), fn(*args, *grads)
+            ref = plain(*args, *grads)
+            torch.cuda.synchronize()
+            tag = f"{entry} ({label})"
+            require(backend.launches()[entry] == before + 2,
+                    f"{tag}: not one launch a call")
+            require(all(bool(torch.isfinite(t).all()) for t in got),
+                    f"{tag}: not finite")
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{tag}: two launches differ")
+            errs = []
+            for name, a, r in zip(SCAN_BWD_OUTS[kind], got, ref):
+                errs.append((f"{name} ({label})",
+                             (a - r).abs().max().item(),
+                             SCAN_BWD_TOL * max(1.0, r.abs().max().item()),
+                             tol_text))
+            bnd, by = scan_bwd_bound(kind, args, grads)
+            shapes = (f"{' '.join(f'{list(t.shape)}' for t in args)} "
+                      f"({cfg.name} widths, {label}; activations {act}, "
+                      f"{'nonzero' if nonzero else 'zero'} initial state "
+                      f"and final-state gradient)")
+            call = lambda a=args, d=grads, f=fn: f(*a, *d)
+            headline = not cases
+            cases.append(dict(
+                label=label, errs=errs, fn=call,
+                ms=time_ms(call, samples=11 if headline else 5,
+                           calls=5 if headline else 3, warmup=2),
+                plain_ms=time_ms(lambda a=args, d=grads, f=plain: f(*a, *d),
+                                 samples=1, calls=1, warmup=0),
+                library_fn=None, library_ms=None, bound_ms=bnd, bound_by=by,
+                shapes=shapes))
+            del got, again, ref
+        head = cases[0]
+        checks.append(dict(
+            name=entry, source=source,
+            errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
+            ms=head["ms"], plain_ms=head["plain_ms"], library_fn=None,
+            library_ms=None, library_call=None, bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"],
+            shapes="; ".join(c["shapes"] for c in cases), cases=cases))
+    torch.cuda.empty_cache()
     return checks
 
 
@@ -2664,7 +2837,8 @@ def multimodal_path(torch, dev):
 # ``<entry point>_<part>_kernel``: the causal backward's dQ (with D), then
 # dK/dV; the non-causal backward's main pass, then its dQ sum
 KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2,
-                      "flash_attention_bwd_f32": 2}
+                      "flash_attention_bwd_f32": 2,
+                      "mamba_scan_bwd_f32": 2, "wkv6_bwd_f32": 2}
 
 
 # entry points with two forms, one kernel a launch chosen by the sequence's
@@ -2763,24 +2937,36 @@ def profile_serve(torch, dev, cfg, params, scores, wall, label, soft=False,
                    f"depth 1, 16 images, {pipe['steps']} steps")
 
 
-def profile_lm(torch, dev, cfg, params, walls):
-    """For one depth-1 continuous serve of the LM: ``report_profile``, then
-    the causal kernels' device time and launches, each and together,
-    against the serve's device busy time."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled_engine(torch, dev, cfg, params):
+    """A continuous depth-1 LM engine over the first ``PROFILE_LAYERS``
+    layers of ``params``, with a tracer, after a warm-up serve and one
+    unprofiled serve. Returns (engine, tracer, that serve's wall, spans
+    logged so far)."""
     from repro_torch.kernels import backend
     from repro_torch.obs import Tracer
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     tracer = Tracer()
-    eng = lm_engine(cfg, params, dev, tracer=tracer)
+    eng = lm_engine(cfg.replace(num_layers=PROFILE_LAYERS), {
+        **params, "layers": params["layers"][:PROFILE_LAYERS]}, dev,
+        tracer=tracer)
     serve_lm(torch, backend, eng, True)  # warm-up
-    n_warm = len(tracer.span_log)
-    with profile(activities=acts) as prof:
+    wall = serve_lm(torch, backend, eng, True)[2]
+    return eng, tracer, wall, len(tracer.span_log)
+
+
+def profile_lm(torch, dev, cfg, params):
+    """For one depth-1 continuous serve of the LM (``profiled_engine``):
+    ``report_profile``, then the causal kernels' device time and
+    launches, each and together, against the serve's device busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import backend
+    eng, tracer, wall, n_warm = profiled_engine(torch, dev, cfg, params)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         _, _, dt, _, st = serve_lm(torch, backend, eng, True)
     rows, busy_us = report_profile(
-        prof, dt, walls["continuous depth 1"], tracer, n_warm,
-        "lm continuous", f"depth 1, 8 requests x {LM_MAX_NEW} tokens, "
-        f"{st['pipeline_steps']} steps")
+        prof, dt, wall, tracer, n_warm, "lm continuous",
+        f"depth 1, {PROFILE_LAYERS} of {cfg.num_layers} layers, 8 requests "
+        f"x {LM_MAX_NEW} tokens, {st['pipeline_steps']} steps")
     causal = {name: [(k, us) for n, k, us in rows if kernel_symbol(name) in n]
               for name in ("flash_decode_bf16", "flash_prefill_bf16")}
     parts = [f"{name} {sum(k for k, _ in r)} launches "
@@ -3685,9 +3871,9 @@ def train_parts(rows, busy_us, label):
     return split
 
 
-def lm_step0_card_vs_cpu(torch, dev, cfg):
+def lm_step0_card_vs_cpu(torch, dev, cfg, layers=2):
     """Step 0's loss and gradients (``models/steps.make_grad_fn`` with
-    pruning) of ``cfg`` cut to 2 layers, batch 2, seq 128, from
+    pruning) of ``cfg`` cut to ``layers`` layers, batch 2, seq 128, from
     ``launch/train.make_state_factory``'s seeds: on the card (``cfg``'s
     dtype, the kernels) and on the CPU (fp32, plain attention). Returns the
     card's loss, the CPU's, the CPU's seconds, the card's kernel launches
@@ -3701,7 +3887,7 @@ def lm_step0_card_vs_cpu(torch, dev, cfg):
     from repro_torch.optim import AdamW
     from repro_torch.tree import flatten_with_path, path_str, tree_map
 
-    small = cfg.replace(num_layers=2)
+    small = cfg.replace(num_layers=layers)
     st = LT.make_state_factory(small, AdamW(), dev, with_scores=True)()
     toks = torch.from_numpy(synthetic_lm_batch(
         small, ShapeConfig("t", 128, 2, "train"), DataConfig(), 0)["tokens"])
@@ -3865,6 +4051,355 @@ def lm_train_path(torch, dev):
     del params, scores, opt_state, m, prof
     torch.cuda.empty_cache()
     return counts[-1]
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: training the hybrid and SSM families, full-width Zamba2-1.2B
+# and RWKV6-1.6B
+# ---------------------------------------------------------------------------
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 8, 512
+SSM_TRAIN_STEPS = 8  # step 0 (warm-up), then 7 timed; then 1 profiled
+# Step 0 card (bf16, kernels) vs CPU (fp32, plain), by model: (layers,
+# attn_layer_period or None for the config's), under the dense LM's gates
+# (the loss within LM_TRAIN_LOSS_TOL, each gradient leaf within
+# LM_TRAIN_GRAD_TOL of its largest CPU element). Random-init Zamba2 is
+# chaotic in bf16 past its first layer, in the reference as in the port:
+# the reference's own bf16 gradients lie 0.026 x a leaf's largest element
+# from its fp32 ones at 1 layer of period 1, 0.17 at 2, 2.11 at 7
+# (tools/step0_reference_witness.py, on the CPU, full width), so no bf16
+# run can meet the gate deeper. Zamba2 runs at 1 layer of period 1: a
+# Mamba2 layer, then the shared attention block, each trained through its
+# kernels. RWKV6 at 2 layers.
+SSM_TRAIN_STEP0 = {"zamba2-1.2b": (1, 1), "rwkv6-1.6b": (2, None)}
+
+
+def ssm_train_launches(cfg):
+    """Kernel launches of one training step of ``cfg``: a scan forward and
+    backward per recurrent layer (RWKV6's forward twice: its layers are
+    recomputed under full remat; the hybrid's are not checkpointed, as in
+    the reference) and the causal pair once per shared-block call."""
+    if cfg.family == "ssm":
+        return {"wkv6_f32": 2 * cfg.num_layers,
+                "wkv6_bwd_f32": cfg.num_layers}
+    from repro_torch.models import model as M
+    n_stages = M.hybrid_layout(cfg)[1]
+    return {"mamba_scan_f32": cfg.num_layers,
+            "mamba_scan_bwd_f32": cfg.num_layers,
+            "flash_prefill_bf16": n_stages,
+            "flash_prefill_bwd_bf16": n_stages}
+
+
+def ssm_train_path(torch, dev):
+    """Training (``models/steps.make_train_step``, ``launch/train``'s
+    ``--prune`` config) of full-width Zamba2-1.2B (38 Mamba2 layers, a
+    shared attention block after every 6) and RWKV6-1.6B (24 layers),
+    params from seed 0 on the card, scores from seed 7, batches of 8 x 512
+    from ``synthetic_lm_batch`` by step, AdamW at ``LM_TRAIN_LR``. Gates,
+    per model: (a) step 0 on the card against the CPU at the cuts of
+    ``SSM_TRAIN_STEP0`` (the dense LM's: loss within 1e-3, each gradient
+    leaf within 5% of its largest; the cut's ``ssm_train_launches``);
+    (b) every step's loss finite; (c) per step, exactly
+    ``ssm_train_launches`` and no plain scan, scan backward or attention
+    on the card. Returns {"<model>
+    train": the last step's launch counts}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import RWKV6_1_6B, ZAMBA2_1_2B
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssm_scan import ops as SS
+    from repro_torch.launch import train as LT
+    from repro_torch.models import attention as A
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    out = {}
+    for base in (ZAMBA2_1_2B, RWKV6_1_6B):
+        cfg = LT.prune_config(base)
+        tag = f"{cfg.name} train"
+        cut, period = SSM_TRAIN_STEP0[cfg.name]
+        c = cfg if period is None else cfg.replace(attn_layer_period=period)
+        loss_c, loss_h, cpu_s, l0, rows = lm_step0_card_vs_cpu(
+            torch, dev, c, layers=cut)
+        err_loss = abs(loss_c - loss_h) / abs(loss_h)
+        at = f"{cut} layers" + ("" if period is None else
+                                f" of period {period}")
+        print(f"{tag} step 0 at {at}, batch 2, seq 128, card (bf16, "
+              f"kernels: {l0}) vs CPU (fp32, plain; {cpu_s:.1f} s): loss "
+              f"{loss_c:.6f} vs {loss_h:.6f} (rel {err_loss:.3g}, tolerance "
+              f"{LM_TRAIN_LOSS_TOL:g}); gradients, worst max|d| / max|CPU| "
+              f"per leaf of {len(rows)}: "
+              + ", ".join(f"{r:.4g} ({p})" for r, _, _, p in rows[:3])
+              + f" (tolerance {LM_TRAIN_GRAD_TOL:g})", flush=True)
+        require(err_loss <= LM_TRAIN_LOSS_TOL,
+                f"{tag} step 0 at {at}: loss card vs CPU rel {err_loss:.3g}")
+        require(rows[0][0] <= LM_TRAIN_GRAD_TOL,
+                f"{tag} step 0 at {at}: gradients card vs CPU, worst "
+                f"{rows[:3]}")
+        want = ssm_train_launches(c.replace(num_layers=cut))
+        require(l0 == want, f"{tag} step 0 at {at}: launches {l0}, want "
+                            f"{want}")
+
+        opt = AdamW(lr=LM_TRAIN_LR, weight_decay=0.01)
+        t0 = time.perf_counter()
+        state = LT.make_state_factory(cfg, opt, dev, with_scores=True)()
+        params, scores, opt_state = (state["params"], state["scores"],
+                                     state["opt"])
+        del state
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in leaves(params))
+        step = ST.make_train_step(cfg, opt, with_pruning=True)
+        shape = ShapeConfig("t", SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, "train")
+        host = [synthetic_lm_batch(cfg, shape, DataConfig(), i)["tokens"]
+                for i in range(SSM_TRAIN_STEPS + 1)]
+        tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+        print(f"{tag}: {cfg.name} at full width and depth ({cfg.family}, "
+              f"{cfg.num_layers} layers, D={cfg.d_model}, vocab "
+              f"{cfg.vocab_size}), {n_params / 1e9:.4f} B params and "
+              f"{sum(t.numel() for t in scores.values()) / 1e6:.3f} M scores "
+              f"(block {cfg.pruning.block_size}, r_b {cfg.pruning.r_b}: "
+              f"{sorted({k.split('/')[-1] for k in scores})}), fp32 with "
+              f"AdamW state, made in {time.perf_counter() - t0:.2f} s; batch "
+              f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens, bf16 "
+              f"activations, remat "
+              f"{cfg.remat_policy if cfg.family == 'ssm' else 'none'}, lr "
+              f"{LM_TRAIN_LR:g}", flush=True)
+
+        def one(i):
+            toks = torch.from_numpy(host[i]).to(dev)
+            return step(params, opt_state, {"tokens": toks}, scores)
+
+        metrics, walls, counts = [], [], []
+        with count_plain((SS, "mamba_scan_plain"), (SS, "wkv6_plain"),
+                         (SS, "mamba_scan_bwd_plain"),
+                         (SS, "wkv6_bwd_plain"),
+                         (FA, "attention_causal_plain"),
+                         (A, "flash_attention_torch")) as plain_calls:
+            torch.cuda.reset_peak_memory_stats(dev)
+            for i in range(SSM_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                backend.reset_launches()
+                t0 = time.perf_counter()
+                params, scores, opt_state, m = one(i)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                counts.append(backend.launches())
+                metrics.append({k: v.item() for k, v in m.items()})
+            peak = torch.cuda.max_memory_allocated(dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, scores, opt_state, m = one(SSM_TRAIN_STEPS)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        require(not any(plain_calls.values()),
+                f"{tag}: a plain version ran on the card: {plain_calls}")
+        want = ssm_train_launches(cfg)
+        for i, n in enumerate(counts):
+            got = {k: v for k, v in n.items() if v}
+            require(got == want, f"{tag} step {i}: launches {got}, want "
+                                 f"{want}")
+        losses = [m["loss"] for m in metrics]
+        require(all(math.isfinite(x) for x in losses),
+                f"{tag}: a loss is not finite: {losses}")
+        wall = statistics.median(walls[1:])
+        print(f"{tag}: losses {[round(x, 4) for x in losses]} (step 0 "
+              f"{losses[0]:.4f}; the rest of each is lambda_reg x the "
+              f"scores' sparsity term); launches per step {want}, plain "
+              f"calls on the card 0", flush=True)
+        print(f"{tag}: wall per step median {wall * 1e3:.2f} ms over "
+              f"{len(walls) - 1} steps after step 0 (min "
+              f"{min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}; "
+              f"step 0 {walls[0] * 1e3:.1f} ms): {tokens / wall:.1f} "
+              f"training tokens/s; peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB", flush=True)
+        prof_rows = _device_rows(prof)
+        busy_us = sum(r[2] for r in prof_rows)
+        print(f"profile {tag} step ({sum(r[1] for r in prof_rows)} device "
+              f"launches): wall {dt * 1e6:.0f} us profiled / "
+              f"{wall * 1e6:.0f} us unprofiled median, device busy "
+              f"{busy_us:.0f} us, idle share {1.0 - busy_us / (dt * 1e6):.3f}"
+              f" profiled / {1.0 - busy_us / (wall * 1e6):.3f} unprofiled",
+              flush=True)
+        train_parts(prof_rows, busy_us, tag)
+        for entry in want:
+            sym = kernel_symbol(entry)
+            k = sum(r[1] for r in prof_rows if sym in r[0])
+            us = sum(r[2] for r in prof_rows if sym in r[0])
+            print(f"{tag}: {entry} {us / 1e3:.3f} ms of device time per step"
+                  f" in {k} kernels ({us / busy_us:.3f} of busy)", flush=True)
+        out[tag] = counts[-1]
+        del params, scores, opt_state, m, prof, step
+        torch.cuda.empty_cache()
+    print(f"ssm train: phase wall {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c2: the paper's TDM on Minitron-4B's prompts (models/prefill_prune)
+# ---------------------------------------------------------------------------
+PREFILL_TDM_B, PREFILL_TDM_N = 4, 500   # prompts x tokens
+PREFILL_TDM_RT, PREFILL_TDM_LAYERS = 0.7, (2, 6, 9)  # the DeiT config's
+PREFILL_TDM_FINAL = 175  # 500 -> 352 -> 248 -> 175 tokens
+PREFILL_TDM_REPEATS = 3  # timed prefills of each kind, in turns
+PREFILL_TDM_ORACLE_LAYERS = 12  # of 32, one prompt, card vs CPU fp32
+# a kept set may differ between the card (bf16) and the CPU (fp32) only at
+# tokens whose CPU score lies within this share of the CPU's k-th largest
+# (bf16 rounds q and k to 2^-9, which moves a probability by a few percent)
+PREFILL_TDM_NEAR_TIE = 0.05
+
+
+@contextlib.contextmanager
+def record_drops(torch, replay=None):
+    """Record each TDM layer's kept indices (``token_pruning
+    .drop_weights``, as ``prefill_prune`` calls it) with its body scores;
+    with ``replay`` (a list of kept indices), keep those instead, the
+    weights computed from this run's scores. Yields the records."""
+    from repro_torch.core import token_pruning as TP
+    inner, seen = TP.drop_weights, []
+    it = None if replay is None else iter(replay)
+
+    def drop_weights(s_body, k):
+        if it is None:
+            top, w = inner(s_body, k)
+        else:
+            top = next(it).to(s_body.device)
+            keep = torch.zeros(s_body.shape, dtype=torch.bool,
+                               device=s_body.device).scatter_(1, top, True)
+            w = torch.where(keep, 0.0, s_body.float())
+            w = w / (w.sum(dim=1, keepdim=True) + 1e-9)
+        seen.append((top.cpu(), s_body.float().cpu()))
+        return top, w
+    TP.drop_weights = drop_weights
+    try:
+        yield seen
+    finally:
+        TP.drop_weights = inner
+
+
+def prefill_tdm_path(torch, dev, cfg, params):
+    """``prefill_prune.pruned_prefill_logits`` on the uncut Minitron-4B of
+    ``lm_path`` (its bf16 serving copy): ``PREFILL_TDM_B`` prompts of
+    ``PREFILL_TDM_N`` tokens, r_t ``PREFILL_TDM_RT`` at
+    ``PREFILL_TDM_LAYERS``, against the dense prefill of the same prompts
+    (the same function at r_t 1). Gates: ``PREFILL_TDM_FINAL`` tokens
+    left; finite logits; per prefill the causal prefill kernel once per
+    layer and the decode kernel once per TDM layer (the score row), the
+    dense prefill no decode launch; the oracle at
+    ``PREFILL_TDM_ORACLE_LAYERS`` layers, one prompt, card against the CPU
+    at fp32: the kept positions equal at each TDM layer, or differing only
+    at near-ties (``PREFILL_TDM_NEAR_TIE``), the card's kept sets then
+    replayed on the CPU; the card's argmax token's CPU logit within
+    ``LM_ORACLE_TOL`` of the CPU's largest. Returns {"prefill tdm": the
+    last TDM prefill's launch counts}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import backend
+    from repro_torch.models import prefill_prune as PP
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    pr = cfg.pruning
+    tdm = cfg.replace(pruning=dataclasses.replace(
+        pr, r_t=PREFILL_TDM_RT, tdm_layers=PREFILL_TDM_LAYERS))
+    dense = cfg.replace(pruning=dataclasses.replace(pr, r_t=1.0,
+                                                    tdm_layers=()))
+    g = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_TDM_B, PREFILL_TDM_N),
+                         generator=g).to(dev)
+    runs = {"tdm": lambda: PP.pruned_prefill_logits(tdm, params, toks),
+            "dense": lambda: PP.pruned_prefill_logits(dense, params, toks)}
+    counts, outs = {}, {}
+    for kind, run in runs.items():
+        backend.reset_launches()
+        outs[kind] = run()
+        torch.cuda.synchronize()
+        counts[kind] = {k: v for k, v in backend.launches().items() if v}
+    logits, n_final = outs["tdm"]
+    L = cfg.num_layers
+    require(n_final == PREFILL_TDM_FINAL and outs["dense"][1] ==
+            PREFILL_TDM_N, f"prefill tdm: {n_final} tokens left, want "
+                           f"{PREFILL_TDM_FINAL}")
+    require(bool(torch.isfinite(logits).all()), "prefill tdm: logits not "
+                                                "finite")
+    want = {"tdm": {"flash_prefill_bf16": L,
+                    "flash_decode_bf16": len(PREFILL_TDM_LAYERS)},
+            "dense": {"flash_prefill_bf16": L}}
+    require(counts == want, f"prefill tdm: launches {counts}, want {want}")
+    walls = {k: [] for k in runs}
+    for _ in range(PREFILL_TDM_REPEATS):
+        for kind in ("tdm", "dense", "dense", "tdm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[kind]()
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+    busy = {}
+    for kind, run in runs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        busy[kind] = sum(r[2] for r in _device_rows(prof)) / 1e3
+    w = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    print(f"prefill tdm: {cfg.name} uncut ({L} layers), {PREFILL_TDM_B} "
+          f"prompts x {PREFILL_TDM_N} tokens, r_t {PREFILL_TDM_RT} at layers "
+          f"{PREFILL_TDM_LAYERS}: n_tokens_final {n_final} (want "
+          f"{PREFILL_TDM_FINAL}); wall median {w['tdm']:.2f} ms against the "
+          f"dense prefill's {w['dense']:.2f} ms ({w['tdm'] / w['dense']:.3f})"
+          f" over {2 * PREFILL_TDM_REPEATS} each in turns; device busy "
+          f"{busy['tdm']:.2f} ms against {busy['dense']:.2f} ms "
+          f"({busy['tdm'] / busy['dense']:.3f}); launches per TDM prefill "
+          f"{counts['tdm']} (score rows: flash_decode_bf16 "
+          f"{counts['tdm']['flash_decode_bf16']}), dense {counts['dense']}",
+          flush=True)
+
+    # the oracle at PREFILL_TDM_ORACLE_LAYERS layers
+    n = PREFILL_TDM_ORACLE_LAYERS
+    cut = {**params, "layers": params["layers"][:n]}
+    c_card = tdm.replace(num_layers=n)
+    one = toks[:1]
+    with record_drops(torch) as seen_card:
+        lc, _ = PP.pruned_prefill_logits(c_card, cut, one)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cut_h = tree_map(lambda t: t.to(cpu).float(), cut)
+    c_cpu = c_card.replace(dtype="float32")
+    with record_drops(torch) as seen_cpu:
+        lh, _ = PP.pruned_prefill_logits(c_cpu, cut_h, one.cpu())
+    layer_rows, replay = [], False
+    for (tc, _), (th, sh) in zip(seen_card, seen_cpu):
+        a, b = set(tc[0].tolist()), set(th[0].tolist())
+        kth = torch.sort(sh[0], descending=True).values[len(b) - 1].item()
+        gaps = [abs(sh[0, i].item() - kth) / kth for i in a ^ b]
+        layer_rows.append((len(a ^ b) // 2, max(gaps, default=0.0)))
+        if a != b:
+            require(max(gaps) <= PREFILL_TDM_NEAR_TIE,
+                    f"prefill tdm oracle: kept sets differ beyond near-ties "
+                    f"at a TDM layer: {layer_rows}")
+            replay = True
+            break  # later layers see other sequences: replay the card's
+    if replay:
+        with record_drops(torch, [t for t, _ in seen_card]):
+            lh, _ = PP.pruned_prefill_logits(c_cpu, cut_h, one.cpu())
+    cpu_s = time.perf_counter() - t0
+    top = int(lc[0].argmax())
+    gap = (lh[0].max() - lh[0, top]).item()
+    print(f"prefill tdm oracle at {n} of {L} layers, one prompt, card (bf16,"
+          f" kernels) vs CPU (fp32, plain; {cpu_s:.1f} s): kept sets per TDM "
+          f"layer (tokens swapped, largest |s - s_k| / s_k among them) "
+          f"{layer_rows}, card's kept sets replayed on the CPU: {replay}; "
+          f"the card's argmax {top} (CPU argmax {int(lh[0].argmax())}) "
+          f"{gap:.4f} below the CPU's largest logit (tolerance "
+          f"{LM_ORACLE_TOL})", flush=True)
+    require(gap <= LM_ORACLE_TOL, f"prefill tdm oracle: the card's argmax "
+                                  f"token {gap:.4f} below the CPU's largest")
+    del cut_h
+    print(f"prefill tdm: phase wall {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return {"prefill tdm": counts["tdm"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4690,6 +5225,11 @@ REPLACES = {  # the reference's pallas_call each kernel stands in for
                      "src/repro/models/ssm.py:116",
     "wkv6.cu": "no Pallas kernel: jax.lax.scan at "
                "src/repro/models/ssm.py:234",
+    # the gradient JAX takes of those scans when the families train
+    "mamba_scan_bwd.cu": "no Pallas kernel: the gradient of jax.lax.scan "
+                         "at src/repro/models/ssm.py:116",
+    "wkv6_bwd.cu": "no Pallas kernel: the gradient of jax.lax.scan at "
+                   "src/repro/models/ssm.py:234",
 }
 
 
@@ -4732,6 +5272,7 @@ def main() -> int:
     checks.append(check_token_drop_training(torch, dev,
                                             by_name["token_drop_f32"]))
     checks.extend(check_ssm_scans(torch, dev))
+    checks.extend(check_scan_training(torch, dev))
     require(sorted(c["name"] for c in checks)
             == sorted((*backend.ENTRY_POINTS, *backend.FORMS)),
             "a kernel entry point or form has no check")
@@ -4753,10 +5294,17 @@ def main() -> int:
         require(all(err <= tol for _, err, tol, _ in check["errs"]),
                 f"kernel {check['name']} disagrees with its plain version")
 
+    def mark(phase):
+        print(f"{phase}: done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+    mark("kernel checks")
     path_counts, syncs, model = main_path(torch, dev)
+    mark("vision serves")
     lm_counts, lm_syncs, lm_model = lm_path(torch, dev)
     path_counts.update(lm_counts)
     syncs.update({f"lm {k}": v for k, v in lm_syncs.items()})
+    mark("lm serves")
     profile_run(torch, dev, checks, *model)
     # the checks' closures hold their inputs on the card; nothing runs them
     # again
@@ -4764,23 +5312,36 @@ def main() -> int:
         for c in (check, *check.get("cases", ())):
             c.pop("fn", None)
             c.pop("library_fn", None)
+    mark("vision profile")
     profile_lm(torch, dev, *lm_model)
+    mark("lm profile")
+    path_counts.update(prefill_tdm_path(torch, dev, *lm_model))
     del lm_model
     torch.cuda.empty_cache()
+    mark("prefill tdm")
     moe_counts, moe_syncs = moe_path(torch, dev)
     path_counts.update(moe_counts)
     syncs.update(moe_syncs)
+    mark("moe serves")
     ssm_counts, ssm_syncs = ssm_path(torch, dev)
     path_counts.update(ssm_counts)
     syncs.update(ssm_syncs)
+    mark("ssm serves")
     path_counts.update(multimodal_path(torch, dev))
+    mark("multimodal serves")
     traffic_counts, traffic_syncs = traffic_path(torch, dev, checks)
     path_counts.update(traffic_counts)
     syncs.update(traffic_syncs)
+    mark("traffic")
     path_counts["lm train"] = lm_train_path(torch, dev)
+    mark("lm train")
     path_counts["moe train"] = moe_train_path(torch, dev)
+    mark("moe train")
+    path_counts.update(ssm_train_path(torch, dev))
+    mark("ssm train")
     path_counts["trained fp32"], path_counts["vit train"] = train_path(
         torch, dev)
+    mark("vit train")
     for key, n in syncs.items():
         require(not any(n), f"{key}: the engine waited on the card outside "
                             f"its step events: {n}")

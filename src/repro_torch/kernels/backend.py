@@ -69,6 +69,8 @@ _ENTRY_POINTS = {
     "token_package": {"token_package_f32": [P] * 6 + [I] * 6 + [P]},
     "mamba_scan": {"mamba_scan_f32": [P] * 8 + [I] * 6 + [P]},
     "wkv6": {"wkv6_f32": [P] * 8 + [I] * 5 + [P]},
+    "mamba_scan_bwd": {"mamba_scan_bwd_f32": [P] * 17 + [I] * 7 + [P]},
+    "wkv6_bwd": {"wkv6_bwd_f32": [P] * 16 + [I] * 6 + [P]},
 }
 KERNELS = tuple(_ENTRY_POINTS)  # one library each
 ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)

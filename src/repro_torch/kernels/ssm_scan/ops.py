@@ -16,12 +16,17 @@ reference's loops over the sequence; ``mamba_scan_chunked_plain`` and
 ``wkv6_chunked_plain`` are the chunked kernels' algorithm as tensor code,
 for the CPU tests only.
 
+Training: with grad enabled and an input that requires it, a call runs
+:class:`MambaScan` / :class:`WKV6`, whose backward is a hand-written kernel
+too (``csrc/mamba_scan_bwd.cu`` ``mamba_scan_bwd_f32``, ``csrc/wkv6_bwd.cu``
+``wkv6_bwd_f32``: the gradient JAX takes of the reference's scans) on the
+card and ``mamba_scan_bwd_plain`` / ``wkv6_bwd_plain``, the reverse
+recurrences written out step by step, on the CPU.
+
 Rules (``kernels/backend``): CUDA tensors launch the kernel or raise, CPU
 tensors run the plain version. Outputs and the new state are new tensors
 (``torch.empty``): the state is functional, as in the reference, so a
-caller may keep the old one. The kernels have no backward: with grad
-enabled and an input that requires it, a CUDA call raises (training these
-families is a later slice).
+caller may keep the old one.
 """
 from __future__ import annotations
 
@@ -62,6 +67,67 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                s + u[None, :, :, None] * kv))
         s = s * w[:, t].float()[..., None] + kv
     return torch.stack(ys, dim=1), s
+
+
+def mamba_scan_bwd_plain(x, dt_sp, decay, Bm, Cm, h0, dy, dh):
+    """The gradient of :func:`mamba_scan_plain` given ``dy`` [B, S, H, dh]
+    and ``dh`` (of the final state) [B, H, dh, N], step by step in reverse:
+    with ``g_t = dy_t (outer) C_t + decay_{t+1} g_{t+1}`` (``g_S = dh``),
+    ``dx_t = dt_t (g_t B_t)``, ``d dt_t = sum g_t (*) (x_t (outer) B_t)``,
+    ``d decay_t = sum g_t (*) h_{t-1}``, ``dB_t = sum_h dt_t g_t^T x_t``,
+    ``dC_t = sum_h h_t^T dy_t`` and ``dh0 = decay_0 g_0``; the states are
+    the forward's, kept, never recovered by dividing by a decay. Returns
+    ``(dx, ddt, ddecay, dB, dC, dh0)``, all fp32."""
+    hs = [h0.float()]
+    for t in range(x.shape[1]):
+        upd = (dt_sp[:, t, :, None, None] * x[:, t].float()[..., None]
+               * Bm[:, t, None, None, :])
+        hs.append(hs[-1] * decay[:, t, :, None, None] + upd)
+    g = dh.float()
+    out = {k: [] for k in ("dx", "ddt", "ddecay", "dB", "dC")}
+    for t in reversed(range(x.shape[1])):
+        xt, dyt = x[:, t].float(), dy[:, t].float()
+        g = g + dyt[..., None] * Cm[:, t, None, None, :]
+        gB = torch.einsum("bhdn,bn->bhd", g, Bm[:, t])
+        out["dx"].append(dt_sp[:, t, :, None] * gB)
+        out["ddt"].append((gB * xt).sum(-1))
+        out["ddecay"].append((g * hs[t]).sum((-1, -2)))
+        out["dB"].append(torch.einsum("bhdn,bhd,bh->bn", g, xt, dt_sp[:, t]))
+        out["dC"].append(torch.einsum("bhdn,bhd->bn", hs[t + 1], dyt))
+        g = g * decay[:, t, :, None, None]
+    return (*(torch.stack(v[::-1], dim=1) for v in out.values()), g)
+
+
+def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds):
+    """The gradient of :func:`wkv6_plain` given ``dy`` [B, S, H, dh] and
+    ``ds`` (of the final state) [B, H, dh, dh], step by step in reverse:
+    with ``G = dL/dS_t`` (``ds`` after the last step) and ``p_t = dy_t .
+    v_t``, ``dr_t = S_{t-1} dy_t + u (*) k_t p_t``, ``dw_t = rowsum(G (*)
+    S_{t-1})``, ``dk_t = G v_t + r_t (*) u p_t``, ``dv_t = G^T k_t + (r_t .
+    (u (*) k_t)) dy_t``, ``du = sum r_t (*) k_t p_t`` over batch rows and
+    steps, then ``G = w_t (*) G + r_t (outer) dy_t``; ``ds0`` is G after
+    the first step. The states are the forward's, kept. Returns ``(dr, dk,
+    dv, dw, du, ds0)``, all fp32."""
+    ss = [s0.float()]
+    for t in range(r.shape[1]):
+        kv = k[:, t].float()[..., :, None] * v[:, t].float()[..., None, :]
+        ss.append(ss[-1] * w[:, t].float()[..., None] + kv)
+    G, du = ds.float(), torch.zeros(u.shape, device=u.device)
+    out = {n: [] for n in ("dr", "dk", "dv", "dw")}
+    for t in reversed(range(r.shape[1])):
+        rt, kt, vt, wt = (a[:, t].float() for a in (r, k, v, w))
+        dyt = dy[:, t].float()
+        p = (dyt * vt).sum(-1, keepdim=True)
+        out["dr"].append(torch.einsum("bhde,bhe->bhd", ss[t], dyt)
+                         + u * kt * p)
+        out["dk"].append(torch.einsum("bhde,bhe->bhd", G, vt) + rt * u * p)
+        out["dv"].append(torch.einsum("bhde,bhd->bhe", G, kt)
+                         + (rt * u * kt).sum(-1, keepdim=True) * dyt)
+        out["dw"].append((G * ss[t]).sum(-1))
+        du = du + (rt * kt * p).sum(0)
+        G = G * wt[..., None] + rt[..., :, None] * dyt[..., None, :]
+    dr, dk, dv, dw = (torch.stack(v[::-1], dim=1) for v in out.values())
+    return dr, dk, dv, dw, du, G
 
 
 # The kernels' two forms (``csrc/mamba_scan.cu``, ``csrc/wkv6.cu``): below
@@ -266,17 +332,14 @@ def _check_common(name: str, acts, fp32) -> None:
              f"{[t.dtype for t in fp32]}")
 
 
-def _check_card(name: str, grad: bool, tensors, width: int) -> None:
-    """What the kernel takes beyond the plain version: contiguous operands,
-    widths up to ``MAX_WIDTH``, no gradient."""
+def _check_card(name: str, tensors, width: int) -> None:
+    """What the kernels take beyond the plain versions: contiguous
+    operands, widths up to ``MAX_WIDTH``."""
     _require(all(t.is_contiguous() for t in tensors), ValueError,
              f"{name} kernel takes contiguous operands")
     _require(1 <= width <= MAX_WIDTH, ValueError,
              f"{name} kernel takes head and state widths of 1 to "
              f"{MAX_WIDTH}, got {width}")
-    _require(not grad, NotImplementedError,
-             f"{name} has no backward kernel: training the SSM and hybrid "
-             f"families is a later slice (ROADMAP queue A, item 8)")
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -291,7 +354,8 @@ def mamba_scan(x: torch.Tensor, dt_sp: torch.Tensor, decay: torch.Tensor,
     [B, S, H] fp32; ``Bm``, ``Cm`` [B, S, N] fp32; ``h0`` [B, H, dh, N]
     fp32. Returns ``(y [B, S, H, dh] fp32, h_final [B, H, dh, N] fp32)``:
     ``mamba_scan_f32`` on the card (dh, N <= 64), the plain version on the
-    CPU."""
+    CPU; with grad enabled and an input that requires it, through
+    :class:`MambaScan`."""
     B, S, H, dh = x.shape
     N = Bm.shape[-1]
     _require(dt_sp.shape == decay.shape == (B, S, H)
@@ -303,10 +367,16 @@ def mamba_scan(x: torch.Tensor, dt_sp: torch.Tensor, decay: torch.Tensor,
              f"{tuple(Bm.shape)}, {tuple(Cm.shape)}, {tuple(h0.shape)}")
     _check_common("mamba_scan", [x], [dt_sp, decay, Bm, Cm, h0])
     ins = (x, dt_sp, decay, Bm, Cm, h0)
-    if not backend.on_card(*ins):
-        return mamba_scan_plain(*ins)
-    _check_card("mamba_scan", _wants_grad(*ins), ins, max(dh, N))
-    return _mamba_scan_cuda(*ins)
+    if backend.on_card(*ins):
+        _check_card("mamba_scan", ins, max(dh, N))
+    if _wants_grad(*ins):
+        return MambaScan.apply(*ins)
+    return _mamba_scan_fwd(*ins)
+
+
+def _mamba_scan_fwd(*ins):
+    return (_mamba_scan_cuda(*ins) if backend.on_card(*ins)
+            else mamba_scan_plain(*ins))
 
 
 def _mamba_scan_cuda(x, dt_sp, decay, Bm, Cm, h0):
@@ -328,7 +398,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     all fp32); ``w`` (the decay, exp(-exp(w_raw))) [B, S, H, dh] fp32;
     ``u`` [H, dh] fp32; ``s0`` [B, H, dh, dh] fp32. Returns ``(y [B, S, H,
     dh] fp32, s_final [B, H, dh, dh] fp32)``: ``wkv6_f32`` on the card
-    (dh <= 64), the plain version on the CPU."""
+    (dh <= 64), the plain version on the CPU; with grad enabled and an
+    input that requires it, through :class:`WKV6`."""
     B, S, H, dh = r.shape
     _require(k.shape == v.shape == w.shape == r.shape
              and u.shape == (H, dh) and s0.shape == (B, H, dh, dh),
@@ -339,10 +410,15 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
              f"{tuple(s0.shape)}")
     _check_common("wkv6", [r, k, v], [w, u, s0])
     ins = (r, k, v, w, u, s0)
-    if not backend.on_card(*ins):
-        return wkv6_plain(*ins)
-    _check_card("wkv6", _wants_grad(*ins), ins, dh)
-    return _wkv6_cuda(*ins)
+    if backend.on_card(*ins):
+        _check_card("wkv6", ins, dh)
+    if _wants_grad(*ins):
+        return WKV6.apply(*ins)
+    return _wkv6_fwd(*ins)
+
+
+def _wkv6_fwd(*ins):
+    return _wkv6_cuda(*ins) if backend.on_card(*ins) else wkv6_plain(*ins)
 
 
 def _wkv6_cuda(r, k, v, w, u, s0):
@@ -355,3 +431,127 @@ def _wkv6_cuda(r, k, v, w, u, s0):
                    y.data_ptr(), s_out.data_ptr(),
                    int(r.dtype == torch.bfloat16), B, S, H, dh)
     return y, s_out
+
+
+# ---------------------------------------------------------------------------
+# Training: the scans with their gradient
+# ---------------------------------------------------------------------------
+# The backward kernels' recomputation (``csrc/scan_bwd.cuh``'s ``kCk``,
+# ``kW``): a checkpoint of the state every BWD_CKPT steps, a window start
+# every BWD_WINDOW; and the persistent blocks an SM their grid assumes
+BWD_CKPT, BWD_WINDOW, BWD_BLOCKS_PER_SM = 32, 4, 2
+_STATE = MAX_WIDTH * MAX_WIDTH  # floats of one padded state
+_SMS: dict = {}
+
+
+def bwd_slots(device: torch.device, items: int) -> int:
+    """Blocks of a backward launch: one persistent block a (head, batch
+    row) item up to ``BWD_BLOCKS_PER_SM`` an SM."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return max(1, min(items, BWD_BLOCKS_PER_SM * n))
+
+
+def bwd_scratch_floats(S: int) -> int:
+    """fp32 scratch of one block: a checkpoint every ``BWD_CKPT`` steps and
+    the window starts of one interval (``scan_bwd.cuh``'s
+    ``slot_floats``)."""
+    return (-(-S // BWD_CKPT) + BWD_CKPT // BWD_WINDOW) * _STATE
+
+
+def _grads_in(dy, ds):
+    """The outputs' gradients (autograd gives zeros for an output that took
+    none) as the fp32 contiguous tensors the backward kernels read."""
+    return dy.float().contiguous(), ds.float().contiguous()
+
+
+class MambaScan(torch.autograd.Function):
+    """:func:`mamba_scan` with its gradient: the forward is
+    ``mamba_scan_f32`` on the card and :func:`mamba_scan_plain` on the CPU,
+    the backward ``mamba_scan_bwd_f32`` on the card and
+    :func:`mamba_scan_bwd_plain` on the CPU. Gradients come back in each
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt_sp, decay, Bm, Cm, h0):
+        y, h = _mamba_scan_fwd(x, dt_sp, decay, Bm, Cm, h0)
+        ctx.save_for_backward(x, dt_sp, decay, Bm, Cm, h0)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        ins = ctx.saved_tensors
+        dy, dh = _grads_in(dy, dh)
+        if backend.on_card(*ins):
+            grads = _mamba_scan_bwd_cuda(*ins, dy, dh)
+        else:
+            grads = mamba_scan_bwd_plain(*ins, dy, dh)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, ins))
+
+
+def _mamba_scan_bwd_cuda(x, dt_sp, decay, Bm, Cm, h0, dy, dh):
+    """``(dx, ddt, ddecay, dB, dC, dh0)`` by ``mamba_scan_bwd_f32``: one
+    launch of its entry point (the walk, then dB and dC summed over heads
+    in order)."""
+    B, S, H, dh_ = x.shape
+    N = Bm.shape[-1]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((B, S, H, dh_), **f32)
+    ddt, ddecay = torch.empty_like(dt_sp), torch.empty_like(decay)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dh0 = torch.empty_like(h0)
+    dBh, dCh = (torch.empty((B, S, H, N), **f32) for _ in range(2))
+    slots = bwd_slots(dev, B * H)
+    scratch = torch.empty(slots * bwd_scratch_floats(S), **f32)
+    backend.launch("mamba_scan_bwd", "mamba_scan_bwd_f32", dev,
+                   *(t.data_ptr() for t in (x, dt_sp, decay, Bm, Cm, h0, dy,
+                                            dh, dx, ddt, ddecay, dB, dC, dh0,
+                                            dBh, dCh, scratch)),
+                   int(x.dtype == torch.bfloat16), B, S, H, dh_, N, slots)
+    return dx, ddt, ddecay, dB, dC, dh0
+
+
+class WKV6(torch.autograd.Function):
+    """:func:`wkv6` with its gradient: the forward is ``wkv6_f32`` on the
+    card and :func:`wkv6_plain` on the CPU, the backward ``wkv6_bwd_f32``
+    on the card and :func:`wkv6_bwd_plain` on the CPU. Gradients come back
+    in each input's dtype."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        y, s = _wkv6_fwd(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        ins = ctx.saved_tensors
+        dy, ds = _grads_in(dy, ds)
+        if backend.on_card(*ins):
+            grads = _wkv6_bwd_cuda(*ins, dy, ds)
+        else:
+            grads = wkv6_bwd_plain(*ins, dy, ds)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, ins))
+
+
+def _wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds):
+    """``(dr, dk, dv, dw, du, ds0)`` by ``wkv6_bwd_f32``: one launch of its
+    entry point (the walk, then du summed over batch rows in order)."""
+    B, S, H, dh = r.shape
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dr, dk, dv = (torch.empty((B, S, H, dh), **f32) for _ in range(3))
+    dw, du, ds0 = torch.empty_like(w), torch.empty_like(u), \
+        torch.empty_like(s0)
+    du_part = torch.empty((B, H, dh), **f32)
+    slots = bwd_slots(dev, B * H)
+    scratch = torch.empty(slots * bwd_scratch_floats(S), **f32)
+    backend.launch("wkv6_bwd", "wkv6_bwd_f32", dev,
+                   *(t.data_ptr() for t in (r, k, v, w, u, s0, dy, ds, dr,
+                                            dk, dv, dw, du, ds0, du_part,
+                                            scratch)),
+                   int(r.dtype == torch.bfloat16), B, S, H, dh, slots)
+    return dr, dk, dv, dw, du, ds0

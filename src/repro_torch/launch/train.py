@@ -1,7 +1,7 @@
 """Training launcher: configs, synthetic data, the training step, and
 (with ``--ckpt``) the fault-tolerant loop and checkpointing — the port of
-the reference package's ``launch/train.py`` for the ``vit``, ``dense`` and
-``moe`` families.
+the reference package's ``launch/train.py`` for the ``vit``, ``dense``,
+``moe``, ``hybrid`` and ``ssm`` families.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deit-small \
         [--full] [--steps 50] [--batch 8] [--lr 1e-3] [--ckpt DIR] \
@@ -10,6 +10,8 @@ the reference package's ``launch/train.py`` for the ``vit``, ``dense`` and
         [--full] [--seq 128] [--prune] [--ckpt DIR] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-3b-a800m [--full] [--seq 512] [--prune] ...
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
+        [--full] [--seq 512] [--prune] ...      # or rwkv6-1.6b
 
 The reduced config is the default; ``--full`` trains the architecture at
 full width and depth. ``--device`` picks the card (``cuda``, the default)
@@ -24,7 +26,8 @@ Algorithm 1 is ``core/simultaneous``); the LM's is
 ``models/steps.make_train_step`` (next-token CE plus the MoE's 0.01 x aux,
 AdamW in place; with ``--prune`` the paper's block pruning at block 16,
 r_b 0.5, per expert in an MoE layer's banks, trained jointly through the
-STE, as the reference's ``--prune``).
+STE, as the reference's ``--prune``: the hybrid's shared attention block
+and its MLP, RWKV6's channel-mix ``cm_wk`` / ``cm_wv``).
 """
 from __future__ import annotations
 
@@ -78,19 +81,17 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
           log_every: int = 10, seed: int = 0,
           device: "str | torch.device" = "cuda"):
     cfg = get_config(arch)
-    if cfg.family not in ("vit", "dense", "moe"):
+    if cfg.family != "vit" and cfg.family not in ST.TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"training family {cfg.family!r}: this package trains the ViT, "
-            f"the dense LMs and the MoE LMs and serves the other families "
-            f"(training them is ROADMAP queue A, item 8: the SSM and "
-            f"hybrid families need the scans' backward, the VLM and audio "
-            f"families a non-causal bf16 attention backward)")
+            f"training family {cfg.family!r}: this package trains the ViT "
+            f"and the {', '.join(ST.TRAIN_FAMILIES)} LMs and serves the "
+            f"others; {ST.TRAIN_PENDING}")
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)
     opt = AdamW(lr=lr)
     dc = DataConfig(seed=seed)
-    lm = cfg.family in ("dense", "moe")
+    lm = cfg.family in ST.TRAIN_FAMILIES
     if lm and prune:
         cfg = prune_config(cfg)
 

@@ -170,9 +170,12 @@ def attention_block(x: torch.Tensor, p, cfg, *,
                     causal: bool = True, use_rope: bool = True,
                     kv_override: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
-                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+                    positions: Optional[torch.Tensor] = None,
+                    collect_scores: bool = False, score_row: int = 0,
+                    ):
     """One attention sublayer: causal self-attention by default. Returns
-    ``(out, new_cache)``.
+    ``(out, new_cache)``, and with ``collect_scores`` ``(out, new_cache,
+    scores)``.
 
     * train / no cache: ``cache is None``; RoPE positions 0..N-1.
     * prefill / decode: each row writes its new K/V at its own
@@ -197,15 +200,24 @@ def attention_block(x: torch.Tensor, p, cfg, *,
       tokens). Only q is projected from x (with ``bq``); there is no
       qk-norm on k, no RoPE, no cache and no mask: every query row,
       left-pad rows too, sees all Nk keys.
+    * ``positions`` ([B, N]): the RoPE positions of this call's tokens,
+      in place of the built ones (the prompt TDM's kept tokens keep
+      theirs); nothing else reads them.
+    * ``collect_scores``: the TDM scores of the reference, query row
+      ``score_row``'s attention probabilities over this call's N keys
+      (no mask), averaged over heads, [B, N] fp32 (``models/
+      prefill_prune``). On the card they are the causal decode kernel's
+      probabilities for that row against the N keys (one more launch); on
+      the CPU :func:`attention_probs_row`.
     """
     B, N, D = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     q = linear(x, p["wq"], p.get("bq")).reshape(B, N, H, Dh)
     if kv_override is not None:
-        if cache is not None or valid_start is not None:
-            raise ValueError("cross-attention (kv_override) takes no cache "
-                             "and no valid_start")
+        if cache is not None or valid_start is not None or collect_scores:
+            raise ValueError("cross-attention (kv_override) takes no cache, "
+                             "no valid_start and collects no scores")
         k, v = kv_override
         if cfg.qk_norm:
             q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -223,11 +235,12 @@ def attention_block(x: torch.Tensor, p, cfg, *,
 
     # per-slot write offsets: [B] cache-slot index of this call's first token
     slot_off = None if cache is None else cache.length.expand(B)
-    positions = torch.arange(N, device=x.device).expand(B, N)
-    if slot_off is not None:
-        base = (slot_off - valid_start) if valid_start is not None \
-            else slot_off  # rope counts real tokens, not buffer slots
-        positions = base[:, None] + positions
+    if positions is None:
+        positions = torch.arange(N, device=x.device).expand(B, N)
+        if slot_off is not None:
+            base = (slot_off - valid_start) if valid_start is not None \
+                else slot_off  # rope counts real tokens, not buffer slots
+            positions = base[:, None] + positions
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -258,5 +271,18 @@ def attention_block(x: torch.Tensor, p, cfg, *,
             out = _fill_keyless_rows(out, v, torch.zeros_like(valid_start),
                                      valid_start)
 
-    out = out.reshape(B, N, H * Dh)
-    return linear(out, p["wo"], p.get("bo")), new_cache
+    out = linear(out.reshape(B, N, H * Dh), p["wo"], p.get("bo"))
+    if collect_scores:
+        return out, new_cache, _score_row(q, k, v, score_row)
+    return out, new_cache
+
+
+def _score_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               row: int) -> torch.Tensor:
+    """Query row ``row``'s attention probabilities over all N keys, the
+    mean over heads [B, N] fp32: the causal kernels' decode row placed
+    last (q_offset N - 1, kv_len N: every key valid)."""
+    N = k.shape[1]
+    q_row = q.narrow(1, row % N, 1)
+    return FA.flash_attention(q_row, k, v, causal=True, q_offset=N - 1,
+                              kv_len=N, collect_scores=True)[1]

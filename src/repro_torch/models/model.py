@@ -23,7 +23,8 @@ of the SwiGLU MLP, and each layer's load-balancing loss is carried out of
 its checkpoint into the training loss. The VLM and audio families'
 cross-attention and Whisper's encoder run the non-causal form of the
 ``flash_attention`` wrapper, the non-causal bf16 kernels on the card. The hybrid and SSM families run ``models/ssm``'s blocks, whose scans
-are the ``ssm_scan`` kernels on the card.
+are the ``ssm_scan`` kernels on the card (in training with their backward
+kernels), its shared attention block the causal kernel pair.
 """
 from __future__ import annotations
 
@@ -425,11 +426,12 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     layer and a ``KVCache`` per stage's shared block, in execution order;
     for the SSM one ``RWKVState`` per layer. Recurrent states are
     functional: ``Output.caches`` holds new ones. The hybrid and SSM
-    families take no ``valid_start`` and, in train mode, run without
-    checkpoints. ``logits_for``: "all" gives [B, N, V] logits,
-    "last" only the final position's ([B, 1, V]), "none" none (hidden
-    states only). Logits are computed in the activation dtype
-    (``cfg.dtype``) and returned in fp32. ``valid_start`` ([B] int32):
+    families take no ``valid_start``; in train mode the hybrid runs
+    without checkpoints, as the reference's does. ``logits_for``: "all"
+    gives [B, N, V] logits, "last" only the final position's
+    ([B, 1, V]), "none" none (hidden states only). Logits are computed
+    in the activation dtype (``cfg.dtype``) and returned in fp32.
+    ``valid_start`` ([B] int32):
     per-row index of the first real token; earlier (left-padded)
     positions are masked out of every attention and of the KV
     ``attn_mass`` accumulation. In train mode with grad enabled, each layer
@@ -482,21 +484,11 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 f"cannot mask pad tokens it has absorbed, so it is served "
                 f"unpadded")
         x, new_caches = _forward_recurrent(cfg, params, x,
-                                           caches if want_cache else None)
+                                           caches if want_cache else None,
+                                           _remat_run(cfg, mode))
         return _lm_head(cfg, params, x, new_caches, logits_for, 0.0)
     new_caches = [] if want_cache else None
-    policy = cfg.remat_policy
-    if policy not in ("full", "dots", "none"):
-        raise ValueError(f"remat_policy must be full, dots or none, got "
-                         f"{policy!r}")
-    ckpt = (mode == "train" and policy != "none"
-            and torch.is_grad_enabled())
-
-    def run(fn, *args):
-        if ckpt:
-            return checkpoint(fn, cfg, *args, use_reentrant=False,
-                              **_REMAT[policy])
-        return fn(cfg, *args)
+    run = _remat_run(cfg, mode)
     cache_it = iter(caches) if want_cache else None
 
     def next_cache():
@@ -532,6 +524,25 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     return _lm_head(cfg, params, x, new_caches, logits_for, aux_total)
 
 
+def _remat_run(cfg: ModelConfig, mode: str):
+    """``run(fn, *args)``: ``fn(cfg, *args)``, under
+    ``torch.utils.checkpoint`` by ``cfg.remat_policy`` in train mode with
+    grad enabled (the reference's ``_remat``)."""
+    policy = cfg.remat_policy
+    if policy not in ("full", "dots", "none"):
+        raise ValueError(f"remat_policy must be full, dots or none, got "
+                         f"{policy!r}")
+    ckpt = (mode == "train" and policy != "none"
+            and torch.is_grad_enabled())
+
+    def run(fn, *args):
+        if ckpt:
+            return checkpoint(fn, cfg, *args, use_reentrant=False,
+                              **_REMAT[policy])
+        return fn(cfg, *args)
+    return run
+
+
 def _lm_head(cfg: ModelConfig, params: Dict, x: torch.Tensor, caches,
              logits_for: str, aux_total) -> Output:
     """Final RMSNorm, then the unembedding in the activation dtype."""
@@ -539,24 +550,36 @@ def _lm_head(cfg: ModelConfig, params: Dict, x: torch.Tensor, caches,
     if logits_for == "none":
         return Output(None, caches, hidden=x, aux_loss=aux_total)
     w_un = unembed_matrix(params).to(x.dtype)
-    if logits_for == "last":
-        logits = (x[:, -1] @ w_un)[:, None]
+    # The final position's logits come from one product whatever
+    # ``logits_for`` asks, so "last" is bitwise the last row of "all": a
+    # BLAS may round a row differently with the row count of the product.
+    last = (x[:, -1] @ w_un)[:, None]
+    if logits_for == "last" or x.shape[1] == 1:
+        logits = last
     else:
-        logits = x @ w_un
+        logits = torch.cat([x[:, :-1] @ w_un, last], dim=1)
     return Output(logits.float(), caches, hidden=x, aux_loss=aux_total)
 
 
+def _rwkv_layer(cfg: ModelConfig, x: torch.Tensor,
+                lp: Dict) -> torch.Tensor:
+    """One RWKV6 block from zero state (train mode), its output alone."""
+    return SSM.rwkv_block(x, lp, cfg)[0]
+
+
 def _forward_recurrent(cfg: ModelConfig, params: Dict, x: torch.Tensor,
-                       caches: Optional[List]) -> Tuple[torch.Tensor,
-                                                        Optional[List]]:
+                       caches: Optional[List], run) -> Tuple[torch.Tensor,
+                                                             Optional[List]]:
     """The hybrid and SSM families' layers (the reference's
     ``_forward_hybrid`` and ``ssm`` branch). ``caches``: the flat list of
     ``steps.init_caches`` in execution order, or None (train mode: every
     state starts at zero, the shared block runs without a cache). Hybrid:
     per stage, its Mamba2 layers (residual, behind an RMSNorm), then the
     shared attention block with that stage's own ``KVCache``; then the
-    tail's Mamba2 layers. SSM: the RWKV6 blocks. Returns (x, the new states
-    and caches in the same order, or None)."""
+    tail's Mamba2 layers, never checkpointed, as in the reference. SSM: the
+    RWKV6 blocks, in train mode each through ``run`` (checkpointed by
+    ``cfg.remat_policy``, as the reference's ``ssm`` branch). Returns (x,
+    the new states and caches in the same order, or None)."""
     it = iter(caches) if caches is not None else None
     new: Optional[List] = [] if caches is not None else None
 
@@ -570,6 +593,9 @@ def _forward_recurrent(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     eps = cfg.norm_eps
     if cfg.family == "ssm":
         for lp in params["layers"]:
+            if it is None:
+                x = run(_rwkv_layer, x, lp)
+                continue
             x, st = SSM.rwkv_block(x, lp, cfg, state())
             keep(st)
         return x, new

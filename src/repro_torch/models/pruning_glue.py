@@ -1,13 +1,16 @@
-"""Glue between the paper's pruning (core/) and the model params (the ViT,
-the dense LMs and the MoE LMs) — the port of the reference package's
-``models/pruning_glue.py``: identify prunable weights in a param tree,
-create score parameters, and produce masked params and hard block masks.
+"""Glue between the paper's pruning (core/) and the model params (the ViT
+and the dense, MoE, hybrid and SSM LMs) — the port of the reference
+package's ``models/pruning_glue.py``: identify prunable weights in a param
+tree, create score parameters, and produce masked params and hard block
+masks.
 
 Prunable groups:
-  * attention projections  wq/wk/wv/wo (block scores)
+  * attention projections  wq/wk/wv/wo (block scores), the hybrid's
+    ``shared_attn`` block among them
   * MLP / expert FFN       wi, wg (column score vector), wo (row score
-    vector)
-  * everything else (embeddings, norms, the router, head) is dense.
+    vector); RWKV6's channel mix ``cm_wk`` (columns) and ``cm_wv`` (rows)
+  * everything else (embeddings, norms, the router, head, the Mamba2 and
+    RWKV6 time-mix projections and the scans' parameters) is dense.
 
 Paths are strings like ``layers/{i}/attn/wq`` and the tree is walked in
 the reference's order (dict keys sorted, lists by index). The port keeps

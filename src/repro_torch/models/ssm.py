@@ -5,13 +5,16 @@ Both are attention-free: a full sequence runs a time scan that carries the
 recurrent state; a decode step is one O(1) state update. The scans run
 through the ``kernels/ssm_scan`` wrappers: on the card the hand-written
 ``mamba_scan_f32`` and ``wkv6_f32`` kernels, on the CPU their plain
-versions (the reference's loops). Everything around them keeps the
-reference's operations, order and casts: the causal depthwise conv over a
-carried buffer of ``W - 1`` rows, ``softplus(dt + dt_bias)`` and ``exp(dt
-A)`` in fp32, the state in fp32, ``y + x D`` before the gated RMSNorm;
-RWKV's token shifts, ``w = exp(-exp(w_raw))`` in fp32 and ``u`` read in
-fp32. ``_wkv_chunked`` (``cfg.rwkv_chunk > 0``) is tensor code on any
-device, as in the reference.
+versions (the reference's loops); whenever a gradient is wanted the
+wrappers run the autograd Functions ``MambaScan`` / ``WKV6``, whose
+backward is ``mamba_scan_bwd_f32`` / ``wkv6_bwd_f32`` on the card.
+Everything around them keeps the reference's operations, order and casts:
+the causal depthwise conv over a carried buffer of ``W - 1`` rows,
+``softplus(dt + dt_bias)`` and ``exp(dt A)`` in fp32, the state in fp32,
+``y + x D`` before the gated RMSNorm; RWKV's token shifts, ``w =
+exp(-exp(w_raw))`` in fp32 and ``u`` read in fp32. ``_wkv_chunked``
+(``cfg.rwkv_chunk > 0``) is tensor code on any device, as in the
+reference.
 
 States are functional: a block returns a new state and never writes the
 one it was given.

@@ -1,8 +1,8 @@
 """Step functions — the reference package's ``models/steps.py`` for the
-families this package runs: the ViT's training step, the dense and MoE
-LMs' training step (with the paper's block pruning trained jointly, per
-expert in an MoE layer's banks, and gradient accumulation over
-microbatches), and the serve steps of the dense, MoE, VLM, audio, hybrid
+families this package runs: the ViT's training step, the dense, MoE,
+hybrid and SSM LMs' training step (with the paper's block pruning trained
+jointly, per expert in an MoE layer's banks, and gradient accumulation
+over microbatches), and the serve steps of the dense, MoE, VLM, audio, hybrid
 and SSM LMs: cache constructors, whole-batch prefill, per-slot prefill (a
 B=1 prefill scattered into one row of the live batched cache; dense and
 MoE) and the decode step.
@@ -43,7 +43,7 @@ SLOT_PREFILL_FAMILIES = ("dense", "moe")
 # LM families this package serves (all that ``forward_lm`` runs), and
 # those it trains (besides the ViT).
 SERVE_FAMILIES = M.LM_FAMILIES
-TRAIN_FAMILIES = ("dense", "moe")
+TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _require_served(cfg: ModelConfig) -> None:
@@ -53,14 +53,19 @@ def _require_served(cfg: ModelConfig) -> None:
             f"{SERVE_FAMILIES}")
 
 
+# what training the other LM families waits for
+TRAIN_PENDING = ("the VLM and audio families' training waits for the "
+                 "non-causal bf16 attention's backward kernels (ROADMAP "
+                 "queue B, B-c3: the cross-attention's, B-c4: Whisper "
+                 "encoder's self-attention's)")
+
+
 def _require_trained(cfg: ModelConfig) -> None:
     if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"training steps for family {cfg.family!r} are a later slice "
-            f"(ROADMAP queue A, item 8: training the SSM and hybrid "
-            f"families needs the scans' backward, training the VLM and "
-            f"audio families a non-causal bf16 attention backward); this "
-            f"package trains {TRAIN_FAMILIES} and serves {SERVE_FAMILIES}")
+            f"no training step for family {cfg.family!r}: {TRAIN_PENDING}; "
+            f"this package trains {TRAIN_FAMILIES} and serves "
+            f"{SERVE_FAMILIES}")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -179,8 +184,8 @@ def make_decode_step(cfg: ModelConfig):
 
 def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
     """Returns ``grads(params, batch, scores=None) -> (loss, parts,
-    grads)``: the gradient of the LM's training loss (dense or MoE; the
-    MoE's includes 0.01 x the aux through its routers), the half of
+    grads)``: the gradient of the LM's training loss (dense, MoE, hybrid or
+    SSM; the MoE's includes 0.01 x the aux through its routers), the half of
     :func:`make_train_step` before the optimizer. ``grads`` has the
     trainables' structure: ``{"params", "scores"}`` when ``scores`` are
     given (the paper's simultaneous pruning: the STE through
@@ -236,13 +241,20 @@ def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
     return grads
 
 
+# the reference's trees that stack their layers on leading axes: the
+# layers of the dense, MoE and SSM families, the hybrid's stages and tail
+_STACKED = frozenset(("layers", "stages", "tail"))
+
+
 def stacked_decay(trainables) -> List[bool]:
     """AdamW's weight-decay rule (``ndim >= 2``) as the reference applies it
     to the LM, whose layers are stacked on a leading axis: every leaf of a
     layer is decayed (norm scales, MLP score vectors, the MoE router,
-    expert banks and their score vectors too), other leaves by their own
-    ``ndim``. In flatten order."""
-    return [leaf.ndim >= 2 or "layers" in path_str(path).split("/")
+    expert banks and their score vectors, the Mamba2 and RWKV6 layers'
+    vectors too), other leaves (the hybrid's shared block among them) by
+    their own ``ndim``. In flatten order."""
+    return [leaf.ndim >= 2
+            or not _STACKED.isdisjoint(path_str(path).split("/"))
             for path, leaf in flatten_with_path(trainables)]
 
 
@@ -261,8 +273,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
     forward is
     ``forward_lm`` in train mode: on the card, attention runs the causal
     kernel pair (``flash_prefill_bf16`` writing the log-sum-exp, and
-    ``flash_prefill_bwd_bf16``) and the layers are checkpointed by
-    ``cfg.remat_policy``."""
+    ``flash_prefill_bwd_bf16``), the scans their kernels and backward
+    kernels (``mamba_scan_f32`` / ``mamba_scan_bwd_f32``, ``wkv6_f32`` /
+    ``wkv6_bwd_f32``), and the layers are checkpointed by
+    ``cfg.remat_policy`` (the hybrid's are not, as in the reference)."""
     opt = optimizer or AdamW()
     grad_fn = make_grad_fn(cfg, with_pruning)
 

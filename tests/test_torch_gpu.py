@@ -1715,7 +1715,8 @@ def test_ssm_scan_matches_plain_on_card(dev, case, dtype):
 
 def test_ssm_scans_raise_on_card(dev):
     """On the card a scan launches or raises: a width over 64, a
-    non-contiguous operand, an input that needs a gradient."""
+    non-contiguous operand. An input that needs a gradient raises nothing:
+    the backward kernel launches."""
     fn, _ = _scan_fns("wkv6")
     wide = _scan_args(dev, "wkv6", 1, 4, 2, 80, 0)
     with pytest.raises(ValueError, match="widths of 1 to 64"):
@@ -1723,11 +1724,11 @@ def test_ssm_scans_raise_on_card(dev):
     args = _scan_args(dev, "wkv6", 2, 4, 2, 16, 0)
     with pytest.raises(ValueError, match="contiguous"):
         fn(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
-    with pytest.raises(NotImplementedError, match="backward"):
-        fn(args[0].float().requires_grad_(), *(t.float() if t.dtype ==
-                                                torch.bfloat16 else t
-                                                for t in args[1:3]),
-           *args[3:])
+    before = backend.launches()["wkv6_bwd_f32"]
+    y, _ = fn(args[0].float().requires_grad_(),
+              *(t.float() for t in args[1:3]), *args[3:])
+    y.sum().backward()
+    assert backend.launches()["wkv6_bwd_f32"] == before + 1
     mfn, _ = _scan_fns("mamba")
     with pytest.raises(ValueError, match="widths of 1 to 64"):
         mfn(*_scan_args(dev, "mamba", 1, 4, 2, 64, 72))
@@ -1807,3 +1808,153 @@ def test_recurrent_serve_on_card_same_at_both_depths(dev, arch):
         gen = torch.tensor(r.generated[g:], device=dev)
         gap = lg.max(dim=1).values - lg.gather(1, gen[:, None])[:, 0]
         assert gap.max().item() <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# Training the SSM and hybrid families: the scans' backward kernels
+# ---------------------------------------------------------------------------
+# (kernel, B, S, H, dh, N, regime, activations, nonzero states): the
+# training step's widths (Zamba2-1.2B, RWKV6-1.6B) at 8 x 512 and at the
+# edges (S 1, S under and past the backward's 32-step checkpoint interval,
+# strong decays, fp32 activations, nonzero initial states and final-state
+# gradients), and the reduced configs' widths (dh 64 over N 8; dh 16)
+SCAN_BWD_CASES = [("mamba", 8, 512, 64, 64, 64, "model", "bf16", False),
+                  ("mamba", 2, 1, 64, 64, 64, "model", "bf16", True),
+                  ("mamba", 2, 31, 64, 64, 64, "model", "fp32", True),
+                  ("mamba", 2, 70, 64, 64, 64, "strong", "bf16", True),
+                  ("mamba", 3, 37, 2, 64, 8, "model", "fp32", True),
+                  ("wkv6", 8, 512, 32, 64, 0, "model", "bf16", False),
+                  ("wkv6", 2, 1, 32, 64, 0, "model", "bf16", True),
+                  ("wkv6", 2, 33, 32, 64, 0, "model", "fp32", True),
+                  ("wkv6", 2, 70, 32, 64, 0, "strong", "bf16", True),
+                  ("wkv6", 3, 37, 4, 16, 0, "model", "fp32", True)]
+# each gradient against the plain backward's, both fp32 from the same
+# (bitwise) recomputed states: sums in another order, fused multiply-adds
+SCAN_BWD_TOL = 1e-5  # x max(1, max|plain|)
+
+
+@pytest.mark.parametrize(
+    "case", SCAN_BWD_CASES,
+    ids=lambda c: f"{c[0]}-B{c[1]}-S{c[2]}-dh{c[4]}-{c[6]}-{c[7]}"
+    + ("-states" if c[8] else ""))
+def test_scan_backward_matches_plain_on_card(dev, case):
+    """``mamba_scan_bwd_f32`` / ``wkv6_bwd_f32`` against the plain backward
+    (every gradient within ``SCAN_BWD_TOL``), one launch a call, two
+    launches bitwise equal; through the autograd Function, the gradients
+    in each input's dtype."""
+    kind, B, S, H, dh, N, regime, act, nonzero = case
+    args = _scan_args(dev, kind, B, S, H, dh, N, regime=regime)
+    if act == "fp32":
+        args = tuple(t.float() for t in args)
+    if not nonzero:
+        args = (*args[:-1], torch.zeros_like(args[-1]))
+    g = torch.Generator().manual_seed(3)
+    dy = torch.randn(args[0].shape, generator=g).to(dev)
+    ds = (torch.randn(args[-1].shape, generator=g).to(dev) if nonzero
+          else torch.zeros_like(args[-1]))
+    cuda, plain, entry = (
+        (SS._mamba_scan_bwd_cuda, SS.mamba_scan_bwd_plain,
+         "mamba_scan_bwd_f32") if kind == "mamba" else
+        (SS._wkv6_bwd_cuda, SS.wkv6_bwd_plain, "wkv6_bwd_f32"))
+    before = backend.launches()[entry]
+    got, again = cuda(*args, dy, ds), cuda(*args, dy, ds)
+    assert backend.launches()[entry] == before + 2
+    ref = plain(*args, dy, ds)
+    torch.cuda.synchronize()
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        assert (a - r).abs().max().item() <= \
+            SCAN_BWD_TOL * max(1.0, r.abs().max().item())
+    ins = [t.clone().requires_grad_() for t in args]
+    fn = SS.mamba_scan if kind == "mamba" else SS.wkv6
+    y, s = fn(*ins)
+    grads = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), ins)
+    for a, x, r in zip(grads, ins, got):
+        assert a.dtype == x.dtype and torch.equal(a, r.to(x.dtype))
+
+
+def test_recurrent_training_step_on_card_matches_cpu(dev):
+    """One ``make_grad_fn`` of reduced Zamba2 at 1 layer of period 1 (a
+    Mamba2 layer, then the shared block) and of reduced RWKV6 at 1 layer
+    on the card (bf16, the scan kernels and their backward, the causal
+    pair) against the CPU at fp32 (the plain versions): the loss within
+    1e-3 relative and every gradient leaf finite and within 5% of its
+    largest CPU element, the dense LM's gates; one backward launch per
+    recurrent layer. Deeper, the reduced configs are chaotic in bf16 at
+    random init, in the reference as in the port: the reference's own
+    bf16 gradients lie 1.35 (Zamba2, 4 layers) and 0.25 (RWKV6, 3 layers)
+    x a leaf's largest element from its fp32 ones, against 0.024 and
+    0.035 at these cuts (``tools/step0_reference_witness.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.launch import train as LT
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves, tree_map
+    cpu = torch.device("cpu")
+    for arch, period in (("zamba2-1.2b", 1), ("rwkv6-1.6b", None)):
+        cfg = LT.prune_config(get_config(arch).reduced()).replace(
+            num_layers=1)
+        if period:
+            cfg = cfg.replace(attn_layer_period=period)
+        st = LT.make_state_factory(cfg, AdamW(), dev, with_scores=True)()
+        toks = torch.from_numpy(synthetic_lm_batch(
+            cfg, ShapeConfig("t", 64, 2, "train"), DataConfig(), 0)[
+                "tokens"])
+        before = backend.launches()
+        loss_c, _, g_c = ST.make_grad_fn(cfg, True)(
+            st["params"], {"tokens": toks.to(dev)}, st["scores"])
+        n = {k: v - before[k] for k, v in backend.launches().items()}
+        bwd = "wkv6_bwd_f32" if cfg.family == "ssm" else "mamba_scan_bwd_f32"
+        assert n[bwd] == cfg.num_layers
+        loss_h, _, g_h = ST.make_grad_fn(cfg.replace(dtype="float32"), True)(
+            tree_map(lambda t: t.to(cpu), st["params"]), {"tokens": toks},
+            tree_map(lambda t: t.to(cpu), st["scores"]))
+        assert abs(loss_c.item() - loss_h.item()) <= 1e-3 * abs(loss_h.item())
+        for a, b in zip(leaves(g_c), leaves(g_h)):
+            assert torch.isfinite(a).all()
+            assert (a.cpu().float() - b).abs().max() <= 0.05 * b.abs().max()
+
+
+def test_pruned_prefill_on_card_matches_cpu(dev):
+    """``pruned_prefill_logits`` of reduced Minitron-4B (bf16 on the card:
+    the causal prefill kernel per layer, the decode kernel's probabilities
+    per TDM layer) against the CPU at bf16 on the same weights: the same
+    tokens left and kept positions, and the card's argmax token's CPU logit
+    within 0.05 of the CPU's largest (the LM's gate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import token_pruning as TP
+    from repro_torch.models import prefill_prune as PP
+    from repro_torch.tree import tree_map
+    cfg = get_config("minitron-4b").reduced()
+    cfg = cfg.replace(pruning=dataclasses.replace(
+        cfg.pruning, r_t=0.7, tdm_layers=(0, 2)))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    params = tree_map(lambda t: t.to(torch.bfloat16) if t.is_floating_point()
+                      else t, params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 41)))
+    inner, kept = TP.drop_weights, []
+
+    def record(s_body, k):
+        top, w = inner(s_body, k)
+        kept.append(sorted(top[0].tolist()))
+        return top, w
+    TP.drop_weights = record
+    try:
+        before = backend.launches()
+        lc, nc = PP.pruned_prefill_logits(
+            cfg, tree_map(lambda t: t.to(dev), params), toks.to(dev))
+        n = {k: v - before[k] for k, v in backend.launches().items()}
+        lh, nh = PP.pruned_prefill_logits(cfg, params, toks)
+    finally:
+        TP.drop_weights = inner
+    assert nc == nh == 23  # 41 -> 30 -> 23
+    assert n["flash_prefill_bf16"] == cfg.num_layers
+    assert n["flash_decode_bf16"] == 2
+    assert kept[:2] == kept[2:]
+    top = lc.argmax(-1).cpu()
+    gap = lh.max(-1).values - lh.gather(1, top[:, None])[:, 0]
+    assert gap.max().item() <= 0.05

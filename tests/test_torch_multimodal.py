@@ -430,14 +430,15 @@ def test_bf16_noncausal_raises_before_any_launch(monkeypatch, what):
 def test_engine_refuses_and_training_still_raises(arch):
     """``ServeEngine`` (whose runner feeds prefill tokens only, as the
     reference's does) and ``launch/serve`` refuse the two families up front;
-    their training raises, naming the ROADMAP item."""
+    their training raises, naming the backward kernels it waits for
+    (ROADMAP queue B, B-c3 and B-c4)."""
     _, tcfg, _, tp = _model(arch)
     need = "vision_embeds" if arch != "whisper-base" else "audio_frames"
     with pytest.raises(NotImplementedError, match=need):
         ServeEngine(tcfg, tp, EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match=need):
         tserve.serve(arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="B-c3"):
         ST.make_train_step(tcfg)
     with pytest.raises(NotImplementedError, match="non-causal bf16"):
         ttrain.train(arch, device="cpu")

@@ -250,7 +250,9 @@ def test_forward_lm_routes_scans_as_on_card(monkeypatch, name):
 
 def test_scan_wrappers_raise():
     """Both paths: a wrong dtype, a wrong shape, inputs on two devices. On
-    the card only: non-contiguous operands, a width over 64, a gradient."""
+    the card only: non-contiguous operands, a width over 64. A gradient on
+    a card tensor does not raise: it routes to the autograd Function, whose
+    backward launches the backward kernel."""
     mamba, wkv = _scan_inputs()
     with pytest.raises(TypeError, match="fp32"):
         mamba_scan(*mamba[:5], mamba[5].double())
@@ -274,8 +276,18 @@ def test_scan_wrappers_raise():
             wkv6(*wide[1])
         with pytest.raises(ValueError, match="widths of 1 to 64"):
             mamba_scan(*_scan_inputs(N=72)[0])
-        with pytest.raises(NotImplementedError, match="backward"):
-            wkv6(ok[1][0].requires_grad_(), *ok[1][1:])
+        launched = []
+        mp.setattr(backend, "launch",
+                   lambda lib, entry, *a, **k: launched.append(entry))
+        mp.setattr(SS, "bwd_slots", lambda dev, items: 1)
+        y, s = wkv6(ok[1][0].clone().requires_grad_(), *ok[1][1:])
+        assert type(y.grad_fn).__name__ == "WKV6Backward"
+        y.sum().backward()
+        y, s = mamba_scan(ok[0][0].clone().requires_grad_(), *ok[0][1:])
+        assert type(y.grad_fn).__name__ == "MambaScanBackward"
+        y.sum().backward()
+        assert launched == ["wkv6_f32", "wkv6_bwd_f32", "mamba_scan_f32",
+                            "mamba_scan_bwd_f32"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -600,11 +612,14 @@ def test_launcher_serves_rwkv6_like_the_reference(monkeypatch, capsys):
 
 
 def test_training_still_raises():
-    """Training these families is a later slice; each entry point says so
-    and names the ROADMAP item."""
+    """The SSM and hybrid families train now (``test_torch_ssm_train``);
+    the VLM and audio families still raise at both entry points, naming
+    the backward kernels they wait for (ROADMAP queue B, B-c3 and B-c4)."""
+    for arch in ("whisper-base", "llama-3.2-vision-90b"):
+        tcfg = get_config(arch).reduced()
+        for call in (lambda: ST.make_train_step(tcfg),
+                     lambda: ttrain.train(arch, device="cpu")):
+            with pytest.raises(NotImplementedError, match="B-c3.*B-c4"):
+                call()
     for name in ("zamba2", "rwkv6"):
-        tcfg = _model(name)[1]
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ST.make_train_step(tcfg)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ttrain.train(tcfg.name, device="cpu")
+        assert _model(name)[1].family in ST.TRAIN_FAMILIES
