@@ -55,10 +55,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal; the prefill split at 200 with the state carried, within the
    same bounds of one pass; the scans' backward (``mamba_scan_bwd_f32``,
    ``wkv6_bwd_f32``) at the training step's widths and 8 x 512 (bf16,
-   zero states) and at the edges (``SCAN_BWD_CASES``: fp32, S 1, 33 and
-   70, strong decays, nonzero initial states and final-state gradients):
-   every gradient within 1e-5 x max(1, max|plain|) of the plain backward,
-   two launches bitwise equal, no atomic in either library's SASS; LM
+   zero states; the chunked form) and at the edges (``SCAN_BWD_CASES``:
+   fp32, S 1, each side of the chunked form's first length, 33 and 70,
+   strong decays, decays exactly 1, nonzero initial states and
+   final-state gradients): every gradient within 1e-5 x max(1,
+   max|plain|) of the plain backward, two launches bitwise equal, no
+   atomic in either library's SASS (the chunked kernels' products on
+   HMMA, the sequential walk on none); LM
    training's causal pair at
    full-width StableLM-1.6B ([8, 512, 32, 64]) and at GQA 3:1 ([2, 512,
    24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
@@ -775,33 +778,47 @@ def check_tensor_cores(backend):
                        ("wkv6_bwd", "wkv6_bwd_f32")):
         for fn, ops in _sass_ops(backend, lib,
                                  TENSOR_CORE_OPS + ATOMIC_OPS).items():
-            if f"{entry}_kernelI" in fn:
-                t = "bf16" if "bfloat16" in fn else "f32"
-                scan_bwd[f"{entry}_kernel<{t}>"] = ops
-            elif f"{entry}_" in fn and "_sum_kernel" in fn:
-                scan_bwd[f"{entry} sum kernel"] = ops
+            t = "<bf16>" if "bfloat16" in fn else "<f32>" if "IfE" in fn \
+                else ""
+            for part in ("chunk_kernel", "bounds_kernel", "kernel"):
+                if f"{entry}_{part}" in fn:
+                    scan_bwd[f"{entry}_{part}{t}"] = ops
+                    break
+            else:
+                if f"{entry}_" in fn and "_sum_kernel" in fn:
+                    scan_bwd[f"{entry} sum kernel"] = ops
     print("sass: tensor-core and atomic instructions of the scans' "
           "backward " + json.dumps(scan_bwd), flush=True)
-    require(len(scan_bwd) == 6, f"expected each backward's walk at both "
-                                f"input types and its sum in the SASS, "
-                                f"found {sorted(scan_bwd)}")
+    require(len(scan_bwd) == 14,
+            f"expected each backward's sequential walk, boundary walk and "
+            f"chunk kernel at both input types and its sum in the SASS, "
+            f"found {sorted(scan_bwd)}")
     for kern, ops in scan_bwd.items():
-        require(not ops, f"{kern} issues tensor-core or atomic instructions "
-                         f"{ops}")
+        if "_chunk_kernel" in kern or "_bounds_kernel" in kern:
+            require(set(ops) == {"HMMA"},
+                    f"{kern} must issue HMMA and nothing else of "
+                    f"{TENSOR_CORE_OPS + ATOMIC_OPS}, issues {ops}")
+        else:
+            require(not ops, f"{kern} issues tensor-core or atomic "
+                             f"instructions {ops}")
 
 
 # the causal kernels' cases at full-width Minitron-4B (24 query heads over 8
 # KV heads, Dh 128, a 572-slot cache): a per-slot prefill of a 512-token
 # bucket holding a prompt of 500 or 384 tokens (``flash_prefill_bf16``), a
 # batch-4 decode and a decode row whose window spans all 9 of the cache's
-# 64-key splits (``flash_decode_bf16``); the first case of each kernel is
-# its headline
+# 64-key splits (``flash_decode_bf16``); then the prompt TDM's score row
+# (``models/attention._score_row`` at ``PREFILL_TDM_LAYERS``: 4 prompts
+# past the first TDM layer's 500, 352 and 248 tokens, the last query row
+# over every key); the first case of each kernel is its headline
 LM_CAUSAL_CASES = (
     ("prefill kv_start=12", 1, 512, [0], [512], [12]),
     ("prefill kv_start=128", 1, 512, [0], [512], [128]),
     ("decode", 4, 1, [129, 289, 419, 570], [130, 290, 420, 571],
      [32, 56, 0, 12]),
     ("decode 9 splits", 1, 1, [571], [572], [0]),
+    *((f"TDM score row, {n} keys", 4, 1, [n - 1] * 4, [n] * 4, [0] * 4)
+      for n in (500, 352, 248)),
 )
 LM_DECODE = LM_CAUSAL_CASES[2]  # the serve's decode shape
 # the causal kernels at StableLM-1.6B's heads (32 MHA heads, Dh 64), the
@@ -2139,19 +2156,25 @@ def check_ssm_scans(torch, dev):
 # ---------------------------------------------------------------------------
 # (label, B, S, activations, regime, nonzero states): the training step's
 # scan (8 x 512, bf16, zero initial state and no final-state gradient: the
-# headline, timed), then the edges: fp32 activations, S = 1, S under the
-# checkpoint interval, S past it and not a multiple of it, strong decays
-# (down to exactly 0), nonzero h0 / s0 and final-state gradients
+# headline, timed; the chunked form), then the edges: fp32 activations, S =
+# 1, each side of the chunked form's first length (``BWD_CHUNK_MIN``, 32:
+# 31 sequential, 32 chunked), S 33 and 70 (a chunk and a part), strong
+# decays (down to exactly 0), decays exactly 1, nonzero h0 / s0 and
+# final-state gradients
 SCAN_BWD_CASES = (("training step", 8, 512, "bf16", "model", False),
                   ("fp32, S 200", 2, 200, "fp32", "model", True),
                   ("S 1", 2, 1, "bf16", "model", True),
                   ("S 33", 2, 33, "bf16", "model", True),
-                  ("S 70, strong decays", 2, 70, "fp32", "strong", True))
-# each gradient against the plain backward's (both fp32, the same recomputed
-# states: the kernel's are bitwise the plain loop's): sums over 64 rows or
-# columns and over the steps in another order, fused multiply-adds where
-# the plain version rounds twice (measured on an NVIDIA H100 80GB HBM3 at
-# 700 W, tools/scan_bwd_probe.py: at most 1.1e-6 x max|plain| at every case)
+                  ("S 70, strong decays", 2, 70, "fp32", "strong", True),
+                  ("S 31", 2, 31, "bf16", "model", True),
+                  ("S 32", 2, 32, "bf16", "model", True),
+                  ("S 100, decays 1", 2, 100, "fp32", "one", True))
+# each gradient against the plain backward's (both fp32): sums over 64 rows
+# or columns and over the steps in another order, fused multiply-adds where
+# the plain version rounds twice, and in the chunked form the chunk's sums
+# as 3xTF32 products (about 2^-21 a product; measured on an NVIDIA H100
+# 80GB HBM3 at 700 W, tools/scan_bwd_probe.py: the sequential form at most
+# 1.1e-6 x max|plain| at every case)
 SCAN_BWD_TOL = 1e-5  # x max(1, max|plain|)
 SCAN_BWD_KERNELS = (  # kind, entry point, source, config whose widths it takes
     ("mamba", "mamba_scan_bwd_f32", "mamba_scan_bwd.cu", "ZAMBA2_1_2B"),
@@ -2178,8 +2201,9 @@ def check_scan_training(torch, dev):
     ``SCAN_BWD_CASES``, against ``mamba_scan_bwd_plain`` /
     ``wkv6_bwd_plain`` on the same inputs and incoming gradients: each
     gradient within ``SCAN_BWD_TOL``; two launches bitwise equal; one
-    launch a call. No library call computes either gradient. Returns one
-    check per kernel, a case per shape."""
+    launch a call (each case prints the form that ran). No library call
+    computes either gradient. Returns one check per kernel, a case per
+    shape."""
     from repro_torch import configs
     from repro_torch.kernels import backend
     from repro_torch.kernels.ssm_scan import ops as SS
@@ -2195,6 +2219,12 @@ def check_scan_training(torch, dev):
         for label, B, S, act, regime, nonzero in SCAN_BWD_CASES:
             args = scan_inputs(torch, dev, kind, cfg, B, S, g,
                                strong=regime == "strong")
+            if regime == "one":  # Mamba2's decay, the WKV's w
+                at = 2 if kind == "mamba" else 3
+                args = (*args[:at], torch.ones_like(args[at]),
+                        *args[at + 1:])
+            form = SS.bwd_form(kind, S)
+            label = f"{label}, {form} form"
             if act == "fp32":
                 args = tuple(t.float() for t in args)
             if not nonzero:
@@ -2230,6 +2260,8 @@ def check_scan_training(torch, dev):
             headline = not cases
             cases.append(dict(
                 label=label, errs=errs, fn=call,
+                kernels_per_launch=KERNELS_PER_LAUNCH[entry]
+                if form == "chunked" else 2,
                 ms=time_ms(call, samples=11 if headline else 5,
                            calls=5 if headline else 3, warmup=2),
                 plain_ms=time_ms(lambda a=args, d=grads, f=plain: f(*a, *d),
@@ -2833,12 +2865,16 @@ def multimodal_path(torch, dev):
 # ---------------------------------------------------------------------------
 # Phase 5: device time by kernel, busy share, host spans (torch.profiler)
 # ---------------------------------------------------------------------------
-# entry points that run two kernels per launch, each named
+# entry points that run more than one kernel per launch, each named
 # ``<entry point>_<part>_kernel``: the causal backward's dQ (with D), then
-# dK/dV; the non-causal backward's main pass, then its dQ sum
+# dK/dV; the non-causal backward's main pass, then its dQ sum; the scans'
+# backward in its chunked form (the training step's) the boundary walk, the
+# chunks, then the sum (in its sequential form the walk, then the sum: two,
+# which a case of ``check_scan_training`` gives as its
+# ``kernels_per_launch``)
 KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2,
                       "flash_attention_bwd_f32": 2,
-                      "mamba_scan_bwd_f32": 2, "wkv6_bwd_f32": 2}
+                      "mamba_scan_bwd_f32": 3, "wkv6_bwd_f32": 3}
 
 
 # entry points with two forms, one kernel a launch chosen by the sequence's
@@ -3012,8 +3048,9 @@ def profile_run(torch, dev, checks, cfg, params, scores, walls) -> None:
                       f"{sym} launch in window {attempt + 1}; profiling "
                       f"again", flush=True)
             require(bool(mine), f"profiler saw no {sym} launch")
-            calls = sum(r[1] for r in mine) / KERNELS_PER_LAUNCH.get(
-                check["name"], 1)
+            per_launch = c.get("kernels_per_launch",
+                               KERNELS_PER_LAUNCH.get(check["name"], 1))
+            calls = sum(r[1] for r in mine) / per_launch
             us = sum(r[2] for r in mine)
             if check["name"].startswith(ONE_KERNEL_PER_CALL):
                 others = [r for r in rows if sym not in r[0]]

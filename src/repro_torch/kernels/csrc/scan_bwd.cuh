@@ -1,7 +1,8 @@
-// The pieces the scans' backward kernels share (mamba_scan_bwd.cu,
-// wkv6_bwd.cu): the 4 x 4 tile each thread owns of a 64 x 64 fp32 state,
-// that tile's copies to and from memory in the thread's own layout, and the
-// checkpoint scratch of a persistent block.
+// The pieces the scans' backward kernels (mamba_scan_bwd.cu, wkv6_bwd.cu)
+// share in their sequential form (below kBwdChunkMin steps; the chunked
+// form's are in scan_bwd_chunk.cuh): the 4 x 4 tile each thread owns of a
+// 64 x 64 fp32 state, that tile's copies to and from memory in the thread's
+// own layout, and the checkpoint scratch of a persistent block.
 //
 // Both kernels walk a recurrence backward without dividing by a decay (a
 // decay can underflow to exactly 0, as the forward kernels note), so the state

@@ -1,5 +1,6 @@
 // Products of fp32 tiles on the TF32 tensor cores at fp32 accuracy, shared
-// by the chunked forms of the recurrent scans (mamba_scan.cu, wkv6.cu).
+// by the chunked forms of the recurrent scans (mamba_scan.cu, wkv6.cu) and
+// of their gradients (mamba_scan_bwd.cu, wkv6_bwd.cu, scan_bwd_chunk.cuh).
 //
 // 3xTF32: each fp32 operand a is split as a = hi + lo, hi rounded to TF32
 // and lo = a - hi as the tensor core reads it, and a b is taken as lo_a

@@ -21,7 +21,14 @@ Training: with grad enabled and an input that requires it, a call runs
 too (``csrc/mamba_scan_bwd.cu`` ``mamba_scan_bwd_f32``, ``csrc/wkv6_bwd.cu``
 ``wkv6_bwd_f32``: the gradient JAX takes of the reference's scans) on the
 card and ``mamba_scan_bwd_plain`` / ``wkv6_bwd_plain``, the reverse
-recurrences written out step by step, on the CPU.
+recurrences written out step by step, on the CPU. Each backward entry
+point has two forms as well, one launch either way: below
+``BWD_CHUNK_MIN`` steps a sequential walk, from it a chunked form (the
+forward's chunks in reverse: each chunk's start state and end adjoint,
+then every chunk's gradients at once, on the tensor cores in 3xTF32;
+every gradient within 1e-5 of max(1, max|plain|)).
+``mamba_scan_bwd_chunked_plain`` and ``wkv6_bwd_chunked_plain`` are its
+algorithm as tensor code, for the CPU tests only.
 
 Rules (``kernels/backend``): CUDA tensors launch the kernel or raise, CPU
 tensors run the plain version. Outputs and the new state are new tensors
@@ -231,6 +238,38 @@ def _wkv_within_sub(r, k, w, u):
     return out + torch.diag_embed(bonus)
 
 
+def _mamba_factors(dec: torch.Tensor):
+    """The decay factors of one Mamba2 chunk, formed in sub-chunks of SUB
+    as ``mamba_scan.cu`` forms them, from ``dec`` [..., CHUNK] (padded steps
+    at 1): (L [..., CHUNK (t), CHUNK (s)], seg(s->t) for s <= t and 0
+    above; a, seg(start->t); e, seg(s->end); all, seg(start->end))."""
+    nsub = CHUNK // SUB
+    incl, _, suffix, total = _sub_factors(dec)
+    before, after, between = _across(total)
+    sub = torch.arange(CHUNK) // SUB
+    L = torch.zeros(dec.shape + (CHUNK,))
+    lin = _within_sub(dec.unflatten(-1, (nsub, SUB)))
+    for i in range(nsub):
+        rows = slice(SUB * i, SUB * (i + 1))
+        L[..., rows, rows] = lin[..., i, :, :]
+        for j in range(i):
+            cols = slice(SUB * j, SUB * (j + 1))
+            f = incl[..., rows, None]
+            if j < i - 1:
+                f = f * between[(j, i)][..., None, None]
+            L[..., rows, cols] = f * suffix[..., None, cols]
+    return (L, before[..., sub] * incl, suffix * after[..., sub],
+            before[..., -1] * total[..., -1])
+
+
+def _chunk_decays(decay: torch.Tensor, c0: int, n: int) -> torch.Tensor:
+    """Steps c0 .. c0 + n - 1 of ``decay`` [B, S, ...] as a chunk of CHUNK
+    steps, padded with 1, steps moved last: [B, ..., CHUNK]."""
+    dec = torch.ones((decay.shape[0], CHUNK) + decay.shape[2:])
+    dec[:, :n] = decay[:, c0:c0 + n]
+    return dec.movedim(1, -1)
+
+
 def mamba_scan_chunked_plain(x: torch.Tensor, dt_sp: torch.Tensor,
                              decay: torch.Tensor, Bm: torch.Tensor,
                              Cm: torch.Tensor, h0: torch.Tensor
@@ -242,31 +281,13 @@ def mamba_scan_chunked_plain(x: torch.Tensor, dt_sp: torch.Tensor,
     ``y_t = sum_{s<=t} seg(s->t) (C_t . B_s) dt_s x_s + seg(start->t) h C_t``
     and ``h_end = seg(start->end) h + sum_s seg(s->end) dt_s x_s B_s^T``,
     four products a (batch row, head, chunk)."""
-    B, S, H, dh = x.shape
-    h, ys, nsub = h0.float(), [], CHUNK // SUB
-    for c0, n, (xc, dtc, Bc, Cc) in _chunks(S, x, dt_sp, Bm, Cm):
-        dec = torch.ones((B, CHUNK, H))
-        dec[:, :n] = decay[:, c0:c0 + n]
+    h, ys = h0.float(), []
+    for c0, n, (xc, dtc, Bc, Cc) in _chunks(x.shape[1], x, dt_sp, Bm, Cm):
         Xp = (dtc[..., None] * xc).permute(0, 2, 1, 3)   # [B, H, C, dh]
-        incl, _, suffix, total = _sub_factors(dec.permute(0, 2, 1))
-        before, after, between = _across(total)          # [B, H, nsub]
-        sub = torch.arange(CHUNK) // SUB
-        a = before[..., sub] * incl                       # seg(start->t)
-        e = suffix * after[..., sub]                      # seg(s->end)
-        L = torch.zeros((B, H, CHUNK, CHUNK))
-        lin = _within_sub(dec.permute(0, 2, 1).unflatten(-1, (nsub, SUB)))
-        for i in range(nsub):
-            rows = slice(SUB * i, SUB * (i + 1))
-            L[..., rows, rows] = lin[..., i, :, :]
-            for j in range(i):
-                cols = slice(SUB * j, SUB * (j + 1))
-                f = incl[..., rows, None]
-                if j < i - 1:
-                    f = f * between[(j, i)][..., None, None]
-                L[..., rows, cols] = f * suffix[..., None, cols]
+        L, a, e, all_ = _mamba_factors(_chunk_decays(decay, c0, n))
         G = torch.einsum("btn,bsn->bts", Cc, Bc)[:, None]  # shared by heads
         y = (G * L) @ Xp + (a[..., None] * Cc[:, None]) @ h.transpose(-1, -2)
-        h = (before[..., -1] * total[..., -1])[..., None, None] * h + \
+        h = all_[..., None, None] * h + \
             (e[..., None] * Xp).transpose(-1, -2) @ Bc[:, None]
         ys.append(y.permute(0, 2, 1, 3)[:, :n])
     return torch.cat(ys, dim=1), h
@@ -315,6 +336,231 @@ def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kbar.transpose(-1, -2) @ vc
         ys.append(y.permute(0, 2, 1, 3)[:, :n])
     return torch.cat(ys, dim=1), s
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' chunked form as tensor code (tests only)
+# ---------------------------------------------------------------------------
+def _shift_down(L: torch.Tensor) -> torch.Tensor:
+    """``Pre[s, v] = L[v - 1, s]`` (0 at v = 0): the products of the decays
+    after s up to v, v left out, from seg(s->t) = L [..., t, s]."""
+    pre = torch.zeros_like(L)
+    pre[..., :, 1:] = L[..., :-1, :].transpose(-1, -2)
+    return pre
+
+
+def mamba_scan_bwd_chunked_plain(x, dt_sp, decay, Bm, Cm, h0, dy, dh):
+    """The chunked backward kernel's algorithm (``csrc/mamba_scan_bwd.cu``)
+    as tensor code, for the CPU tests; the same outputs as
+    :func:`mamba_scan_bwd_plain`. Per chunk of CHUNK steps, with ``L[t, s]
+    = seg(s->t)``, ``a = seg(start->t)``, ``e = seg(s->end)`` formed as
+    the forward forms them (:func:`_mamba_factors`):
+
+    1. the chunks' start states forward, ``h <- all h + (e X)^T B`` (X = dt
+       x);
+    2. their end adjoints in reverse, ``g <- all g + (a dY)^T C``; ``dh0``
+       is the one out of the first chunk;
+    3. per chunk, from its start state h and end adjoint g, with ``G = C
+       B^T``, ``D = dY x^T``: ``dx = dt (M^T dY + e (B g^T))`` with ``M = G
+       (*) L``; ``d dt`` the row-dot of ``dx / dt`` with x; ``dB = dt
+       ((D (*) L)^T C + e (x g))`` and ``dC = (D (*) L) (dt B) + a (dY h)``
+       per head; ``d decay_v``, a sum over s < v <= t of ``W[t, s] = (dY_t
+       . X_s) (C_t . B_s)`` times seg(s->t) with v left out, as ``(W Pre)
+       (*) L`` summed over t, where ``Pre[s, v] = L[v - 1, s]`` (no
+       division), plus the terms against h and g."""
+    chunks = list(_chunks(x.shape[1], x, dt_sp, Bm, Cm, dy))
+    facs = [_mamba_factors(_chunk_decays(decay, c0, n))
+            for c0, n, _ in chunks]
+    h, starts = h0.float(), []
+    for (_, _, (xc, dtc, Bc, _, _)), (_, _, e, all_) in zip(chunks, facs):
+        starts.append(h)
+        X = (dtc[..., None] * xc).permute(0, 2, 1, 3)       # [B, H, C, dh]
+        h = all_[..., None, None] * h + \
+            (e[..., None] * X).transpose(-1, -2) @ Bc[:, None]
+    g, ends = dh.float(), [None] * len(chunks)
+    for i in reversed(range(len(chunks))):
+        ends[i] = g
+        _, _, (_, _, _, Cc, dyc) = chunks[i]
+        _, a, _, all_ = facs[i]
+        g = all_[..., None, None] * g + \
+            (a[..., None] * dyc.permute(0, 2, 1, 3)).transpose(-1, -2) \
+            @ Cc[:, None]
+    out = {n: [] for n in ("dx", "ddt", "ddecay", "dB", "dC")}
+    strict = torch.ones(CHUNK, CHUNK).tril(-1)
+    for (_, n, (xc, dtc, Bc, Cc, dyc)), (L, a, e, _), hs, ge in zip(
+            chunks, facs, starts, ends):
+        xp, dY = xc.permute(0, 2, 1, 3), dyc.permute(0, 2, 1, 3)
+        dtp = dtc.permute(0, 2, 1)                          # [B, H, C]
+        Bc, Cc = Bc[:, None], Cc[:, None]
+        G = Cc @ Bc.transpose(-1, -2)                        # [t, s]
+        D = dY @ xp.transpose(-1, -2)                        # dy_t . x_s
+        DL = D * L
+        Bg = Bc @ ge.transpose(-1, -2)                       # [t, d]
+        dxg = (G * L).transpose(-1, -2) @ dY + e[..., None] * Bg
+        dYh = dY @ hs                                        # [t, n]
+        W = D * G * dtp[..., None, :] * strict
+        pre = _shift_down(L)
+        U = (dYh * Cc).sum(-1)                               # [t]
+        V = (dtp[..., None] * xp * Bg).sum(-1)               # [s]
+        a_prev = torch.cat([torch.ones_like(a[..., :1]), a[..., :-1]], -1)
+        ddecay = ((W @ pre) * L).sum(-2) + \
+            a_prev * (L * U[..., :, None]).sum(-2) + \
+            e * (pre * V[..., :, None]).sum(-2) + \
+            a_prev * e * (hs * ge).sum((-1, -2))[..., None]
+        parts = {"dx": dtp[..., None] * dxg, "ddt": (dxg * xp).sum(-1),
+                 "ddecay": ddecay,
+                 "dB": (dtp[..., None] * (DL.transpose(-1, -2) @ Cc
+                                          + e[..., None] * (xp @ ge))
+                        ).sum(1),
+                 "dC": (DL @ (dtp[..., None] * Bc)
+                        + a[..., None] * dYh).sum(1)}
+        for name, t in parts.items():
+            t = t if name in ("dB", "dC") else t.movedim(1, 2)
+            out[name].append(t[:, :n])
+    return (*(torch.cat(v, dim=1) for v in out.values()), g)
+
+
+def _wkv_factors(w: torch.Tensor):
+    """The per-channel decay factors of one WKV chunk from ``w`` [..., CHUNK,
+    dh] (padded steps at 1), formed in sub-chunks of SUB as ``wkv6.cu``
+    forms them: (excl, the product from the sub-chunk's start up to t
+    exclusive; suffix, after s to the sub-chunk's end; before, after
+    [..., CHUNK / SUB, dh] and between {(j, i): [..., dh]}, the products of
+    whole sub-chunks (:func:`_across`); all [..., dh])."""
+    _, excl, suffix, total = _sub_factors(w.transpose(-1, -2))
+    before, after, between = _across(total)
+    return (excl.transpose(-1, -2), suffix.transpose(-1, -2),
+            before.transpose(-1, -2), after.transpose(-1, -2), between,
+            before[..., -1] * total[..., -1])
+
+
+def _wkv_within(w: torch.Tensor) -> torch.Tensor:
+    """``prod_{s<u<t} w_u`` within each sub-chunk for s < t, 0 elsewhere:
+    [..., n, SUB (t), SUB (s), dh] from ``w`` [..., n, SUB, dh], by
+    running products from each s on."""
+    s_idx = torch.arange(SUB)[:, None]
+    run = torch.ones(w.shape)                       # [..., n, SUB (s), dh]
+    out = torch.zeros(w.shape[:-1] + (SUB, w.shape[-1]))
+    for t in range(SUB):
+        out[..., t, :, :] = torch.where(t > s_idx, run, torch.zeros(()))
+        run = torch.where(t > s_idx, run * w[..., t:t + 1, :], run)
+    return out
+
+
+def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dy, ds):
+    """The chunked backward kernel's algorithm (``csrc/wkv6_bwd.cu``) as
+    tensor code, for the CPU tests; the same outputs as
+    :func:`wkv6_bwd_plain`. Per chunk, with the forward's factors
+    (:func:`_wkv_factors`; r~ = r (*) excl, kq = k (*) suffix, F =
+    prod_{start<=u<t} w_u, E = prod_{t<u<=end} w_u):
+
+    1. the chunks' start states forward, ``S <- all (*) S + (k E)^T v``;
+    2. their end adjoints in reverse, ``G <- all (*) G + (r F)^T dy``;
+       ``ds0`` the one out of the first chunk;
+    3. per chunk, from its start state S0 and end adjoint Ge, with ``P =
+       dY v^T`` (p_t its diagonal), ``Hs = dY S0^T``, ``Gv = v Ge^T`` and
+       A the forward's (the bonus on its diagonal): ``dv = A^T dY + (k E)
+       Ge``; ``Yr = sum_{j<i} P_ij (kq_j (*) between) + before (*) Hs``
+       and ``Yk = sum_{i>j} P_ij^T (r~_i (*) between) + after (*) Gv`` (the
+       sub-chunks' products), so ``dr = excl (*) Yr + (diagonal blocks) +
+       u k p`` and ``dk = suffix (*) Yk + (diagonal blocks) + r u p``;
+       ``dw_v``, a sum over s < v < t of ``P[t, s] k_s r_t`` times the
+       decays from s to t with v left out, split by where s and t lie
+       against v's sub-chunk m: both outside (whole sub-chunks' sums X,
+       S0 and Ge standing in as a step before the chunk and one after it),
+       s before m (Yr), t after m (Yk), both inside (a walk within m); no
+       division. ``du`` summed over batch rows and steps."""
+    nsub = CHUNK // SUB
+    chunks = list(_chunks(r.shape[1], r, k, v, dy))
+    facs, FE = [], []
+    for c0, n, _ in chunks:
+        wc = _chunk_decays(w, c0, n).movedim(-1, -2)         # [B, H, C, dh]
+        f = _wkv_factors(wc)
+        excl, suffix, before, after = f[:4]
+        sub = torch.arange(CHUNK) // SUB
+        facs.append((wc, *f))
+        FE.append((excl * before[..., sub, :], suffix * after[..., sub, :]))
+    s, starts = s0.float(), []
+    for (_, _, (_, kc, vc, _)), f, (_, E) in zip(chunks, facs, FE):
+        starts.append(s)
+        kc, vc = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+        s = f[-1][..., None] * s + (kc * E).transpose(-1, -2) @ vc
+    G, ends = ds.float(), [None] * len(chunks)
+    for i in reversed(range(len(chunks))):
+        ends[i] = G
+        _, _, (rc, _, _, dyc) = chunks[i]
+        G = facs[i][-1][..., None] * G + \
+            (rc.permute(0, 2, 1, 3) * FE[i][0]).transpose(-1, -2) @ \
+            dyc.permute(0, 2, 1, 3)
+    out = {n: [] for n in ("dr", "dk", "dv", "dw")}
+    du, uu = torch.zeros(u.shape), u[:, None, :]
+    blk = lambda i: slice(SUB * i, SUB * (i + 1))
+    for (_, n, seqs), f, (_, E), S0, Ge in zip(chunks, facs, FE, starts,
+                                               ends):
+        rc, kc, vc, dY = (t.permute(0, 2, 1, 3) for t in seqs)
+        wc, excl, suffix, before, after, between, all_ = f
+        rt, kq = rc * excl, kc * suffix
+        btw = lambda j, i: (between[(j, i)] if j < i - 1
+                            else torch.ones_like(all_))[..., None, :]
+        P = dY @ vc.transpose(-1, -2)                        # dy_t . v_s
+        p = torch.diagonal(P, dim1=-2, dim2=-1)[..., None]
+        Hs = dY @ S0.transpose(-1, -2)                       # [t, d]
+        Gv = vc @ Ge.transpose(-1, -2)                       # [s, d]
+        A = torch.zeros(P.shape)
+        diag = _wkv_within_sub(*(t.unflatten(-2, (nsub, SUB))
+                                 for t in (rc, kc, wc)), u)
+        Yr, Yk = torch.zeros(Hs.shape), torch.zeros(Gv.shape)
+        X = {}  # whole sub-chunks' sums, -1 and nsub the virtual steps
+        for i in range(nsub):
+            A[..., blk(i), blk(i)] = diag[..., i, :, :]
+            Yr[..., blk(i), :] = before[..., i:i + 1, :] * Hs[..., blk(i), :]
+            Yk[..., blk(i), :] = after[..., i:i + 1, :] * Gv[..., blk(i), :]
+            X[(-1, i)] = (rt[..., blk(i), :] * Hs[..., blk(i), :]).sum(-2)
+            X[(i, nsub)] = (kq[..., blk(i), :] * Gv[..., blk(i), :]).sum(-2)
+        X[(-1, nsub)] = (Ge * S0).sum(-1)
+        for i in range(nsub):
+            for j in range(i):
+                kj = kq[..., blk(j), :] * btw(j, i)
+                A[..., blk(i), blk(j)] = rt[..., blk(i), :] @ \
+                    kj.transpose(-1, -2)
+                Pij = P[..., blk(i), blk(j)]
+                Yr[..., blk(i), :] += Pij @ kj
+                Yk[..., blk(j), :] += Pij.transpose(-1, -2) @ \
+                    (rt[..., blk(i), :] * btw(j, i))
+                if j < i - 1:
+                    X[(j, i)] = (rt[..., blk(i), :]
+                                 * (Pij @ kq[..., blk(j), :])).sum(-2)
+        dv = A.transpose(-1, -2) @ dY + (kc * E) @ Ge
+        # within a sub-chunk: pi[t, s] = prod_{s<u<t} w_u (s < t)
+        sub = lambda t: t.unflatten(-2, (nsub, SUB))
+        pi = _wkv_within(sub(wc))                 # [B, H, n, t, s, dh]
+        Pm = torch.stack([P[..., blk(i), blk(i)] for i in range(nsub)], 2)
+        rs, ks = sub(rc), sub(kc)
+        dr = excl * Yr + torch.einsum("bhmts,bhmtsd,bhmsd->bhmtd", Pm, pi,
+                                      ks).flatten(2, 3) + uu * kc * p
+        dk = suffix * Yk + torch.einsum("bhmts,bhmtsd,bhmtd->bhmsd", Pm, pi,
+                                        rs).flatten(2, 3) + rc * uu * p
+        # dw by where s and t lie against v's sub-chunk m
+        inner = torch.einsum("bhmts,bhmsd,bhmtd,bhmvsd,bhmtvd->bhmvd", Pm,
+                             ks, rs, pi, pi)
+        from_r = torch.einsum("bhmtvd,bhmtd,bhmtd->bhmvd", pi, rs, sub(Yr))
+        from_k = torch.einsum("bhmvsd,bhmsd,bhmsd->bhmvd", pi, ks, sub(Yk))
+        dw = (inner + sub(excl) * from_r + sub(suffix) * from_k).flatten(2, 3)
+        lead = lambda j, m: (before[..., m, :] if j < 0
+                             else btw(j, m)[..., 0, :])
+        trail = lambda m, i: (after[..., m, :] if i == nsub
+                              else btw(m, i)[..., 0, :])
+        for m in range(nsub):
+            outside = sum(lead(j, m) * trail(m, i) * X[(j, i)]
+                          for j in range(-1, m)
+                          for i in range(m + 1, nsub + 1))
+            dw[..., blk(m), :] += (excl * suffix)[..., blk(m), :] * \
+                outside[..., None, :]
+        du = du + (rc * kc * p).sum((0, 2))
+        for name, t in (("dr", dr), ("dk", dk), ("dv", dv), ("dw", dw)):
+            out[name].append(t.permute(0, 2, 1, 3)[:, :n])
+    dr, dk, dv, dw = (torch.cat(t, dim=1) for t in out.values())
+    return dr, dk, dv, dw, du, G
 
 
 def _require(cond: bool, exc, msg: str) -> None:
@@ -436,17 +682,30 @@ def _wkv6_cuda(r, k, v, w, u, s0):
 # ---------------------------------------------------------------------------
 # Training: the scans with their gradient
 # ---------------------------------------------------------------------------
-# The backward kernels' recomputation (``csrc/scan_bwd.cuh``'s ``kCk``,
+# The backward kernels' two forms, one launch of the entry point either
+# way: below BWD_CHUNK_MIN[kind] steps the sequential walk, from it on the
+# chunked form (the kernels' ``kBwdChunkMin``; ``test_torch_scan_bwd_chunked``
+# holds the sources to these numbers)
+BWD_CHUNK_MIN = {"mamba": 32, "wkv6": 32}
+
+
+def bwd_form(kind: str, S: int) -> str:
+    """Which form of the ``kind`` ("mamba" or "wkv6") backward kernel a
+    call of ``S`` steps runs."""
+    return "chunked" if S >= BWD_CHUNK_MIN[kind] else "sequential"
+
+
+# The sequential form's recomputation (``csrc/scan_bwd.cuh``'s ``kCk``,
 # ``kW``): a checkpoint of the state every BWD_CKPT steps, a window start
-# every BWD_WINDOW; and the persistent blocks an SM their grid assumes
+# every BWD_WINDOW; and the persistent blocks an SM its grid assumes
 BWD_CKPT, BWD_WINDOW, BWD_BLOCKS_PER_SM = 32, 4, 2
 _STATE = MAX_WIDTH * MAX_WIDTH  # floats of one padded state
 _SMS: dict = {}
 
 
 def bwd_slots(device: torch.device, items: int) -> int:
-    """Blocks of a backward launch: one persistent block a (head, batch
-    row) item up to ``BWD_BLOCKS_PER_SM`` an SM."""
+    """Blocks of a sequential backward launch: one persistent block a
+    (head, batch row) item up to ``BWD_BLOCKS_PER_SM`` an SM."""
     n = _SMS.get(device.index)
     if n is None:
         n = _SMS[device.index] = torch.cuda.get_device_properties(
@@ -455,10 +714,27 @@ def bwd_slots(device: torch.device, items: int) -> int:
 
 
 def bwd_scratch_floats(S: int) -> int:
-    """fp32 scratch of one block: a checkpoint every ``BWD_CKPT`` steps and
-    the window starts of one interval (``scan_bwd.cuh``'s
-    ``slot_floats``)."""
+    """fp32 scratch of one block of the sequential form: a checkpoint every
+    ``BWD_CKPT`` steps and the window starts of one interval
+    (``scan_bwd.cuh``'s ``slot_floats``)."""
     return (-(-S // BWD_CKPT) + BWD_CKPT // BWD_WINDOW) * _STATE
+
+
+def bwd_bounds_floats(items: int, S: int) -> int:
+    """fp32 scratch of the chunked form: every chunk's start state and end
+    adjoint of each (head, batch row) item, padded to 64 x 64
+    (``scan_bwd_chunk.cuh``)."""
+    return 2 * items * -(-S // CHUNK) * _STATE
+
+
+def _bwd_scratch(kind: str, dev: torch.device, items: int, S: int):
+    """(blocks of the sequential form (1 for the chunked), fp32 scratch) of
+    one backward launch."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    if bwd_form(kind, S) == "chunked":
+        return 1, torch.empty(bwd_bounds_floats(items, S), **f32)
+    slots = bwd_slots(dev, items)
+    return slots, torch.empty(slots * bwd_scratch_floats(S), **f32)
 
 
 def _grads_in(dy, ds):
@@ -493,8 +769,9 @@ class MambaScan(torch.autograd.Function):
 
 def _mamba_scan_bwd_cuda(x, dt_sp, decay, Bm, Cm, h0, dy, dh):
     """``(dx, ddt, ddecay, dB, dC, dh0)`` by ``mamba_scan_bwd_f32``: one
-    launch of its entry point (the walk, then dB and dC summed over heads
-    in order)."""
+    launch of its entry point (the sequential walk, or the chunked form's
+    boundary walk and chunks; then dB and dC summed over heads in
+    order)."""
     B, S, H, dh_ = x.shape
     N = Bm.shape[-1]
     dev = x.device
@@ -504,8 +781,7 @@ def _mamba_scan_bwd_cuda(x, dt_sp, decay, Bm, Cm, h0, dy, dh):
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dh0 = torch.empty_like(h0)
     dBh, dCh = (torch.empty((B, S, H, N), **f32) for _ in range(2))
-    slots = bwd_slots(dev, B * H)
-    scratch = torch.empty(slots * bwd_scratch_floats(S), **f32)
+    slots, scratch = _bwd_scratch("mamba", dev, B * H, S)
     backend.launch("mamba_scan_bwd", "mamba_scan_bwd_f32", dev,
                    *(t.data_ptr() for t in (x, dt_sp, decay, Bm, Cm, h0, dy,
                                             dh, dx, ddt, ddecay, dB, dC, dh0,
@@ -539,16 +815,17 @@ class WKV6(torch.autograd.Function):
 
 def _wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds):
     """``(dr, dk, dv, dw, du, ds0)`` by ``wkv6_bwd_f32``: one launch of its
-    entry point (the walk, then du summed over batch rows in order)."""
+    entry point (the sequential walk, or the chunked form's boundary walk
+    and chunks; then du summed over batch rows, and chunks, in order)."""
     B, S, H, dh = r.shape
     dev = r.device
     f32 = dict(dtype=torch.float32, device=dev)
     dr, dk, dv = (torch.empty((B, S, H, dh), **f32) for _ in range(3))
     dw, du, ds0 = torch.empty_like(w), torch.empty_like(u), \
         torch.empty_like(s0)
-    du_part = torch.empty((B, H, dh), **f32)
-    slots = bwd_slots(dev, B * H)
-    scratch = torch.empty(slots * bwd_scratch_floats(S), **f32)
+    slots, scratch = _bwd_scratch("wkv6", dev, B * H, S)
+    parts = B * -(-S // CHUNK) if bwd_form("wkv6", S) == "chunked" else B
+    du_part = torch.empty((parts, H, dh), **f32)
     backend.launch("wkv6_bwd", "wkv6_bwd_f32", dev,
                    *(t.data_ptr() for t in (r, k, v, w, u, s0, dy, ds, dr,
                                             dk, dv, dw, du, ds0, du_part,

@@ -1814,22 +1814,25 @@ def test_recurrent_serve_on_card_same_at_both_depths(dev, arch):
 # Training the SSM and hybrid families: the scans' backward kernels
 # ---------------------------------------------------------------------------
 # (kernel, B, S, H, dh, N, regime, activations, nonzero states): the
-# training step's widths (Zamba2-1.2B, RWKV6-1.6B) at 8 x 512 and at the
-# edges (S 1, S under and past the backward's 32-step checkpoint interval,
-# strong decays, fp32 activations, nonzero initial states and final-state
-# gradients), and the reduced configs' widths (dh 64 over N 8; dh 16)
+# training step's widths (Zamba2-1.2B, RWKV6-1.6B) at 8 x 512 (the chunked
+# form) and at the edges (S 1, each side of the chunked form's first
+# length 32, S past one chunk, strong decays, fp32 activations, nonzero
+# initial states and final-state gradients), and the reduced configs'
+# widths (dh 64 over N 8; dh 16)
 SCAN_BWD_CASES = [("mamba", 8, 512, 64, 64, 64, "model", "bf16", False),
                   ("mamba", 2, 1, 64, 64, 64, "model", "bf16", True),
                   ("mamba", 2, 31, 64, 64, 64, "model", "fp32", True),
+                  ("mamba", 2, 32, 64, 64, 64, "model", "bf16", True),
                   ("mamba", 2, 70, 64, 64, 64, "strong", "bf16", True),
                   ("mamba", 3, 37, 2, 64, 8, "model", "fp32", True),
                   ("wkv6", 8, 512, 32, 64, 0, "model", "bf16", False),
                   ("wkv6", 2, 1, 32, 64, 0, "model", "bf16", True),
+                  ("wkv6", 2, 31, 32, 64, 0, "model", "bf16", True),
                   ("wkv6", 2, 33, 32, 64, 0, "model", "fp32", True),
                   ("wkv6", 2, 70, 32, 64, 0, "strong", "bf16", True),
                   ("wkv6", 3, 37, 4, 16, 0, "model", "fp32", True)]
-# each gradient against the plain backward's, both fp32 from the same
-# (bitwise) recomputed states: sums in another order, fused multiply-adds
+# each gradient against the plain backward's, both fp32: sums in another
+# order, fused multiply-adds, and in the chunked form 3xTF32 products
 SCAN_BWD_TOL = 1e-5  # x max(1, max|plain|)
 
 

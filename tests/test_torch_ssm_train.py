@@ -179,7 +179,12 @@ def test_scan_functions_take_the_plain_backward_on_the_cpu(kind):
 
 
 def test_backward_constants_match_the_kernels():
-    """The wrappers' scratch size and grid follow ``scan_bwd.cuh``."""
+    """The wrappers' scratch sizes and grids follow the kernels: the
+    sequential form's (``scan_bwd.cuh``: a checkpoint every ``BWD_CKPT``
+    steps, windows of ``BWD_WINDOW``, ``BWD_BLOCKS_PER_SM`` persistent
+    blocks an SM) and the chunked form's (``scan_bwd_chunk.cuh``: chunks of
+    ``CHUNK`` steps in sub-chunks of ``SUB``, a start state and an end
+    adjoint of ``MAX_WIDTH`` x ``MAX_WIDTH`` floats a chunk and item)."""
     import pathlib
     csrc = pathlib.Path(SS.__file__).parents[1] / "csrc"
     src = (csrc / "scan_bwd.cuh").read_text()
@@ -189,8 +194,14 @@ def test_backward_constants_match_the_kernels():
     for name in ("mamba_scan_bwd.cu", "wkv6_bwd.cu"):
         assert (f"__launch_bounds__(kThreads, {SS.BWD_BLOCKS_PER_SM})"
                 in (csrc / name).read_text()), name
+    chunk = (csrc / "scan_bwd_chunk.cuh").read_text()
+    for const, want in (("kC", SS.CHUNK), ("kSub", SS.SUB),
+                        ("kW", SS.MAX_WIDTH)):
+        assert f"constexpr int {const} = {want};" in chunk, const
     assert SS.bwd_scratch_floats(1) == 9 * 64 * 64
     assert SS.bwd_scratch_floats(512) == (16 + 8) * 64 * 64
+    assert SS.bwd_bounds_floats(512, 512) == 2 * 512 * 8 * 64 * 64
+    assert SS.bwd_bounds_floats(3, 65) == 2 * 3 * 2 * 64 * 64
 
 
 # ---------------------------------------------------------------------------
@@ -333,10 +344,12 @@ def test_backward_launches_each_kernel_once_per_scan_call(monkeypatch,
     """With the scans' module routed as on the card (``backend.on_card``
     true, ``backend.launch`` recording instead of launching), one training
     gradient launches the forward scan once per layer (twice for RWKV6,
-    recomputed under full remat) and its backward kernel once per layer;
-    no plain scan or plain backward runs."""
+    recomputed under full remat) and its backward kernel once per layer,
+    at 16 tokens (the sequential backward) and at 48 (the chunked: each
+    backward call's scratch the one of the form its length picks); no
+    plain scan or plain backward runs."""
     _, tcfg, jp, _ = _model(name)
-    calls = []
+    calls, forms = [], []
 
     def refused(*a, **k):
         raise AssertionError("a plain scan ran on a card tensor")
@@ -344,14 +357,29 @@ def test_backward_launches_each_kernel_once_per_scan_call(monkeypatch,
         on_card=lambda *t: True,
         launch=lambda lib, entry, dev, *a, **k: calls.append(entry)))
     monkeypatch.setattr(SS, "bwd_slots", lambda dev, items: 2)
+    scratch = SS._bwd_scratch
+
+    def recorded(kind, dev, items, S):
+        slots, buf = scratch(kind, dev, items, S)
+        want = (SS.bwd_bounds_floats(items, S)
+                if SS.bwd_form(kind, S) == "chunked"
+                else slots * SS.bwd_scratch_floats(S))
+        assert buf.numel() == want
+        forms.append(SS.bwd_form(kind, S))
+        return slots, buf
+    monkeypatch.setattr(SS, "_bwd_scratch", recorded)
     for plain in ("mamba_scan_plain", "wkv6_plain", "mamba_scan_bwd_plain",
                   "wkv6_bwd_plain"):
         monkeypatch.setattr(SS, plain, refused)
-    b = {"tokens": torch.from_numpy(_batch(tcfg)["tokens"])}
-    ST.make_grad_fn(tcfg, with_pruning=False)(_tparams(jp), b)
     L = tcfg.num_layers
     fwd, bwd = (("wkv6_f32", "wkv6_bwd_f32") if tcfg.family == "ssm"
                 else ("mamba_scan_f32", "mamba_scan_bwd_f32"))
-    assert calls.count(bwd) == L
-    assert calls.count(fwd) == (2 * L if tcfg.family == "ssm" else L)
-    assert len(calls) == calls.count(fwd) + calls.count(bwd)
+    for seq, form in ((16, "sequential"), (48, "chunked")):
+        calls.clear()
+        forms.clear()
+        b = {"tokens": torch.from_numpy(_batch(tcfg, seq=seq)["tokens"])}
+        ST.make_grad_fn(tcfg, with_pruning=False)(_tparams(jp), b)
+        assert calls.count(bwd) == L
+        assert calls.count(fwd) == (2 * L if tcfg.family == "ssm" else L)
+        assert len(calls) == calls.count(fwd) + calls.count(bwd)
+        assert forms == [form] * L
