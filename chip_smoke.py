@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, serves (the ViT and every
-LM family, and an LM prompt under the paper's TDM) and trains (the ViT,
-the dense, MoE, hybrid and SSM LMs) on the card.
+LM family, and an LM prompt under the paper's TDM) and trains (the ViT and
+every LM family) on the card.
 
     python3 chip_smoke.py
 
@@ -15,9 +15,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    SASS, the fp32 non-causal attention kernels and their backward's issue
    no tensor-core instruction (no TF32; the backward no atomic either),
    the fp16 ones issue HMMA, and the
-   causal backward's two kernels (dQ, dK/dV) and the non-causal bf16
-   prefill's kernels issue HGMMA (wgmma) and no HMMA, the non-causal
-   decode's HMMA.
+   bf16 backward's two kernels (dQ, dK/dV) in both its forms at each head
+   width issue HGMMA (wgmma), no HMMA and no atomic, the non-causal bf16
+   prefill's kernels HGMMA and no HMMA, the non-causal decode's HMMA.
 3. Every kernel entry point against its plain PyTorch version on the
    card, at the main path's shapes (DeiT-Small: M=788 rows for the SBMMs
    over fp32, fp16 and int8 blocks with per-block and per-channel scales;
@@ -67,6 +67,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    24 over 8, 64]): the forward writing the log-sum-exp (o bitwise the
    serve's, lse within 1e-5) and ``flash_prefill_bwd_bf16`` (dq, dk, dv
    within one bf16 ulp of the plain backward, two launches bitwise equal),
+   also at Llama-3.2-Vision-90B's self-attention ([8, 512, 64 over 8,
+   128]) and at Dh 128 with a ragged last tile ([2, 130, 16 over 2, 128]);
+   the VLM and audio families' non-causal training pair
+   (``MM_TRAIN_CASES``: Whisper-base's encoder [8, 1500, 8, 64], its
+   cross-attention q [8, 64, 8, 64] over 1500 frames, Llama-3.2-Vision's
+   cross layer q [8, 512, 64, 128] over [8, 1601, 8, 128], and at Dh 16
+   Nq 5 < 64 < Nk 65 and 70 rows over 65 keys under GQA 8:1): the
+   non-causal prefill writing the log-sum-exp (o bitwise the serve's, lse
+   within 1e-5) and ``flash_prefill_bwd_bf16`` with ``causal`` 0, counted
+   under ``flash_prefill_bwd_bf16/noncausal`` (dq, dk, dv within one bf16
+   ulp of ``attention_noncausal_bwd_plain``, two launches bitwise equal),
    with fixed seeds: error and tolerance per output,
    kernel/plain/library times (CUDA events, median of 21 runs of 10 calls
    after warm-up) and each kernel's least possible time on an H100 SXM
@@ -316,6 +327,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    attention runs on the card. Prints the losses, wall per step, tokens/s,
    peak memory, the profiled step's busy and idle share, its device time
    by part and each scan kernel's device time per step.
+6d. Training the VLM and audio families (``mm_train_path``, after 6c):
+   ``make_train_step`` (no pruning: neither family's config has any) on
+   full-width Whisper-base (6 encoder and 6 decoder layers, D 512, 8 heads
+   of Dh 64, biases; batches of 8 rows of 64 tokens over 1500 frames) and
+   Llama-3.2-Vision-90B at full width cut to 2 layers of cross_attn_period
+   2 (one self-attention layer of 64 query over 8 KV heads of Dh 128 and
+   one gated cross layer over 1601 vision tokens, 3.81 B params; printed
+   as "reduced"; 8 x 512 tokens, or the first of 4 and 2 rows whose step
+   fits), every cross gate ``MM_GATE``, AdamW at lr 1e-3, bf16
+   activations, full remat (the VLM's by stage), 8 steps and one
+   profiled each. Gates: (a) step 0 against the CPU at 2 layers (and 2
+   encoder layers), batch 2, seq 128: the loss within 1e-3 and every
+   gradient leaf within 5% of its largest, the cut's launches; (b) every
+   loss finite; (c) every step launches exactly the causal pair once per
+   self-attention layer and the non-causal pair once per cross layer
+   (forwards twice, recomputed) and per encoder layer
+   (``mm_train_launches``), and no plain attention runs on the card.
+   Prints the losses, wall per step, tokens/s, peak memory, the profiled
+   step's busy and idle share, its device time by part and per kernel
+   form.
 6. Training (``train_path``): the paper's Algorithm 1
    (``core/simultaneous``) on full-width DeiT-Small: a student (seed 0,
    its scores from the same generator) distilled from a dense DeiT-Small
@@ -678,8 +709,9 @@ def check_tensor_cores(backend):
     """Which kernels issue tensor-core instructions, from their SASS: the
     non-causal fp32 tier's none (no TF32 or other split product), nor its
     backward's two kernels, which issue no atomic either (their sums run
-    in a fixed order); its fp16 tier's HMMA; the causal backward's two kernels
-    (dQ, dK/dV) at each head width HGMMA (wgmma) and no HMMA; the
+    in a fixed order); its fp16 tier's HMMA; the bf16 backward's two kernels
+    (dQ, dK/dV) in both forms (causal, non-causal) at each head width HGMMA
+    (wgmma), no HMMA and no atomic; the
     non-causal bf16 prefill's kernels (Dh 16, 64, 128; one and two
     warpgroups) HGMMA and no HMMA, the non-causal decode's HMMA; the scans'
     chunked kernels HMMA (their 3xTF32 products) and no atomic, their
@@ -693,11 +725,14 @@ def check_tensor_cores(backend):
                 dh = fn.split("_kernelILi")[1].split("E")[0]
                 tiers[f"flash_attention_{tier}_kernel<{dh}>"] = ops
     bwd = {}
-    for fn, ops in _sass_ops(backend, "flash_prefill_bwd").items():
-        for part in ("dq", "dkdv"):
-            if f"flash_prefill_bwd_bf16_{part}_kernel" in fn:
-                dh = fn.split("_kernelILi")[1].split("E")[0]
-                bwd[f"flash_prefill_bwd_bf16_{part}_kernel<{dh}>"] = ops
+    for fn, ops in _sass_ops(backend, "flash_prefill_bwd",
+                             TENSOR_CORE_OPS + ATOMIC_OPS).items():
+        for form in ("", "noncausal_"):
+            for part in ("dq", "dkdv"):
+                if f"flash_prefill_bwd_bf16_{form}{part}_kernel" in fn:
+                    dh = fn.split("_kernelILi")[1].split("E")[0]
+                    bwd[f"flash_prefill_bwd_bf16_{form}{part}_kernel<{dh}>"] \
+                        = ops
     print("sass: tensor-core instructions per kernel "
           + json.dumps({**tiers, **bwd}), flush=True)
     require(len(tiers) == 4, f"expected 4 non-causal kernels in the SASS, "
@@ -725,12 +760,13 @@ def check_tensor_cores(backend):
     for kern, ops in vit_bwd.items():
         require(not ops, f"{kern} issues tensor-core or atomic instructions "
                          f"{ops}")
-    require(len(bwd) == 2 * len(bwd_dims),
-            f"expected the backward's dq and dkdv kernels at Dh {bwd_dims} "
-            f"in the SASS, found {sorted(bwd)}")
+    require(len(bwd) == 4 * len(bwd_dims),
+            f"expected the backward's dq and dkdv kernels of both forms at "
+            f"Dh {bwd_dims} in the SASS, found {sorted(bwd)}")
     for kern, ops in bwd.items():
-        require(ops.get("HGMMA", 0) > 0 and not ops.get("HMMA"),
-                f"{kern} must issue HGMMA and no HMMA, issues {ops}")
+        require(set(ops) == {"HGMMA"},
+                f"{kern} must issue HGMMA and nothing else of "
+                f"{TENSOR_CORE_OPS + ATOMIC_OPS} (no atomic), issues {ops}")
     nc = {}
     for lib, entry in (("flash_prefill", "flash_prefill_bf16"),
                        ("flash_decode", "flash_decode_bf16")):
@@ -920,17 +956,18 @@ def check_flash_attention_causal(torch, dev):
         # the work these inputs need: every (row, head, valid key) pair
         # takes 2 Dh operations for Q.K (bf16 x bf16, exact in fp32: the
         # bf16 tensor-core rate), 2 Dh for P.V and ~4 for the softmax. The
-        # prefill kernel runs P.V on the tensor cores as two bf16 products
-        # (P split into hi and lo): 4 Dh at the bf16 rate; the decode
-        # kernel keeps P fp32: 2 Dh at the fp32 rate. Bytes: q and o once,
-        # the K/V window [start, len) once, the decode probabilities once.
+        # prefill's P.V counts at the bf16 rate, as the function needs it
+        # (its kernel's split of P into hi and lo halves is its own extra
+        # work, not counted); the decode kernel keeps P fp32: 2 Dh at the
+        # fp32 rate. Bytes: q and o once, the K/V window [start, len) once,
+        # the decode probabilities once.
         pairs = Hq * sum(map(sum, seen))
         window = sum(lens[b] - starts[b] for b in range(B))
         n_bytes = (2 * 2 * q.numel() + 2 * 2 * window * KV * Dh + 12 * B
                    + (4 * B * Hq * S if decode else 0))
         bnd, by = (bound_ms(n_bytes, (2 * Dh + 4) * pairs, 2 * Dh * pairs)
                    if decode else
-                   bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs))
+                   bound_ms(n_bytes, 4 * pairs, 4 * Dh * pairs))
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         pos = off_t[:, None] + torch.arange(Nq, device=dev)
         keys = torch.arange(S, device=dev)
@@ -1009,7 +1046,7 @@ def check_flash_attention_noncausal(torch, dev):
         attention_noncausal_plain, flash_attention)
     from repro_torch.kernels.flash_attention import ops as FA
     g = torch.Generator().manual_seed(12)
-    cases = {form: [] for form in backend.FORMS}
+    cases = {form: [] for form in FA.NONCAUSAL_FORMS.values()}
     for label, q_shape, kv_shape in MM_NONCAUSAL_CASES:
         B, Nq, Hq, Dh = q_shape
         Nk, KV = kv_shape[1], kv_shape[2]
@@ -1043,12 +1080,12 @@ def check_flash_attention_noncausal(torch, dev):
                  BF16_ULP * ref.float().abs().max().item(),
                  "one bf16 ulp at max|plain|")]
         # the work, counted as for the causal forms: every (row, head, key)
-        # pair takes 2 Dh operations for Q.K and 2 Dh for P.V (both
-        # kernels' P.V as two bf16 products, 4 Dh at the bf16 rate) and ~4
+        # pair takes 2 Dh operations for Q.K and 2 Dh for P.V at the bf16
+        # rate (not the kernels' split of P into two bf16 halves) and ~4
         # for the softmax; bytes: q and o once, k and v once
         pairs = B * Hq * Nq * Nk
         n_bytes = 2 * 2 * q.numel() + 2 * 2 * k.numel()
-        bnd, by = bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs)
+        bnd, by = bound_ms(n_bytes, 4 * pairs, 4 * Dh * pairs)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
 
         def library(qh=qh, kh=kh, vh=vh):
@@ -2873,8 +2910,13 @@ def multimodal_path(torch, dev):
 # which a case of ``check_scan_training`` gives as its
 # ``kernels_per_launch``)
 KERNELS_PER_LAUNCH = {"flash_prefill_bwd_bf16": 2,
+                      "flash_prefill_bwd_bf16/noncausal": 2,
                       "flash_attention_bwd_f32": 2,
                       "mamba_scan_bwd_f32": 3, "wkv6_bwd_f32": 3}
+# the names' common part where the default would also take another form's
+# kernels: the causal backward's ``_dq_kernel`` and ``_dkdv_kernel``, not
+# its non-causal form's ``_noncausal_dq_kernel`` / ``_noncausal_dkdv_kernel``
+KERNEL_SYMBOLS = {"flash_prefill_bwd_bf16": "flash_prefill_bwd_bf16_d"}
 
 
 # entry points with two forms, one kernel a launch chosen by the sequence's
@@ -2888,8 +2930,11 @@ def kernel_symbol(entry_point: str) -> str:
     (``backend.FORMS``), the kernel of its own that the form launches
     (``<entry point>_noncausal_kernel``)."""
     from repro_torch.kernels import backend
+    if entry_point in KERNEL_SYMBOLS:
+        return KERNEL_SYMBOLS[entry_point]
     if entry_point in backend.FORMS:
-        return f"{backend.FORMS[entry_point]}_noncausal_kernel"
+        tail = "_" if entry_point in KERNELS_PER_LAUNCH else "_kernel"
+        return f"{backend.FORMS[entry_point]}_noncausal{tail}"
     if entry_point in KERNELS_PER_LAUNCH or entry_point in TWO_FORMS:
         return f"{entry_point}_"
     return f"{entry_point}_kernel"
@@ -3390,12 +3435,16 @@ def traffic_path(torch, dev, checks):
 
 
 # LM training's causal kernel pair at StableLM-1.6B's shape (32 heads, MHA,
-# Dh 64, batch 8 x 512 tokens), at a GQA shape (24 query over 8 KV heads)
-# and at Granite-MoE-3B-A800M's training step (that GQA shape at 8 x 512);
-# the first case of the backward is its headline
+# Dh 64, batch 8 x 512 tokens), at a GQA shape (24 query over 8 KV heads),
+# at Granite-MoE-3B-A800M's training step (that GQA shape at 8 x 512), at
+# Llama-3.2-Vision-90B's self-attention (64 query over 8 KV heads of Dh
+# 128, 8 x 512) and at Dh 128 with a ragged last tile; the first case of
+# the backward is its headline
 LM_TRAIN_CASES = (("StableLM-1.6B", 8, 512, 32, 32, 64),
                   ("GQA 3:1", 2, 512, 24, 8, 64),
-                  ("Granite-MoE-3B-A800M", 8, 512, 24, 8, 64))
+                  ("Granite-MoE-3B-A800M", 8, 512, 24, 8, 64),
+                  ("Llama-3.2-Vision-90B self", 8, 512, 64, 8, 128),
+                  ("Dh 128, 130 positions", 2, 130, 16, 2, 128))
 LSE_TOL = 1e-5  # x max(1, max|plain lse|): fp32 sums in another order
 
 
@@ -3456,8 +3505,10 @@ def check_causal_training(torch, dev, prefill):
         qh, kh, vh, doh = (t.transpose(1, 2).detach().clone()
                            for t in (q, k, v, do))
         if prefill is not None:
+            # Q.K and P.V, 2 Dh each at the bf16 rate, and ~4 for the
+            # softmax a pair; bytes: q, k, v and o once, lse once
             n_bytes = qkv_bytes + 4 * B * Hq * N
-            bnd, by = bound_ms(n_bytes, 4 * pairs, 6 * Dh * pairs)
+            bnd, by = bound_ms(n_bytes, 4 * pairs, 4 * Dh * pairs)
 
             def sdpa_fwd(qh=qh, kh=kh, vh=vh, gqa=gqa):
                 return F.scaled_dot_product_attention(
@@ -3526,6 +3577,160 @@ def check_causal_training(torch, dev, prefill):
         ms=head["ms"], plain_ms=head["plain_ms"],
         library_fn=head["library_fn"], library_ms=head["library_ms"],
         library_call="F.scaled_dot_product_attention(is_causal=True) "
+                     "forward + backward on bf16 (timing only)",
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cases),
+        cases=cases)
+
+
+# The non-causal training pair (``NonCausalGQAAttention``): (label, B, Nq,
+# Nk, Hq, KV, Dh) at the VLM and audio families' training steps (batch 8 x
+# 512: Whisper-base's encoder over its 1500 frames and its decoder's 64
+# tokens against them, Llama-3.2-Vision-90B's cross layer, 512 tokens
+# against 1601 vision tokens), then the ragged tiles at Dh 16: fewer rows
+# than a tile against more keys than one, and 65 keys (one past a tile)
+# under GQA 8:1; the first case is the backward's headline
+MM_TRAIN_CASES = (("whisper encoder", 8, 1500, 1500, 8, 8, 64),
+                  ("whisper cross", 8, 64, 1500, 8, 8, 64),
+                  ("vision cross", 8, 512, 1601, 64, 8, 128),
+                  ("Dh 16, Nq 5 < 64 < Nk 65", 3, 5, 65, 4, 1, 16),
+                  ("Dh 16, 70 rows over 65 keys, GQA 8:1", 2, 70, 65, 8, 1,
+                   16))
+
+
+def check_noncausal_training(torch, dev, prefill):
+    """The non-causal kernels of the VLM and audio families' training,
+    through the wrappers ``NonCausalGQAAttention`` calls, against their
+    plain versions at ``MM_TRAIN_CASES``:
+
+    * the prefill form writing the log-sum-exp (``flash_prefill_bf16``
+      with ``causal`` 0 and ``lse``; appended to the ``prefill`` check, the
+      form ``flash_prefill_bf16/noncausal``, as a case): o within one bf16
+      ulp of the largest plain element, lse within ``LSE_TOL``, and o
+      bitwise the serve's (the same call with a null lse);
+    * ``flash_prefill_bwd_bf16`` with ``causal`` 0 (the form
+      ``flash_prefill_bwd_bf16/noncausal``; two kernels per launch) against
+      ``attention_noncausal_bwd_plain`` on the same o, dO and lse: dq, dk,
+      dv each within one bf16 ulp of its largest plain element, two
+      launches bitwise equal, each counted once under the form. Its library
+      call is SDPA's forward and backward (``enable_gqa=True``), timed
+      only.
+
+    Returns the backward form's check, one entry per case under
+    ``cases``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
+    form = FA.NONCAUSAL_BWD_FORM
+    g = torch.Generator().manual_seed(10)
+    cases = []
+    for label, B, Nq, Nk, Hq, KV, Dh in MM_TRAIN_CASES:
+        q, do = (torch.randn((B, Nq, Hq, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, Nk, KV, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        shapes = (f"q,o,dO[{B},{Nq},{Hq},{Dh}] k,v[{B},{Nk},{KV},{Dh}] "
+                  f"bf16 non-causal")
+        pairs = B * Hq * Nq * Nk
+        qkv_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+
+        def fwd(q=q, k=k, v=v):
+            return FA._noncausal_cuda(q, k, v, with_lse=True)
+
+        def fwd_plain(q=q, k=k, v=v):
+            return (FA.attention_noncausal_plain(q, k, v),
+                    FA.attention_noncausal_lse_plain(q, k))
+
+        before = backend.form_launches()
+        (o, lse), (o_ref, lse_ref) = fwd(), fwd_plain()
+        o_serve = FA._noncausal_cuda(q, k, v)
+        torch.cuda.synchronize()
+        require(backend.form_launches()["flash_prefill_bf16/noncausal"]
+                == before["flash_prefill_bf16/noncausal"] + 2,
+                f"flash_prefill_bf16/noncausal ({label}) did not launch")
+        require(torch.equal(o, o_serve),
+                f"flash_prefill_bf16/noncausal ({label}): o with lse is not "
+                f"the serve's o bit for bit")
+        err_lse = (lse - lse_ref).abs().max().item()
+        tol_lse = LSE_TOL * max(1.0, lse_ref.abs().max().item())
+        qh, kh, vh, doh = (t.transpose(1, 2).detach().clone()
+                           for t in (q, k, v, do))
+        # Q.K and P.V, 2 Dh each at the bf16 rate, and ~4 for the softmax
+        # a pair; bytes: q, k, v and o once, lse once
+        n_bytes = qkv_bytes + 4 * B * Hq * Nq
+        bnd, by = bound_ms(n_bytes, 4 * pairs, 4 * Dh * pairs)
+
+        def sdpa_fwd(qh=qh, kh=kh, vh=vh):
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  enable_gqa=True)
+
+        case = dict(
+            label=f"train {label}, with lse", fn=fwd, ms=time_ms(fwd),
+            plain_ms=time_ms(fwd_plain, samples=5, calls=3, warmup=1),
+            library_fn=sdpa_fwd, library_ms=time_ms(sdpa_fwd), bound_ms=bnd,
+            bound_by=by,
+            errs=[(f"o (train {label})",
+                   (o.float() - o_ref.float()).abs().max().item(),
+                   BF16_ULP * o_ref.float().abs().max().item(),
+                   "one bf16 ulp at max|plain|"),
+                  (f"lse (train {label})", err_lse, tol_lse,
+                   f"{LSE_TOL:g} x max(1, max|plain|)")],
+            shapes=shapes + " (+lse; o bitwise the serve's)")
+        prefill["cases"].append(case)
+        prefill["errs"].extend(case["errs"])
+        prefill["shapes"] += f"; {case['label']}: {case['shapes']}"
+
+        def bwd(q=q, k=k, v=v, o=o, do=do, lse=lse):
+            return FA._prefill_bwd_cuda(q, k, v, o, do, lse, None,
+                                        causal=False)
+
+        def bwd_plain(q=q, k=k, v=v, o=o, do=do, lse=lse):
+            return FA.attention_noncausal_bwd_plain(q, k, v, o, do, lse)
+
+        before, forms = backend.launches(), backend.form_launches()
+        res, again, ref = bwd(), bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        require(backend.form_launches()[form] == forms[form] + 2
+                and sum(backend.launches().values())
+                == sum(before.values()) + 2,
+                f"{form} ({label}) did not launch once a call")
+        require(all(torch.equal(a, b) for a, b in zip(res, again)),
+                f"{form} ({label}): two launches differ")
+        errs = []
+        for name, a, r in zip(("dq", "dk", "dv"), res, ref):
+            require(a.dtype == torch.bfloat16 and a.shape == r.shape
+                    and bool(torch.isfinite(a.float()).all()),
+                    f"{form} ({label}): {name} {a.dtype} {tuple(a.shape)} "
+                    f"or not finite")
+            errs.append((f"{name} ({label})",
+                         (a.float() - r.float()).abs().max().item(),
+                         BF16_ULP * r.float().abs().max().item(),
+                         "one bf16 ulp at max|plain|"))
+        # bytes: q, o, dO, k, v (bf16) and lse (fp32) read once, dq, dk, dv
+        # (bf16) written once; operations per (row, head, key) pair: the
+        # five products (2 Dh each, the bf16 tensor-core rate), ~8 fp32 for
+        # the exponential and dS
+        n_bytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * Hq * Nq
+        bnd, by = bound_ms(n_bytes, 8 * pairs, 10 * Dh * pairs)
+        leaves_h = [t.clone().requires_grad_(True) for t in (qh, kh, vh)]
+
+        def sdpa(leaves_h=leaves_h, doh=doh):
+            out = F.scaled_dot_product_attention(*leaves_h, enable_gqa=True)
+            return torch.autograd.grad(out, leaves_h, doh)
+
+        cases.append(dict(
+            label=label, errs=errs, fn=bwd, ms=time_ms(bwd),
+            plain_ms=time_ms(bwd_plain, samples=5, calls=3, warmup=1),
+            library_fn=sdpa, library_ms=time_ms(sdpa), bound_ms=bnd,
+            bound_by=by, shapes=shapes + " backward"))
+        del res, again, ref
+    head = cases[0]
+    return dict(
+        name=form, source="flash_prefill_bwd.cu",
+        errs=[e for c in cases for e in c["errs"]], fn=head["fn"],
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        library_fn=head["library_fn"], library_ms=head["library_ms"],
+        library_call="F.scaled_dot_product_attention(enable_gqa=True) "
                      "forward + backward on bf16 (timing only)",
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         shapes="; ".join(f"{c['label']}: {c['shapes']}" for c in cases),
@@ -3888,6 +4093,13 @@ def train_parts(rows, busy_us, label):
               lambda n: kernel_symbol("flash_prefill_bf16") in n,
               "attention backward (flash_prefill_bwd_bf16)":
               lambda n: kernel_symbol("flash_prefill_bwd_bf16") in n,
+              "non-causal attention forward "
+              "(flash_prefill_bf16/noncausal)":
+              lambda n: kernel_symbol("flash_prefill_bf16/noncausal") in n,
+              "non-causal attention backward "
+              "(flash_prefill_bwd_bf16/noncausal)":
+              lambda n: kernel_symbol("flash_prefill_bwd_bf16/noncausal")
+              in n,
               "GEMMs (cuBLAS)": lambda n: "nvjet" in n
               or "gemm" in n.lower() or "xmma" in n,
               "AdamW (multi_tensor_apply)": lambda n: "multi_tensor" in n,
@@ -3908,14 +4120,17 @@ def train_parts(rows, busy_us, label):
     return split
 
 
-def lm_step0_card_vs_cpu(torch, dev, cfg, layers=2):
-    """Step 0's loss and gradients (``models/steps.make_grad_fn`` with
-    pruning) of ``cfg`` cut to ``layers`` layers, batch 2, seq 128, from
-    ``launch/train.make_state_factory``'s seeds: on the card (``cfg``'s
-    dtype, the kernels) and on the CPU (fp32, plain attention). Returns the
-    card's loss, the CPU's, the CPU's seconds, the card's kernel launches
-    and, per gradient leaf, ``(max|card - CPU| / max|CPU|, max|card -
-    CPU|, max|CPU|, path)``, worst first."""
+def lm_step0_card_vs_cpu(torch, dev, cfg, layers=2, prune=True, gate=None):
+    """Step 0's loss and gradients (``models/steps.make_grad_fn``, with
+    pruning unless ``prune`` is False) of ``cfg`` cut to ``layers`` layers,
+    batch 2, seq 128 (with the VLM's or the audio family's modality input
+    from ``synthetic_lm_batch``; the VLM's cross gates at ``gate`` if
+    given), from ``launch/train.make_state_factory``'s seeds: on the card
+    (``cfg``'s dtype, the kernels) and on the CPU (fp32, plain attention).
+    Returns the card's loss, the CPU's, the CPU's seconds, the card's kernel
+    launches (non-causal forms included) and, per gradient leaf,
+    ``(max|card - CPU| / max|CPU|, max|card - CPU|, max|CPU|, path)``,
+    worst first."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import DataConfig, synthetic_lm_batch
     from repro_torch.kernels import backend
@@ -3925,17 +4140,21 @@ def lm_step0_card_vs_cpu(torch, dev, cfg, layers=2):
     from repro_torch.tree import flatten_with_path, path_str, tree_map
 
     small = cfg.replace(num_layers=layers)
-    st = LT.make_state_factory(small, AdamW(), dev, with_scores=True)()
-    toks = torch.from_numpy(synthetic_lm_batch(
-        small, ShapeConfig("t", 128, 2, "train"), DataConfig(), 0)["tokens"])
+    st = LT.make_state_factory(small, AdamW(), dev, with_scores=prune)()
+    if gate is not None:
+        for c in st["params"]["stages"]["cross"]:
+            c["gate"].fill_(gate)
+    host = {k: torch.from_numpy(v) for k, v in synthetic_lm_batch(
+        small, ShapeConfig("t", 128, 2, "train"), DataConfig(), 0).items()}
     backend.reset_launches()
-    loss_c, _, g_c = ST.make_grad_fn(small, True)(
-        st["params"], {"tokens": toks.to(dev)}, st["scores"])
-    launches = {k: v for k, v in backend.launches().items() if v}
+    loss_c, _, g_c = ST.make_grad_fn(small, prune)(
+        st["params"], {k: v.to(dev) for k, v in host.items()}, st["scores"])
+    launches = {k: v for k, v in {**backend.launches(),
+                                  **backend.form_launches()}.items() if v}
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    loss_h, _, g_h = ST.make_grad_fn(small.replace(dtype="float32"), True)(
-        tree_map(lambda t: t.to(cpu), st["params"]), {"tokens": toks},
+    loss_h, _, g_h = ST.make_grad_fn(small.replace(dtype="float32"), prune)(
+        tree_map(lambda t: t.to(cpu), st["params"]), host,
         tree_map(lambda t: t.to(cpu), st["scores"]))
     cpu_s = time.perf_counter() - t0
     rows = []
@@ -3943,7 +4162,10 @@ def lm_step0_card_vs_cpu(torch, dev, cfg, layers=2):
                                  flatten_with_path(g_h)):
         d = (a.cpu().float() - b).abs().max().item()
         m = b.abs().max().item()
-        rows.append((d / m if m else float("inf"), d, m, path_str(path)))
+        # a leaf the loss does not reach (the cross layers' bk / bv) is
+        # exactly 0 on both sides
+        rows.append((d / m if m else 0.0 if d == 0 else float("inf"), d, m,
+                     path_str(path)))
     rows.sort(reverse=True)
     del st, g_c, g_h
     torch.cuda.empty_cache()
@@ -4272,6 +4494,250 @@ def ssm_train_path(torch, dev):
         del params, scores, opt_state, m, prof, step
         torch.cuda.empty_cache()
     print(f"ssm train: phase wall {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6d: training the VLM and audio families, full-width Whisper-base and
+# Llama-3.2-Vision-90B at cut depth
+# ---------------------------------------------------------------------------
+MM_TRAIN_STEPS = 8  # step 0 (warm-up), then 7 timed; then 1 profiled
+MM_TRAIN_SEQ = 512  # Whisper: 64 decoder tokens over 1500 frames a row
+# batch rows, the first whose step fits the card: Whisper-base takes 8;
+# Llama-3.2-Vision-90B's 3.81 B params hold ~57 GiB of fp32 training state
+MM_TRAIN_BATCHES = (8, 4, 2)
+MM_TRAIN_STEP0_LAYERS = 2  # the step-0 cut (Whisper's encoder cut alike)
+
+
+def mm_train_launches(cfg):
+    """Attention launches of one training step of ``cfg`` (full remat), by
+    entry point and form (``backend.FORMS``; a form's launches count under
+    its entry point too): the VLM recomputes each stage, so each of its
+    causal self-attention layers and gated cross layers runs its forward
+    twice and its backward once; Whisper's decoder layers alike (causal
+    self-attention, non-causal cross-attention), its encoder's non-causal
+    self-attention (not checkpointed) once each way."""
+    from repro_torch.models import model as M
+    if cfg.family == "vlm":
+        n_stages, n_self = M.vlm_layout(cfg)
+        causal, cross, enc = n_stages * n_self, n_stages, 0
+    else:
+        causal = cross = cfg.num_layers
+        enc = cfg.encoder_layers
+    return {"flash_prefill_bf16": 2 * (causal + cross) + enc,
+            "flash_prefill_bwd_bf16": causal + cross + enc,
+            "flash_prefill_bf16/noncausal": 2 * cross + enc,
+            "flash_prefill_bwd_bf16/noncausal": cross + enc}
+
+
+def mm_train_path(torch, dev):
+    """Training (``models/steps.make_train_step``, no pruning: neither
+    family's config has any) of full-width Whisper-base (6 encoder and 6
+    decoder layers, D 512, 8 heads of Dh 64, biases) and of
+    Llama-3.2-Vision-90B at full width (D 8192, 64 query over 8 KV heads of
+    Dh 128, d_ff 28,672, vocab 128,256, 1601 vision tokens) cut as
+    ``launch/train --full`` cuts it (``train_config``: 2 layers of
+    ``cross_attn_period`` 2, one self-attention layer and one gated cross
+    layer: 3.81 B params; one stage of the real period would hold ~102 GB
+    of fp32 training state), params from seed 0 drawn on the card,
+    every cross gate ``MM_GATE``, batches of ``synthetic_lm_batch`` by step
+    at seq 512 (Whisper's: 64 tokens over 1500 frames a row), the VLM at
+    the first of ``MM_TRAIN_BATCHES`` rows whose step fits, AdamW at
+    ``LM_TRAIN_LR``. Gates, per model: (a) step 0 on the card (bf16, the
+    kernels) against the CPU (fp32, plain) at ``MM_TRAIN_STEP0_LAYERS``
+    layers, batch 2, seq 128 (the dense LM's: loss within 1e-3, each
+    gradient leaf within 5% of its largest) with the cut's
+    ``mm_train_launches``; (b) every loss finite; (c) per step exactly
+    ``mm_train_launches`` and no plain attention on the card. Prints the
+    losses, wall per step, tokens/s, peak memory, the profiled step's busy
+    and idle share, device time by part and per kernel form. Returns
+    {"<model> train": the last step's launch counts, forms included}."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import LLAMA_3_2_VISION_90B, WHISPER_BASE
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train as LT
+    from repro_torch.models import attention as A
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    full_v = LLAMA_3_2_VISION_90B
+    # the configs ``launch/train --full`` trains: Whisper-base uncut, the
+    # VLM cut by ``LT.CARD_CUTS``
+    whisper, vision = (LT.train_config(c.name, reduced=False)
+                       for c in (WHISPER_BASE, full_v))
+    out = {}
+    for tag, cfg, small in (
+            ("whisper train", whisper, whisper.replace(
+                encoder_layers=MM_TRAIN_STEP0_LAYERS)),
+            ("vision train", vision, vision)):
+        vlm = cfg.family == "vlm"
+        gate = MM_GATE if vlm else None
+        if vlm:
+            print(f"{tag}: reduced: {cfg.num_layers} of {full_v.num_layers} "
+                  f"layers (launch/train's CARD_CUTS), cross_attn_period "
+                  f"{cfg.cross_attn_period} (the reference's reduced "
+                  f"period) of {full_v.cross_attn_period}: one "
+                  f"self-attention layer and one gated cross layer at full "
+                  f"width; every cross gate {MM_GATE} (tanh "
+                  f"{math.tanh(MM_GATE):.4f})", flush=True)
+        loss_c, loss_h, cpu_s, l0, rows = lm_step0_card_vs_cpu(
+            torch, dev, small, layers=MM_TRAIN_STEP0_LAYERS, prune=False,
+            gate=gate)
+        err_loss = abs(loss_c - loss_h) / abs(loss_h)
+        at = f"{MM_TRAIN_STEP0_LAYERS} layers" + (
+            "" if vlm else f" and {MM_TRAIN_STEP0_LAYERS} encoder layers")
+        print(f"{tag} step 0 at {at}, batch 2, seq 128, card (bf16, "
+              f"kernels: {l0}) vs CPU (fp32, plain; {cpu_s:.1f} s): loss "
+              f"{loss_c:.6f} vs {loss_h:.6f} (rel {err_loss:.3g}, tolerance "
+              f"{LM_TRAIN_LOSS_TOL:g}); gradients, worst max|d| / max|CPU| "
+              f"per leaf of {len(rows)}: "
+              + ", ".join(f"{r:.4g} ({p})" for r, _, _, p in rows[:3])
+              + f" (tolerance {LM_TRAIN_GRAD_TOL:g})", flush=True)
+        require(err_loss <= LM_TRAIN_LOSS_TOL,
+                f"{tag} step 0 at {at}: loss card vs CPU rel {err_loss:.3g}")
+        require(rows[0][0] <= LM_TRAIN_GRAD_TOL,
+                f"{tag} step 0 at {at}: gradients card vs CPU, worst "
+                f"{rows[:3]}")
+        want = mm_train_launches(small.replace(
+            num_layers=MM_TRAIN_STEP0_LAYERS))
+        require(l0 == want, f"{tag} step 0 at {at}: launches {l0}, want "
+                            f"{want}")
+
+        opt = AdamW(lr=LM_TRAIN_LR, weight_decay=0.01)
+        t0 = time.perf_counter()
+        state = LT.make_state_factory(cfg, opt, dev)()
+        params, opt_state = state["params"], state["opt"]
+        del state
+        if vlm:
+            for c in params["stages"]["cross"]:
+                c["gate"].fill_(MM_GATE)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in leaves(params))
+        step = ST.make_train_step(cfg, opt)
+        print(f"{tag}: {cfg.name} ({cfg.family}, {cfg.num_layers} layers"
+              + ("" if vlm else f" and {cfg.encoder_layers} encoder layers")
+              + f", D={cfg.d_model}, {cfg.num_heads} query over "
+              f"{cfg.num_kv_heads} KV heads of Dh {cfg.head_dim}, vocab "
+              f"{cfg.vocab_size}), {n_params / 1e9:.4f} B params, fp32 with "
+              f"AdamW state, made in {time.perf_counter() - t0:.2f} s; bf16 "
+              f"activations, remat {cfg.remat_policy}, lr {LM_TRAIN_LR:g}",
+              flush=True)
+
+        def batch(B, i):
+            """Step i's batch of B rows on the card (copied before the
+            step's clock starts: loading data is set-up)."""
+            host = synthetic_lm_batch(cfg, ShapeConfig(
+                "t", MM_TRAIN_SEQ, B, "train"), DataConfig(), i)
+            return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+        # the batch: the first of MM_TRAIN_BATCHES whose step 0 fits (a
+        # step that runs out of memory stops before AdamW's in-place
+        # update, so the state is as it was)
+        for B in (MM_TRAIN_BATCHES if vlm else MM_TRAIN_BATCHES[:1]):
+            b = batch(B, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            try:
+                backend.reset_launches()
+                t0 = time.perf_counter()
+                params, _, opt_state, m0 = step(params, opt_state, b)
+                torch.cuda.synchronize()
+                wall0 = time.perf_counter() - t0
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"{tag}: batch {B} x {MM_TRAIN_SEQ} does not fit the "
+                      f"card", flush=True)
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            require(False, f"{tag}: no batch of {MM_TRAIN_BATCHES} fits")
+        n_tok = b["tokens"].numel()
+        extra = ("vision_embeds" if vlm else "audio_frames")
+        n_mod = b[extra].shape[1]
+        counts = [{**backend.launches(), **backend.form_launches()}]
+        metrics = [{k: v.item() for k, v in m0.items()}]
+        walls = [wall0]
+        del b, m0
+        with count_plain((FA, "attention_causal_plain"),
+                         (FA, "attention_noncausal_plain"),
+                         (FA, "attention_plain"),
+                         (A, "flash_attention_torch")) as plain_calls:
+            for i in range(1, MM_TRAIN_STEPS):
+                b = batch(B, i)
+                torch.cuda.synchronize()
+                backend.reset_launches()
+                t0 = time.perf_counter()
+                params, _, opt_state, m = step(params, opt_state, b)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                counts.append({**backend.launches(),
+                               **backend.form_launches()})
+                metrics.append({k: v.item() for k, v in m.items()})
+                del b
+            peak = torch.cuda.max_memory_allocated(dev)
+            b = batch(B, MM_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, _, opt_state, m = step(params, opt_state, b)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            del b
+        require(not any(plain_calls.values()),
+                f"{tag}: a plain attention ran on the card: {plain_calls}")
+        want = mm_train_launches(cfg)
+        for i, n in enumerate(counts):
+            got = {k: v for k, v in n.items() if v}
+            require(got == want, f"{tag} step {i}: launches {got}, want "
+                                 f"{want}")
+        losses = [x["loss"] for x in metrics]
+        require(all(math.isfinite(x) for x in losses),
+                f"{tag}: a loss is not finite: {losses}")
+        wall = statistics.median(walls[1:])
+        print(f"{tag}: batch {B} x {MM_TRAIN_SEQ} ({n_tok // B} tokens a "
+              f"row against {n_mod} "
+              f"{'vision tokens' if vlm else 'audio frames'}); losses "
+              f"{[round(x, 4) for x in losses]}; launches per step "
+              f"{want}, plain attention calls on the card 0", flush=True)
+        print(f"{tag}: wall per step median {wall * 1e3:.2f} ms over "
+              f"{len(walls) - 1} steps after step 0 (min "
+              f"{min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}; "
+              f"step 0 {walls[0] * 1e3:.1f} ms; the batch on the card "
+              f"beforehand): {n_tok / wall:.1f} training tokens/s "
+              f"({B * n_mod / wall:.1f} "
+              f"{'vision tokens' if vlm else 'audio frames'}/s); peak "
+              f"device memory {peak / 2 ** 30:.2f} GiB of the card's "
+              f"{torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.2f}"
+              f" GiB", flush=True)
+        prof_rows = _device_rows(prof)
+        busy_us = sum(r[2] for r in prof_rows)
+        print(f"profile {tag} step ({sum(r[1] for r in prof_rows)} device "
+              f"launches): wall {dt * 1e6:.0f} us profiled / "
+              f"{wall * 1e6:.0f} us unprofiled median, device busy "
+              f"{busy_us:.0f} us, idle share {1.0 - busy_us / (dt * 1e6):.3f}"
+              f" profiled / {1.0 - busy_us / (wall * 1e6):.3f} unprofiled",
+              flush=True)
+        train_parts(prof_rows, busy_us, tag)
+        for entry in want:
+            sym = kernel_symbol(entry)
+            k = sum(r[1] for r in prof_rows if sym in r[0])
+            us = sum(r[2] for r in prof_rows if sym in r[0])
+            print(f"{tag}: {entry} {us / 1e3:.3f} ms of device time per step"
+                  f" in {k} kernels ({us / busy_us:.3f} of busy)", flush=True)
+        out[tag] = counts[-1]
+        del params, opt_state, m, prof, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"mm train: phase wall {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     return out
 
@@ -5304,6 +5770,8 @@ def main() -> int:
     by_name = {c["name"]: c for c in checks}
     checks.append(check_causal_training(torch, dev,
                                         by_name["flash_prefill_bf16"]))
+    checks.append(check_noncausal_training(
+        torch, dev, by_name["flash_prefill_bf16/noncausal"]))
     checks.append(check_vit_attention_training(
         torch, dev, by_name["flash_attention_f32"]))
     checks.append(check_token_drop_training(torch, dev,
@@ -5376,6 +5844,8 @@ def main() -> int:
     mark("moe train")
     path_counts.update(ssm_train_path(torch, dev))
     mark("ssm train")
+    path_counts.update(mm_train_path(torch, dev))
+    mark("mm train")
     path_counts["trained fp32"], path_counts["vit train"] = train_path(
         torch, dev)
     mark("vit train")

@@ -52,7 +52,7 @@ _FLASH_BWD = [P] * 11 + [I] * 4 + [ctypes.c_longlong] * 2 + \
     [ctypes.c_float, P]
 _FLASH_DECODE = [P] * 10 + [I] * 7 + [ctypes.c_float, P]
 _FLASH_PREFILL = [P] * 8 + [I] * 9 + [ctypes.c_float, P]
-_FLASH_PREFILL_BWD = [P] * 11 + [I] * 5 + [ctypes.c_float, P]
+_FLASH_PREFILL_BWD = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
 # C entry points and their signatures, by library (csrc/<library>.cu)
 _ENTRY_POINTS = {
     "sbmm": {"sbmm_f32": _SBMM, "sbmm_f16w": _SBMM},
@@ -77,7 +77,8 @@ ENTRY_POINTS = tuple(fn for lib in _ENTRY_POINTS.values() for fn in lib)
 # forms of an entry point counted apart as well, by name: the entry point
 # each is a mode of (``causal`` 0 launches kernels of its own)
 FORMS = {"flash_prefill_bf16/noncausal": "flash_prefill_bf16",
-         "flash_decode_bf16/noncausal": "flash_decode_bf16"}
+         "flash_decode_bf16/noncausal": "flash_decode_bf16",
+         "flash_prefill_bwd_bf16/noncausal": "flash_prefill_bwd_bf16"}
 
 # launches per C entry point, and per form (see module docstring)
 LAUNCHES: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}

@@ -365,7 +365,10 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
 // chunk order, reading them from the blocks' shared memory (distributed
 // shared memory), and write o. No scratch in device memory, no atomic, no
 // fence: one launch, every sum in a fixed order, two launches bitwise
-// equal.
+// equal. Training (`NonCausalGQAAttention` in ops.py) also asks for each
+// row's natural log-sum-exp, lse [B, Hq, Nq] = M ln 2 + ln L from the
+// row's (M, L) as written (whole keys) or as the combine merges them (a
+// cluster's chunks); o is the serve's, bit for bit, lse or not.
 namespace nc {
 
 using namespace wgt;
@@ -420,7 +423,8 @@ __global__ void __launch_bounds__(128 * NWG)
 flash_prefill_bf16_noncausal_kernel(const __grid_constant__ CUtensorMap tk,
                                     const __grid_constant__ CUtensorMap tv,
                                     const bf16* __restrict__ q,
-                                    bf16* __restrict__ o, int Nq,
+                                    bf16* __restrict__ o,
+                                    float* __restrict__ lse, int Nq,
                                     int Nk, int Hq, int KV, int n_chunk,
                                     float scale) {
   using L = Layout<DH, NWG>;
@@ -613,6 +617,11 @@ flash_prefill_bf16_noncausal_kernel(const __grid_constant__ CUtensorMap tk,
     return o + ((static_cast<size_t>(b) * Nq + j / per) * Hq + g * per +
                 j % per) * DH;
   };
+  // row j's log-sum-exp (training): m in log2 units, lse = m ln 2 + ln l
+  auto store_lse = [&](int j, float mm, float ll) {
+    lse[(static_cast<size_t>(b) * Hq + g * per + j % per) * Nq + j / per] =
+        mm * 0.6931471805599453f + logf(ll);
+  };
   if (n_chunk == 1) {  // the whole key range: o
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
@@ -624,6 +633,7 @@ flash_prefill_bf16_noncausal_kernel(const __grid_constant__ CUtensorMap tk,
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + col) =
             __floats2bfloat162_rn(acc[4 * i + 2 * x] / l[x],
                                   acc[4 * i + 2 * x + 1] / l[x]);
+      if (lse != nullptr && q4 == 0) store_lse(j, m[x], l[x]);
     }
     return;
   }
@@ -685,14 +695,15 @@ flash_prefill_bf16_noncausal_kernel(const __grid_constant__ CUtensorMap tk,
         reinterpret_cast<__nv_bfloat162*>(out_row(r0 + r) + 4 * c);
     out[0] = __floats2bfloat162_rn(a.x / Ls, a.y / Ls);
     out[1] = __floats2bfloat162_rn(a.z / Ls, a.w / Ls);
+    if (lse != nullptr && c == 0) store_lse(r0 + r, M, Ls);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 // -- end of the non-causal kernel
 
 template <int DH, int NWG>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Nq, int Nk, int Hq, int KV, int n_chunk, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Nq, int Nk, int Hq, int KV, int n_chunk, float scale,
            cudaStream_t stream) {
   using L = Layout<DH, NWG>;
   static size_t raised = 0;
@@ -718,18 +729,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, flash_prefill_bf16_noncausal_kernel<DH, NWG>, tk, tv,
-      static_cast<const bf16*>(q), static_cast<bf16*>(o), Nq, Nk, Hq, KV,
-      n_chunk, scale));
+      static_cast<const bf16*>(q), static_cast<bf16*>(o),
+      static_cast<float*>(lse), Nq, Nk, Hq, KV, n_chunk, scale));
 }
 
 template <int DH>
 int launch_wgs(int wgs, const void* q, const void* k, const void* v, void* o,
-               int B, int Nq, int Nk, int Hq, int KV, int n_chunk,
+               void* lse, int B, int Nq, int Nk, int Hq, int KV, int n_chunk,
                float scale, cudaStream_t stream) {
-  return wgs == 2 ? launch<DH, 2>(q, k, v, o, B, Nq, Nk, Hq, KV, n_chunk,
-                                  scale, stream)
-                  : launch<DH, 1>(q, k, v, o, B, Nq, Nk, Hq, KV, n_chunk,
-                                  scale, stream);
+  return wgs == 2 ? launch<DH, 2>(q, k, v, o, lse, B, Nq, Nk, Hq, KV,
+                                  n_chunk, scale, stream)
+                  : launch<DH, 1>(q, k, v, o, lse, B, Nq, Nk, Hq, KV,
+                                  n_chunk, scale, stream);
 }
 
 }  // namespace nc
@@ -743,9 +754,10 @@ int launch_wgs(int wgs, const void* q, const void* k, const void* v, void* o,
 // with no such key writes 0; lse [B, Hq, Nq] fp32 or null: each row's
 // natural log-sum-exp of its scaled scores (-inf for a row with no key);
 // wgs and n_chunk unused. With causal == 0: every row sees all S keys (the
-// bounds and lse must be null); wgs (1 or 2) warpgroups a block and the
-// key range in n_chunk chunks of ceil(ceil(S / 64) / n_chunk) tiles, none
-// empty (1 <= n_chunk <= 8), a cluster of blocks.
+// bounds must be null; lse, if given, is each row's natural log-sum-exp,
+// for training); wgs (1 or 2) warpgroups a block and the key range in
+// n_chunk chunks of ceil(ceil(S / 64) / n_chunk) tiles, none empty (1 <=
+// n_chunk <= 8), a cluster of blocks.
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* q_offset, const void* kv_len,
                                   const void* kv_start, void* o, void* lse,
@@ -771,20 +783,20 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
   }
   const int n_kt = (S + kBc - 1) / kBc;
   if (q_offset != nullptr || kv_len != nullptr || kv_start != nullptr ||
-      lse != nullptr || (wgs != 1 && wgs != 2) || n_chunk < 1 ||
+      (wgs != 1 && wgs != 2) || n_chunk < 1 ||
       n_chunk > nc::kMaxChunks ||
       n_chunk != (n_kt + (n_kt + n_chunk - 1) / n_chunk - 1) /
                      ((n_kt + n_chunk - 1) / n_chunk) ||
       static_cast<long long>(B) * KV > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Dh == 16)
-    return nc::launch_wgs<16>(wgs, q, k, v, o, B, Nq, S, Hq, KV, n_chunk,
-                              scale, st);
+    return nc::launch_wgs<16>(wgs, q, k, v, o, lse, B, Nq, S, Hq, KV,
+                              n_chunk, scale, st);
   if (Dh == 64)
-    return nc::launch_wgs<64>(wgs, q, k, v, o, B, Nq, S, Hq, KV, n_chunk,
-                              scale, st);
+    return nc::launch_wgs<64>(wgs, q, k, v, o, lse, B, Nq, S, Hq, KV,
+                              n_chunk, scale, st);
   if (Dh == 128)
-    return nc::launch_wgs<128>(wgs, q, k, v, o, B, Nq, S, Hq, KV, n_chunk,
-                               scale, st);
+    return nc::launch_wgs<128>(wgs, q, k, v, o, lse, B, Nq, S, Hq, KV,
+                               n_chunk, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

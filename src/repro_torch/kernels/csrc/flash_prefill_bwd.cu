@@ -1,22 +1,34 @@
-// The gradient of causal GQA attention over a whole sequence (training):
-// dQ, dK and dV of o = softmax(scale Q K^T + mask) V, with the five products
-// Q.K^T, dO.V^T, dS.K, K.Q^T / V.dO^T and P^T.dO / dS^T.Q on Hopper's
-// warpgroup tensor cores (wgmma), their operands staged by the Tensor Memory
-// Accelerator (TMA) under mbarriers.
+// The gradient of GQA attention over whole sequences (training): dQ, dK and
+// dV of o = softmax(scale Q K^T + mask) V, with the five products Q.K^T,
+// dO.V^T, dS.K, K.Q^T / V.dO^T and P^T.dO / dS^T.Q on Hopper's warpgroup
+// tensor cores (wgmma), their operands staged by the Tensor Memory
+// Accelerator (TMA) under mbarriers. Two forms, one entry point:
 //
-// Replaces the gradient that JAX takes of the reference's train-mode
-// attention, `flash_attention_jnp(q, k, v, causal=True, kv_start)`
-// (src/repro/models/attention.py:311-313), whose forward is the Pallas
-// kernel `_flash_kernel` (src/repro/kernels/flash_attention/
-// flash_attention.py:25) in its causal mode with the GQA head repeat. The
-// forward on the card is flash_prefill.cu, which also writes each row's
-// log-sum-exp; `CausalAttention` (kernels/flash_attention/ops.py) pairs the
-// two as an autograd function. Inputs: bf16 q, o, dO [B, N, Hq, Dh] and k,
-// v [B, N, KV, Dh] (query head h reads KV head h / (Hq / KV) in place), fp32
-// lse [B, Hq, N], optional kv_start [B]: query row i sees keys
-// [kv_start[b], i + 1). Outputs bf16 dq [B, N, Hq, Dh] and dk, dv [B, N,
-// KV, Dh]; each dk / dv row is the fp32 sum over its group's query heads,
-// rounded once.
+// * causal (`causal` != 0): the LMs' self-attention. Replaces the gradient
+//   that JAX takes of the reference's train-mode attention,
+//   `flash_attention_jnp(q, k, v, causal=True, kv_start)`
+//   (src/repro/models/attention.py:311-313), whose forward is the Pallas
+//   kernel `_flash_kernel` (src/repro/kernels/flash_attention/
+//   flash_attention.py:25) in its causal mode with the GQA head repeat. The
+//   forward on the card is flash_prefill.cu's causal kernel, which also
+//   writes each row's log-sum-exp; `CausalAttention`
+//   (kernels/flash_attention/ops.py) pairs the two as an autograd function.
+//   Inputs: bf16 q, o, dO [B, N, Hq, Dh] and k, v [B, N, KV, Dh], fp32 lse
+//   [B, Hq, N], optional kv_start [B]: query row i sees keys [kv_start[b],
+//   i + 1).
+// * non-causal (`causal` 0): the same kernel's `causal=False` form, where
+//   the reference trains it on bf16 with Nq and Nk free and the GQA repeat:
+//   Whisper's encoder self-attention, its decoder's cross-attention over the
+//   audio frames and the VLM's gated cross layers over the vision tokens
+//   (src/repro/models/model.py:346-349, 366-370, 385-389). q, o, dO [B, Nq,
+//   Hq, Dh] against k, v [B, Nk, KV, Dh], every row seeing all Nk keys; lse
+//   [B, Hq, Nq] from flash_prefill.cu's non-causal kernel.
+//   `NonCausalGQAAttention` (ops.py) pairs the two. Its kernels are their
+//   own instantiations (`*_noncausal_dq_kernel`, `*_noncausal_dkdv_kernel`)
+//   of the same bodies, so a profile tells the forms apart.
+// Query head h reads KV head h / (Hq / KV) in place. Outputs bf16 dq and dk,
+// dv; each dk / dv row is the fp32 sum over its group's query heads, rounded
+// once.
 //
 // Maths (FlashAttention-2's backward): D = rowsum(dO o O) in fp32; per
 // (row, key) P = exp2(s scale log2e - lse log2e), recomputed from exact
@@ -24,47 +36,65 @@
 // D); dK += scale dS^T Q; dQ += scale dS K. A masked (row, key) pair has P
 // = 0 exactly; a row without a valid key (a pad row, only where kv_start is
 // given; lse -inf) has P = 0 at every key: it adds nothing to dK, dV and
-// gets dQ = 0 (its forward wrote 0).
+// gets dQ = 0 (its forward wrote 0). In the non-causal form only the ragged
+// edges are masked: keys past Nk (TMA's zero fill) in dQ's walk, rows past
+// Nq in dK/dV's.
 //
 // Bound on the H100, full-width StableLM-1.6B at batch 8, seq 512 (32
 // heads, Dh 64): 3.4e7 causal (row, head, key) pairs, 10 Dh products each
 // (2.1e10 FLOP). q, k, v, o, dO are read and dq, dk, dv written once: 134
 // MB, 40 us at 3.35 TB/s; the products at the bf16 tensor-core rate take
 // 22 us (35 us as this design runs them, P and dS split in two bf16 halves,
-// 16 Dh per pair): bound by bytes.
+// 16 Dh per pair): bound by bytes. The non-causal training shapes: Whisper's
+// encoder [8, 1500, 8, 64] has 1.4e8 pairs, 92 GFLOP, 93 us at 989 TFLOP/s
+// (bound by operations); its cross-attention (q [8, 64, 8, 64] over 1500)
+// 15 GFLOP, bound by the bytes of K, V, dK and dV; Llama-3.2-Vision's cross
+// layers (q [8, 512, 64, 128] over [8, 1601, 8, 128]) 537 GFLOP, 0.54 ms,
+// and its causal self-attention at Dh 128 86 GFLOP: bound by operations.
 //
 // Design: two kernels, one launch each, no atomics, every sum in a fixed
 // order (two launches are bitwise equal). Tiles are 64 positions of one
-// head: a TMA box of the 4-D [B, N, H, Dh] view, so MHA and any GQA ratio
-// tile alike, and TMA's zero fill covers N past the last tile.
+// head: TMA boxes of the 4-D [B, N, H, Dh] view (two boxes of 64 columns at
+// Dh 128), so MHA and any GQA ratio tile alike, and TMA's zero fill covers
+// rows past the last tile.
 //   (1) `dq` runs first. A work item is 64 query positions of one query
 //   head. The block forms D = rowsum(dO o O) of its rows from the staged dO
 //   and O tiles (four lanes per row), writes lse log2e and D to a [2, B,
-//   Hq, Np] scratch (Np = N rounded up to 64), then walks the key tiles its
+//   Hq, Np] scratch (Np = Nq rounded up to 64), then walks the key tiles its
 //   rows see: S = Q K^T and dP = dO V^T (wgmma, both operands from shared
 //   memory, K-major), P and dS in registers, dQ += dS K (dS as the register
 //   A operand in hi and lo bf16 halves, K read MN-major through a
 //   transposed descriptor).
 //   (2) `dkdv`: a work item is 64 keys of one KV head (K and V staged
-//   once); it walks every (query tile, query head of the group) that sees
-//   them, keys as rows: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO
-//   and dK += dS^T Q in flight together (P^T and dS^T as register A
-//   operands, hi and lo halves; dO and Q MN-major). The group's query
-//   heads are iterations like any other, so their sum stays in the fp32
+//   once) and kCols of their dK / dV columns; it walks every (query tile,
+//   query head of the group) that sees them, keys as rows: S^T = K Q^T and
+//   dP^T = V dO^T over all of Dh, then dV += P^T dO and dK += dS^T Q over
+//   its columns, in flight together (P^T and dS^T as register A operands,
+//   hi and lo halves; dO and Q MN-major). The group's query heads are
+//   iterations like any other, so their sum stays in the fp32
 //   accumulators. Per-row lse log2e and D arrive by TMA from the scratch.
-// Both kernels are persistent: as many blocks as the SMs hold at once
-// (three of dq, two of dkdv), each taking every gridDim-th work item of a
-// fixed list, heavy first (the last query tiles see the most keys, the
-// first key tiles the most rows). A block is one warpgroup; its thread 0
-// issues every cp.async.bulk.tensor, each under a full and an empty
-// mbarrier, and there is no block-wide barrier per tile: an item's fixed
-// tiles go into a slot of their own (dkdv: one of two, so the next item's
-// arrive while this one runs), the streamed tiles into a ring of kStages
-// stages, refilled as each is released. The
-// wgmma descriptors read the swizzled layout TMA wrote: 128-byte rows and
-// the 128-byte swizzle at Dh 64, 32-byte ones at Dh 16. The barrier, TMA
-// and wgmma helpers, the descriptors and the tensor maps' encoding are
-// wgmma_tile.cuh's, shared with the non-causal prefill (flash_prefill.cu).
+// Dh 128: the two fp32 accumulators of a whole row would be 128 registers
+// a thread on top of the 204 the Dh-64 warpgroup holds, so a dkdv item owns
+// one of the two 64-column halves of dK and dV (kCols 64; each half's
+// items recompute S^T and dP^T, 1.4x the work of one item of all 128
+// columns) and keeps the Dh-64 registers; a half of a TMA-swizzled tile is
+// a Dh-64 tile, which the half's products read as such. Tiles of 16 KB
+// leave the dq kernel one block an SM (its accumulator is 64 registers a
+// thread at Dh 128, under the 255 a lone warpgroup may take) and the dkdv
+// kernel two, each with one slot and two ring stages.
+// Both kernels are persistent: as many blocks as the SMs hold at once,
+// each taking every gridDim-th work item of a fixed list, heavy first (the
+// last query tiles see the most keys, the first key tiles the most rows).
+// A block is one warpgroup; its thread 0 issues every cp.async.bulk.tensor,
+// each under a full and an empty mbarrier, and there is no block-wide
+// barrier per tile: an item's fixed tiles go into a slot of their own
+// (dkdv at Dh 16 and 64: one of two, so the next item's arrive while this
+// one runs), the streamed tiles into a ring of stages, refilled as each is
+// released. The wgmma descriptors read the swizzled layout TMA wrote:
+// 128-byte rows and the 128-byte swizzle at Dh 64 and 128, 32-byte ones at
+// Dh 16. The barrier, TMA and wgmma helpers, the descriptors and the tensor
+// maps' encoding are wgmma_tile.cuh's, shared with the non-causal prefill
+// (flash_prefill.cu).
 // Why no producer warp: the H100 splits an SM's registers over its four
 // sub-partitions, a warp's on one, and ptxas budgets a kernel for the
 // sub-partition with the most warps: 168 registers a thread once a block
@@ -82,23 +112,34 @@ namespace {
 
 using namespace wgt;
 
-constexpr int kStages = 3;    // depth of the streamed-operand ring
 constexpr int kThreads = 128;  // one warpgroup; its thread 0 issues TMA
-// Blocks an SM holds: the dkdv kernel takes 204 registers a thread, so
-// two; the dq kernel (141) fits three with one slot for its fixed tiles
-// (three blocks of 75 KB fill shared memory), 68.70 us a launch against
-// 80.75 at two blocks of two slots (H100, [8, 512, 32, 64]).
-constexpr int kDkdvMinBlocks = 2, kDqMinBlocks = 3;
-constexpr int kDkdvSlots = 2, kDqSlots = 1;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Per head width: each kernel's ring depth, fixed slots and blocks an SM,
+// and the dK / dV columns a dkdv item owns. At Dh 16 and 64 the dkdv
+// kernel takes 204 registers a thread, so two blocks an SM; the dq kernel
+// (141) fits three with one slot for its fixed tiles (three blocks of 75
+// KB fill shared memory), 68.70 us a launch against 80.75 at two blocks of
+// two slots (H100, [8, 512, 32, 64]). Dh 128: see the design note above.
+template <int DH>
+struct Cfg {
+  static constexpr int kDqStages = 3, kDqSlots = 1, kDqMinBlocks = 3;
+  static constexpr int kDkdvStages = 3, kDkdvSlots = 2, kDkdvMinBlocks = 2;
+  static constexpr int kCols = DH;
+};
+template <>
+struct Cfg<128> {
+  static constexpr int kDqStages = 3, kDqSlots = 1, kDqMinBlocks = 1;
+  static constexpr int kDkdvStages = 2, kDkdvSlots = 1, kDkdvMinBlocks = 2;
+  static constexpr int kCols = 64;
+};
+
 // Shared memory of a kernel: kSlots slots of kFixed tiles that stay for a
-// work item (dq: Q, dO, O in one; dkdv: K, V in two, so that the next
-// item's arrive while this one runs); a ring of kStages stages of two
+// work item (dq: Q, dO, O; dkdv: K, V); a ring of kStages stages of two
 // streamed tiles (dq: K, V; dkdv: Q, dO) and kStages stages of per-row
 // stats (dkdv: lse log2e and D, 64 fp32 each); then the barriers. The base
 // is rounded up to 1024 bytes, the 128-byte swizzle's period.
-template <int DH, int kFixed, int kSlots>
+template <int DH, int kFixed, int kSlots, int kStages>
 struct Smem {
   static constexpr int kTileBytes = TileFmt<DH>::kTileBytes;
   static constexpr int kStatBytes = 2 * kTile * 4;
@@ -120,8 +161,9 @@ struct Smem {
 };
 
 // the barriers: full and empty for each fixed slot (two at most) and each
-// ring stage (full: thread 0's arrival plus TMA's bytes; empty: every
-// thread of the block)
+// of kStages ring stages (full: thread 0's arrival plus TMA's bytes; empty:
+// every thread of the block)
+template <int kStages>
 struct Bars {
   uint32_t base;
   __device__ __forceinline__ uint32_t fixed_full(int f) const {
@@ -165,10 +207,11 @@ __device__ __forceinline__ float row_dot(const unsigned char* a,
     d = fmaf(u.x, v.x, d);
     d = fmaf(u.y, v.y, d);
   };
-  if constexpr (DH == 64) {  // chunks 2 q4 and 2 q4 + 1
+  if constexpr (DH >= 64) {  // chunks kPer q4 .. kPer q4 + kPer - 1
+    constexpr int kPer = DH / 32;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int off = F::chunk(r, 2 * q4 + c);
+    for (int c = 0; c < kPer; ++c) {
+      const int off = F::chunk(r, kPer * q4 + c);
       const uint4 x = *reinterpret_cast<const uint4*>(a + off);
       const uint4 y = *reinterpret_cast<const uint4*>(b + off);
       fma2(x.x, y.x);
@@ -187,61 +230,76 @@ __device__ __forceinline__ float row_dot(const unsigned char* a,
 }
 
 // A dq work item: 64 query positions from r0 of query head h, batch row b,
-// the last position tiles first (they see the most keys), the heads and
-// batch rows of one tile together; its key tiles t0 .. t0 + n_kt - 1 hold
-// every key [lo, min(r0 + 64, N)) its rows see.
+// the last position tiles first (causal: they see the most keys), the
+// heads and batch rows of one tile together; its key tiles t0 .. t0 + n_kt
+// - 1 hold every key its rows see: causal [lo, min(r0 + 64, N)), else all
+// Nk.
+template <bool CAUSAL>
 struct DqItem {
   int r0, h, b, g, lo, t0, n_kt;
   DqItem() = default;
   __device__ __forceinline__ DqItem(int w, int n_qt, int B, int Hq, int per,
-                                    int N, const int* kv_start) {
+                                    int Nq, int Nk, const int* kv_start) {
     const int hb = Hq * B, rem = w % hb;
     r0 = (n_qt - 1 - w / hb) * kTile;
     h = rem % Hq;
     b = rem / Hq;
     g = h / per;
-    lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
-    const int hi = min(r0 + kTile, N);
-    t0 = lo / kTile;
-    n_kt = hi > lo ? (hi - 1) / kTile - t0 + 1 : 0;
+    if constexpr (CAUSAL) {
+      lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
+      const int hi = min(r0 + kTile, Nq);
+      t0 = lo / kTile;
+      n_kt = hi > lo ? (hi - 1) / kTile - t0 + 1 : 0;
+    } else {
+      lo = t0 = 0;
+      n_kt = (Nk + kTile - 1) / kTile;
+    }
   }
 };
 
-// A dkdv work item: 64 keys from c0 of KV head g, batch row b, the first
-// key tiles first (the most rows see them); it walks the query tiles from
-// q_first on, each for the group's query heads (n_it iterations). Rows at
+// A dkdv work item: 64 keys from c0 of KV head g, batch row b, columns x
+// kCols .. (x + 1) kCols - 1 of dK and dV, the first key tiles first
+// (causal: the most rows see them); it walks the query tiles from q_first
+// on, each for the group's query heads (n_it iterations). Causal: rows at
 // positions >= max(c0, lo) see a key of the tile, if any does.
+template <bool CAUSAL>
 struct KvItem {
-  int c0, g, b, lo, q_first, n_it;
+  int c0, g, b, x, lo, q_first, n_it;
   KvItem() = default;
-  __device__ __forceinline__ KvItem(int w, int n_kt, int B, int KV, int per,
-                                    int N, const int* kv_start) {
+  __device__ __forceinline__ KvItem(int w, int n_qt, int B, int KV, int per,
+                                    int halves, int Nq, const int* kv_start) {
+    x = w % halves;
+    w /= halves;
     const int gb = KV * B, rem = w % gb;
     c0 = (w / gb) * kTile;
     g = rem % KV;
     b = rem / KV;
-    lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
-    const int first = max(c0, lo);
-    q_first = first / kTile;
-    n_it = c0 + kTile > lo && first < N ? (n_kt - q_first) * per : 0;
+    if constexpr (CAUSAL) {
+      lo = kv_start != nullptr ? max(kv_start[b], 0) : 0;
+      const int first = max(c0, lo);
+      q_first = first / kTile;
+      n_it = c0 + kTile > lo && first < Nq ? (n_qt - q_first) * per : 0;
+    } else {
+      lo = q_first = 0;
+      n_it = n_qt * per;
+    }
   }
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, kDqMinBlocks)
-flash_prefill_bwd_bf16_dq_kernel(
-    const __grid_constant__ CUtensorMap tq,
-    const __grid_constant__ CUtensorMap tdo,
-    const __grid_constant__ CUtensorMap to,
-    const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
-    const int* __restrict__ kv_start, float* __restrict__ stats,
-    bf16* __restrict__ dq, int B, int N, int Hq, int KV, float scale) {
-  using L = Smem<DH, 3, kDqSlots>;
+template <int DH, bool CAUSAL>
+__device__ __forceinline__ void dq_body(
+    const CUtensorMap* tq, const CUtensorMap* tdo, const CUtensorMap* to,
+    const CUtensorMap* tk, const CUtensorMap* tv, const float* lse,
+    const int* kv_start, float* stats, bf16* dq, int B, int Nq, int Nk,
+    int Hq, int KV, float scale) {
+  using C = Cfg<DH>;
+  constexpr int kStages = C::kDqStages, kSlots = C::kDqSlots;
+  using L = Smem<DH, 3, kSlots, kStages>;
+  using Item = DqItem<CAUSAL>;
   extern __shared__ unsigned char smem_raw[];
   const Base sm(smem_raw);
-  const Bars bars{sm.addr + L::kBars};
-  const int n_qt = (N + kTile - 1) / kTile, Np = n_qt * kTile;
+  const Bars<kStages> bars{sm.addr + L::kBars};
+  const int n_qt = (Nq + kTile - 1) / kTile, Np = n_qt * kTile;
   const int n_items = n_qt * Hq * B, per = Hq / KV;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   if (t == 0) bars.init();
@@ -254,40 +312,40 @@ flash_prefill_bwd_bf16_dq_kernel(
   auto feed_fixed = [&](int j) {
     const int w = blockIdx.x + j * gridDim.x;
     if (w >= n_items) return;
-    const DqItem y(w, n_qt, B, Hq, per, N, kv_start);
-    const int f = j % kDqSlots;
-    bar_wait(bars.fixed_empty(f), ((j / kDqSlots) & 1) ^ 1);
+    const Item y(w, n_qt, B, Hq, per, Nq, Nk, kv_start);
+    const int f = j % kSlots;
+    bar_wait(bars.fixed_empty(f), ((j / kSlots) & 1) ^ 1);
     bar_expect_tx(bars.fixed_full(f), 3 * L::kTileBytes);
-    tma_4d(L::fixed(sm.addr, f, 0), &tq, bars.fixed_full(f), 0, y.h, y.r0,
-           y.b);
-    tma_4d(L::fixed(sm.addr, f, 1), &tdo, bars.fixed_full(f), 0, y.h, y.r0,
-           y.b);
-    tma_4d(L::fixed(sm.addr, f, 2), &to, bars.fixed_full(f), 0, y.h, y.r0,
-           y.b);
+    tma_tile<DH>(L::fixed(sm.addr, f, 0), tq, bars.fixed_full(f), y.h, y.r0,
+                 y.b);
+    tma_tile<DH>(L::fixed(sm.addr, f, 1), tdo, bars.fixed_full(f), y.h,
+                 y.r0, y.b);
+    tma_tile<DH>(L::fixed(sm.addr, f, 2), to, bars.fixed_full(f), y.h, y.r0,
+                 y.b);
   };
   int fw = blockIdx.x, fi = 0, fpos = 0;
-  DqItem fx;
-  if (fw < n_items) fx = DqItem(fw, n_qt, B, Hq, per, N, kv_start);
+  Item fx;
+  if (fw < n_items) fx = Item(fw, n_qt, B, Hq, per, Nq, Nk, kv_start);
   auto feed_ring = [&](int upto) {
     while (fpos < upto && fw < n_items) {
       if (fi == fx.n_kt) {
         fw += gridDim.x;
         fi = 0;
-        if (fw < n_items) fx = DqItem(fw, n_qt, B, Hq, per, N, kv_start);
+        if (fw < n_items) fx = Item(fw, n_qt, B, Hq, per, Nq, Nk, kv_start);
         continue;
       }
       const int s = fpos % kStages;
       bar_wait(bars.empty(s), ((fpos / kStages) & 1) ^ 1);
       bar_expect_tx(bars.full(s), 2 * L::kTileBytes);
       const int c0 = (fx.t0 + fi) * kTile;
-      tma_4d(L::ring(sm.addr, s, 0), &tk, bars.full(s), 0, fx.g, c0, fx.b);
-      tma_4d(L::ring(sm.addr, s, 1), &tv, bars.full(s), 0, fx.g, c0, fx.b);
+      tma_tile<DH>(L::ring(sm.addr, s, 0), tk, bars.full(s), fx.g, c0, fx.b);
+      tma_tile<DH>(L::ring(sm.addr, s, 1), tv, bars.full(s), fx.g, c0, fx.b);
       ++fi;
       ++fpos;
     }
   };
   if (t == 0) {
-    for (int j = 0; j < kDqSlots; ++j) feed_fixed(j);
+    for (int j = 0; j < kSlots; ++j) feed_fixed(j);
     feed_ring(kStages);
   }
   __syncwarp();
@@ -298,8 +356,8 @@ flash_prefill_bwd_bf16_dq_kernel(
   const float scale_log2 = scale * kLog2e;
   int it = 0;  // ring position
   for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-    const DqItem x(w, n_qt, B, Hq, per, N, kv_start);
-    const int f = j % kDqSlots;
+    const Item x(w, n_qt, B, Hq, per, Nq, Nk, kv_start);
+    const int f = j % kSlots;
     const uint32_t qs = L::fixed(sm.addr, f, 0);
     const uint32_t dos = L::fixed(sm.addr, f, 1);
     int pos[2];
@@ -307,13 +365,13 @@ flash_prefill_bwd_bf16_dq_kernel(
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
       pos[y] = x.r0 + ra + 8 * y;
-      lse2[y] = pos[y] < N ? lse[(static_cast<size_t>(x.b) * Hq + x.h) * N +
-                                 pos[y]] * kLog2e
-                           : 0.f;
+      lse2[y] = pos[y] < Nq ? lse[(static_cast<size_t>(x.b) * Hq + x.h) * Nq +
+                                  pos[y]] * kLog2e
+                            : 0.f;
     }
-    bar_wait(bars.fixed_full(f), (j / kDqSlots) & 1);
-    // D = rowsum(dO o O) from the staged tiles (0 past N: TMA's zero fill);
-    // lse log2e and D to the stats for the dkdv pass
+    bar_wait(bars.fixed_full(f), (j / kSlots) & 1);
+    // D = rowsum(dO o O) from the staged tiles (0 past Nq: TMA's zero
+    // fill); lse log2e and D to the stats for the dkdv pass
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
       float d = row_dot<DH>(sm.at(dos), sm.at(L::fixed(sm.addr, f, 2)),
@@ -348,14 +406,16 @@ flash_prefill_bwd_bf16_dq_kernel(
       keep(sc);
       // P = exp2(s scale log2e - lse log2e), 0 at keys the row does not
       // see (a tile wholly inside every row's window needs no mask)
-      const bool edge = c0 < x.lo || c0 + kTile - 1 > x.r0;
+      const bool edge = CAUSAL ? c0 < x.lo || c0 + kTile - 1 > x.r0
+                               : c0 + kTile > Nk;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int y = e >> 1, c = c0 + 8 * jj + 2 * q4 + (e & 1);
           const float p = exp2f(fmaf(sc[4 * jj + e], scale_log2, -lse2[y]));
-          sc[4 * jj + e] = !edge || (c >= x.lo && c <= pos[y]) ? p : 0.f;
+          const bool seen = CAUSAL ? c >= x.lo && c <= pos[y] : c < Nk;
+          sc[4 * jj + e] = !edge || seen ? p : 0.f;
         }
       wg_wait<0>();
       keep(dp);
@@ -375,36 +435,36 @@ flash_prefill_bwd_bf16_dq_kernel(
       __syncwarp();
     }
     bar_arrive(bars.fixed_empty(f));
-    if (t == 0) feed_fixed(j + kDqSlots);
+    if (t == 0) feed_fixed(j + kSlots);
     __syncwarp();
 
     bf16* out[2];
 #pragma unroll
     for (int y = 0; y < 2; ++y)
-      out[y] = pos[y] < N ? dq + ((static_cast<size_t>(x.b) * N + pos[y]) *
-                                      Hq + x.h) * DH
-                          : nullptr;
+      out[y] = pos[y] < Nq ? dq + ((static_cast<size_t>(x.b) * Nq + pos[y]) *
+                                       Hq + x.h) * DH
+                           : nullptr;
     store_rows<DH>(acc, out[0], out[1], scale, lane);
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, kDkdvMinBlocks)
-flash_prefill_bwd_bf16_dkdv_kernel(
-    const __grid_constant__ CUtensorMap tq,
-    const __grid_constant__ CUtensorMap tdo,
-    const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv,
-    const __grid_constant__ CUtensorMap tlse,
-    const __grid_constant__ CUtensorMap td, const int* __restrict__ kv_start,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int N, int Hq,
+template <int DH, bool CAUSAL>
+__device__ __forceinline__ void dkdv_body(
+    const CUtensorMap* tq, const CUtensorMap* tdo, const CUtensorMap* tk,
+    const CUtensorMap* tv, const CUtensorMap* tlse, const CUtensorMap* td,
+    const int* kv_start, bf16* dk, bf16* dv, int B, int Nq, int Nk, int Hq,
     int KV, float scale) {
-  using L = Smem<DH, 2, kDkdvSlots>;
+  using C = Cfg<DH>;
+  constexpr int kStages = C::kDkdvStages, kSlots = C::kDkdvSlots;
+  constexpr int kCols = C::kCols, kHalves = DH / kCols;
+  using L = Smem<DH, 2, kSlots, kStages>;
+  using Item = KvItem<CAUSAL>;
   extern __shared__ unsigned char smem_raw[];
   const Base sm(smem_raw);
-  const Bars bars{sm.addr + L::kBars};
-  const int n_kt = (N + kTile - 1) / kTile;
-  const int n_items = n_kt * KV * B, per = Hq / KV;
+  const Bars<kStages> bars{sm.addr + L::kBars};
+  const int n_qt = (Nq + kTile - 1) / kTile;
+  const int n_items = (Nk + kTile - 1) / kTile * KV * B * kHalves;
+  const int per = Hq / KV;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   if (t == 0) bars.init();
   __syncthreads();
@@ -414,24 +474,25 @@ flash_prefill_bwd_bf16_dkdv_kernel(
   auto feed_fixed = [&](int j) {
     const int w = blockIdx.x + j * gridDim.x;
     if (w >= n_items) return;
-    const KvItem y(w, n_kt, B, KV, per, N, kv_start);
-    const int f = j % kDkdvSlots;
-    bar_wait(bars.fixed_empty(f), ((j / kDkdvSlots) & 1) ^ 1);
+    const Item y(w, n_qt, B, KV, per, kHalves, Nq, kv_start);
+    const int f = j % kSlots;
+    bar_wait(bars.fixed_empty(f), ((j / kSlots) & 1) ^ 1);
     bar_expect_tx(bars.fixed_full(f), 2 * L::kTileBytes);
-    tma_4d(L::fixed(sm.addr, f, 0), &tk, bars.fixed_full(f), 0, y.g, y.c0,
-           y.b);
-    tma_4d(L::fixed(sm.addr, f, 1), &tv, bars.fixed_full(f), 0, y.g, y.c0,
-           y.b);
+    tma_tile<DH>(L::fixed(sm.addr, f, 0), tk, bars.fixed_full(f), y.g, y.c0,
+                 y.b);
+    tma_tile<DH>(L::fixed(sm.addr, f, 1), tv, bars.fixed_full(f), y.g, y.c0,
+                 y.b);
   };
   int fw = blockIdx.x, fi = 0, fpos = 0;
-  KvItem fx;
-  if (fw < n_items) fx = KvItem(fw, n_kt, B, KV, per, N, kv_start);
+  Item fx;
+  if (fw < n_items) fx = Item(fw, n_qt, B, KV, per, kHalves, Nq, kv_start);
   auto feed_ring = [&](int upto) {
     while (fpos < upto && fw < n_items) {
       if (fi == fx.n_it) {
         fw += gridDim.x;
         fi = 0;
-        if (fw < n_items) fx = KvItem(fw, n_kt, B, KV, per, N, kv_start);
+        if (fw < n_items)
+          fx = Item(fw, n_qt, B, KV, per, kHalves, Nq, kv_start);
         continue;
       }
       const int s = fpos % kStages;
@@ -439,17 +500,17 @@ flash_prefill_bwd_bf16_dkdv_kernel(
       bar_expect_tx(bars.full(s), 2 * L::kTileBytes + L::kStatBytes);
       const int r0 = (fx.q_first + fi / per) * kTile;
       const int h = fx.g * per + fi % per;
-      tma_4d(L::ring(sm.addr, s, 0), &tq, bars.full(s), 0, h, r0, fx.b);
-      tma_4d(L::ring(sm.addr, s, 1), &tdo, bars.full(s), 0, h, r0, fx.b);
-      tma_3d(L::stat(sm.addr, s), &tlse, bars.full(s), r0, h, fx.b);
-      tma_3d(L::stat(sm.addr, s) + kTile * 4, &td, bars.full(s), r0, h,
+      tma_tile<DH>(L::ring(sm.addr, s, 0), tq, bars.full(s), h, r0, fx.b);
+      tma_tile<DH>(L::ring(sm.addr, s, 1), tdo, bars.full(s), h, r0, fx.b);
+      tma_3d(L::stat(sm.addr, s), tlse, bars.full(s), r0, h, fx.b);
+      tma_3d(L::stat(sm.addr, s) + kTile * 4, td, bars.full(s), r0, h,
              fx.b);
       ++fi;
       ++fpos;
     }
   };
   if (t == 0) {
-    for (int j = 0; j < kDkdvSlots; ++j) feed_fixed(j);
+    for (int j = 0; j < kSlots; ++j) feed_fixed(j);
     feed_ring(kStages);
   }
   __syncwarp();
@@ -458,16 +519,19 @@ flash_prefill_bwd_bf16_dkdv_kernel(
   const float scale_log2 = scale * kLog2e;
   int it = 0;  // ring position
   for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-    const KvItem x(w, n_kt, B, KV, per, N, kv_start);
-    const int f = j % kDkdvSlots;
+    const Item x(w, n_qt, B, KV, per, kHalves, Nq, kv_start);
+    const int f = j % kSlots;
     const uint32_t kt = L::fixed(sm.addr, f, 0);
     const uint32_t vt = L::fixed(sm.addr, f, 1);
+    // the item's columns of a streamed tile: a half at Dh 128, read as a
+    // tile of kCols columns
+    const uint32_t half = x.x * TileFmt<DH>::kHalfBytes;
     // this thread's keys (accumulator rows ra and ra + 8)
     const int key_a = x.c0 + 16 * warp + (lane >> 2), key_b = key_a + 8;
-    float dka[DH / 2], dva[DH / 2];
+    float dka[kCols / 2], dva[kCols / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
-    bar_wait(bars.fixed_full(f), (j / kDkdvSlots) & 1);
+    for (int i = 0; i < kCols / 2; ++i) dka[i] = dva[i] = 0.f;
+    bar_wait(bars.fixed_full(f), (j / kSlots) & 1);
 
     for (int i = 0; i < x.n_it; ++i, ++it) {
       const int s = it % kStages;
@@ -488,9 +552,10 @@ flash_prefill_bwd_bf16_dkdv_kernel(
       wg_wait<1>();
       keep(sc);
       // P^T = exp2(s scale log2e - lse log2e), 0 where the row does not see
-      // the key or lies past N (a tile pair wholly inside needs no mask)
-      const bool edge =
-          x.c0 < x.lo || x.c0 + kTile - 1 > r0 || r0 + kTile > N;
+      // the key or lies past Nq (a tile pair wholly inside needs no mask)
+      const bool edge = CAUSAL ? x.c0 < x.lo || x.c0 + kTile - 1 > r0 ||
+                                     r0 + kTile > Nq
+                               : r0 + kTile > Nq;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
@@ -499,8 +564,9 @@ flash_prefill_bwd_bf16_dkdv_kernel(
           const int c = e < 2 ? key_a : key_b;
           const float p =
               exp2f(fmaf(sc[4 * jj + e], scale_log2, -lse2[col]));
-          sc[4 * jj + e] =
-              !edge || (c >= x.lo && c <= row && row < N) ? p : 0.f;
+          const bool seen =
+              CAUSAL ? c >= x.lo && c <= row && row < Nq : row < Nq;
+          sc[4 * jj + e] = !edge || seen ? p : 0.f;
         }
       // dS^T = P^T o (dP^T - D), into dp
       wg_wait<0>();
@@ -517,8 +583,8 @@ flash_prefill_bwd_bf16_dkdv_kernel(
       to_a(sc, ph, pl);
       to_a(dp, sh, sl);
       wg_fence();
-      mma_xb<DH>(dva, ph, pl, dot);
-      mma_xb<DH>(dka, sh, sl, qt);
+      mma_xb<kCols>(dva, ph, pl, dot + half);
+      mma_xb<kCols>(dka, sh, sl, qt + half);
       wg_commit();
       wg_wait<0>();
       keep(dva);
@@ -532,19 +598,69 @@ flash_prefill_bwd_bf16_dkdv_kernel(
       __syncwarp();
     }
     bar_arrive(bars.fixed_empty(f));
-    if (t == 0) feed_fixed(j + kDkdvSlots);
+    if (t == 0) feed_fixed(j + kSlots);
     __syncwarp();
 
     const size_t kv_row = static_cast<size_t>(KV) * DH;
-    const size_t base = (static_cast<size_t>(x.b) * N * KV + x.g) * DH;
-    store_rows<DH>(dka, key_a < N ? dk + base + key_a * kv_row : nullptr,
-                   key_b < N ? dk + base + key_b * kv_row : nullptr, scale,
-                   lane);
-    store_rows<DH>(dva, key_a < N ? dv + base + key_a * kv_row : nullptr,
-                   key_b < N ? dv + base + key_b * kv_row : nullptr, 1.f,
-                   lane);
+    const size_t base =
+        (static_cast<size_t>(x.b) * Nk * KV + x.g) * DH + x.x * kCols;
+    store_rows<kCols>(dka, key_a < Nk ? dk + base + key_a * kv_row : nullptr,
+                      key_b < Nk ? dk + base + key_b * kv_row : nullptr,
+                      scale, lane);
+    store_rows<kCols>(dva, key_a < Nk ? dv + base + key_a * kv_row : nullptr,
+                      key_b < Nk ? dv + base + key_b * kv_row : nullptr, 1.f,
+                      lane);
   }
 }
+
+// the kernels: the causal form's and the non-causal form's, each a body
+// instantiated for its form under a name of its own
+#define DQ_ARGS                                                             \
+  const __grid_constant__ CUtensorMap tq,                                   \
+      const __grid_constant__ CUtensorMap tdo,                              \
+      const __grid_constant__ CUtensorMap to,                               \
+      const __grid_constant__ CUtensorMap tk,                               \
+      const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse, \
+      const int* __restrict__ kv_start, float* __restrict__ stats,          \
+      bf16* __restrict__ dq, int B, int Nq, int Nk, int Hq, int KV,         \
+      float scale
+#define DKDV_ARGS                                                           \
+  const __grid_constant__ CUtensorMap tq,                                   \
+      const __grid_constant__ CUtensorMap tdo,                              \
+      const __grid_constant__ CUtensorMap tk,                               \
+      const __grid_constant__ CUtensorMap tv,                               \
+      const __grid_constant__ CUtensorMap tlse,                             \
+      const __grid_constant__ CUtensorMap td,                               \
+      const int* __restrict__ kv_start, bf16* __restrict__ dk,              \
+      bf16* __restrict__ dv, int B, int Nq, int Nk, int Hq, int KV,         \
+      float scale
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, Cfg<DH>::kDqMinBlocks)
+flash_prefill_bwd_bf16_dq_kernel(DQ_ARGS) {
+  dq_body<DH, true>(&tq, &tdo, &to, &tk, &tv, lse, kv_start, stats, dq, B,
+                    Nq, Nk, Hq, KV, scale);
+}
+template <int DH>
+__global__ void __launch_bounds__(kThreads, Cfg<DH>::kDqMinBlocks)
+flash_prefill_bwd_bf16_noncausal_dq_kernel(DQ_ARGS) {
+  dq_body<DH, false>(&tq, &tdo, &to, &tk, &tv, lse, kv_start, stats, dq, B,
+                     Nq, Nk, Hq, KV, scale);
+}
+template <int DH>
+__global__ void __launch_bounds__(kThreads, Cfg<DH>::kDkdvMinBlocks)
+flash_prefill_bwd_bf16_dkdv_kernel(DKDV_ARGS) {
+  dkdv_body<DH, true>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv, B,
+                      Nq, Nk, Hq, KV, scale);
+}
+template <int DH>
+__global__ void __launch_bounds__(kThreads, Cfg<DH>::kDkdvMinBlocks)
+flash_prefill_bwd_bf16_noncausal_dkdv_kernel(DKDV_ARGS) {
+  dkdv_body<DH, false>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv, B,
+                       Nq, Nk, Hq, KV, scale);
+}
+#undef DQ_ARGS
+#undef DKDV_ARGS
 
 // ---------------------------------------------------------------------------
 // host side: tensor maps, launch
@@ -588,70 +704,98 @@ int grid_for(Kernel kernel, size_t bytes, int* per_sm, int n_items) {
   return *per_sm < n_items ? *per_sm : n_items;
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, const void* kv_start,
-           void* stats, void* dq, void* dk, void* dv, int B, int N, int Hq,
-           int KV, float scale, cudaStream_t stream) {
+           void* stats, void* dq, void* dk, void* dv, int B, int Nq, int Nk,
+           int Hq, int KV, float scale, cudaStream_t stream) {
+  using C = Cfg<DH>;
   static int dq_slots = 0, dkdv_slots = 0;  // resident blocks on the card
-  constexpr size_t kDqBytes = Smem<DH, 3, kDqSlots>::kBytes;
-  constexpr size_t kDkdvBytes = Smem<DH, 2, kDkdvSlots>::kBytes;
-  const int n_tiles = (N + kTile - 1) / kTile, Np = n_tiles * kTile;
-  const int dq_grid = grid_for(flash_prefill_bwd_bf16_dq_kernel<DH>,
-                               kDqBytes, &dq_slots, n_tiles * Hq * B);
-  const int dkdv_grid = grid_for(flash_prefill_bwd_bf16_dkdv_kernel<DH>,
-                                 kDkdvBytes, &dkdv_slots, n_tiles * KV * B);
+  constexpr size_t kDqBytes =
+      Smem<DH, 3, C::kDqSlots, C::kDqStages>::kBytes;
+  constexpr size_t kDkdvBytes =
+      Smem<DH, 2, C::kDkdvSlots, C::kDkdvStages>::kBytes;
+  const auto dq_kernel = CAUSAL ? flash_prefill_bwd_bf16_dq_kernel<DH>
+                                : flash_prefill_bwd_bf16_noncausal_dq_kernel<DH>;
+  const auto dkdv_kernel =
+      CAUSAL ? flash_prefill_bwd_bf16_dkdv_kernel<DH>
+             : flash_prefill_bwd_bf16_noncausal_dkdv_kernel<DH>;
+  const int n_qt = (Nq + kTile - 1) / kTile, Np = n_qt * kTile;
+  const int n_kt = (Nk + kTile - 1) / kTile;
+  const int dq_grid = grid_for(dq_kernel, kDqBytes, &dq_slots, n_qt * Hq * B);
+  const int dkdv_grid = grid_for(dkdv_kernel, kDkdvBytes, &dkdv_slots,
+                                 n_kt * KV * B * (DH / C::kCols));
   if (dq_grid == 0 || dkdv_grid == 0)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (encode_fn() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   float* st = static_cast<float*>(stats);
   CUtensorMap tq, tdo, to, tk, tv, tlse, td;
-  if (!rows_map<DH>(&tq, q, B, N, Hq) || !rows_map<DH>(&tdo, dout, B, N, Hq) ||
-      !rows_map<DH>(&to, o, B, N, Hq) || !rows_map<DH>(&tk, k, B, N, KV) ||
-      !rows_map<DH>(&tv, v, B, N, KV) || !stats_map(&tlse, st, B, Hq, Np) ||
+  if (!rows_map<DH>(&tq, q, B, Nq, Hq) ||
+      !rows_map<DH>(&tdo, dout, B, Nq, Hq) ||
+      !rows_map<DH>(&to, o, B, Nq, Hq) || !rows_map<DH>(&tk, k, B, Nk, KV) ||
+      !rows_map<DH>(&tv, v, B, Nk, KV) || !stats_map(&tlse, st, B, Hq, Np) ||
       !stats_map(&td, st + static_cast<size_t>(B) * Hq * Np, B, Hq, Np))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* start = static_cast<const int*>(kv_start);
 
-  flash_prefill_bwd_bf16_dq_kernel<DH>
-      <<<dq_grid, kThreads, kDqBytes, stream>>>(
-          tq, tdo, to, tk, tv, static_cast<const float*>(lse), start, st,
-          static_cast<bf16*>(dq), B, N, Hq, KV, scale);
+  dq_kernel<<<dq_grid, kThreads, kDqBytes, stream>>>(
+      tq, tdo, to, tk, tv, static_cast<const float*>(lse), start, st,
+      static_cast<bf16*>(dq), B, Nq, Nk, Hq, KV, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_prefill_bwd_bf16_dkdv_kernel<DH>
-      <<<dkdv_grid, kThreads, kDkdvBytes, stream>>>(
-          tq, tdo, tk, tv, tlse, td, start, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), B, N, Hq, KV, scale);
+  dkdv_kernel<<<dkdv_grid, kThreads, kDkdvBytes, stream>>>(
+      tq, tdo, tk, tv, tlse, td, start, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, Nq, Nk, Hq, KV, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool CAUSAL>
+int launch_dh(int Dh, const void* q, const void* k, const void* v,
+              const void* o, const void* dout, const void* lse,
+              const void* kv_start, void* dsum, void* dq, void* dk, void* dv,
+              int B, int Nq, int Nk, int Hq, int KV, float scale,
+              cudaStream_t st) {
+  if (Dh == 16)
+    return launch<16, CAUSAL>(q, k, v, o, dout, lse, kv_start, dsum, dq, dk,
+                              dv, B, Nq, Nk, Hq, KV, scale, st);
+  if (Dh == 64)
+    return launch<64, CAUSAL>(q, k, v, o, dout, lse, kv_start, dsum, dq, dk,
+                              dv, B, Nq, Nk, Hq, KV, scale, st);
+  if (Dh == 128)
+    return launch<128, CAUSAL>(q, k, v, o, dout, lse, kv_start, dsum, dq, dk,
+                               dv, B, Nq, Nk, Hq, KV, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, o, dout, dq [B, N, Hq, Dh] and k, v, dk, dv [B, N, KV, Dh], bf16
-// contiguous and 16-byte aligned, KV dividing Hq, Dh in {16, 64}; lse [B,
-// Hq, N] fp32 as flash_prefill_bf16 writes it; kv_start [B] int32 or null
-// (0): query row i of batch row b sees keys [kv_start[b], i + 1); dsum
-// [2, B, Hq, Np] fp32 scratch, Np = N rounded up to 64 (the dq kernel
-// writes each row's lse log2e and D there for the dkdv kernel). Two
-// launches on `stream`: dQ (with D), then dK and dV.
+// q, o, dout, dq [B, Nq, Hq, Dh] and k, v, dk, dv [B, Nk, KV, Dh], bf16
+// contiguous and 16-byte aligned, KV dividing Hq, Dh in {16, 64, 128}; lse
+// [B, Hq, Nq] fp32 as flash_prefill_bf16 writes it (in the same form);
+// dsum [2, B, Hq, Np] fp32 scratch, Np = Nq rounded up to 64 (the dq kernel
+// writes each row's lse log2e and D there for the dkdv kernel). With causal
+// != 0 (Nq == Nk): kv_start [B] int32 or null (0), query row i of batch row
+// b sees keys [kv_start[b], i + 1). With causal == 0: every row sees all Nk
+// keys, kv_start must be null. Two launches on `stream`: dQ (with D), then
+// dK and dV.
 extern "C" int flash_prefill_bwd_bf16(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
                                       const void* kv_start, void* dsum,
                                       void* dq, void* dk, void* dv, int B,
-                                      int N, int Hq, int KV, int Dh,
-                                      float scale, void* stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (KV <= 0 || Hq % KV != 0 ||
-      static_cast<long long>((N + kTile - 1) / kTile) * Hq * B > INT32_MAX)
+                                      int Nq, int Nk, int Hq, int KV, int Dh,
+                                      int causal, float scale, void* stream) {
+  if (B <= 0 || Nq <= 0 || Nk <= 0) return static_cast<int>(cudaSuccess);
+  if (KV <= 0 || Hq % KV != 0 || (causal != 0 && Nq != Nk) ||
+      (causal == 0 && kv_start != nullptr) ||
+      static_cast<long long>((Nq + kTile - 1) / kTile) * Hq * B > INT32_MAX ||
+      static_cast<long long>((Nk + kTile - 1) / kTile) * KV * B * 2 >
+          INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 16)
-    return launch<16>(q, k, v, o, dout, lse, kv_start, dsum, dq, dk, dv, B,
-                      N, Hq, KV, scale, st);
-  if (Dh == 64)
-    return launch<64>(q, k, v, o, dout, lse, kv_start, dsum, dq, dk, dv, B,
-                      N, Hq, KV, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return causal != 0
+             ? launch_dh<true>(Dh, q, k, v, o, dout, lse, kv_start, dsum, dq,
+                               dk, dv, B, Nq, Nk, Hq, KV, scale, st)
+             : launch_dh<false>(Dh, q, k, v, o, dout, lse, kv_start, dsum,
+                                dq, dk, dv, B, Nq, Nk, Hq, KV, scale, st);
 }

@@ -35,7 +35,11 @@ and ``attention_probs_row`` (``core/packed_runner.py`` for the ViT,
   (``backend.FORMS``).
   :func:`attention_noncausal_plain` is their plain version;
   :func:`attention_noncausal_chunked_plain` their split-key algorithm as
-  tensor code (tests only).
+  tensor code (tests only). In training, :class:`NonCausalGQAAttention`:
+  the prefill form also writing each row's log-sum-exp
+  (:func:`attention_noncausal_lse_plain`), and ``flash_prefill_bwd_bf16``
+  with ``causal`` 0, counted under ``flash_prefill_bwd_bf16/noncausal``
+  (:func:`attention_noncausal_bwd_plain`).
 * training: :class:`CausalAttention`, the causal form over a whole
   sequence as an autograd function, taken when a CUDA input requires
   grad: ``flash_prefill_bf16`` also writing each row's log-sum-exp, and
@@ -70,12 +74,12 @@ CAUSAL_KERNELS = {True: ("flash_decode", "flash_decode_bf16"),
 DECODE_SPLIT = 64  # keys per decode block (kSplit in csrc/flash_decode.cu)
 HEAD_DIMS = (16, 64)  # head widths the non-causal kernel is instantiated
 # for: full DeiT-Small (64) and its reduced test config (16)
-# head widths each causal kernel is instantiated for: the reduced LM
-# configs (16), StableLM-1.6B (64, trained and served), Minitron-4B (128,
-# served)
+# head widths each causal kernel is instantiated for (the non-causal
+# forms too): the reduced LM configs (16), StableLM-1.6B and Whisper-base
+# (64), Minitron-4B and Llama-3.2-Vision-90B (128)
 CAUSAL_HEAD_DIMS = {"flash_decode_bf16": (16, 64, 128),
                     "flash_prefill_bf16": (16, 64, 128),
-                    "flash_prefill_bwd_bf16": (16, 64)}
+                    "flash_prefill_bwd_bf16": (16, 64, 128)}
 # the form each entry point's non-causal kernels (``causal`` 0) count
 # under (``backend.FORMS``), by whether Nq == 1
 NONCAUSAL_FORMS = {decode: f"{entry}/noncausal"
@@ -100,6 +104,8 @@ PLAN_MAX_CHUNKS = 6
 LOG2E = 1.4426950408889634
 _SMS: Dict[int, int] = {}  # SMs of each card, by device index
 BWD_KERNEL = ("flash_prefill_bwd", "flash_prefill_bwd_bf16")
+# the form the backward's non-causal kernels (``causal`` 0) count under
+NONCAUSAL_BWD_FORM = "flash_prefill_bwd_bf16/noncausal"
 NONCAUSAL_BWD_KERNEL = ("flash_attention_bwd", "flash_attention_bwd_f32")
 NONCAUSAL_BWD_KEYS = 64  # keys per block of its main kernel (kKT)
 BWD_TILE = 64  # positions per tile of the backward (kTile in its source)
@@ -267,6 +273,41 @@ def attention_noncausal_chunked_plain(q: torch.Tensor, k: torch.Tensor,
         q.dtype)
 
 
+def _noncausal_scores(q, k):
+    """fp32 scaled scores [B, KV, per, Nq, Nk] of the non-causal GQA
+    form."""
+    B, Nq, Hq, Dh = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, Nq, KV, Hq // KV, Dh)
+    return torch.einsum("bqgpd,bkgd->bgpqk", qg, k.float()) * Dh ** -0.5
+
+
+def attention_noncausal_lse_plain(q: torch.Tensor,
+                                  k: torch.Tensor) -> torch.Tensor:
+    """The natural log-sum-exp of each non-causal row's scaled scores, fp32
+    [B, Hq, Nq], for q [B, Nq, Hq, Dh] against all keys of k [B, Nk, KV,
+    Dh]: the plain version of the ``lse`` the non-causal prefill writes in
+    training."""
+    B, Nq, Hq, _ = q.shape
+    return torch.logsumexp(_noncausal_scores(q, k), dim=-1).reshape(
+        B, Hq, Nq)
+
+
+def attention_noncausal_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  do: torch.Tensor, lse: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain version of ``flash_prefill_bwd_bf16`` with ``causal`` 0: the
+    gradient of the non-causal GQA form (q, o, do [B, Nq, Hq, Dh]; k, v
+    [B, Nk, KV, Dh], any Nq and Nk; ``lse`` [B, Hq, Nq] from
+    :func:`attention_noncausal_lse_plain`) by the kernel's formulas, those
+    of :func:`attention_causal_bwd_plain` with no mask. Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    return _gqa_bwd_plain(q, k, v, o, do, lse, _noncausal_scores(q, k),
+                          None)
+
+
 def attention_causal_lse_plain(q: torch.Tensor, k: torch.Tensor,
                                kv_start=None) -> torch.Tensor:
     """The natural log-sum-exp of each causal row's scaled scores, fp32
@@ -311,24 +352,35 @@ def attention_causal_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     scale dS K, dK and dV summed over each KV head's query heads; dS is 0
     at masked keys, as autograd of the masked scores gives. A row without a
     valid key follows the reference (its forward averages V): P = 1/N at
-    every key, so it adds to dV, and dS = 0. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
-    B, N, Hq, Dh = q.shape
-    KV = k.shape[2]
+    every key, so it adds to dV, and dS = 0. Returns (dq, dk, dv) in q's,
+    k's and v's dtypes."""
+    s, mask = _causal_scores(q, k, kv_start)
+    return _gqa_bwd_plain(q, k, v, o, do, lse, s, mask)
+
+
+def _gqa_bwd_plain(q, k, v, o, do, lse, s, mask):
+    """The backward's formulas over the scaled scores ``s`` [B, KV, per,
+    Nq, Nk] (masked keys at ``NEG_INF``, ``mask`` True where a row sees a
+    key, or None where every row sees every key)."""
+    B, Nq, Hq, Dh = q.shape
+    Nk, KV = k.shape[1], k.shape[2]
     per = Hq // KV
     scale = Dh ** -0.5
-    s, mask = _causal_scores(q, k, kv_start)
-    p = torch.exp(s - lse.float().reshape(B, KV, per, N, 1))
-    p = torch.where(mask.any(dim=-1, keepdim=True), p, 1.0 / N)
-    split = lambda t: t.float().reshape(B, N, KV, per, Dh)
+    p = torch.exp(s - lse.float().reshape(B, KV, per, Nq, 1))
+    if mask is not None:
+        p = torch.where(mask.any(dim=-1, keepdim=True), p, 1.0 / Nk)
+    split = lambda t: t.float().reshape(B, Nq, KV, per, Dh)
     qf, dof = split(q), split(do)
     kf, vf = k.float(), v.float()
-    d = (dof * split(o)).sum(dim=-1).permute(0, 2, 3, 1)  # [B, KV, per, N]
+    d = (dof * split(o)).sum(dim=-1).permute(0, 2, 3, 1)  # [B, KV, per, Nq]
     dv = torch.einsum("bgpqk,bqgpd->bkgd", p, dof)
     dp = torch.einsum("bqgpd,bkgd->bgpqk", dof, vf)
-    ds = torch.where(mask, p * (dp - d[..., None]), 0.0)
+    ds = p * (dp - d[..., None])
+    if mask is not None:
+        ds = torch.where(mask, ds, 0.0)
     dk = torch.einsum("bgpqk,bqgpd->bkgd", ds, qf) * scale
     dq = torch.einsum("bgpqk,bkgd->bqgpd", ds, kf) * scale
-    return (dq.reshape(B, N, Hq, Dh).to(q.dtype), dk.to(k.dtype),
+    return (dq.reshape(B, Nq, Hq, Dh).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
 
@@ -491,13 +543,15 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
-def _noncausal_cuda(q, k, v):
+def _noncausal_cuda(q, k, v, with_lse: bool = False):
     """o by the non-causal kernels, with the key range split by the host's
     plan: ``flash_decode_bf16`` for one query row
     (:func:`noncausal_decode_plan`), ``flash_prefill_bf16`` for more
     (:func:`noncausal_prefill_plan`), both with ``causal`` 0 and counted
     under their form. One launch a call: the chunks of a row tile are a
-    cluster of blocks that combine their partials in shared memory."""
+    cluster of blocks that combine their partials in shared memory. With
+    ``with_lse`` (the prefill only, for training) returns ``(o, lse)``,
+    lse [B, Hq, Nq] fp32 each row's log-sum-exp; o is the same bits."""
     B, Nq, Hq, Dh = q.shape
     Nk, KV = k.shape[1], k.shape[2]
     decode = Nq == 1
@@ -507,18 +561,46 @@ def _noncausal_cuda(q, k, v):
     o = torch.empty_like(q)
     sms = _sm_count(q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
-            o.data_ptr(), None)
+            o.data_ptr())
     if decode:
+        if with_lse:
+            raise ValueError("the non-causal decode form writes no lse")
         n_split = noncausal_decode_plan(B, Hq, KV, Nk, sms)
-        backend.launch(lib, entry, q.device, *args, None, None, B, Nk, Hq,
-                       KV, Dh, n_split, 0, Dh ** -0.5,
+        backend.launch(lib, entry, q.device, *args, None, None, None, B, Nk,
+                       Hq, KV, Dh, n_split, 0, Dh ** -0.5,
                        form=NONCAUSAL_FORMS[decode])
-    else:
-        wgs, n_chunk = noncausal_prefill_plan(B, Nq, Hq, KV, Nk, sms)
-        backend.launch(lib, entry, q.device, *args, B, Nq, Nk, Hq, KV, Dh, 0,
-                       wgs, n_chunk, Dh ** -0.5,
-                       form=NONCAUSAL_FORMS[decode])
-    return o
+        return o
+    lse = (torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    wgs, n_chunk = noncausal_prefill_plan(B, Nq, Hq, KV, Nk, sms)
+    backend.launch(lib, entry, q.device, *args,
+                   None if lse is None else lse.data_ptr(), B, Nq, Nk, Hq,
+                   KV, Dh, 0, wgs, n_chunk, Dh ** -0.5,
+                   form=NONCAUSAL_FORMS[decode])
+    return (o, lse) if with_lse else o
+
+
+class NonCausalGQAAttention(torch.autograd.Function):
+    """Non-causal GQA attention on bf16 operands on the card, with its
+    gradient (the VLM's and Whisper's cross-attention, Whisper's encoder in
+    training): the forward is the non-causal prefill writing each row's
+    log-sum-exp beside o, the backward ``flash_prefill_bwd_bf16`` with
+    ``causal`` 0 (counted under ``flash_prefill_bwd_bf16/noncausal``). q
+    [B, Nq, Hq, Dh] with Nq > 1 against k, v [B, Nk, KV, Dh], all bf16 CUDA
+    tensors, every row seeing all Nk keys."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        _check_causal(BWD_KERNEL[1], q.shape[3], q, k, v)
+        q, k, v = (backend.aligned(t) for t in (q, k, v))
+        o, lse = _noncausal_cuda(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return _prefill_bwd_cuda(q, k, v, o, do, lse, None, causal=False)
 
 
 class CausalAttention(torch.autograd.Function):
@@ -543,31 +625,40 @@ class CausalAttention(torch.autograd.Function):
         return (*_causal_bwd_cuda(q, k, v, o, do, lse, kv_start), None)
 
 
-def bwd_scratch_shape(B: int, Hq: int, N: int) -> Tuple[int, int, int, int]:
+def bwd_scratch_shape(B: int, Hq: int, Nq: int) -> Tuple[int, int, int, int]:
     """Shape of the fp32 scratch of ``flash_prefill_bwd_bf16``: [2, B, Hq,
-    Np], each row's lse log2e and D = rowsum(dO o O), written by its dQ
-    kernel and read by its dK/dV kernel in boxes of ``BWD_TILE`` positions
-    (TMA). Np is N rounded up to the tile, so every box lies inside and
-    each row of the scratch is a multiple of 16 bytes, as TMA requires."""
-    Np = -(-N // BWD_TILE) * BWD_TILE
+    Np], each query row's lse log2e and D = rowsum(dO o O), written by its
+    dQ kernel and read by its dK/dV kernel in boxes of ``BWD_TILE``
+    positions (TMA). Np is Nq rounded up to the tile, so every box lies
+    inside and each row of the scratch is a multiple of 16 bytes, as TMA
+    requires."""
+    Np = -(-Nq // BWD_TILE) * BWD_TILE
     return 2, B, Hq, Np
 
 
 def _causal_bwd_cuda(q, k, v, o, do, lse, kv_start):
+    """(dq, dk, dv) of the causal form by ``flash_prefill_bwd_bf16``."""
+    return _prefill_bwd_cuda(q, k, v, o, do, lse, kv_start, causal=True)
+
+
+def _prefill_bwd_cuda(q, k, v, o, do, lse, kv_start, causal: bool):
     """(dq, dk, dv) by ``flash_prefill_bwd_bf16``: one launch of its entry
-    point (two kernels: dQ with D, then dK/dV)."""
-    B, N, Hq, Dh = q.shape
-    KV = k.shape[2]
+    point (two kernels: dQ with D, then dK/dV), causal (Nq == Nk, an
+    optional ``kv_start``) or not (any Nq and Nk, counted under
+    :data:`NONCAUSAL_BWD_FORM`)."""
+    B, Nq, Hq, Dh = q.shape
+    Nk, KV = k.shape[1], k.shape[2]
     q, k, v, o, do = (backend.aligned(t)
                       for t in (q, k, v, o, do.to(q.dtype)))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty(bwd_scratch_shape(B, Hq, N), dtype=torch.float32,
+    dsum = torch.empty(bwd_scratch_shape(B, Hq, Nq), dtype=torch.float32,
                        device=q.device)
     backend.launch(*BWD_KERNEL, q.device, q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                    None if kv_start is None else kv_start.data_ptr(),
                    dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                   dv.data_ptr(), B, N, Hq, KV, Dh, Dh ** -0.5)
+                   dv.data_ptr(), B, Nq, Nk, Hq, KV, Dh, int(causal),
+                   Dh ** -0.5, form=None if causal else NONCAUSAL_BWD_FORM)
     return dq, dk, dv
 
 
@@ -609,11 +700,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Nk, every query row seeing all Nk keys: on the card the non-causal
     kernels (``causal`` 0 of the decode entry point for ``Nq == 1``, of the
     prefill entry point otherwise), on the CPU
-    :func:`attention_noncausal_plain`. It takes no ``kv_len``, no
-    scores and, on the card, no gradient (the non-causal bf16 backward is
-    later work, with training the VLM and audio families). fp32 and fp16
-    calls whose q, k and v differ in shape run the same plain version on
-    the CPU and raise on the card.
+    :func:`attention_noncausal_plain`. It takes no ``kv_len`` and no
+    scores. When grad is enabled and a CUDA input requires it,
+    :class:`NonCausalGQAAttention` runs (the prefill form with the
+    log-sum-exp, then the non-causal backward kernel); the decode form
+    (Nq == 1) has no gradient on the card and raises. fp32 and fp16 calls
+    whose q, k and v differ in shape run the same plain version on the CPU
+    and raise on the card.
 
     Returns ``o`` in q's dtype, or ``(o, scores [B, Nk])`` with
     ``collect_scores`` — fp32, exactly 0 at masked keys."""
@@ -701,8 +794,10 @@ def _grouped_noncausal(q, k, v, kv_len, collect_scores: bool) -> torch.Tensor:
                         f"repeat runs on the card on bf16 operands (the "
                         f"non-causal bf16 kernels), got {q.dtype}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise ValueError(
-            "non-causal bf16 attention has no gradient on the card yet: its "
-            "backward comes with training the VLM and audio families "
-            "(ROADMAP queue A)")
+        if q.shape[1] == 1:
+            raise ValueError(
+                "non-causal bf16 attention has a gradient on the card for "
+                f"Nq > 1 query rows only (no training path decodes), got q "
+                f"{tuple(q.shape)}")
+        return NonCausalGQAAttention.apply(q, k, v)
     return _noncausal_cuda(q, k, v)

@@ -1,7 +1,7 @@
 """Training launcher: configs, synthetic data, the training step, and
 (with ``--ckpt``) the fault-tolerant loop and checkpointing — the port of
-the reference package's ``launch/train.py`` for the ``vit``, ``dense``,
-``moe``, ``hybrid`` and ``ssm`` families.
+the reference package's ``launch/train.py`` for the ViT and every LM
+family (``dense``, ``moe``, ``vlm``, ``audio``, ``hybrid``, ``ssm``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deit-small \
         [--full] [--steps 50] [--batch 8] [--lr 1e-3] [--ckpt DIR] \
@@ -12,13 +12,21 @@ the reference package's ``launch/train.py`` for the ``vit``, ``dense``,
         --arch granite-moe-3b-a800m [--full] [--seq 512] [--prune] ...
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
         [--full] [--seq 512] [--prune] ...      # or rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        [--full] [--seq 512] ...
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama-3.2-vision-90b [--full] ...
 
 The reduced config is the default; ``--full`` trains the architecture at
-full width and depth. ``--device`` picks the card (``cuda``, the default)
-or the CPU. Weights are random, drawn from seed 0 with a
+full width and depth, except where its fp32 training state does not fit
+one card: there ``CARD_CUTS`` cuts the depth (Llama-3.2-Vision-90B to
+2 layers, one self-attention and one gated cross layer), and says so.
+``--device`` picks the card (``cuda``, the default) or the CPU. Weights are random, drawn from seed 0 with a
 ``torch.Generator`` (the LM's on the device, so full-width weights are
 made there), scores from seed 7 on the CPU; batches are
-``data.synthetic_vit_batch`` / ``synthetic_lm_batch`` by step, so a run
+``data.synthetic_vit_batch`` / ``synthetic_lm_batch`` by step (the VLM's
+with its vision embeddings, the audio family's with its audio frames and
+seq / 8 decoder tokens, as the reference's pipeline shapes them), so a run
 restarted from ``--ckpt`` resumes exactly (the checkpoint holds params,
 scores and the optimizer's state). The ViT's step is
 ``models/steps.make_vit_train_step`` (classification, AdamW; the paper's
@@ -67,6 +75,24 @@ def make_state_factory(cfg, opt, device: torch.device, seed: int = 0,
     return make_state
 
 
+# full-width configs whose fp32 training state (params, gradients and two
+# moments, 16 B a parameter) does not fit one 80 GB card at full depth:
+# the depth ``--full`` trains. Llama-3.2-Vision-90B: one stage of its
+# period 5 and the embeddings are 6.38 B params (~102 GB); 2 layers of the
+# reference's reduced period 2 (one self-attention and one gated cross
+# layer) are 3.81 B (~61 GB).
+CARD_CUTS = {"llama-3.2-vision-90b": dict(num_layers=2, cross_attn_period=2)}
+
+
+def train_config(arch: str, reduced: bool = True):
+    """The config ``train`` runs for ``arch``: reduced, or at full width
+    and depth but for the cut ``CARD_CUTS`` gives it."""
+    cfg = get_config(arch)
+    if reduced:
+        return cfg.reduced()
+    return cfg.replace(**CARD_CUTS.get(cfg.name, {}))
+
+
 def prune_config(cfg):
     """``--prune``: the paper's block weight pruning at block 16, r_b 0.5
     (no token pruning, r_t 1.0), the config's own ``lambda_reg``."""
@@ -80,14 +106,10 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
           checkpoint_every: int = 20, prune: bool = False,
           log_every: int = 10, seed: int = 0,
           device: "str | torch.device" = "cuda"):
-    cfg = get_config(arch)
-    if cfg.family != "vit" and cfg.family not in ST.TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training family {cfg.family!r}: this package trains the ViT "
-            f"and the {', '.join(ST.TRAIN_FAMILIES)} LMs and serves the "
-            f"others; {ST.TRAIN_PENDING}")
-    if reduced:
-        cfg = cfg.reduced()
+    cfg = train_config(arch, reduced)
+    if not reduced and cfg.name in CARD_CUTS:
+        print(f"{cfg.name}: full width, depth cut to one card's fp32 "
+              f"training state: {CARD_CUTS[cfg.name]}")
     dev = resolve_device(device)
     opt = AdamW(lr=lr)
     dc = DataConfig(seed=seed)
@@ -101,8 +123,8 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
         lstep = ST.make_train_step(cfg, opt, with_pruning=prune)
 
         def step_wrap(state, batch_np):
-            b = {"tokens": host_to_device(batch_np["tokens"], dev,
-                                          dtype=batch_np["tokens"].dtype)}
+            b = {k: host_to_device(a, dev, dtype=a.dtype)
+                 for k, a in batch_np.items()}
             params, scores, opt_state, metrics = lstep(
                 state["params"], state["opt"], b, state["scores"])
             return ({"params": params, "scores": scores, "opt": opt_state,

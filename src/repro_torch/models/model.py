@@ -22,7 +22,9 @@ family runs the same attention layers with ``models/moe.moe_ffn`` in place
 of the SwiGLU MLP, and each layer's load-balancing loss is carried out of
 its checkpoint into the training loss. The VLM and audio families'
 cross-attention and Whisper's encoder run the non-causal form of the
-``flash_attention`` wrapper, the non-causal bf16 kernels on the card. The hybrid and SSM families run ``models/ssm``'s blocks, whose scans
+``flash_attention`` wrapper, the non-causal bf16 kernels on the card (in
+training with their backward kernel). The hybrid and SSM families run
+``models/ssm``'s blocks, whose scans
 are the ``ssm_scan`` kernels on the card (in training with their backward
 kernels), its shared attention block the causal kernel pair.
 """
@@ -350,6 +352,20 @@ def _cross_layer(cfg: ModelConfig, x: torch.Tensor, lp: Dict,
     return x + L.glu_mlp(L.rms_norm(x, lp["ln2"], eps), lp["mlp"])
 
 
+def _vlm_stage(cfg: ModelConfig, x: torch.Tensor, self_layers: List[Dict],
+               cross: Dict, vis: torch.Tensor, caches: List,
+               valid_start) -> Tuple[torch.Tensor, List]:
+    """One VLM stage (the reference's ``stage``): its self-attention
+    layers, each with its cache (None in train mode), then its gated cross
+    layer. Returns (x, the layers' new caches). Train mode checkpoints the
+    whole stage, as the reference rematerializes it."""
+    new = []
+    for lp, cache in zip(self_layers, caches):
+        x, nc = _lm_layer(cfg, x, lp, cache, valid_start)
+        new.append(nc)
+    return _cross_layer(cfg, x, cross, vis), new
+
+
 def _cross_kv(cfg: ModelConfig, src: torch.Tensor,
               ap: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention keys and values [B, Nk, KV, Dh] projected from
@@ -427,7 +443,9 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     for the SSM one ``RWKVState`` per layer. Recurrent states are
     functional: ``Output.caches`` holds new ones. The hybrid and SSM
     families take no ``valid_start``; in train mode the hybrid runs
-    without checkpoints, as the reference's does. ``logits_for``: "all"
+    without checkpoints, as the reference's does, the VLM checkpoints each
+    stage (its self-attention layers and its cross layer together) and the
+    audio family each decoder layer, not the encoder's. ``logits_for``: "all"
     gives [B, N, V] logits, "last" only the final position's
     ([B, 1, V]), "none" none (hidden states only). Logits are computed
     in the activation dtype (``cfg.dtype``) and returned in fp32.
@@ -497,11 +515,10 @@ def forward_lm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         vis = vision_embeds.to(adt)
         st = params["stages"]
         for self_layers, cross in zip(st["self"], st["cross"]):
-            for lp in self_layers:
-                x, nc = run(_lm_layer, x, lp, next_cache(), valid_start)
-                if want_cache:
-                    new_caches.append(nc)
-            x = run(_cross_layer, x, cross, vis)
+            x, ncs = run(_vlm_stage, x, self_layers, cross, vis,
+                         [next_cache() for _ in self_layers], valid_start)
+            if want_cache:
+                new_caches.extend(ncs)
         return _lm_head(cfg, params, x, new_caches, logits_for, 0.0)
     if fam == "audio":
         for lp in params["layers"]:

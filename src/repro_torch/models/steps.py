@@ -1,8 +1,9 @@
 """Step functions — the reference package's ``models/steps.py`` for the
-families this package runs: the ViT's training step, the dense, MoE,
-hybrid and SSM LMs' training step (with the paper's block pruning trained
-jointly, per expert in an MoE layer's banks, and gradient accumulation
-over microbatches), and the serve steps of the dense, MoE, VLM, audio, hybrid
+families this package runs: the ViT's training step, every LM family's
+training step (with the paper's block pruning trained jointly, per expert
+in an MoE layer's banks, and gradient accumulation over microbatches;
+the VLM and audio families take their modality input from the batch), and
+the serve steps of the dense, MoE, VLM, audio, hybrid
 and SSM LMs: cache constructors, whole-batch prefill, per-slot prefill (a
 B=1 prefill scattered into one row of the live batched cache; dense and
 MoE) and the decode step.
@@ -40,10 +41,10 @@ MASKABLE_FAMILIES = ("dense", "moe", "vlm", "audio")
 # can be prefilled in isolation and scattered into the live batch.
 SLOT_PREFILL_FAMILIES = ("dense", "moe")
 
-# LM families this package serves (all that ``forward_lm`` runs), and
-# those it trains (besides the ViT).
+# LM families this package serves and trains (besides the ViT): all that
+# ``forward_lm`` runs
 SERVE_FAMILIES = M.LM_FAMILIES
-TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+TRAIN_FAMILIES = M.LM_FAMILIES
 
 
 def _require_served(cfg: ModelConfig) -> None:
@@ -53,19 +54,11 @@ def _require_served(cfg: ModelConfig) -> None:
             f"{SERVE_FAMILIES}")
 
 
-# what training the other LM families waits for
-TRAIN_PENDING = ("the VLM and audio families' training waits for the "
-                 "non-causal bf16 attention's backward kernels (ROADMAP "
-                 "queue B, B-c3: the cross-attention's, B-c4: Whisper "
-                 "encoder's self-attention's)")
-
-
 def _require_trained(cfg: ModelConfig) -> None:
     if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"no training step for family {cfg.family!r}: {TRAIN_PENDING}; "
-            f"this package trains {TRAIN_FAMILIES} and serves "
-            f"{SERVE_FAMILIES}")
+            f"no LM training step for family {cfg.family!r}; this package "
+            f"trains the {', '.join(TRAIN_FAMILIES)} LMs")
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -182,10 +175,37 @@ def make_decode_step(cfg: ModelConfig):
     return decode
 
 
+# families with cross layers, whose params hold leaves the reference's
+# loss never reaches: the cross layers' ``bk`` / ``bv`` (the VLM's
+# ``stages/cross/<i>/attn``, Whisper's ``layers/<i>/xattn``), which
+# ``model._cross_kv`` leaves out as the reference does
+CROSS_FAMILIES = ("vlm", "audio")
+
+
+def _zero_unused(trainables, flat: List[torch.Tensor],
+                 grads: List[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+    """``grads`` with a zero in place of each cross layer's ``bk`` / ``bv``
+    gradient that autograd left out (jax.grad's zero); any other leaf the
+    loss does not reach raises."""
+    out = []
+    for (path, _), t, d in zip(flatten_with_path(trainables), flat, grads):
+        if d is None:
+            keys = path_str(path).split("/")
+            if keys[-1] not in ("bk", "bv") or not (
+                    "xattn" in keys or "cross" in keys):
+                raise RuntimeError(f"the loss does not reach the leaf "
+                                   f"{path_str(path)}")
+            d = torch.zeros_like(t)
+        out.append(d)
+    return out
+
+
 def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
     """Returns ``grads(params, batch, scores=None) -> (loss, parts,
-    grads)``: the gradient of the LM's training loss (dense, MoE, hybrid or
-    SSM; the MoE's includes 0.01 x the aux through its routers), the half of
+    grads)``: the gradient of the LM's training loss (any LM family; the
+    MoE's includes 0.01 x the aux through its routers; the VLM's and the
+    audio family's ``batch`` carries "vision_embeds" / "audio_frames"
+    beside "tokens"), the half of
     :func:`make_train_step` before the optimizer. ``grads`` has the
     trainables' structure: ``{"params", "scores"}`` when ``scores`` are
     given (the paper's simultaneous pruning: the STE through
@@ -198,6 +218,7 @@ def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
     p = cfg.pruning
     use_prune = (p.weight_pruning_enabled if with_pruning is None
                  else with_pruning)
+    cross_families = cfg.family in CROSS_FAMILIES
 
     def one(trainables, batch):
         flat = [t.detach().requires_grad_(True) for t in leaves(trainables)]
@@ -210,9 +231,12 @@ def make_grad_fn(cfg: ModelConfig, with_pruning: Optional[bool] = None):
         total, parts = M.lm_loss(cfg, params, batch)
         if use_prune and scores:
             total = total + p.lambda_reg * PG.regularizer(scores)
-        grads = torch.autograd.grad(total, flat)
+        grads = list(torch.autograd.grad(total, flat,
+                                         allow_unused=cross_families))
+        if cross_families:
+            grads = _zero_unused(trainables, flat, grads)
         return (total.detach(), {k: v.detach() for k, v in parts.items()},
-                unflatten(trainables, list(grads)))
+                unflatten(trainables, grads))
 
     def grads(params, batch, scores=None):
         trainables = ({"params": params, "scores": scores} if scores
@@ -273,10 +297,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
     forward is
     ``forward_lm`` in train mode: on the card, attention runs the causal
     kernel pair (``flash_prefill_bf16`` writing the log-sum-exp, and
-    ``flash_prefill_bwd_bf16``), the scans their kernels and backward
-    kernels (``mamba_scan_f32`` / ``mamba_scan_bwd_f32``, ``wkv6_f32`` /
-    ``wkv6_bwd_f32``), and the layers are checkpointed by
-    ``cfg.remat_policy`` (the hybrid's are not, as in the reference)."""
+    ``flash_prefill_bwd_bf16``) and, for cross-attention and Whisper's
+    encoder, the non-causal pair (the same entry points with ``causal``
+    0), the scans their kernels and backward kernels (``mamba_scan_f32`` /
+    ``mamba_scan_bwd_f32``, ``wkv6_f32`` / ``wkv6_bwd_f32``), and the
+    layers are checkpointed by ``cfg.remat_policy`` (the hybrid's and
+    Whisper's encoder's are not, the VLM's by stage, as in the
+    reference)."""
     opt = optimizer or AdamW()
     grad_fn = make_grad_fn(cfg, with_pruning)
 

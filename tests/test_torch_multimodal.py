@@ -38,6 +38,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import steps as ST
+from repro_torch.optim import AdamW
 from repro_torch.serving import EngineConfig, ServeEngine
 from repro_torch.tree import flatten_with_path, path_str
 
@@ -401,13 +402,14 @@ def test_bf16_noncausal_routes_to_the_causal_kernels(monkeypatch, Nq):
     assert not any(backend.form_launches().values())
 
 
-@pytest.mark.parametrize("what", ["grad", "head_dim", "fp32", "kv_len",
-                                  "scores"])
+@pytest.mark.parametrize("what", ["grad_decode", "grad_kv_len", "head_dim",
+                                  "fp32", "kv_len", "scores"])
 def test_bf16_noncausal_raises_before_any_launch(monkeypatch, what):
     """On the card the non-causal GQA form raises, before any launch and
-    without the plain version, on a gradient (its backward is later work),
-    a head width the kernels are not built for, fp32 operands, a
-    ``kv_len`` or scores."""
+    without the plain version, on what its kernels do not take: a gradient
+    of the decode form (one query row: no training path decodes), a
+    gradient with a ``kv_len``, a head width the kernels are not built
+    for, fp32 operands, a ``kv_len`` or scores."""
     def refused(*a, **kw):
         raise AssertionError("launched or fell back")
     monkeypatch.setattr(backend, "on_card", lambda *ts: True)
@@ -415,13 +417,14 @@ def test_bf16_noncausal_raises_before_any_launch(monkeypatch, what):
     monkeypatch.setattr(FA, "attention_noncausal_plain", refused)
     Dh = 32 if what == "head_dim" else 16
     dt = torch.float32 if what == "fp32" else torch.bfloat16
-    q = torch.zeros((1, 3, 4, Dh), dtype=dt,
-                    requires_grad=what == "grad")
+    q = torch.zeros((1, 1 if what == "grad_decode" else 3, 4, Dh), dtype=dt,
+                    requires_grad=what.startswith("grad"))
     kv = torch.zeros((1, 9, 1, Dh), dtype=dt)
     kw = {"kv_len": torch.tensor([5], dtype=torch.int32)} \
-        if what == "kv_len" else {"collect_scores": what == "scores"}
-    err = {"grad": "no gradient", "head_dim": "head_dim", "fp32": "bf16",
-           "kv_len": "no kv_len", "scores": "no kv_len"}[what]
+        if what.endswith("kv_len") else {"collect_scores": what == "scores"}
+    err = {"grad_decode": "Nq > 1", "grad_kv_len": "no kv_len",
+           "head_dim": "head_dim", "fp32": "bf16", "kv_len": "no kv_len",
+           "scores": "no kv_len"}[what]
     with pytest.raises((ValueError, TypeError), match=err):
         flash_attention(q, kv, kv, **kw)
 
@@ -430,15 +433,22 @@ def test_bf16_noncausal_raises_before_any_launch(monkeypatch, what):
 def test_engine_refuses_and_training_still_raises(arch):
     """``ServeEngine`` (whose runner feeds prefill tokens only, as the
     reference's does) and ``launch/serve`` refuse the two families up front;
-    their training raises, naming the backward kernels it waits for
-    (ROADMAP queue B, B-c3 and B-c4)."""
+    their training now runs: ``make_train_step`` builds a step that takes
+    one on the CPU with the batch's modality input, and ``launch/train``
+    trains a step."""
     _, tcfg, _, tp = _model(arch)
     need = "vision_embeds" if arch != "whisper-base" else "audio_frames"
     with pytest.raises(NotImplementedError, match=need):
         ServeEngine(tcfg, tp, EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match=need):
         tserve.serve(arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="B-c3"):
-        ST.make_train_step(tcfg)
-    with pytest.raises(NotImplementedError, match="non-causal bf16"):
-        ttrain.train(arch, device="cpu")
+    opt = AdamW(lr=1e-3)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, tcfg.vocab_size, (2, 8))), need: torch.from_numpy(
+        _modality(tcfg, 2, rng))}
+    params, _, _, metrics = ST.make_train_step(tcfg, opt)(
+        tp, opt.init(tp), batch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    out = ttrain.train(arch, steps=1, batch=2, seq=16, device="cpu")
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])

@@ -61,7 +61,6 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import backend
 from repro_torch.kernels.ssm_scan import mamba_scan, ops as SS, wkv6
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import train as ttrain
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import ssm as SSM
@@ -612,14 +611,16 @@ def test_launcher_serves_rwkv6_like_the_reference(monkeypatch, capsys):
 
 
 def test_training_still_raises():
-    """The SSM and hybrid families train now (``test_torch_ssm_train``);
-    the VLM and audio families still raise at both entry points, naming
-    the backward kernels they wait for (ROADMAP queue B, B-c3 and B-c4)."""
+    """Every LM family trains now: the SSM and hybrid
+    (``test_torch_ssm_train``), the VLM and audio families
+    (``test_torch_mm_train``), whose ``make_train_step`` builds. The LM
+    step still raises for a family that is no LM: the ViT trains through
+    ``make_vit_train_step``."""
     for arch in ("whisper-base", "llama-3.2-vision-90b"):
         tcfg = get_config(arch).reduced()
-        for call in (lambda: ST.make_train_step(tcfg),
-                     lambda: ttrain.train(arch, device="cpu")):
-            with pytest.raises(NotImplementedError, match="B-c3.*B-c4"):
-                call()
+        assert tcfg.family in ST.TRAIN_FAMILIES
+        assert callable(ST.make_train_step(tcfg))
+    with pytest.raises(NotImplementedError, match="no LM training step"):
+        ST.make_train_step(get_config("deit-small").reduced())
     for name in ("zamba2", "rwkv6"):
         assert _model(name)[1].family in ST.TRAIN_FAMILIES
