@@ -59,50 +59,66 @@
 // rows past the last tile.
 //   (1) `dq` runs first. A work item is 64 query positions of one query
 //   head. The block forms D = rowsum(dO o O) of its rows from the staged dO
-//   and O tiles (four lanes per row), writes lse log2e and D to a [2, B,
-//   Hq, Np] scratch (Np = Nq rounded up to 64), then walks the key tiles its
-//   rows see: S = Q K^T and dP = dO V^T (wgmma, both operands from shared
-//   memory, K-major), P and dS in registers, dQ += dS K (dS as the register
-//   A operand in hi and lo bf16 halves, K read MN-major through a
-//   transposed descriptor).
+//   and O tiles (four lanes per row; at Dh 128 O is read from device memory
+//   instead), writes lse log2e and D to a [2, B, Hq, Np] scratch (Np = Nq
+//   rounded up to 64), then walks the key tiles its rows see: S = Q K^T and
+//   dP = dO V^T (wgmma, both operands from shared memory, K-major), P and
+//   dS in registers, dQ += dS K (dS as the register A operand in hi and lo
+//   bf16 halves, K read MN-major through a transposed descriptor).
 //   (2) `dkdv`: a work item is 64 keys of one KV head (K and V staged
-//   once) and kCols of their dK / dV columns; it walks every (query tile,
-//   query head of the group) that sees them, keys as rows: S^T = K Q^T and
-//   dP^T = V dO^T over all of Dh, then dV += P^T dO and dK += dS^T Q over
-//   its columns, in flight together (P^T and dS^T as register A operands,
-//   hi and lo halves; dO and Q MN-major). The group's query heads are
-//   iterations like any other, so their sum stays in the fp32
+//   once) and all their dK / dV columns; it walks every (query tile, query
+//   head of the group) that sees them, keys as rows: S^T = K Q^T and dP^T =
+//   V dO^T, then dV += P^T dO and dK += dS^T Q (P^T and dS^T as register A
+//   operands, hi and lo halves; dO and Q MN-major). The group's query heads
+//   are iterations like any other, so their sum stays in the fp32
 //   accumulators. Per-row lse log2e and D arrive by TMA from the scratch.
+//   At Dh 16 and 64 one warpgroup runs all four products, the last two in
+//   flight together.
 // Dh 128: the two fp32 accumulators of a whole row would be 128 registers
-// a thread on top of the 204 the Dh-64 warpgroup holds, so a dkdv item owns
-// one of the two 64-column halves of dK and dV (kCols 64; each half's
-// items recompute S^T and dP^T, 1.4x the work of one item of all 128
-// columns) and keeps the Dh-64 registers; a half of a TMA-swizzled tile is
-// a Dh-64 tile, which the half's products read as such. Tiles of 16 KB
-// leave the dq kernel one block an SM (its accumulator is 64 registers a
-// thread at Dh 128, under the 255 a lone warpgroup may take) and the dkdv
-// kernel two, each with one slot and two ring stages.
+// a thread on top of the products' operands, so a dkdv block is two
+// warpgroups (dkdv128_body), each holding one 64-register accumulator:
+// warpgroup 0 computes S^T and dV += P^T dO, warpgroup 1 dP^T and dK +=
+// dS^T Q, and P^T (masked zeros included) passes from 0 to 1 in fp32
+// through a double-buffered shared-memory slot under mbarriers (no
+// block-wide barrier per tile). S^T and dP^T are computed once per (key
+// tile, query tile, head): 768 FLOP a pair for each warpgroup, 1,536 in
+// all (P and dS in two halves), where items of one 64-column half each
+// recomputed them (2,048). K and V move into registers once an item, as
+// the A operands of S^T and dP^T, so those products read only Q or dO
+// from shared memory and the item's slot is free for the next item at
+// once; the warpgroups share each ring stage, and each issues the next
+// tile's first product with this tile's second, so its exponentials or
+// dS run under its own products and the other warpgroup's. 195 KB of
+// shared memory (one fixed slot, 4 ring stages, 32 KB of hand-off) and
+// 252-254 registers a thread: one block an SM. The dq kernel at Dh 128
+// stages Q and dO and reads its rows of O from device memory for D, with
+// two K/V stages: two blocks of 98 KB an SM, each a warpgroup of 64
+// accumulator registers, so one block's softmax runs under the other's
+// products.
 // Both kernels are persistent: as many blocks as the SMs hold at once,
 // each taking every gridDim-th work item of a fixed list, heavy first (the
 // last query tiles see the most keys, the first key tiles the most rows).
-// A block is one warpgroup; its thread 0 issues every cp.async.bulk.tensor,
+// One thread of a block issues every cp.async.bulk.tensor (thread 0; at
+// Dh 128's dkdv the first of warpgroup 1, the last to release a stage),
 // each under a full and an empty mbarrier, and there is no block-wide
 // barrier per tile: an item's fixed tiles go into a slot of their own
 // (dkdv at Dh 16 and 64: one of two, so the next item's arrive while this
-// one runs), the streamed tiles into a ring of stages, refilled as each is
-// released. The wgmma descriptors read the swizzled layout TMA wrote:
-// 128-byte rows and the 128-byte swizzle at Dh 64 and 128, 32-byte ones at
-// Dh 16. The barrier, TMA and wgmma helpers, the descriptors and the tensor
-// maps' encoding are wgmma_tile.cuh's, shared with the non-causal prefill
+// one runs; at Dh 128 one, free once its tiles are in registers), the
+// streamed tiles into a ring of stages, refilled as each is released. The
+// wgmma descriptors read the swizzled layout TMA wrote: 128-byte rows and
+// the 128-byte swizzle at Dh 64 and 128, 32-byte ones at Dh 16. The
+// barrier, TMA and wgmma helpers, the descriptors and the tensor maps'
+// encoding are wgmma_tile.cuh's, shared with the non-causal prefill
 // (flash_prefill.cu).
 // Why no producer warp: the H100 splits an SM's registers over its four
 // sub-partitions, a warp's on one, and ptxas budgets a kernel for the
 // sub-partition with the most warps: 168 registers a thread once a block
 // of five warps runs twice per SM (or one of 10 warps once), under the
-// 204 the dkdv warpgroup takes. Handing the producer's registers over with
-// setmaxnreg did not help: ptxas kept the consumers at the entry budget
-// (spilling), and with a lone producer warp the launch hung on the H100.
-// Blocks of one warpgroup leave 255 at two per SM, 168 at three.
+// 204 the Dh-64 dkdv warpgroup takes. Handing the producer's registers over
+// with setmaxnreg did not help: ptxas kept the consumers at the entry
+// budget (spilling), and with a lone producer warp the launch hung on the
+// H100. Blocks of one warpgroup leave 255 at two per SM, 168 at three; the
+// Dh-128 dkdv block of two warpgroups 255 at one.
 #include <math.h>
 #include <stdint.h>
 
@@ -112,41 +128,57 @@ namespace {
 
 using namespace wgt;
 
-constexpr int kThreads = 128;  // one warpgroup; its thread 0 issues TMA
+constexpr int kThreads = 128;  // a warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Per head width: each kernel's ring depth, fixed slots and blocks an SM,
-// and the dK / dV columns a dkdv item owns. At Dh 16 and 64 the dkdv
-// kernel takes 204 registers a thread, so two blocks an SM; the dq kernel
-// (141) fits three with one slot for its fixed tiles (three blocks of 75
-// KB fill shared memory), 68.70 us a launch against 80.75 at two blocks of
-// two slots (H100, [8, 512, 32, 64]). Dh 128: see the design note above.
+// Per head width: each kernel's fixed tiles, ring depth, fixed slots,
+// warpgroups and blocks an SM. At Dh 16 and 64 the dkdv kernel takes 204
+// registers a thread, so two blocks an SM; the dq kernel (141) fits three
+// with one slot for its fixed tiles (three blocks of 75 KB fill shared
+// memory), 68.70 us a launch against 80.75 at two blocks of two slots
+// (H100, [8, 512, 32, 64]). Dh 128: see the design note above; its
+// times are below Cfg<128>.
 template <int DH>
 struct Cfg {
+  static constexpr int kDqFixed = 3;  // Q, dO, O
   static constexpr int kDqStages = 3, kDqSlots = 1, kDqMinBlocks = 3;
   static constexpr int kDkdvStages = 3, kDkdvSlots = 2, kDkdvMinBlocks = 2;
-  static constexpr int kCols = DH;
+  static constexpr int kDkdvWarpgroups = 1, kDkdvHand = 0;
 };
+// Dh 128 (NVIDIA H100 80GB HBM3, 700.00 W; tools/causal_ab.py, device us
+// a launch): Llama-3.2-Vision-90B's cross backward, q [8, 512, 64/8, 128]
+// over 1601 keys, 2,218-2,220 (dK/dV 1,399-1,401, dQ 819-820) against
+// 3,306-3,320 (1,983-1,998, 1,322-1,324) when each dkdv item owned one
+// 64-column half and the dq kernel held three fixed tiles and three stages
+// (one block an SM); its causal self backward [8, 512, 64/8, 128] 478
+// (275, 203) against 711-725 (418-428, 294-296); the ragged [2, 130,
+// 16/2, 128] 55.4-56.2 against 60.9-61.5.
 template <>
 struct Cfg<128> {
-  static constexpr int kDqStages = 3, kDqSlots = 1, kDqMinBlocks = 1;
-  static constexpr int kDkdvStages = 2, kDkdvSlots = 1, kDkdvMinBlocks = 2;
-  static constexpr int kCols = 64;
+  static constexpr int kDqFixed = 2;  // Q, dO; O read from device memory
+  static constexpr int kDqStages = 2, kDqSlots = 1, kDqMinBlocks = 2;
+  static constexpr int kDkdvStages = 4, kDkdvSlots = 1, kDkdvMinBlocks = 1;
+  // two hand-off buffers of P^T: 32 fp32 a thread of a warpgroup each
+  static constexpr int kDkdvWarpgroups = 2, kDkdvHand = 2 * 32 * 4 * 128;
 };
 
 // Shared memory of a kernel: kSlots slots of kFixed tiles that stay for a
-// work item (dq: Q, dO, O; dkdv: K, V); a ring of kStages stages of two
-// streamed tiles (dq: K, V; dkdv: Q, dO) and kStages stages of per-row
-// stats (dkdv: lse log2e and D, 64 fp32 each); then the barriers. The base
-// is rounded up to 1024 bytes, the 128-byte swizzle's period.
-template <int DH, int kFixed, int kSlots, int kStages>
+// work item (dq: Q, dO and, below Dh 128, O; dkdv: K, V); a ring of
+// kStages stages of two streamed tiles (dq: K, V; dkdv: Q, dO) and kStages
+// stages of per-row stats (dkdv: lse log2e and D, 64 fp32 each); kHand
+// bytes of hand-off buffers (Dh 128's dkdv: P^T, warpgroup 0 to 1); then
+// the barriers. The base is rounded up to 1024 bytes, the 128-byte
+// swizzle's period.
+template <int DH, int kFixed, int kSlots, int kStages, int kHand = 0>
 struct Smem {
   static constexpr int kTileBytes = TileFmt<DH>::kTileBytes;
   static constexpr int kStatBytes = 2 * kTile * 4;
   static constexpr int kRing = kSlots * kFixed * kTileBytes;
   static constexpr int kStats = kRing + 2 * kStages * kTileBytes;
-  static constexpr int kBars = kStats + kStages * kStatBytes;
-  static constexpr size_t kBytes = 1024 + kBars + 8 * (4 + 2 * kStages);
+  static constexpr int kHands = kStats + kStages * kStatBytes;
+  static constexpr int kBars = kHands + kHand;
+  static constexpr size_t kBytes =
+      1024 + kBars + 8 * (4 + 2 * kStages) + (kHand > 0 ? 32 : 0);
   static __device__ __forceinline__ uint32_t fixed(uint32_t base, int f,
                                                    int x) {
     return base + (f * kFixed + x) * kTileBytes;
@@ -158,12 +190,18 @@ struct Smem {
   static __device__ __forceinline__ uint32_t stat(uint32_t base, int s) {
     return base + kStats + s * kStatBytes;
   }
+  static __device__ __forceinline__ uint32_t hand(uint32_t base, int x) {
+    return base + kHands + x * (kHand / 2);
+  }
 };
 
 // the barriers: full and empty for each fixed slot (two at most) and each
-// of kStages ring stages (full: thread 0's arrival plus TMA's bytes; empty:
-// every thread of the block)
-template <int kStages>
+// of kStages ring stages (full: the feeding thread's arrival plus TMA's
+// bytes; empty: every one of the block's kArrive threads); where a block
+// hands P^T from one warpgroup to the other, full and empty for each of
+// the two hand-off buffers (128 arrivals each: the writing warpgroup's,
+// the reading one's)
+template <int kStages, int kArrive = kThreads>
 struct Bars {
   uint32_t base;
   __device__ __forceinline__ uint32_t fixed_full(int f) const {
@@ -178,18 +216,45 @@ struct Bars {
   __device__ __forceinline__ uint32_t empty(int s) const {
     return base + 32 + 8 * kStages + 8 * s;
   }
-  __device__ __forceinline__ void init() const {
+  __device__ __forceinline__ uint32_t hand_full(int x) const {
+    return base + 32 + 16 * kStages + 8 * x;
+  }
+  __device__ __forceinline__ uint32_t hand_empty(int x) const {
+    return base + 48 + 16 * kStages + 8 * x;
+  }
+  __device__ __forceinline__ void init(bool hands = false) const {
     for (int f = 0; f < 2; ++f) {
       bar_init(fixed_full(f), 1);
-      bar_init(fixed_empty(f), kThreads);
+      bar_init(fixed_empty(f), kArrive);
     }
     for (int s = 0; s < kStages; ++s) {
       bar_init(full(s), 1);
-      bar_init(empty(s), kThreads);
+      bar_init(empty(s), kArrive);
     }
+    if (hands)
+      for (int x = 0; x < 2; ++x) {
+        bar_init(hand_full(x), kThreads);
+        bar_init(hand_empty(x), kThreads);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 };
+
+// d += the fp32 dot product of two pairs of bf16, and of two runs of 8
+__device__ __forceinline__ void dot2(float& d, uint32_t x, uint32_t y) {
+  const float2 u = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x));
+  const float2 v = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&y));
+  d = fmaf(u.x, v.x, d);
+  d = fmaf(u.y, v.y, d);
+}
+__device__ __forceinline__ void dot8(float& d, uint4 x, uint4 y) {
+  dot2(d, x.x, y.x);
+  dot2(d, x.y, y.y);
+  dot2(d, x.z, y.z);
+  dot2(d, x.w, y.w);
+}
 
 // sum over this lane's quarter of row r of two swizzled tiles a and b of
 // the elementwise products, in fp32
@@ -199,32 +264,20 @@ __device__ __forceinline__ float row_dot(const unsigned char* a,
                                          int q4) {
   using F = TileFmt<DH>;
   float d = 0.f;
-  auto fma2 = [&d](uint32_t x, uint32_t y) {
-    const float2 u = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&x));
-    const float2 v = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&y));
-    d = fmaf(u.x, v.x, d);
-    d = fmaf(u.y, v.y, d);
-  };
   if constexpr (DH >= 64) {  // chunks kPer q4 .. kPer q4 + kPer - 1
     constexpr int kPer = DH / 32;
 #pragma unroll
     for (int c = 0; c < kPer; ++c) {
       const int off = F::chunk(r, kPer * q4 + c);
-      const uint4 x = *reinterpret_cast<const uint4*>(a + off);
-      const uint4 y = *reinterpret_cast<const uint4*>(b + off);
-      fma2(x.x, y.x);
-      fma2(x.y, y.y);
-      fma2(x.z, y.z);
-      fma2(x.w, y.w);
+      dot8(d, *reinterpret_cast<const uint4*>(a + off),
+           *reinterpret_cast<const uint4*>(b + off));
     }
   } else {  // half q4 % 2 of chunk q4 / 2
     const int off = F::chunk(r, q4 >> 1) + (q4 & 1) * 8;
     const uint2 x = *reinterpret_cast<const uint2*>(a + off);
     const uint2 y = *reinterpret_cast<const uint2*>(b + off);
-    fma2(x.x, y.x);
-    fma2(x.y, y.y);
+    dot2(d, x.x, y.x);
+    dot2(d, x.y, y.y);
   }
   return d;
 }
@@ -257,19 +310,17 @@ struct DqItem {
   }
 };
 
-// A dkdv work item: 64 keys from c0 of KV head g, batch row b, columns x
-// kCols .. (x + 1) kCols - 1 of dK and dV, the first key tiles first
-// (causal: the most rows see them); it walks the query tiles from q_first
-// on, each for the group's query heads (n_it iterations). Causal: rows at
-// positions >= max(c0, lo) see a key of the tile, if any does.
+// A dkdv work item: 64 keys from c0 of KV head g, batch row b, all their
+// dK and dV columns, the first key tiles first (causal: the most rows see
+// them); it walks the query tiles from q_first on, each for the group's
+// query heads (n_it iterations). Causal: rows at positions >= max(c0, lo)
+// see a key of the tile, if any does.
 template <bool CAUSAL>
 struct KvItem {
-  int c0, g, b, x, lo, q_first, n_it;
+  int c0, g, b, lo, q_first, n_it;
   KvItem() = default;
   __device__ __forceinline__ KvItem(int w, int n_qt, int B, int KV, int per,
-                                    int halves, int Nq, const int* kv_start) {
-    x = w % halves;
-    w /= halves;
+                                    int Nq, const int* kv_start) {
     const int gb = KV * B, rem = w % gb;
     c0 = (w / gb) * kTile;
     g = rem % KV;
@@ -291,10 +342,11 @@ __device__ __forceinline__ void dq_body(
     const CUtensorMap* tq, const CUtensorMap* tdo, const CUtensorMap* to,
     const CUtensorMap* tk, const CUtensorMap* tv, const float* lse,
     const int* kv_start, float* stats, bf16* dq, int B, int Nq, int Nk,
-    int Hq, int KV, float scale) {
+    int Hq, int KV, float scale, const bf16* o) {
   using C = Cfg<DH>;
   constexpr int kStages = C::kDqStages, kSlots = C::kDqSlots;
-  using L = Smem<DH, 3, kSlots, kStages>;
+  constexpr int kFixed = C::kDqFixed;
+  using L = Smem<DH, kFixed, kSlots, kStages>;
   using Item = DqItem<CAUSAL>;
   extern __shared__ unsigned char smem_raw[];
   const Base sm(smem_raw);
@@ -315,13 +367,14 @@ __device__ __forceinline__ void dq_body(
     const Item y(w, n_qt, B, Hq, per, Nq, Nk, kv_start);
     const int f = j % kSlots;
     bar_wait(bars.fixed_empty(f), ((j / kSlots) & 1) ^ 1);
-    bar_expect_tx(bars.fixed_full(f), 3 * L::kTileBytes);
+    bar_expect_tx(bars.fixed_full(f), kFixed * L::kTileBytes);
     tma_tile<DH>(L::fixed(sm.addr, f, 0), tq, bars.fixed_full(f), y.h, y.r0,
                  y.b);
     tma_tile<DH>(L::fixed(sm.addr, f, 1), tdo, bars.fixed_full(f), y.h,
                  y.r0, y.b);
-    tma_tile<DH>(L::fixed(sm.addr, f, 2), to, bars.fixed_full(f), y.h, y.r0,
-                 y.b);
+    if constexpr (kFixed == 3)
+      tma_tile<DH>(L::fixed(sm.addr, f, 2), to, bars.fixed_full(f), y.h,
+                   y.r0, y.b);
   };
   int fw = blockIdx.x, fi = 0, fpos = 0;
   Item fx;
@@ -369,13 +422,38 @@ __device__ __forceinline__ void dq_body(
                                   pos[y]] * kLog2e
                             : 0.f;
     }
+    // Dh 128: this lane's quarter of each of its rows of O (columns 32 q4
+    // .. 32 q4 + 31, 0 past Nq), read from device memory once an item
+    constexpr int kOv = kFixed == 3 ? 1 : DH / 32;
+    uint4 ov[2][kOv];
+    if constexpr (kFixed == 2) {
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const uint4* row = reinterpret_cast<const uint4*>(
+            o + ((static_cast<size_t>(x.b) * Nq + pos[y]) * Hq + x.h) * DH);
+#pragma unroll
+        for (int c = 0; c < kOv; ++c)
+          ov[y][c] =
+              pos[y] < Nq ? row[kOv * q4 + c] : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
     bar_wait(bars.fixed_full(f), (j / kSlots) & 1);
     // D = rowsum(dO o O) from the staged tiles (0 past Nq: TMA's zero
     // fill); lse log2e and D to the stats for the dkdv pass
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
-      float d = row_dot<DH>(sm.at(dos), sm.at(L::fixed(sm.addr, f, 2)),
-                            ra + 8 * y, q4);
+      float d = 0.f;
+      if constexpr (kFixed == 3) {
+        d = row_dot<DH>(sm.at(dos), sm.at(L::fixed(sm.addr, f, 2)),
+                        ra + 8 * y, q4);
+      } else {  // in row_dot's order
+#pragma unroll
+        for (int c = 0; c < kOv; ++c) {
+          const int off = TileFmt<DH>::chunk(ra + 8 * y, kOv * q4 + c);
+          dot8(d, *reinterpret_cast<const uint4*>(sm.at(dos) + off),
+               ov[y][c]);
+        }
+      }
       d += __shfl_xor_sync(0xffffffffu, d, 1);
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       dd[y] = d;
@@ -456,14 +534,13 @@ __device__ __forceinline__ void dkdv_body(
     int KV, float scale) {
   using C = Cfg<DH>;
   constexpr int kStages = C::kDkdvStages, kSlots = C::kDkdvSlots;
-  constexpr int kCols = C::kCols, kHalves = DH / kCols;
   using L = Smem<DH, 2, kSlots, kStages>;
   using Item = KvItem<CAUSAL>;
   extern __shared__ unsigned char smem_raw[];
   const Base sm(smem_raw);
   const Bars<kStages> bars{sm.addr + L::kBars};
   const int n_qt = (Nq + kTile - 1) / kTile;
-  const int n_items = (Nk + kTile - 1) / kTile * KV * B * kHalves;
+  const int n_items = (Nk + kTile - 1) / kTile * KV * B;
   const int per = Hq / KV;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   if (t == 0) bars.init();
@@ -474,7 +551,7 @@ __device__ __forceinline__ void dkdv_body(
   auto feed_fixed = [&](int j) {
     const int w = blockIdx.x + j * gridDim.x;
     if (w >= n_items) return;
-    const Item y(w, n_qt, B, KV, per, kHalves, Nq, kv_start);
+    const Item y(w, n_qt, B, KV, per, Nq, kv_start);
     const int f = j % kSlots;
     bar_wait(bars.fixed_empty(f), ((j / kSlots) & 1) ^ 1);
     bar_expect_tx(bars.fixed_full(f), 2 * L::kTileBytes);
@@ -485,14 +562,13 @@ __device__ __forceinline__ void dkdv_body(
   };
   int fw = blockIdx.x, fi = 0, fpos = 0;
   Item fx;
-  if (fw < n_items) fx = Item(fw, n_qt, B, KV, per, kHalves, Nq, kv_start);
+  if (fw < n_items) fx = Item(fw, n_qt, B, KV, per, Nq, kv_start);
   auto feed_ring = [&](int upto) {
     while (fpos < upto && fw < n_items) {
       if (fi == fx.n_it) {
         fw += gridDim.x;
         fi = 0;
-        if (fw < n_items)
-          fx = Item(fw, n_qt, B, KV, per, kHalves, Nq, kv_start);
+        if (fw < n_items) fx = Item(fw, n_qt, B, KV, per, Nq, kv_start);
         continue;
       }
       const int s = fpos % kStages;
@@ -519,18 +595,15 @@ __device__ __forceinline__ void dkdv_body(
   const float scale_log2 = scale * kLog2e;
   int it = 0;  // ring position
   for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-    const Item x(w, n_qt, B, KV, per, kHalves, Nq, kv_start);
+    const Item x(w, n_qt, B, KV, per, Nq, kv_start);
     const int f = j % kSlots;
     const uint32_t kt = L::fixed(sm.addr, f, 0);
     const uint32_t vt = L::fixed(sm.addr, f, 1);
-    // the item's columns of a streamed tile: a half at Dh 128, read as a
-    // tile of kCols columns
-    const uint32_t half = x.x * TileFmt<DH>::kHalfBytes;
     // this thread's keys (accumulator rows ra and ra + 8)
     const int key_a = x.c0 + 16 * warp + (lane >> 2), key_b = key_a + 8;
-    float dka[kCols / 2], dva[kCols / 2];
+    float dka[DH / 2], dva[DH / 2];
 #pragma unroll
-    for (int i = 0; i < kCols / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
     bar_wait(bars.fixed_full(f), (j / kSlots) & 1);
 
     for (int i = 0; i < x.n_it; ++i, ++it) {
@@ -583,8 +656,8 @@ __device__ __forceinline__ void dkdv_body(
       to_a(sc, ph, pl);
       to_a(dp, sh, sl);
       wg_fence();
-      mma_xb<kCols>(dva, ph, pl, dot + half);
-      mma_xb<kCols>(dka, sh, sl, qt + half);
+      mma_xb<DH>(dva, ph, pl, dot);
+      mma_xb<DH>(dka, sh, sl, qt);
       wg_commit();
       wg_wait<0>();
       keep(dva);
@@ -602,14 +675,232 @@ __device__ __forceinline__ void dkdv_body(
     __syncwarp();
 
     const size_t kv_row = static_cast<size_t>(KV) * DH;
-    const size_t base =
-        (static_cast<size_t>(x.b) * Nk * KV + x.g) * DH + x.x * kCols;
-    store_rows<kCols>(dka, key_a < Nk ? dk + base + key_a * kv_row : nullptr,
-                      key_b < Nk ? dk + base + key_b * kv_row : nullptr,
-                      scale, lane);
-    store_rows<kCols>(dva, key_a < Nk ? dv + base + key_a * kv_row : nullptr,
-                      key_b < Nk ? dv + base + key_b * kv_row : nullptr, 1.f,
-                      lane);
+    const size_t base = (static_cast<size_t>(x.b) * Nk * KV + x.g) * DH;
+    store_rows<DH>(dka, key_a < Nk ? dk + base + key_a * kv_row : nullptr,
+                   key_b < Nk ? dk + base + key_b * kv_row : nullptr, scale,
+                   lane);
+    store_rows<DH>(dva, key_a < Nk ? dv + base + key_a * kv_row : nullptr,
+                   key_b < Nk ? dv + base + key_b * kv_row : nullptr, 1.f,
+                   lane);
+  }
+}
+
+// Dh 128's dkdv: a block of two warpgroups per item, all 128 columns of
+// dK and dV, each (key tile, query tile, head) computing S^T and dP^T once.
+// Both warpgroups run the same two products on other operands: warpgroup 0
+// S^T = K Q^T, then dV += P^T dO; warpgroup 1 dP^T = V dO^T, then dK +=
+// dS^T Q, each accumulator 64 registers a thread. The item's K (warpgroup
+// 0) or V (1) moves into registers as the first product's A operands, so
+// its slot is free for the next item at once and the first product reads
+// only its B tile from shared memory. Warpgroup 0 forms P^T (masked zeros
+// included) and hands it to warpgroup 1 in fp32 through one of two
+// shared-memory buffers under mbarriers, so it may run up to two
+// iterations ahead; warpgroup 1 forms dS^T = P^T o (dP^T - D). Each
+// warpgroup issues the next iteration's first product together with this
+// one's second and runs the next elementwise step while the second is on
+// the tensor cores (its last iteration peeled, so every commit group of
+// the loop is unconditional). The first thread of warpgroup 1, the one
+// that releases each stage last, feeds the stages.
+template <bool CAUSAL>
+__device__ __forceinline__ void dkdv128_body(
+    const CUtensorMap* tq, const CUtensorMap* tdo, const CUtensorMap* tk,
+    const CUtensorMap* tv, const CUtensorMap* tlse, const CUtensorMap* td,
+    const int* kv_start, bf16* dk, bf16* dv, int B, int Nq, int Nk, int Hq,
+    int KV, float scale) {
+  constexpr int DH = 128;
+  using C = Cfg<DH>;
+  constexpr int kStages = C::kDkdvStages, kSlots = C::kDkdvSlots;
+  constexpr int kBlock = C::kDkdvWarpgroups * kThreads, kFeeder = kThreads;
+  using L = Smem<DH, 2, kSlots, kStages, C::kDkdvHand>;
+  using Item = KvItem<CAUSAL>;
+  extern __shared__ unsigned char smem_raw[];
+  const Base sm(smem_raw);
+  const Bars<kStages, kBlock> bars{sm.addr + L::kBars};
+  const int n_qt = (Nq + kTile - 1) / kTile;
+  const int n_items = (Nk + kTile - 1) / kTile * KV * B;
+  const int per = Hq / KV;
+  const int t = threadIdx.x, wg = t / kThreads, tw = t % kThreads;
+  const int warp = tw >> 5, lane = t & 31;
+  if (t == 0) bars.init(true);
+  __syncthreads();
+
+  // the feeder fills the stages, as in dkdv_body (cursor: item fw, its
+  // iteration fi, ring position fpos)
+  auto feed_fixed = [&](int j) {
+    const int w = blockIdx.x + j * gridDim.x;
+    if (w >= n_items) return;
+    const Item y(w, n_qt, B, KV, per, Nq, kv_start);
+    const int f = j % kSlots;
+    bar_wait(bars.fixed_empty(f), ((j / kSlots) & 1) ^ 1);
+    bar_expect_tx(bars.fixed_full(f), 2 * L::kTileBytes);
+    tma_tile<DH>(L::fixed(sm.addr, f, 0), tk, bars.fixed_full(f), y.g, y.c0,
+                 y.b);
+    tma_tile<DH>(L::fixed(sm.addr, f, 1), tv, bars.fixed_full(f), y.g, y.c0,
+                 y.b);
+  };
+  int fw = blockIdx.x, fi = 0, fpos = 0;
+  Item fx;
+  if (fw < n_items) fx = Item(fw, n_qt, B, KV, per, Nq, kv_start);
+  auto feed_ring = [&](int upto) {
+    while (fpos < upto && fw < n_items) {
+      if (fi == fx.n_it) {
+        fw += gridDim.x;
+        fi = 0;
+        if (fw < n_items) fx = Item(fw, n_qt, B, KV, per, Nq, kv_start);
+        continue;
+      }
+      const int s = fpos % kStages;
+      bar_wait(bars.empty(s), ((fpos / kStages) & 1) ^ 1);
+      bar_expect_tx(bars.full(s), 2 * L::kTileBytes + L::kStatBytes);
+      const int r0 = (fx.q_first + fi / per) * kTile;
+      const int h = fx.g * per + fi % per;
+      tma_tile<DH>(L::ring(sm.addr, s, 0), tq, bars.full(s), h, r0, fx.b);
+      tma_tile<DH>(L::ring(sm.addr, s, 1), tdo, bars.full(s), h, r0, fx.b);
+      tma_3d(L::stat(sm.addr, s), tlse, bars.full(s), r0, h, fx.b);
+      tma_3d(L::stat(sm.addr, s) + kTile * 4, td, bars.full(s), r0, h,
+             fx.b);
+      ++fi;
+      ++fpos;
+    }
+  };
+  if (t == kFeeder) {
+    for (int j = 0; j < kSlots; ++j) feed_fixed(j);
+    feed_ring(kStages);
+  }
+  __syncwarp();
+
+  // this thread's rows ra and ra + 8 of its warpgroup's accumulators (keys)
+  const int ra = 16 * warp + (lane >> 2), q4 = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  int it = 0;  // ring position
+  for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+    const Item x(w, n_qt, B, KV, per, Nq, kv_start);
+    const int f = j % kSlots;
+    const int key_a = x.c0 + ra, key_b = key_a + 8;
+    // K (warpgroup 0) or V (1) into registers; the slot goes to the next
+    // item at once
+    uint32_t fa[DH / 16][4];
+    bar_wait(bars.fixed_full(f), (j / kSlots) & 1);
+    tile_a<DH>(sm.at(L::fixed(sm.addr, f, wg)), ra, q4, fa);
+    bar_arrive(bars.fixed_empty(f));
+    if (t == kFeeder) feed_fixed(j + kSlots);
+    __syncwarp();
+    float acc[DH / 2];  // dV (warpgroup 0) or dK (1)
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float sc[32];
+    uint32_t ah[4][4], al[4][4];
+
+    // iteration i's elementwise step on the first product, in sc, at ring
+    // position pos: P^T, handed over (warpgroup 0), or dS^T (1)
+    auto step = [&](int i, int pos) {
+      const int s = pos % kStages, hb = pos & 1;
+      const int r0 = (x.q_first + i / per) * kTile;
+      const float* lse2 =
+          reinterpret_cast<const float*>(sm.at(L::stat(sm.addr, s)));
+      const float* dd = lse2 + kTile;
+      // P^T in fp32, this thread's 32 values as 8 float4 at stride 128
+      float4* hand = reinterpret_cast<float4*>(sm.at(L::hand(sm.addr, hb))) +
+                     tw;
+      if (wg == 0) {
+        // P^T = exp2(s scale log2e - lse log2e), 0 where the row does not
+        // see the key or lies past Nq (a tile pair wholly inside needs no
+        // mask)
+        const bool edge = CAUSAL ? x.c0 < x.lo || x.c0 + kTile - 1 > r0 ||
+                                       r0 + kTile > Nq
+                                 : r0 + kTile > Nq;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * jj + 2 * q4 + (e & 1), row = r0 + col;
+            const int c = e < 2 ? key_a : key_b;
+            const float p =
+                exp2f(fmaf(sc[4 * jj + e], scale_log2, -lse2[col]));
+            const bool seen =
+                CAUSAL ? c >= x.lo && c <= row && row < Nq : row < Nq;
+            sc[4 * jj + e] = !edge || seen ? p : 0.f;
+          }
+        bar_wait(bars.hand_empty(hb), ((pos >> 1) & 1) ^ 1);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          hand[jj * kThreads] = make_float4(sc[4 * jj], sc[4 * jj + 1],
+                                            sc[4 * jj + 2], sc[4 * jj + 3]);
+        bar_arrive(bars.hand_full(hb));
+      } else {
+        // dS^T = P^T o (dP^T - D)
+        bar_wait(bars.hand_full(hb), (pos >> 1) & 1);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float4 p = hand[jj * kThreads];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * jj + e] =
+                pv[e] * (sc[4 * jj + e] - dd[8 * jj + 2 * q4 + (e & 1)]);
+        }
+        bar_arrive(bars.hand_empty(hb));
+      }
+    };
+    // this warpgroup's second product's B tile (dO or Q) at ring position
+    // pos, and its release after the product
+    auto second = [&](int pos) {
+      return L::ring(sm.addr, pos % kStages, 1 - wg);
+    };
+    auto release = [&](int pos) {
+      bar_arrive(bars.empty(pos % kStages));
+      if (t == kFeeder) feed_ring(pos + 1 + kStages);
+      __syncwarp();
+    };
+
+    if (x.n_it > 0) {
+      // the first product of iteration 0: S^T = K Q^T or dP^T = V dO^T
+      bar_wait(bars.full(it % kStages), (it / kStages) & 1);
+      wg_fence();
+      mma_at<DH>(sc, fa, L::ring(sm.addr, it % kStages, wg));
+      wg_commit();
+      wg_wait<0>();
+      keep(sc);
+      step(0, it);
+      to_a(sc, ah, al);
+      for (int i = 0; i + 1 < x.n_it; ++i, ++it) {
+        // iteration i + 1's first product and i's second (dV += P^T dO or
+        // dK += dS^T Q, scaled at the store) in flight together; i + 1's
+        // step under the second
+        const int nx = it + 1;
+        bar_wait(bars.full(nx % kStages), (nx / kStages) & 1);
+        wg_fence();
+        mma_at<DH>(sc, fa, L::ring(sm.addr, nx % kStages, wg));
+        wg_commit();
+        mma_xb<DH>(acc, ah, al, second(it));
+        wg_commit();
+        wg_wait<1>();
+        keep(sc);
+        step(i + 1, nx);
+        wg_wait<0>();
+        keep(acc);
+        keep(ah);
+        keep(al);
+        release(it);
+        to_a(sc, ah, al);
+      }
+      wg_fence();
+      mma_xb<DH>(acc, ah, al, second(it));
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+      keep(ah);
+      keep(al);
+      release(it);
+      ++it;
+    }
+
+    const size_t kv_row = static_cast<size_t>(KV) * DH;
+    bf16* out = (wg == 0 ? dv : dk) +
+                (static_cast<size_t>(x.b) * Nk * KV + x.g) * DH;
+    store_rows<DH>(acc, key_a < Nk ? out + key_a * kv_row : nullptr,
+                   key_b < Nk ? out + key_b * kv_row : nullptr,
+                   wg == 0 ? 1.f : scale, lane);
   }
 }
 
@@ -623,7 +914,7 @@ __device__ __forceinline__ void dkdv_body(
       const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse, \
       const int* __restrict__ kv_start, float* __restrict__ stats,          \
       bf16* __restrict__ dq, int B, int Nq, int Nk, int Hq, int KV,         \
-      float scale
+      float scale, const bf16* __restrict__ o
 #define DKDV_ARGS                                                           \
   const __grid_constant__ CUtensorMap tq,                                   \
       const __grid_constant__ CUtensorMap tdo,                              \
@@ -639,25 +930,35 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads, Cfg<DH>::kDqMinBlocks)
 flash_prefill_bwd_bf16_dq_kernel(DQ_ARGS) {
   dq_body<DH, true>(&tq, &tdo, &to, &tk, &tv, lse, kv_start, stats, dq, B,
-                    Nq, Nk, Hq, KV, scale);
+                    Nq, Nk, Hq, KV, scale, o);
 }
 template <int DH>
 __global__ void __launch_bounds__(kThreads, Cfg<DH>::kDqMinBlocks)
 flash_prefill_bwd_bf16_noncausal_dq_kernel(DQ_ARGS) {
   dq_body<DH, false>(&tq, &tdo, &to, &tk, &tv, lse, kv_start, stats, dq, B,
-                     Nq, Nk, Hq, KV, scale);
+                     Nq, Nk, Hq, KV, scale, o);
 }
 template <int DH>
-__global__ void __launch_bounds__(kThreads, Cfg<DH>::kDkdvMinBlocks)
+__global__ void __launch_bounds__(Cfg<DH>::kDkdvWarpgroups * kThreads,
+                                  Cfg<DH>::kDkdvMinBlocks)
 flash_prefill_bwd_bf16_dkdv_kernel(DKDV_ARGS) {
-  dkdv_body<DH, true>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv, B,
-                      Nq, Nk, Hq, KV, scale);
+  if constexpr (DH == 128)
+    dkdv128_body<true>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv, B,
+                       Nq, Nk, Hq, KV, scale);
+  else
+    dkdv_body<DH, true>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv, B,
+                        Nq, Nk, Hq, KV, scale);
 }
 template <int DH>
-__global__ void __launch_bounds__(kThreads, Cfg<DH>::kDkdvMinBlocks)
+__global__ void __launch_bounds__(Cfg<DH>::kDkdvWarpgroups * kThreads,
+                                  Cfg<DH>::kDkdvMinBlocks)
 flash_prefill_bwd_bf16_noncausal_dkdv_kernel(DKDV_ARGS) {
-  dkdv_body<DH, false>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv, B,
-                       Nq, Nk, Hq, KV, scale);
+  if constexpr (DH == 128)
+    dkdv128_body<false>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv,
+                        B, Nq, Nk, Hq, KV, scale);
+  else
+    dkdv_body<DH, false>(&tq, &tdo, &tk, &tv, &tlse, &td, kv_start, dk, dv,
+                         B, Nq, Nk, Hq, KV, scale);
 }
 #undef DQ_ARGS
 #undef DKDV_ARGS
@@ -683,10 +984,12 @@ bool stats_map(CUtensorMap* map, const float* ptr, int B, int Hq, int Np) {
 }
 
 // Once per kernel: raise its shared memory limit and find how many of its
-// blocks an SM holds; returns the persistent grid for n_items work items
-// (that many blocks on every SM, at most one per item), 0 on an error.
+// blocks of `threads` an SM holds; returns the persistent grid for n_items
+// work items (that many blocks on every SM, at most one per item), 0 on an
+// error.
 template <typename Kernel>
-int grid_for(Kernel kernel, size_t bytes, int* per_sm, int n_items) {
+int grid_for(Kernel kernel, int threads, size_t bytes, int* per_sm,
+             int n_items) {
   if (*per_sm == 0) {
     int dev = 0, sms = 0, occ = 0;
     if (cudaFuncSetAttribute(kernel,
@@ -695,7 +998,7 @@ int grid_for(Kernel kernel, size_t bytes, int* per_sm, int n_items) {
         cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads,
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads,
                                                       bytes) != cudaSuccess ||
         occ == 0)
       return 0;
@@ -711,10 +1014,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            int Hq, int KV, float scale, cudaStream_t stream) {
   using C = Cfg<DH>;
   static int dq_slots = 0, dkdv_slots = 0;  // resident blocks on the card
+  constexpr int kDkdvThreads = C::kDkdvWarpgroups * kThreads;
   constexpr size_t kDqBytes =
-      Smem<DH, 3, C::kDqSlots, C::kDqStages>::kBytes;
+      Smem<DH, C::kDqFixed, C::kDqSlots, C::kDqStages>::kBytes;
   constexpr size_t kDkdvBytes =
-      Smem<DH, 2, C::kDkdvSlots, C::kDkdvStages>::kBytes;
+      Smem<DH, 2, C::kDkdvSlots, C::kDkdvStages, C::kDkdvHand>::kBytes;
   const auto dq_kernel = CAUSAL ? flash_prefill_bwd_bf16_dq_kernel<DH>
                                 : flash_prefill_bwd_bf16_noncausal_dq_kernel<DH>;
   const auto dkdv_kernel =
@@ -722,9 +1026,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
              : flash_prefill_bwd_bf16_noncausal_dkdv_kernel<DH>;
   const int n_qt = (Nq + kTile - 1) / kTile, Np = n_qt * kTile;
   const int n_kt = (Nk + kTile - 1) / kTile;
-  const int dq_grid = grid_for(dq_kernel, kDqBytes, &dq_slots, n_qt * Hq * B);
-  const int dkdv_grid = grid_for(dkdv_kernel, kDkdvBytes, &dkdv_slots,
-                                 n_kt * KV * B * (DH / C::kCols));
+  const int dq_grid =
+      grid_for(dq_kernel, kThreads, kDqBytes, &dq_slots, n_qt * Hq * B);
+  const int dkdv_grid = grid_for(dkdv_kernel, kDkdvThreads, kDkdvBytes,
+                                 &dkdv_slots, n_kt * KV * B);
   if (dq_grid == 0 || dkdv_grid == 0)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (encode_fn() == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -740,10 +1045,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
   dq_kernel<<<dq_grid, kThreads, kDqBytes, stream>>>(
       tq, tdo, to, tk, tv, static_cast<const float*>(lse), start, st,
-      static_cast<bf16*>(dq), B, Nq, Nk, Hq, KV, scale);
+      static_cast<bf16*>(dq), B, Nq, Nk, Hq, KV, scale,
+      static_cast<const bf16*>(o));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<<<dkdv_grid, kThreads, kDkdvBytes, stream>>>(
+  dkdv_kernel<<<dkdv_grid, kDkdvThreads, kDkdvBytes, stream>>>(
       tq, tdo, tk, tv, tlse, td, start, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), B, Nq, Nk, Hq, KV, scale);
   return static_cast<int>(cudaGetLastError());
@@ -789,8 +1095,7 @@ extern "C" int flash_prefill_bwd_bf16(const void* q, const void* k,
   if (KV <= 0 || Hq % KV != 0 || (causal != 0 && Nq != Nk) ||
       (causal == 0 && kv_start != nullptr) ||
       static_cast<long long>((Nq + kTile - 1) / kTile) * Hq * B > INT32_MAX ||
-      static_cast<long long>((Nk + kTile - 1) / kTile) * KV * B * 2 >
-          INT32_MAX)
+      static_cast<long long>((Nk + kTile - 1) / kTile) * KV * B > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return causal != 0

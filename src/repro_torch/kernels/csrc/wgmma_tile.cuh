@@ -234,7 +234,48 @@ __device__ __forceinline__ void mma_rs(float (&d)[DH / 2],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 }
+// d[64 x 64] (+)= a[64 x 16] b[16 x 64]: a in registers, b from shared
+// memory K-major
+__device__ __forceinline__ void mma_rs64(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 #undef WG_ACC8
+
+// a 64-row tile of DH columns as TMA swizzled it -> register A operands of
+// its DH / 16 k-steps (this thread's rows ra and ra + 8 of its warpgroup's
+// 64, four lanes a row as in an accumulator)
+template <int DH>
+__device__ __forceinline__ void tile_a(const unsigned char* tile, int ra,
+                                       int q4, uint32_t (&a)[DH / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = ra + 8 * (r & 1), col = 16 * kk + 8 * (r >> 1) + 2 * q4;
+      a[kk][r] = *reinterpret_cast<const uint32_t*>(
+          tile + TileFmt<DH>::chunk(row, col >> 3) + 2 * (col & 7));
+    }
+}
+
+// s[64 x 64] = a[64 x DH] b[64 x DH]^T: a as register A operands (tile_a),
+// b a tile read K-major
+template <int DH>
+__device__ __forceinline__ void mma_at(float (&s)[32],
+                                       const uint32_t (&a)[DH / 16][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    mma_rs64(s, a[kk], k_major<DH>(b, kk), kk > 0);
+}
 
 // x[64 x 64] fp32 accumulator -> register A operands of its four k-steps,
 // each value as a hi and a lo bf16 half (mma16.cuh's split_hi_lo)

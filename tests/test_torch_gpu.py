@@ -1163,10 +1163,14 @@ TRAIN_CASES = [  # B, N, Hq, KV, Dh, kv_start
     (1, 1024, 8, 2, 64, [100]), (8, 512, 16, 8, 16, None),
     # Granite-MoE-3B-A800M's training step: GQA 3:1, Dh 64, 8 x 512
     (8, 512, 24, 8, 64, None),
-    # Dh 128 (each dK / dV item a half of the columns): ragged under GQA
-    # 4:1 with a kv_start, MHA, and Llama-3.2-Vision-90B's self-attention
+    # Dh 128 (a dK / dV item all 128 columns, two warpgroups handing P^T
+    # over): ragged under GQA 4:1 with a kv_start, MHA, and
+    # Llama-3.2-Vision-90B's self-attention; a kv_start inside a tile under
+    # GQA 8:1; 12 items, fewer than the SMs; 512 items, several times the
+    # resident blocks (hand-off buffers and fixed slots cycle over items)
     (1, 130, 8, 2, 128, [5]), (2, 100, 8, 8, 128, None),
-    (2, 512, 64, 8, 128, None)]
+    (2, 512, 64, 8, 128, None), (2, 200, 16, 2, 128, [0, 70]),
+    (2, 130, 16, 2, 128, None), (4, 1024, 16, 8, 128, [0, 300, 0, 7])]
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES,
@@ -1238,12 +1242,14 @@ def test_prefill_bwd_kernel_matches_plain_on_card(dev, case):
 
 # the non-causal training pair: B, Nq, Nk, Hq, KV, Dh (Nq != Nk, GQA 8:1,
 # ragged tiles both ways: Nq < 64 < Nk, Nk = 65; Whisper's encoder and
-# cross-attention and Llama-3.2-Vision's cross layer at small B)
+# cross-attention and Llama-3.2-Vision's cross layer at small B; at Dh 128
+# 4 dK / dV items, fewer than the SMs, and 416, several times the resident
+# blocks)
 NONCAUSAL_TRAIN_CASES = [
     (2, 5, 65, 8, 1, 16), (3, 70, 33, 4, 1, 16), (2, 130, 200, 16, 2, 16),
     (2, 300, 300, 8, 8, 64), (2, 64, 1500, 8, 8, 64),
     (1, 100, 129, 4, 4, 64), (1, 130, 1601, 64, 8, 128),
-    (2, 33, 70, 8, 1, 128)]
+    (2, 33, 70, 8, 1, 128), (2, 256, 1601, 64, 8, 128)]
 
 
 def _noncausal_train_inputs(dev, case, seed=0):

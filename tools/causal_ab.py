@@ -22,7 +22,17 @@ For each checkout, on the same bf16 inputs made from a seed on the CPU:
   [8, 512, 32, 64] and GQA 3:1 [2, 512, 24/8, 64]): the forward with the
   log-sum-exp (``flash_prefill_bf16``: o, lse) and the backward
   (``flash_prefill_bwd_bf16``: dq, dk, dv), each with its device µs per
-  call by kernel (``torch.profiler`` over 20 calls).
+  call by kernel (``torch.profiler`` over 20 calls), and SDPA's forward +
+  backward (``is_causal=True``) on the same inputs (``sdpa_us``);
+* the non-causal training cases, at ``chip_smoke.MM_TRAIN_CASES``
+  (Whisper-base's encoder and cross-attention, Llama-3.2-Vision-90B's
+  cross layer, the ragged Dh-16 tiles): the same records for the
+  non-causal forward with lse and ``flash_prefill_bwd_bf16`` with
+  ``causal`` 0, inputs as ``chip_smoke.check_noncausal_training`` makes
+  them, and SDPA's forward + backward (``enable_gqa=True``);
+* the SASS of each kernel of the backward's library, as a sha256 of its
+  ``cuobjdump -sass`` text by kernel name (equal hashes: the same
+  instructions);
 
 * the non-causal bf16 cases, at ``chip_smoke.MM_NONCAUSAL_CASES``
   (Whisper-base's encoder and cross-attention, Llama-3.2-Vision-90B's
@@ -91,6 +101,37 @@ def _device_us(fn, n: int = 20) -> dict:
     return out
 
 
+def _sdpa_us(torch, q, k, v, do, causal: bool) -> float:
+    """Device µs of SDPA's forward and backward on [B, N, H, Dh] bf16
+    inputs (GQA repeat by ``enable_gqa``), all its kernels."""
+    import torch.nn.functional as F
+    leaves = [t.transpose(1, 2).detach().clone().requires_grad_(True)
+              for t in (q, k, v)]
+    doh = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, leaves, doh)
+    return sum(_device_us(sdpa).values())
+
+
+def _pair(torch, label, fwd, bwd, time_ms, sdpa_us) -> dict:
+    """Hashes, wall ms and device µs by kernel of a forward with lse and
+    its backward; SDPA's device µs beside them."""
+    o, lse = fwd()
+    grads = bwd(o, lse)
+    torch.cuda.synchronize()
+    by_kernel = _device_us(lambda: bwd(o, lse))
+    return {label: dict(
+        fwd_sha256=[_sha(o), _sha(lse)], fwd_ms=time_ms(fwd),
+        fwd_device_us=_device_us(fwd),
+        bwd_sha256=[_sha(t) for t in grads],
+        bwd_ms=time_ms(lambda: bwd(o, lse)),
+        bwd_device_us=sum(by_kernel.values()),
+        bwd_device_us_by_kernel=by_kernel, sdpa_us=sdpa_us)}
+
+
 def train_cases(torch, dev, time_ms) -> dict:
     """The training pair of the checkout on the path at ``LM_TRAIN_CASES``,
     inputs as ``chip_smoke.check_causal_training`` makes them."""
@@ -107,20 +148,56 @@ def train_cases(torch, dev, time_ms) -> dict:
         def fwd(q=q, k=k, v=v):
             return FA._causal_cuda(q, k, v, None, None, None, False,
                                    with_lse=True)
-        o, lse = fwd()
 
-        def bwd(q=q, k=k, v=v, o=o, do=do, lse=lse):
+        def bwd(o, lse, q=q, k=k, v=v, do=do):
             return FA._causal_bwd_cuda(q, k, v, o, do, lse, None)
-        grads = bwd()
-        torch.cuda.synchronize()
-        by_kernel = _device_us(bwd)
-        res[f"train {label}"] = dict(
-            fwd_sha256=[_sha(o), _sha(lse)], fwd_ms=time_ms(fwd),
-            fwd_device_us=_device_us(fwd),
-            bwd_sha256=[_sha(t) for t in grads], bwd_ms=time_ms(bwd),
-            bwd_device_us=sum(by_kernel.values()),
-            bwd_device_us_by_kernel=by_kernel)
+        res.update(_pair(torch, f"train {label}", fwd, bwd, time_ms,
+                         _sdpa_us(torch, q, k, v, do, True)))
     return res
+
+
+def mm_train_cases(torch, dev, time_ms) -> dict:
+    """The non-causal training pair of the checkout on the path at
+    ``MM_TRAIN_CASES``, inputs as ``chip_smoke.check_noncausal_training``
+    makes them."""
+    from chip_smoke import MM_TRAIN_CASES
+    from repro_torch.kernels.flash_attention import ops as FA
+    g = torch.Generator().manual_seed(10)
+    res = {}
+    for label, B, Nq, Nk, Hq, KV, Dh in MM_TRAIN_CASES:
+        q, do = (torch.randn((B, Nq, Hq, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, Nk, KV, Dh), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+
+        def fwd(q=q, k=k, v=v):
+            return FA._noncausal_cuda(q, k, v, with_lse=True)
+
+        def bwd(o, lse, q=q, k=k, v=v, do=do):
+            return FA._prefill_bwd_cuda(q, k, v, o, do, lse, None,
+                                        causal=False)
+        res.update(_pair(torch, f"mm train {label}", fwd, bwd, time_ms,
+                         _sdpa_us(torch, q, k, v, do, False)))
+    return res
+
+
+def bwd_sass(backend) -> dict:
+    """sha256 of each kernel's SASS in the backward's library, by kernel
+    and head width (``name<Dh>``; the mangled name's namespace hash
+    differs between builds)."""
+    out, fn, lines = {}, None, []
+    for line in backend.disassemble("flash_prefill_bwd").splitlines() + [
+            "Function : end"]:
+        if "Function :" in line:
+            m = fn and re.search(r"(flash_prefill_bwd_bf16_\w+?_kernel)ILi"
+                                 r"(\d+)E", fn)
+            if m:
+                out[f"{m.group(1)}<{m.group(2)}>"] = hashlib.sha256(
+                    "\n".join(lines).encode()).hexdigest()[:16]
+            fn, lines = line.split("Function :")[1].strip(), []
+        elif fn is not None:
+            lines.append(line)
+    return out
 
 
 def noncausal_cases(torch, dev, time_ms) -> dict:
@@ -185,7 +262,9 @@ def one(tree: str) -> dict:
         res[label] = dict(sha256=[_sha(t) for t in out], ms=time_ms(call),
                           device_us=_device_us(call))
     res.update(train_cases(torch, dev, time_ms))
+    res.update(mm_train_cases(torch, dev, time_ms))
     res.update(noncausal_cases(torch, dev, time_ms))
+    res["bwd_sass_sha256"] = bwd_sass(backend)
     return res
 
 
